@@ -5,8 +5,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It builds the CUDA
 kernels from ``deepspeed_tpu_torch/csrc`` with nvcc, holds each kernel
 against its plain PyTorch version on the card and times both, then serves
 8 requests with ``InferenceEngineV2`` on Llama-3-8B at full width and depth
-(bf16, random weights from a seed) and checks that the serving path went
-through the kernels. Each phase prints one JSON line; the card's name and
+(bf16, random weights from a seed), checks that the serving path went
+through the kernels, and profiles batched decode steps on the same engine
+(``torch.profiler``). Each phase prints one JSON line; the card's name and
 power limit (``nvidia-smi``) and the ``kernels`` line come before the last
 line, ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without that line, as does a machine with no CUDA device or a directory
@@ -14,6 +15,7 @@ without the package. Imports nothing of JAX.
 """
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -26,9 +28,10 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate (data sheet)
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
-BF16_TOL = 2e-2                    # kernel vs plain, |out| ~ 1: ~2 bf16 ulps
+BF16_ULPS = 4                      # kernel vs plain: bf16 ulps of max |plain|
 LOGITS_TOL = 0.05                  # auto vs gather logits, share of spread
 ENGINE_REQUESTS, NEW_TOKENS = 8, 32
+PROFILE_STEPS = 8                  # decode steps timed, then profiled
 
 
 def emit(obj) -> None:
@@ -93,6 +96,7 @@ def _demangle(names):
 
 def phase_build(kernels):
     from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.paged_attention import dynamic_smem_bytes
     t0 = time.monotonic()
     results = build.build(kernels)
     info = {}
@@ -112,10 +116,7 @@ def phase_build(kernels):
                       "entries": [{"kernel": k, "registers": r, "spill_stores": s}
                                   for k, r, s in zip(_demangle(entries), regs,
                                                      spills)]}
-    # dynamic shared memory of each paged-attention instantiation
-    # (csrc/paged_attention.cu smem_floats, float32 words)
-    smem = {f"d{d}_rows{rows}": (rows * (d + 1) + 2 * 64 * (d + 1)
-                                 + rows * 64 + 4 * rows) * 4
+    smem = {f"d{d}_rows{rows}": dynamic_smem_bytes(d, rows)
             for d in (64, 128) for rows in (8, 32)}
     emit({"phase": "build", "wall_s": round(time.monotonic() - t0, 3),
           "kernels": info, "paged_attention_dynamic_smem_bytes": smem})
@@ -124,8 +125,10 @@ def phase_build(kernels):
 # ---------------------------------------------------------------------------
 # phase 3: kernel vs plain on the card
 # ---------------------------------------------------------------------------
-def _paged_inputs(gen, b, t, ctx, start, fp8=False, hkv=8, rep=4, d=128,
-                  bs=64):
+def _paged_inputs(gen, b, t, ctx, start, fp8=False, ragged=False, hkv=8,
+                  rep=4, d=128, bs=64):
+    """Seeded kernel inputs on the card; ``ragged`` draws each sequence's
+    start in [0, ctx - t] instead of ``start``."""
     dev = "cuda"
     mb = -(-ctx // bs)
     nb = b * mb + 1
@@ -144,7 +147,16 @@ def _paged_inputs(gen, b, t, ctx, start, fp8=False, hkv=8, rep=4, d=128,
     tables = torch.randperm(nb - 1, generator=gen, device=dev)[:b * mb]
     tables = tables.reshape(b, mb).to(torch.int32)
     start_pos = torch.full((b,), start, dtype=torch.int32, device=dev)
+    if ragged:
+        start_pos = torch.randint(0, ctx - t + 1, (b,), generator=gen,
+                                  device=dev).to(torch.int32)
     return (q, k, v, tables, start_pos), kw
+
+
+def _bf16_tol(want):
+    """BF16_ULPS bf16 ulps at the largest |value| of the plain output."""
+    top = want.float().abs().max().item()
+    return BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0
 
 
 def _bound_ms(args, start):
@@ -170,7 +182,7 @@ def _library_ms(args, ctx):
     it."""
     import torch.nn.functional as F
     q, k, v, tables, start = args
-    b, t, h, d = q.shape
+    b, t, _, d = q.shape
     hkv = k.shape[0]
 
     def gather(pages):
@@ -178,13 +190,8 @@ def _library_ms(args, ctx):
             b, hkv, -1, d)[:, :, :ctx].contiguous()
     kc, vc = gather(k), gather(v)
     qs = q.transpose(1, 2).contiguous()                  # [B, H, T, d]
-    causal = t > 1
-    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
-        return time_ms(lambda: F.scaled_dot_product_attention(
-            qs, kc, vc, is_causal=causal, enable_gqa=True), iters=50)
-    kc, vc = kc.repeat_interleave(h // hkv, 1), vc.repeat_interleave(h // hkv, 1)
     return time_ms(lambda: F.scaled_dot_product_attention(
-        qs, kc, vc, is_causal=causal), iters=50)
+        qs, kc, vc, is_causal=t > 1, enable_gqa=True), iters=50)
 
 
 def phase_kernel_parity():
@@ -192,43 +199,72 @@ def phase_kernel_parity():
                                                          paged_attention_plain)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+
+    # Each mutant is the plain version with one thing a faulty kernel could
+    # get wrong; it must land farther from the plain output than the case's
+    # tolerance, or the case could not tell that fault from a right kernel.
+    def mask_off_by_one(args, kw):
+        q, k, v, tables, start = args
+        return (q, k, v, tables, start + 1), kw
+
+    def without(key):
+        return lambda args, kw: (args, {**kw, key: None})
+
+    def unscaled(args, kw):
+        return args, {**kw, "k_scales": torch.ones_like(kw["k_scales"]),
+                      "v_scales": torch.ones_like(kw["v_scales"])}
+
+    decode = dict(b=16, t=1, ctx=2048, start=2047)
     cases = [
-        ("decode", dict(b=16, t=1, ctx=2048, start=2047), {}),
-        ("prefill_chunk", dict(b=1, t=512, ctx=512, start=0), {}),
-        ("continued_chunk", dict(b=1, t=256, ctx=512, start=256), {}),
-        ("decode_window", dict(b=16, t=1, ctx=2048, start=2047), {"window": 1024}),
-        ("decode_softcap", dict(b=16, t=1, ctx=2048, start=2047), {"softcap": 50.0}),
-        ("decode_fp8", dict(b=16, t=1, ctx=2048, start=2047, fp8=True), {}),
+        ("decode", decode, {}, None),
+        ("prefill_chunk", dict(b=1, t=512, ctx=512, start=0), {},
+         mask_off_by_one),
+        ("continued_chunk", dict(b=1, t=256, ctx=512, start=256), {},
+         mask_off_by_one),
+        ("decode_ragged", {**decode, "ragged": True}, {}, mask_off_by_one),
+        ("decode_window", decode, {"window": 1024}, without("window")),
+        ("decode_softcap", decode, {"softcap": 5.0}, without("softcap")),
+        ("decode_fp8", {**decode, "fp8": True}, {}, unscaled),
     ]
     worst = 0.0
     timing = None
-    for name, shape, opts in cases:
+    for name, shape, opts, mutant in cases:
         args, kw = _paged_inputs(gen, **shape)
         kw.update(opts)
         got = paged_attention(*args, **kw)
         torch.cuda.synchronize()
         want = paged_attention_plain(*args, **kw)
         err = (got.float() - want.float()).abs().max().item()
+        tol = _bf16_tol(want)
         finite = bool(torch.isfinite(got).all())
-        emit({"phase": "kernel_parity", "case": name, "max_abs_err": err,
-              "tol": BF16_TOL, "finite": finite})
-        check(finite and err <= BF16_TOL,
-              f"paged_attention {name}: max_abs_err {err} > {BF16_TOL}")
+        row = {"phase": "kernel_parity", "case": name, "max_abs_err": err,
+               "tol": tol, "max_abs_plain": want.float().abs().max().item(),
+               "finite": finite}
+        if mutant is not None:
+            m_args, m_kw = mutant(args, kw)
+            row["mutant_err"] = (paged_attention_plain(*m_args, **m_kw).float()
+                                 - want.float()).abs().max().item()
+        emit(row)
+        check(finite and err <= tol,
+              f"paged_attention {name}: max_abs_err {err} > {tol}")
+        check(row.get("mutant_err", math.inf) > tol,
+              f"paged_attention {name}: its mutant is within {tol} of the "
+              f"plain output, so the case cannot catch that fault")
         worst = max(worst, err)
         if name in ("decode", "prefill_chunk"):
             kernel_ms = time_ms(lambda: paged_attention(*args, **kw), iters=100)
             plain_ms = time_ms(lambda: paged_attention_plain(*args, **kw), iters=10)
             library_ms = _library_ms(args, shape["ctx"])
             bound_ms, bound_by = _bound_ms(args, shape["start"])
-            row = {"ms": kernel_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by}
+            times = {"ms": kernel_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
             emit({"phase": "kernel_timing", "kernel": "paged_attention",
-                  "case": name, "shape": {k: v for k, v in shape.items()},
-                  "heads": "H=32 Hkv=8 d=128 bs=64 bf16", **row,
+                  "case": name, "shape": shape,
+                  "heads": "H=32 Hkv=8 d=128 bs=64 bf16", **times,
                   "share_of_bound": bound_ms / kernel_ms})
             if name == "decode":              # the kernels line's numbers
-                timing = row
+                timing = times
         del args, kw, got, want
     return worst, timing
 
@@ -368,7 +404,62 @@ def phase_engine(dev, smi_line):
               "finite": finite})
         check(finite and err <= LOGITS_TOL * spread,
               f"auto vs gather {step} logits differ by {err} (spread {spread})")
-    return st
+    return st, eng, lens
+
+
+# ---------------------------------------------------------------------------
+# phase 5: where a decode step's time goes
+# ---------------------------------------------------------------------------
+def _top(events, device_type, key, n=15):
+    rows = sorted((e for e in events if e.device_type == device_type),
+                  key=lambda e: getattr(e, key), reverse=True)[:n]
+    return [{"name": e.key[:90], "count": e.count,
+             "total_ms": getattr(e, key) / 1e3} for e in rows]
+
+
+def phase_profile(eng, lens, dev, smi_line):
+    """Admit ``len(lens)`` fresh seeded prompts of the engine phase's
+    lengths to its engine, prefill them, then time PROFILE_STEPS batched
+    decode steps on the host clock, and as many again under
+    ``torch.profiler``: device busy time per step (the summed kernel
+    durations; the engine runs on one stream), idle share, kernels per step,
+    top kernels and top host ops."""
+    rng = np.random.default_rng(SEED + 2)
+    for i, n in enumerate(lens):
+        eng.admit(20_000 + i, rng.integers(0, eng.model_config.vocab_size,
+                                           int(n)).tolist())
+    while eng.state.prefilling():
+        eng.step()
+    for _ in range(3):                                   # warm decode steps
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(PROFILE_STEPS):
+        eng.step()                     # ends in the [B] sampled-id readback
+    host_ms = (time.monotonic() - t0) * 1e3 / PROFILE_STEPS
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        for _ in range(PROFILE_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        window_ms = (time.monotonic() - t0) * 1e3
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    events = prof.key_averages()
+    emit({"phase": "profile", "batch": len(eng.state.decoding()),
+          "steps": PROFILE_STEPS, "step_ms": host_ms,
+          "step_ms_profiled": window_ms / PROFILE_STEPS,
+          "device_busy_ms_per_step": busy_ms / PROFILE_STEPS,
+          "device_idle_share": 1.0 - busy_ms / window_ms,
+          "kernels_per_step": len(kernels) / PROFILE_STEPS,
+          "card": dev["kind"], "nvidia_smi": smi_line,
+          "top_device": _top(events, cuda, "self_device_time_total"),
+          "top_host": _top(events, cpu, "self_cpu_time_total")})
+    check(kernels, "the profiler saw no kernel on the card")
 
 
 def main() -> int:
@@ -384,7 +475,9 @@ def main() -> int:
         phase = "kernel_parity"
         worst, timing = phase_kernel_parity()
         phase = "engine"
-        st = phase_engine(dev, smi_line)
+        st, eng, lens = phase_engine(dev, smi_line)
+        phase = "profile"
+        phase_profile(eng, lens, dev, smi_line)
     except Exception as exc:  # any failed phase: report it, exit non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False, "error": f"{type(exc).__name__}: {exc}"})

@@ -295,7 +295,7 @@ struct Args {
 template <typename TQ, typename TKV, int D, int ROWS>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   auto kernel = paged_attention_kernel<TQ, TKV, D, ROWS>;
-  const size_t smem = smem_floats<D, ROWS>() * sizeof(float);
+  constexpr size_t smem = smem_floats<D, ROWS>() * sizeof(float);
   static bool configured = false;    // one attribute call per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -326,7 +326,22 @@ cudaError_t pick_dim(const Args& a, int head_dim, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+template <int D>
+int smem_bytes(int rows) {
+  if (rows == 8) return (int)(smem_floats<D, 8>() * sizeof(float));
+  if (rows == 32) return (int)(smem_floats<D, 32>() * sizeof(float));
+  return -1;
+}
+
 }  // namespace
+
+// Dynamic shared memory of the instantiation for (head_dim, rows per
+// block), in bytes, as `launch` requests it; -1 for one not compiled.
+extern "C" int dstt_paged_attention_smem_bytes(int head_dim, int rows) {
+  if (head_dim == 64) return smem_bytes<64>(rows);
+  if (head_dim == 128) return smem_bytes<128>(rows);
+  return -1;
+}
 
 // q_dtype: 0 = float32, 1 = bfloat16. kv_fp8: pages are float8_e4m3 (else
 // the model dtype). k_scales/v_scales may be null. window <= 0 and

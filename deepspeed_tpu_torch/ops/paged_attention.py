@@ -76,8 +76,21 @@ def _library() -> ctypes.CDLL:
                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        smem = lib.dstt_paged_attention_smem_bytes
+        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        smem.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def dynamic_smem_bytes(head_dim: int, rows: int) -> int:
+    """Dynamic shared memory (bytes) the kernel requests for ``head_dim``
+    with ``rows`` query rows per block, as the built library reports it."""
+    n = _library().dstt_paged_attention_smem_bytes(head_dim, rows)
+    if n < 0:
+        raise ValueError(f"paged_attention kernel: no instantiation for "
+                         f"head_dim {head_dim}, {rows} rows")
+    return n
 
 
 def _check(cond: bool, msg: str) -> None:

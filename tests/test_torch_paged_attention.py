@@ -12,6 +12,8 @@ machine lacks flax: ``python -m pytest --noconftest -m gpu
 tests/test_torch_*.py`` (the other port test files skip there).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -174,27 +176,34 @@ def _card_case(gen, b, t, rep, ctx, dtype, fp8=False, window=None,
     return (q, k, v, tables, start), kw
 
 
+def _bf16_tol(want, ulps=4):
+    """``ulps`` bf16 ulps at the largest |value| of the plain output."""
+    top = want.float().abs().max().item()
+    return ulps * 2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain():
     """The CUDA kernel against the plain version on the card, at the
     serving shapes (d=128, bs=64, rep=4) and the edge cases (ragged starts,
     bs=16 with d=64, a truncated table, window, softcap, fp8): bf16 within
-    2e-2 absolute (both round P and the output to bf16; the sums run in
-    other orders), fp32 within 1e-4."""
+    4 bf16 ulps of the largest |plain output| (both round P and the output
+    to bf16; the sums run in other orders), fp32 within 1e-4. softcap=5
+    bites on unit-variance scores (50 would leave them nearly unchanged)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernel; no CPU mode)")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(dict(b=16, t=1, rep=4, ctx=2048, dtype=bf16), 2e-2),
-             (dict(b=1, t=512, rep=4, ctx=512, dtype=bf16), 2e-2),
-             (dict(b=1, t=256, rep=4, ctx=512, dtype=bf16), 2e-2),
-             (dict(b=4, t=1, rep=4, ctx=2048, dtype=bf16, window=1024), 2e-2),
-             (dict(b=4, t=1, rep=4, ctx=2048, dtype=bf16, softcap=50.0), 2e-2),
-             (dict(b=4, t=1, rep=4, ctx=2048, dtype=bf16, fp8=True), 2e-2),
+    cases = [(dict(b=16, t=1, rep=4, ctx=2048, dtype=bf16), None),
+             (dict(b=1, t=512, rep=4, ctx=512, dtype=bf16), None),
+             (dict(b=1, t=256, rep=4, ctx=512, dtype=bf16), None),
+             (dict(b=4, t=1, rep=4, ctx=2048, dtype=bf16, window=1024), None),
+             (dict(b=4, t=1, rep=4, ctx=2048, dtype=bf16, softcap=5.0), None),
+             (dict(b=4, t=1, rep=4, ctx=2048, dtype=bf16, fp8=True), None),
              (dict(b=3, t=37, rep=1, ctx=200, dtype=f32), 1e-4),
              (dict(b=2, t=1, rep=8, ctx=100, dtype=f32, fp8=True), 1e-4),
-             (dict(b=32, t=1, rep=4, ctx=3000, dtype=bf16, ragged=True), 2e-2),
+             (dict(b=32, t=1, rep=4, ctx=3000, dtype=bf16, ragged=True), None),
              (dict(b=1, t=300, rep=2, ctx=700, dtype=f32, d=64, bs=16,
                    window=128, softcap=30.0), 1e-4),
              (dict(b=4, t=1, rep=4, ctx=600, dtype=f32, table_keys=256), 1e-4)]
@@ -206,7 +215,8 @@ def test_kernel_matches_plain():
         assert build.launch_counts()["paged_attention"] == before + 1
         want = paged_attention_plain(*args, **kw)
         err = (got.float() - want.float()).abs().max().item()
-        assert err <= tol, (spec, err)
+        tol = _bf16_tol(want) if tol is None else tol
+        assert err <= tol, (spec, err, tol)
     # what the kernel does not take raises instead of falling back
     (q, k, v, tables, start), _ = _card_case(gen, 2, 1, 4, 128, bf16)
     with pytest.raises(ValueError):
