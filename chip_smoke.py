@@ -3,17 +3,30 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the CUDA
 kernels from ``deepspeed_tpu_torch/csrc`` with nvcc, holds each kernel
-against its plain PyTorch version on the card and times both, then serves
-8 requests with ``InferenceEngineV2`` on Llama-3-8B at full width and depth
-(bf16, random weights from a seed), checks that the serving path went
-through the kernels, and profiles batched decode steps on the same engine
-(``torch.profiler``). Each phase prints one JSON line; the card's name and
-power limit (``nvidia-smi``) and the ``kernels`` line come before the last
-line, ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
-without that line, as does a machine with no CUDA device or a directory
-without the package. Imports nothing of JAX.
+against its plain PyTorch version on the card and times both, then drives
+the port's two paths:
+
+- serving: 8 requests through ``InferenceEngineV2`` on Llama-3-8B at full
+  width and depth (bf16, random weights from a seed), with a check that the
+  path went through the paged-attention kernel and a profile of batched
+  decode steps (``torch.profiler``);
+- training: ``deepspeed_tpu_torch.initialize`` -> ``train_batch`` on
+  Llama-3-8B at full width cut to 4 layers (bf16, seq 2048, micro-batch 1,
+  gas 2, AdamW, remat, the flash backend), with the flash backend held
+  against the plain one on one micro-batch (loss, gradient norm and each
+  attention weight's gradient), 1 + 4 steps whose loss must fall, exact
+  flash-kernel launch counts per step, a profiled step, and a probe that
+  reruns the steps at a tenth of the lr (the loss must fall at every step)
+  and with the plain attention backend.
+
+Each phase prints one JSON line; the card's name and power limit
+(``nvidia-smi``) and the ``kernels`` line come before the last line,
+``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
+that line, as does a machine with no CUDA device or a directory without the
+package. Imports nothing of JAX.
 """
 
+import gc
 import json
 import math
 import re
@@ -28,10 +41,20 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate (data sheet)
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
-BF16_ULPS = 4                      # kernel vs plain: bf16 ulps of max |plain|
+BF16_ULPS = 4                      # kernel vs plain: bf16 ulps of a row's max |plain|
 LOGITS_TOL = 0.05                  # auto vs gather logits, share of spread
 ENGINE_REQUESTS, NEW_TOKENS = 8, 32
 PROFILE_STEPS = 8                  # decode steps timed, then profiled
+LSE_TOL = 1e-4                     # flash lse, kernel vs plain (fp32, absolute)
+F32_REL = 1e-4                     # float32 flash cases: share of a row's max |plain|
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_GAS = 4, 2048, 2
+TRAIN_STEPS = 4                    # timed train_batch steps after 1 warm-up
+LOW_LR = 3e-5                      # the probe's lr, a tenth of the recipe's
+# flash vs plain backend on one micro-batch, relative: loss, global gradient
+# norm, worst attention-weight gradient (2.7e-5, 5.0e-5 and 0.026 on the
+# H100 80GB HBM3 at 700 W, PERF.md)
+LOSS_REL, GRAD_NORM_REL, ATTN_GRAD_REL = 1e-4, 1e-3, 0.05
+FLASH_PER_STEP = {"flash_fwd": 2, "flash_dq": 1, "flash_dkv": 1}  # per layer x micro
 
 
 def emit(obj) -> None:
@@ -96,6 +119,7 @@ def _demangle(names):
 
 def phase_build(kernels):
     from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops import flash_attention
     from deepspeed_tpu_torch.ops.paged_attention import dynamic_smem_bytes
     t0 = time.monotonic()
     results = build.build(kernels)
@@ -119,7 +143,9 @@ def phase_build(kernels):
     smem = {f"d{d}_rows{rows}": dynamic_smem_bytes(d, rows)
             for d in (64, 128) for rows in (8, 32)}
     emit({"phase": "build", "wall_s": round(time.monotonic() - t0, 3),
-          "kernels": info, "paged_attention_dynamic_smem_bytes": smem})
+          "kernels": info, "paged_attention_dynamic_smem_bytes": smem,
+          "flash_dynamic_smem_bytes": {
+              f"d{d}": flash_attention.dynamic_smem_bytes(d) for d in (64, 128)}})
 
 
 # ---------------------------------------------------------------------------
@@ -153,10 +179,26 @@ def _paged_inputs(gen, b, t, ctx, start, fp8=False, ragged=False, hkv=8,
     return (q, k, v, tables, start_pos), kw
 
 
-def _bf16_tol(want):
-    """BF16_ULPS bf16 ulps at the largest |value| of the plain output."""
-    top = want.float().abs().max().item()
-    return BF16_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0
+def _row_tol(want):
+    """Tolerance of each row of a plain output (the last axis is the row):
+    BF16_ULPS bf16 ulps of the row's largest |value| for bf16, F32_REL of it
+    for float32. A row is one query row of one head (out, dq) or one key
+    row of one KV head (dk, dv), so a late row with small values is held to
+    its own scale, not to that of row 0 or key 0."""
+    top = want.float().abs().amax(-1, keepdim=True)
+    if want.dtype == torch.float32:
+        return F32_REL * top
+    ulp = torch.exp2(torch.floor(torch.log2(top.clamp_min(1e-30))) - 7)
+    return torch.where(top > 0, BF16_ULPS * ulp, torch.zeros_like(top))
+
+
+def _err_ratio(got, want, tol):
+    """Largest |got - want| / tol (tol broadcast over the row); a row whose
+    tolerance is 0 (all plain values 0) must match exactly."""
+    diff = (got.float() - want.float()).abs()
+    ratio = torch.where(tol > 0, diff / tol.clamp_min(1e-30),
+                        torch.where(diff > 0, math.inf, 0.0))
+    return ratio.max().item() if ratio.numel() else 0.0
 
 
 def _bound_ms(args, start):
@@ -235,21 +277,23 @@ def phase_kernel_parity():
         torch.cuda.synchronize()
         want = paged_attention_plain(*args, **kw)
         err = (got.float() - want.float()).abs().max().item()
-        tol = _bf16_tol(want)
+        tol = _row_tol(want)
+        ratio = _err_ratio(got, want, tol)
         finite = bool(torch.isfinite(got).all())
         row = {"phase": "kernel_parity", "case": name, "max_abs_err": err,
-               "tol": tol, "max_abs_plain": want.float().abs().max().item(),
-               "finite": finite}
+               "err_over_tol": ratio, "min_row_tol": tol.min().item(),
+               "max_row_tol": tol.max().item(), "finite": finite}
         if mutant is not None:
             m_args, m_kw = mutant(args, kw)
-            row["mutant_err"] = (paged_attention_plain(*m_args, **m_kw).float()
-                                 - want.float()).abs().max().item()
+            row["mutant_over_tol"] = _err_ratio(
+                paged_attention_plain(*m_args, **m_kw), want, tol)
         emit(row)
-        check(finite and err <= tol,
-              f"paged_attention {name}: max_abs_err {err} > {tol}")
-        check(row.get("mutant_err", math.inf) > tol,
-              f"paged_attention {name}: its mutant is within {tol} of the "
-              f"plain output, so the case cannot catch that fault")
+        check(finite and ratio <= 1.0,
+              f"paged_attention {name}: error {ratio} times its row tolerance")
+        check(row.get("mutant_over_tol", math.inf) > 1.0,
+              f"paged_attention {name}: its mutant is within the row "
+              f"tolerance of the plain output, so the case cannot catch that "
+              f"fault")
         worst = max(worst, err)
         if name in ("decode", "prefill_chunk"):
             kernel_ms = time_ms(lambda: paged_attention(*args, **kw), iters=100)
@@ -267,6 +311,342 @@ def phase_kernel_parity():
                 timing = times
         del args, kw, got, want
     return worst, timing
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the flash-attention kernels vs their plain mirrors
+# ---------------------------------------------------------------------------
+def _flash_inputs(gen, b, s, h, hkv, d, dtype, sk=None, seg=False):
+    """Seeded (q, k, v, dO) on the card, and [B,S] segment ids when asked."""
+    sk = sk or s
+    q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, sk, hkv, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, sk, hkv, d, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+    segs = None
+    if seg:
+        segs = torch.sort(torch.randint(0, 3, (b, s), generator=gen,
+                                        device="cuda"), dim=1).values
+    return (q, k, v, do), segs
+
+
+def _flash_plain_all(args, segs, opts, residuals):
+    """(out, lse, dq, dk, dv) of the plain mirrors; the backward runs on
+    ``residuals`` (the kernel's own out, lse) so both sides see the same."""
+    from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_plain,
+                                                         flash_fwd_plain)
+    q, k, v, do = args
+    out, lse = flash_fwd_plain(q, k, v, segment_ids=segs, **opts)
+    grads = flash_bwd_plain(q, k, v, *residuals, do, segment_ids=segs, **opts)
+    return [out, lse, *grads]
+
+
+FLASH_OUTPUTS = ("out", "lse", "dq", "dk", "dv")
+
+
+def _flash_tols(want):
+    """Tolerance of each output: per row (``_row_tol``), and LSE_TOL for
+    lse."""
+    return [torch.full_like(w, LSE_TOL) if n == "lse" else _row_tol(w)
+            for n, w in zip(FLASH_OUTPUTS, want)]
+
+
+def _flash_ratio(got, want, tol, name):
+    if name == "lse":                  # rows with no live key sit near -1e30
+        live = want > -1e29
+        got, want, tol = got[live], want[live], tol[live]
+    return _err_ratio(got, want, tol)
+
+
+def _max_err(got, want, name):
+    diff = (got.float() - want.float()).abs()
+    if name == "lse":
+        diff = diff[want > -1e29]
+    return diff.max().item() if diff.numel() else 0.0
+
+
+# Mutants: the plain mirrors with one fault a kernel could have, built from
+# the unchanged plain functions. Each takes (args, segs, opts, residuals,
+# want) and returns the five outputs; each must land outside the tolerance
+# on every output it names.
+def _changed_opts(change):
+    return lambda args, segs, opts, res, want: _flash_plain_all(
+        args, segs, change(opts), res)
+
+
+def _off_by_one(opts):
+    return {**opts, "causal": True,
+            "causal_shift": 1 - opts.get("causal_shift", 0)}
+
+
+def _segments_dropped(args, segs, opts, res, want):
+    return _flash_plain_all(args, None, opts, res)
+
+
+def _kv_per_query_head(args, res, segs, opts, head_of, fold):
+    """The plain mirrors with KV head ``head_of[h]`` expanded for query
+    head h (one KV head per query head), dK/dV folded back by ``fold``."""
+    q, k, v, do = args
+    out, lse, dq, dk, dv = _flash_plain_all(
+        (q, k[:, :, head_of].contiguous(), v[:, :, head_of].contiguous(), do),
+        segs, opts, res)
+    return [out, lse, dq, fold(dk).to(dk.dtype), fold(dv).to(dv.dtype)]
+
+
+def _kv_head_mod(args, segs, opts, res, want):
+    """Query head h reads KV head h % Hkv instead of h // rep."""
+    b, _, h, d = args[0].shape
+    hkv = args[1].shape[2]
+    head_of = torch.arange(h, device=args[0].device) % hkv
+    return _kv_per_query_head(      # head h = r * Hkv + g wrote KV head g
+        args, res, segs, opts, head_of,
+        lambda x: x.float().reshape(b, -1, h // hkv, hkv, d).sum(2))
+
+
+def _dkv_rep_minus_1(args, segs, opts, res, want):
+    """dK/dV sum only rep - 1 of the rep query heads of each KV head."""
+    b, _, h, d = args[0].shape
+    hkv = args[1].shape[2]
+    rep = h // hkv
+    head_of = torch.arange(h, device=args[0].device) // rep
+    return _kv_per_query_head(
+        args, res, segs, opts, head_of,
+        lambda x: x.float().reshape(b, -1, hkv, rep, d)[:, :, :, :rep - 1].sum(3))
+
+
+LATE_TILE = 64
+
+
+def _late_tile_dropped(args, segs, opts, res, want):
+    """The last LATE_TILE query rows skip the key tile
+    [Sk - 3*LATE_TILE, Sk - 2*LATE_TILE) in the forward and dQ, and that key
+    tile's dK/dV skip those rows: a fault confined to late rows and keys,
+    where values are smallest."""
+    q, k, v, do = args
+    b, s = q.shape[:2]
+    sk = k.shape[1]
+    rows = slice(s - LATE_TILE, s)
+    keys = slice(sk - 3 * LATE_TILE, sk - 2 * LATE_TILE)
+    check(segs is None, "the late-tile mutant takes no segment ids")
+    q_ids = torch.zeros(b, s, dtype=torch.int32, device=q.device)
+    k_ids = torch.zeros(b, sk, dtype=torch.int32, device=q.device)
+    k_ids[:, keys] = 1                 # the tile alone in a segment: no row sees it
+    out, lse, dq, dk, dv = (w.clone() for w in want)
+    m_out, m_lse, m_dq, _, _ = _flash_plain_all(args, (q_ids, k_ids), opts, res)
+    out[:, rows], lse[:, :, rows], dq[:, rows] = (
+        m_out[:, rows], m_lse[:, :, rows], m_dq[:, rows])
+    do_early = do.clone()
+    do_early[:, rows] = 0              # rows with dO = 0 add nothing to dK/dV
+    _, _, _, e_dk, e_dv = _flash_plain_all((q, k, v, do_early), segs, opts, res)
+    dk[:, keys], dv[:, keys] = e_dk[:, keys], e_dv[:, keys]
+    return [out, lse, dq, dk, dv]
+
+
+ANY = ("any",)
+FLASH_CASES = [
+    # name, shape, options, mutants {name: (function, outputs it must miss)}
+    ("train_shape", dict(b=1, s=2048, h=32, hkv=8, d=128, dtype=torch.bfloat16),
+     dict(causal=True),
+     {"mask_off_by_one": (_changed_opts(_off_by_one), ANY),
+      "kv_head_mod": (_kv_head_mod, ANY),
+      "dkv_rep_minus_1": (_dkv_rep_minus_1, ("dk", "dv")),
+      "late_tile_dropped": (_late_tile_dropped, FLASH_OUTPUTS)}),
+    ("unaligned_gqa", dict(b=2, s=300, h=8, hkv=2, d=128, dtype=torch.bfloat16),
+     dict(causal=True),
+     {"kv_head_mod": (_kv_head_mod, ANY),
+      "mask_off_by_one": (_changed_opts(_off_by_one), ANY),
+      "late_tile_dropped": (_late_tile_dropped, FLASH_OUTPUTS)}),
+    ("noncausal_sq_ne_sk_fp32", dict(b=1, s=200, h=4, hkv=2, d=64,
+                                     dtype=torch.float32, sk=333),
+     dict(causal=False),
+     {"kv_head_mod": (_kv_head_mod, ANY),
+      "late_tile_dropped": (_late_tile_dropped, FLASH_OUTPUTS)}),
+    ("window", dict(b=1, s=1024, h=8, hkv=2, d=128, dtype=torch.bfloat16),
+     dict(causal=True, window=256),
+     {"window_dropped": (_changed_opts(lambda o: {**o, "window": None}), ANY)}),
+    ("segments", dict(b=2, s=512, h=8, hkv=2, d=128, dtype=torch.bfloat16,
+                      seg=True),
+     dict(causal=True),
+     {"segment_mask_dropped": (_segments_dropped, ANY)}),
+    ("causal_shift", dict(b=1, s=512, h=8, hkv=2, d=128, dtype=torch.bfloat16),
+     dict(causal=True, causal_shift=1),
+     {"mask_off_by_one": (_changed_opts(_off_by_one), ANY)}),
+]
+
+
+def _json_ratio(x):
+    # a mutant's mask can make a row live whose lse is -1e30: inf there,
+    # written as 1e30 for JSON
+    return x if math.isfinite(x) else 1e30
+
+
+def run_flash_cases(gen):
+    """Every FLASH_CASES case: the three kernels against the plain mirrors
+    (each output within its per-row tolerance, finite), and each mutant of
+    the plain version outside the tolerance on the outputs it names (on at
+    least one when it names ``any``). Returns the rows; raises PhaseError on
+    any failure. The ``gpu`` test runs this too."""
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    rows = []
+    for name, shape, opts, mutants in FLASH_CASES:
+        args, segs = _flash_inputs(gen, **shape)
+        q, k, v, do = args
+        before = build.launch_counts()
+        out, lse = flash_fwd(q, k, v, segment_ids=segs, **opts)
+        grads = flash_bwd(q, k, v, out, lse, do, segment_ids=segs, **opts)
+        torch.cuda.synchronize()
+        after = build.launch_counts()
+        check(all(after.get(n, 0) == before.get(n, 0) + 1
+                  for n in FLASH_PER_STEP),
+              f"flash {name}: each kernel should have launched once")
+        got = (out, lse) + grads
+        res = (out, lse)
+        want = _flash_plain_all(args, segs, opts, res)
+        tols = _flash_tols(want)
+        errs = {n: _max_err(g, w, n) for n, g, w in zip(FLASH_OUTPUTS, got, want)}
+        ratios = {n: _flash_ratio(g, w, t, n) for n, g, w, t in
+                  zip(FLASH_OUTPUTS, got, want, tols)}
+        finite = all(bool(torch.isfinite(g).all()) for n, g in
+                     zip(FLASH_OUTPUTS, got) if n != "lse")
+        row = {"phase": "flash_parity", "case": name,
+               "shape": {k_: (str(v_) if k_ == "dtype" else v_)
+                         for k_, v_ in shape.items()},
+               "options": opts, "max_abs_err": errs, "err_over_tol": ratios,
+               "row_tol_range": {n: [t.min().item(), t.max().item()]
+                                 for n, t in zip(FLASH_OUTPUTS, tols)},
+               "finite": finite, "mutants": {}}
+        for m_name, (mutant, must) in mutants.items():
+            m_want = mutant(args, segs, opts, res, want)
+            row["mutants"][m_name] = {
+                n: _json_ratio(_flash_ratio(m, w, t, n)) for n, m, w, t in
+                zip(FLASH_OUTPUTS, m_want, want, tols)}
+            del m_want
+        emit(row)
+        check(finite, f"flash {name}: non-finite output")
+        for n in FLASH_OUTPUTS:
+            check(ratios[n] <= 1.0, f"flash {name}: {n} error {ratios[n]} "
+                  "times its row tolerance")
+        for m_name, (_, must) in mutants.items():
+            m_ratios = row["mutants"][m_name]
+            caught = (max(m_ratios.values()) > 1.0 if must == ANY else
+                      all(m_ratios[n] > 1.0 for n in must))
+            check(caught, f"flash {name}: mutant {m_name} lands within the "
+                  f"tolerance of {must} ({m_ratios}), so the case cannot "
+                  "catch that fault")
+        rows.append(row)
+        del args, got, want, out, lse, grads, res
+    return rows
+
+
+def _flash_work(b, s, h, hkv, d, elem):
+    """(causal live (row, key) pairs, operand bytes of the forward, of dQ,
+    of dK/dV) at this shape; each input read once, each output written
+    once."""
+    pairs = b * h * s * (s + 1) // 2
+    qo = b * s * h * d * elem                     # q, out, dO or dq
+    kv = b * s * hkv * d * elem
+    rows = b * h * s * 4                          # lse or delta (fp32)
+    fwd = 2 * qo + 2 * kv + rows                  # q k v -> out lse
+    dq = 3 * qo + 2 * kv + 2 * rows               # q k v dO lse delta -> dq
+    dkv = 2 * qo + 4 * kv + 2 * rows              # q k v dO lse delta -> dk dv
+    return pairs, fwd, dq, dkv
+
+
+def _bound(flops, nbytes):
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _kernel_device_ms(fn, names, iters=10):
+    """Mean device time per call of each named CUDA kernel inside ``fn``
+    (torch.profiler over ``iters`` calls, after a warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for n in names:
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == cuda and n in e.name)
+        out[n] = us / 1e3 / iters
+    return out
+
+
+def phase_flash_timing(gen):
+    """Kernel, plain and SDPA times at the training path's attention shape
+    (B=1, S=2048, H=32, Hkv=8, d=128, causal, bf16), with the bounds."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd,
+                                                         flash_bwd_plain,
+                                                         flash_fwd,
+                                                         flash_fwd_plain)
+    b, s, h, hkv, d = 1, TRAIN_SEQ, 32, 8, 128
+    (q, k, v, do), _ = _flash_inputs(gen, b, s, h, hkv, d, torch.bfloat16)
+    out, lse = flash_fwd(q, k, v, causal=True)
+    fwd_ms = time_ms(lambda: flash_fwd(q, k, v, causal=True), iters=20)
+    bwd_ms = time_ms(lambda: flash_bwd(q, k, v, out, lse, do, causal=True),
+                     iters=10)
+    per_kernel = _kernel_device_ms(
+        lambda: flash_bwd(q, k, v, out, lse, do, causal=True),
+        ["flash_dq_kernel", "flash_dkv_kernel"])
+    plain_fwd_ms = time_ms(lambda: flash_fwd_plain(q, k, v, causal=True), iters=5)
+    plain_bwd_ms = time_ms(lambda: flash_bwd_plain(q, k, v, out, lse, do,
+                                                   causal=True), iters=5)
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(      # noqa: E731
+        qs, ks, vs, is_causal=True, enable_gqa=True)
+    sdpa_fwd_ms = time_ms(sdpa, iters=20)
+    o_sdpa = sdpa()
+    g = do.transpose(1, 2)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        o_sdpa, (qs, ks, vs), g, retain_graph=True), iters=20)
+    pairs, fwd_b, dq_b, dkv_b = _flash_work(b, s, h, hkv, d, 2)
+    mm = 2 * pairs * d                       # one causal-half matmul, flops
+    bounds = {"flash_fwd": _bound(2 * mm, fwd_b),
+              "flash_dq": _bound(3 * mm, dq_b),
+              "flash_dkv": _bound(4 * mm, dkv_b)}
+    timing = {
+        "flash_fwd": {"ms": fwd_ms, "plain_ms": plain_fwd_ms,
+                      "library_ms": sdpa_fwd_ms},
+        "flash_dq": {"ms": per_kernel["flash_dq_kernel"],
+                     "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms},
+        "flash_dkv": {"ms": per_kernel["flash_dkv_kernel"],
+                      "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms},
+    }
+    for name, (bound_ms, bound_by) in bounds.items():
+        timing[name].update(bound_ms=bound_ms, bound_by=bound_by)
+    emit({"phase": "flash_timing",
+          "shape": "B=1 S=2048 H=32 Hkv=8 d=128 causal bf16",
+          **{n: {**t, "share_of_bound": t["bound_ms"] / t["ms"]}
+             for n, t in timing.items()},
+          "fwd_plus_bwd_ms": fwd_ms + bwd_ms,
+          "plain_fwd_plus_bwd_ms": plain_fwd_ms + plain_bwd_ms,
+          "sdpa_fwd_plus_bwd_ms": sdpa_fwd_ms + sdpa_bwd_ms,
+          "flops": {"fwd": 2 * mm, "bwd_two_kernel": 7 * mm,
+                    "bwd_minimum": 5 * mm},
+          "bwd_minimum_bound_ms": 5 * mm / BF16_FLOPS * 1e3,
+          "notes": "plain_ms of dq/dkv is the whole plain backward; "
+                   "library_ms of dq/dkv is one SDPA backward (dq, dk, dv)"})
+    return timing
+
+
+def phase_flash_parity():
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    rows = run_flash_cases(gen)
+    worst = {}
+    for row in rows:                        # worst error per kernel
+        errs = row["max_abs_err"]
+        for kernel, outs in (("flash_fwd", ("out", "lse")), ("flash_dq", ("dq",)),
+                             ("flash_dkv", ("dk", "dv"))):
+            worst[kernel] = max(worst.get(kernel, 0.0),
+                                max(errs[o] for o in outs))
+    return worst, phase_flash_timing(gen)
 
 
 # ---------------------------------------------------------------------------
@@ -462,6 +842,194 @@ def phase_profile(eng, lens, dev, smi_line):
     check(kernels, "the profiler saw no kernel on the card")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the training path
+# ---------------------------------------------------------------------------
+def train_config(lr=3e-4, backend="flash"):
+    """Llama-3-8B at its published width, cut to TRAIN_LAYERS layers, with
+    bench.py's 8b recipe (seq 2048, micro-batch 1, gas 2, AdamW 3e-4, bf16
+    with bf16 gradient accumulation, ZeRO 0, flash, remat); the probe
+    changes ``lr`` or ``backend``."""
+    import dataclasses
+    from deepspeed_tpu_torch.models.llama import LLAMA3_8B
+    cfg = dataclasses.replace(
+        LLAMA3_8B, num_layers=TRAIN_LAYERS, max_seq_len=TRAIN_SEQ,
+        dtype=torch.bfloat16, attention_backend=backend, remat=True,
+        remat_policy="dots_with_no_batch_dims_saveable")
+    ds_config = {
+        "train_batch_size": TRAIN_GAS, "gradient_accumulation_steps": TRAIN_GAS,
+        "optimizer": {"type": "AdamW", "params": {"lr": lr}},
+        "bf16": {"enabled": True},
+        "data_types": {"grad_accum_dtype": "bf16"},
+        "zero_optimization": {"stage": 0},
+        "steps_per_print": 1000000,
+    }
+    return cfg, ds_config
+
+
+def _flash_vs_xla(engine, cfg, micro):
+    """One micro-batch through the flash backend (the engine's model) and
+    through the plain backend on a copy of the same weights: the two losses,
+    global gradient norms, and per attention weight (wq, wk, wv, wo of each
+    layer, where a faulty kernel shows first) the relative distance
+    |g_flash - g_xla| / |g_xla| of the gradients."""
+    import dataclasses
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.runtime.precision import global_grad_norm
+    names = engine._param_names
+    attn = [i for i, n in enumerate(names) if ".attn.w" in n]
+    loss_f, grads = engine._grads_one_micro(micro, 1.0)
+    norm_f = global_grad_norm(grads).item()
+    attn_f = [grads[i] for i in attn]
+    del grads
+    xla = LlamaForCausalLM(dataclasses.replace(cfg, attention_backend="xla"),
+                           device="cuda", seed=SEED)
+    xla.load_state_dict(engine.model.state_dict())
+    check([n for n, _ in xla.named_parameters()] == names,
+          "the plain-backend copy lists its parameters in another order")
+    loss_x = xla(micro, compute_dtype=engine.compute_dtype)
+    grads = torch.autograd.grad(loss_x, list(xla.parameters()))
+    norm_x = global_grad_norm(grads).item()
+    attn_rel = {names[i]: ((f - grads[i]).norm() / grads[i].norm()).item()
+                for i, f in zip(attn, attn_f)}
+    del grads, xla, attn_f
+    return loss_f.item(), loss_x.item(), norm_f, norm_x, attn_rel
+
+
+def _train_steps(engine, batch, steps):
+    """``steps`` train_batch calls on one batch: losses, host ms per step
+    (each ends in the loss readback) and flash launches per step."""
+    from deepspeed_tpu_torch.ops import build
+    losses, step_ms, per_step = [], [], []
+    for _ in range(steps):
+        before = build.launch_counts()
+        t0 = time.monotonic()
+        loss = engine.train_batch(batch=batch)
+        losses.append(loss.item())     # the readback ends the step
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        after = build.launch_counts()
+        per_step.append({n: after.get(n, 0) - before.get(n, 0)
+                         for n in FLASH_PER_STEP})
+    return losses, step_ms, per_step
+
+
+def phase_train(dev, smi_line):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, random_tokens
+    from deepspeed_tpu_torch.ops import build
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, ds_config = train_config()
+    t0 = time.monotonic()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=LlamaForCausalLM(cfg, device="cuda", seed=SEED),
+        config=ds_config)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    batch = random_tokens(1, TRAIN_SEQ, vocab_size=cfg.vocab_size,
+                          seed=SEED, gas=TRAIN_GAS)
+    micro = {"input_ids": torch.from_numpy(batch["input_ids"][0]).cuda()}
+    loss_f, loss_x, norm_f, norm_x, attn_rel = _flash_vs_xla(engine, cfg, micro)
+    worst_attn = max(attn_rel.values())
+    cmp_row = {"phase": "train_flash_vs_xla", "loss_flash": loss_f,
+               "loss_xla": loss_x, "grad_norm_flash": norm_f,
+               "grad_norm_xla": norm_x,
+               "loss_rel": abs(loss_f - loss_x) / abs(loss_x),
+               "grad_norm_rel": abs(norm_f - norm_x) / abs(norm_x),
+               "attn_grad_rel_max": worst_attn, "attn_grad_rel": attn_rel,
+               "limits": {"loss_rel": LOSS_REL, "grad_norm_rel": GRAD_NORM_REL,
+                          "attn_grad_rel_max": ATTN_GRAD_REL}}
+    emit(cmp_row)
+    check(math.isfinite(loss_f) and cmp_row["loss_rel"] <= LOSS_REL,
+          f"flash vs xla loss {loss_f} vs {loss_x}")
+    check(math.isfinite(norm_f) and cmp_row["grad_norm_rel"] <= GRAD_NORM_REL,
+          f"flash vs xla grad norm {norm_f} vs {norm_x}")
+    check(worst_attn <= ATTN_GRAD_REL,
+          f"flash vs xla attention-weight gradients differ by {worst_attn}")
+
+    torch.cuda.synchronize()
+    build.reset_launch_counts()        # the main path's run starts here
+    losses, step_ms, per_step = _train_steps(engine, batch, 1 + TRAIN_STEPS)
+    launches = build.launch_counts()
+    timed = step_ms[1:]
+    mean_ms = sum(timed) / len(timed)
+    tokens = TRAIN_GAS * TRAIN_SEQ
+    want = {n: k * TRAIN_LAYERS * TRAIN_GAS for n, k in FLASH_PER_STEP.items()}
+    emit({"phase": "train", "model": f"LLAMA3_8B width, {TRAIN_LAYERS} layers, "
+          "bf16, remat dots_with_no_batch_dims_saveable, flash",
+          "params": n_params, "seq": TRAIN_SEQ, "micro_batch": 1,
+          "gas": TRAIN_GAS, "init_s": init_s, "losses": losses,
+          "step_ms": step_ms, "step_ms_mean": mean_ms,
+          "tokens_per_s": tokens / (mean_ms / 1e3),
+          "launches_per_step": per_step, "launches": launches,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(all(s == want for s in per_step),
+          f"flash launches per step {per_step}, expected {want}")
+    return engine, batch, launches, losses
+
+
+def phase_train_profile(engine, batch, dev, smi_line):
+    """One training step under torch.profiler: device busy time, idle
+    share, kernels, top device and host ops."""
+    engine.train_batch(batch=batch).item()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        engine.train_batch(batch=batch).item()
+        torch.cuda.synchronize()
+        window_ms = (time.monotonic() - t0) * 1e3
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    events = prof.key_averages()
+    flash_ms = {n: sum(e.time_range.elapsed_us() for e in kernels
+                       if f"{n}_kernel" in e.name) / 1e3
+                for n in FLASH_PER_STEP}
+    emit({"phase": "train_profile", "step_ms_profiled": window_ms,
+          "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / window_ms,
+          "kernels": len(kernels), "flash_kernel_ms": flash_ms,
+          "card": dev["kind"], "nvidia_smi": smi_line,
+          "top_device": _top(events, cuda, "self_device_time_total"),
+          "top_host": _top(events, cpu, "self_cpu_time_total")})
+    check(kernels, "the profiler saw no kernel on the card")
+
+
+def phase_train_probe(batch, recipe_losses, dev, smi_line):
+    """The recipe's 1 + TRAIN_STEPS steps again from the same seeded
+    weights, twice: at LOW_LR (a tenth of the recipe's lr), where the loss
+    must fall at every step, and with the plain attention backend at the
+    recipe's lr, whose losses stand beside the flash run's. Separates the
+    optimizer's step size from the kernels as the cause of a loss that
+    rises between steps."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    runs = {}
+    for name, lr, backend in (("flash_lr_3e-5", LOW_LR, "flash"),
+                              ("xla_lr_3e-4", 3e-4, "xla")):
+        cfg, ds_config = train_config(lr=lr, backend=backend)
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=LlamaForCausalLM(cfg, device="cuda", seed=SEED),
+            config=ds_config)
+        runs[name], _, _ = _train_steps(engine, batch, 1 + TRAIN_STEPS)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    low = runs["flash_lr_3e-5"]
+    emit({"phase": "train_probe", "flash_lr_3e-4": recipe_losses, **runs,
+          "xla_minus_flash_lr_3e-4": [x - f for x, f in
+                                      zip(runs["xla_lr_3e-4"], recipe_losses)],
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    check(all(math.isfinite(x) for r in runs.values() for x in r),
+          f"non-finite probe loss {runs}")
+    check(all(b < a for a, b in zip(low, low[1:])),
+          f"loss at lr {LOW_LR} did not fall at every step: {low}")
+
+
 def main() -> int:
     phase = "device"
     try:
@@ -471,24 +1039,45 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 stays fp32
         torch.backends.cudnn.allow_tf32 = False
         phase = "build"
-        phase_build(["paged_attention"])
+        phase_build(["paged_attention", "flash_attention"])
         phase = "kernel_parity"
         worst, timing = phase_kernel_parity()
+        phase = "flash_parity"
+        flash_worst, flash_timing = phase_flash_parity()
         phase = "engine"
         st, eng, lens = phase_engine(dev, smi_line)
         phase = "profile"
         phase_profile(eng, lens, dev, smi_line)
+        del eng                          # free the serving engine's 25 GB
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        phase = "train"
+        engine, batch, train_launches, losses = phase_train(dev, smi_line)
+        phase = "train_profile"
+        phase_train_profile(engine, batch, dev, smi_line)
+        del engine                       # free the recipe's 40 GB
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = "train_probe"
+        phase_train_probe(batch, losses, dev, smi_line)
     except Exception as exc:  # any failed phase: report it, exit non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False, "error": f"{type(exc).__name__}: {exc}"})
         return 1
+    flash_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
+    flash_tpu = {"flash_fwd": 80, "flash_dq": 238, "flash_dkv": 279}
     emit({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
         "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:35",
-        "tpu": "ops/pallas/paged_attention.py:_paged_kernel",
         "launches": st["launches"].get("paged_attention", 0),
-        "max_abs_err": worst, "ok": True, **timing}]})
+        "max_abs_err": worst, "ok": True, **timing}] + [{
+            "name": name, "route": "cuda", "source": flash_src,
+            "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
+            "launches": train_launches.get(name, 0),
+            "max_abs_err": flash_worst[name], "ok": True,
+            **flash_timing[name]} for name, line in flash_tpu.items()]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": dev})
     return 0

@@ -8,11 +8,52 @@ kept here as copies. Every Pallas kernel on a ported path becomes a kernel
 written by hand for Hopper under ``csrc/``, built with ``nvcc`` on first use
 (``ops/build.py``).
 
-Ported so far: the serving path — ``InferenceEngineV2`` over the paged KV
-cache, serving the Llama family, with the paged-attention kernel
-(``csrc/paged_attention.cu``).
+Ported so far:
+
+- serving — ``InferenceEngineV2`` over the paged KV cache, serving the
+  Llama family, with the paged-attention kernel (``csrc/paged_attention.cu``);
+- training — ``initialize()`` -> ``DeepSpeedTPUEngine.train_batch`` on
+  ``LlamaForCausalLM``, with the flash-attention forward, dQ and dK/dV
+  kernels (``csrc/flash_attention.cu``).
 
 Importing this package starts no work and touches no device.
 """
 
-__version__ = "0.1.0"
+from typing import Any, Callable, Optional
+
+__version__ = "0.2.0"
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, config: Any = None,
+               config_params: Any = None, loss_fn: Optional[Callable] = None,
+               device=None):
+    """Build the training engine (reference ``deepspeed.initialize``;
+    ``deepspeed_tpu/__init__.py:28``). Returns ``(engine, optimizer, None,
+    lr_schedule)`` for a non-pipeline model.
+
+    ``model`` is an ``nn.Module`` whose ``forward(batch, compute_dtype=)``
+    returns the loss (``models.llama.LlamaForCausalLM``);
+    ``model_parameters`` is None (keep the module's weights) or the flax
+    parameter tree (numpy leaves) to load as fp32 masters (the module's
+    own weights come from its seed). ``device`` defaults to the card; pass
+    ``device="cpu"`` to train on the CPU."""
+    from deepspeed_tpu_torch.config.config import DeepSpeedTPUConfig
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedTPUEngine
+    if config is None and config_params is not None:
+        config = config_params
+    if config is None and args is not None:
+        config = getattr(args, "deepspeed_config", None)
+    if training_data is not None:
+        raise NotImplementedError(
+            "training_data (the data loader) is not ported yet (ROADMAP "
+            "Queue 1); pass batches to train_batch()")
+    if model is None:
+        raise ValueError("initialize needs a model (an nn.Module)")
+    ds_config = config if isinstance(config, DeepSpeedTPUConfig) \
+        else DeepSpeedTPUConfig(config)
+    engine = DeepSpeedTPUEngine(
+        model, ds_config, params=model_parameters, loss_fn=loss_fn,
+        lr_scheduler=lr_scheduler if callable(lr_scheduler) else None,
+        client_optimizer=optimizer, device=device)
+    return engine, engine.optimizer, None, engine.lr_schedule

@@ -125,15 +125,15 @@ class LlamaPolicy:
 
     @staticmethod
     def unembed(params, x, cfg):
-        """[N, D] -> [N, V] float32 logits. The reference multiplies in
-        float32 against its float32 master; with float32 weights the port
-        does the same, and with bf16 weights it multiplies in bf16 (float32
-        accumulation) and rounds the logits to bf16 before widening."""
+        """[N, D] -> [N, V] float32 logits: the normalised hidden state
+        widened to float32 times the float32 head, as the reference
+        multiplies against its float32 master (``convert.py`` keeps the
+        head in float32)."""
         x = _rms(x, LlamaPolicy._norm_scale(
             params["model"]["final_norm"]["scale"], cfg), cfg.rms_norm_eps)
         if cfg.tie_embeddings:
             w = params["model"]["embed"]["embedding"].T
         else:
             w = params["model"]["lm_head"]["kernel"]
-        logits = (x.to(w.dtype) @ w).float()
+        logits = x.float() @ w.float()
         return softcap_logits(logits, cfg.logits_soft_cap)

@@ -1,0 +1,284 @@
+"""The training engine, cut to the fused ``train_batch`` path.
+
+Port of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedTPUEngine``,
+reference ``deepspeed/runtime/engine.py``) on one device, ZeRO stage 0:
+
+- ``_compute_loss`` runs the model with every floating master cast to the
+  compute dtype at its use (the reference's ``cast_to_compute``), so each
+  micro-batch's gradient is the gradient with respect to the fp32 master
+  through the cast;
+- the gradient-accumulation loop sums those gradients in
+  ``grad_accum_dtype`` into buffers of that dtype (autograd's own ``.grad``
+  would sum in fp32), and only after the sum divides by ``scale * gas`` in
+  fp32 (reference ``:993``);
+- ``_update`` is the reference's (``:1018-1057``): overflow check under
+  fp16 or the non-finite guard, clipping by the global norm, the Adam
+  update, and on overflow the old parameters, optimizer state and step kept
+  while ``skipped_steps`` grows and the loss scale moves.
+
+JAX keeps the skip decision on the device with ``jnp.where``; eager
+PyTorch reads the overflow flag once per step, and only under fp16 or the
+guard, and then skips the update instead of computing and discarding it.
+Without them a step never waits for the device. The micro-step protocol
+(``forward``/``backward``/``step``), the async metric ring and the batch
+prefetcher are not ported yet (ROADMAP Queue 1).
+"""
+
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.config.config import DeepSpeedTPUConfig
+from deepspeed_tpu_torch.ops.optimizers import build_optimizer
+from deepspeed_tpu_torch.runtime import precision
+from deepspeed_tpu_torch.runtime.lr_schedules import build_schedule, constant_lr
+from deepspeed_tpu_torch.utils.device import resolve_device
+from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
+                                             ThroughputTimer, TRAIN_BATCH_TIMER)
+
+
+class StepOutput(NamedTuple):
+    loss: Optional[torch.Tensor]
+    grad_norm: torch.Tensor
+    lr: float
+    overflow: bool
+
+
+def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(v))).to(device)
+            for k, v in batch.items()}
+
+
+class DeepSpeedTPUEngine:
+    def __init__(self, model: torch.nn.Module, config, params=None,
+                 loss_fn: Optional[Callable] = None,
+                 lr_scheduler: Optional[Callable[[int], float]] = None,
+                 client_optimizer=None, device=None):
+        self.config = config if isinstance(config, DeepSpeedTPUConfig) \
+            else DeepSpeedTPUConfig(config)
+        config = self.config
+        self.device = resolve_device(device)
+        self.dp_world_size = 1
+        config.resolve_batch_sizes(self.dp_world_size)
+        self.train_batch_size = config.train_batch_size
+        self.micro_batch_size = config.train_micro_batch_size_per_gpu
+        self.gradient_accumulation_steps = config.gradient_accumulation_steps
+        self.compute_dtype = config.precision_dtype
+        self.zero_stage = config.zero_config.stage
+        self.loss_fn = loss_fn
+        log_dist(f"engine: {config!r} device={self.device}", ranks=[0])
+
+        # --- LR schedule ----------------------------------------------------
+        if lr_scheduler is not None:
+            self.lr_schedule = lr_scheduler
+        elif config.scheduler and config.scheduler.type:
+            self.lr_schedule = build_schedule(config.scheduler.type,
+                                              dict(config.scheduler.params))
+        else:
+            base_lr = (config.optimizer.params.get("lr", 1e-3)
+                       if config.optimizer else 1e-3)
+            self.lr_schedule = constant_lr(lr=base_lr)
+
+        # --- fp32 master weights on the device ------------------------------
+        self.model = model.to(self.device)
+        for p in self.model.parameters():
+            if p.is_floating_point() and p.dtype != torch.float32:
+                p.data = p.data.float()
+        if params is not None:
+            from deepspeed_tpu_torch.models.convert import load_flax_params
+            load_flax_params(self.model, params)
+        named = [(n, p) for n, p in self.model.named_parameters()
+                 if p.requires_grad]
+        self._param_names: List[str] = [n for n, _ in named]
+        self._masters: List[torch.Tensor] = [p for _, p in named]
+
+        # --- optimizer ------------------------------------------------------
+        if client_optimizer is not None:
+            if not (hasattr(client_optimizer, "init")
+                    and hasattr(client_optimizer, "step")):
+                raise TypeError("client optimizer must have init(params) and "
+                                f"step(params, grads), got {type(client_optimizer)}")
+            self.optimizer = client_optimizer
+        else:
+            opt_type = config.optimizer.type if config.optimizer else "adamw"
+            opt_params = dict(config.optimizer.params) if config.optimizer else {}
+            self.optimizer = build_optimizer(opt_type, opt_params,
+                                             lr_schedule=self.lr_schedule)
+        self.optimizer.init(self._masters)
+
+        self.loss_scale = precision.init_loss_scale(config.fp16)
+        self.step_count = 0           # applied updates (the reference's state.step)
+        self._skipped_steps = 0
+        self.global_steps = 0
+        self.micro_steps = 0
+        self.global_samples = 0
+        self._guard_nonfinite = False
+        self._last_metrics: Dict[str, Any] = {}
+        self.timers = SynchronizedWallClockTimer(
+            synchronize=config.wall_clock_breakdown)
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.train_batch_size,
+            steps_per_output=config.steps_per_print,
+            synchronize=config.wall_clock_breakdown)
+
+    # ------------------------------------------------------------------
+    # loss and gradients
+    # ------------------------------------------------------------------
+    def _compute_loss(self, batch) -> torch.Tensor:
+        out = self.model(batch, compute_dtype=self.compute_dtype)
+        if self.loss_fn is not None:
+            out = self.loss_fn(out, batch)
+        if isinstance(out, tuple):
+            out = out[0]
+        return out.float()
+
+    def _grads_one_micro(self, batch, scale: float):
+        """Loss and the gradients of ``loss * scale`` with respect to the
+        fp32 masters (fp32 tensors)."""
+        loss = self._compute_loss(batch)
+        grads = torch.autograd.grad(loss * scale, self._masters)
+        return loss.detach(), list(grads)
+
+    def _grads_phase(self, stacked: Dict[str, torch.Tensor], scale: float):
+        """(mean loss, per-micro gradients summed in grad_accum_dtype)."""
+        gas = self.gradient_accumulation_steps
+        acc_dtype = self.config.grad_accum_dtype
+        acc: Optional[List[torch.Tensor]] = None
+        loss_sum = torch.zeros((), device=self.device)
+        for i in range(gas):
+            loss, grads = self._grads_one_micro(
+                {k: v[i] for k, v in stacked.items()}, scale)
+            loss_sum += loss
+            if acc is None:           # 0 + g: the first sum is the cast itself
+                acc = [g.to(acc_dtype) for g in grads]
+            else:
+                for a, g in zip(acc, grads):
+                    a.add_(g.to(acc_dtype))
+            del grads
+        return loss_sum / gas, acc
+
+    def _update(self, grads: List[torch.Tensor]) -> StepOutput:
+        """Overflow skip + dynamic loss scale + clipping + optimizer update
+        (reference ``engine.py:1018``)."""
+        fp16 = self.config.fp16
+        overflow = False
+        if fp16.enabled or self._guard_nonfinite:
+            overflow = bool(precision.has_inf_or_nan(grads))
+            if overflow:                  # the norm of the neutralised grads
+                grads = [torch.where(torch.isfinite(g), g, 0.0) for g in grads]
+        clipped, grad_norm = precision.clip_by_global_norm(
+            grads, self.config.gradient_clipping)
+        lr = float(self.lr_schedule(self.step_count))
+        if overflow:
+            self._skipped_steps += 1
+        else:
+            self.optimizer.step(self._masters, clipped)
+            self.step_count += 1
+        self.loss_scale = precision.update_loss_scale(self.loss_scale,
+                                                      overflow, fp16)
+        return StepOutput(loss=None, grad_norm=grad_norm, lr=lr,
+                          overflow=overflow)
+
+    # ------------------------------------------------------------------
+    # train_batch
+    # ------------------------------------------------------------------
+    @staticmethod
+    def stack_microbatches(data_iter, gas: int):
+        """Pull ``gas`` micro-batches and stack every leaf to [gas, ...]."""
+        micro = [next(data_iter) for _ in range(gas)]
+        return {k: (torch.stack([m[k] for m in micro])
+                    if isinstance(micro[0][k], torch.Tensor)
+                    else np.stack([np.asarray(m[k]) for m in micro]))
+                for k in micro[0]}
+
+    def train_batch(self, data_iter: Optional[Iterator] = None,
+                    batch: Optional[Dict[str, Any]] = None,
+                    stacked: Optional[bool] = None) -> torch.Tensor:
+        """One full training batch: ``gas`` micro-batches and the optimizer
+        update. Pass an iterator of micro-batches, or ``batch`` whose leaves
+        are stacked [gas, micro, ...]; when gas == 1 an unstacked batch is
+        accepted (``stacked=True`` overrides). Returns the mean loss as a
+        device scalar (no host sync)."""
+        gas = self.gradient_accumulation_steps
+        if batch is None:
+            if data_iter is None:
+                raise ValueError("train_batch needs data_iter or batch")
+            batch = self.stack_microbatches(data_iter, gas)
+        elif gas == 1 and not stacked:
+            batch = {k: v[None] for k, v in batch.items()}
+        device_batch = _to_device(batch, self.device)
+        for k, v in device_batch.items():
+            if v.shape[0] != gas:
+                raise ValueError(f"batch['{k}'] has {v.shape[0]} micro-batches, "
+                                 f"gas is {gas}")
+        step_timer = self.timers(TRAIN_BATCH_TIMER)
+        self.tput_timer.start()
+        step_timer.start()
+        scale = self.loss_scale.scale
+        loss, acc = self._grads_phase(device_batch, scale)
+        # unscale + average over gas in fp32, after the sum
+        grads = [a.float().div_(scale * gas) for a in acc]
+        del acc
+        out = self._update(grads)._replace(loss=loss)
+        step_timer.stop()
+        self.tput_timer.stop(global_step=True)
+        self.global_steps += 1
+        self.micro_steps += gas
+        self.global_samples += self.train_batch_size
+        self._last_metrics = {"lr": out.lr, "grad_norm": out.grad_norm,
+                              "loss": out.loss, "overflow": out.overflow}
+        return loss
+
+    def set_nonfinite_guard(self, enabled: bool = True) -> None:
+        """Treat non-finite gradients as an overflow in every precision
+        (skip the update, keep the parameters), as the reference's
+        resilience step guard does."""
+        self._guard_nonfinite = bool(enabled)
+
+    # ------------------------------------------------------------------
+    # not ported yet
+    # ------------------------------------------------------------------
+    def _unported(self, api: str):
+        raise NotImplementedError(
+            f"{api} (the micro-step protocol) is not ported yet (ROADMAP "
+            "Queue 1); use train_batch()")
+
+    def forward(self, batch):
+        self._unported("forward()")
+
+    def backward(self, loss=None):
+        self._unported("backward()")
+
+    def step(self):
+        self._unported("step()")
+
+    # ------------------------------------------------------------------
+    # eval and introspection
+    # ------------------------------------------------------------------
+    def eval_batch(self, batch) -> torch.Tensor:
+        with torch.no_grad():
+            return self._compute_loss(_to_device(batch, self.device))
+
+    def get_lr(self) -> List[float]:
+        return [float(self.lr_schedule(self.step_count))]
+
+    def get_global_grad_norm(self) -> float:
+        v = self._last_metrics.get("grad_norm")
+        return float(v) if v is not None else 0.0
+
+    def cur_scale(self) -> float:
+        return float(self.loss_scale.scale)
+
+    @property
+    def skipped_steps(self) -> int:
+        return self._skipped_steps
+
+    def named_masters(self):
+        """(name, fp32 master) pairs, in the order gradients come."""
+        return list(zip(self._param_names, self._masters))
+
+    def module_state_dict(self) -> Dict[str, torch.Tensor]:
+        return {n: p.detach() for n, p in self.named_masters()}

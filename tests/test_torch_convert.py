@@ -66,8 +66,8 @@ def test_converter_casts_once_and_keeps_norms_fp32(tiny):
     tcfg = torch_config(jcfg, dtype=torch.bfloat16)
     ported = _flatten(llama_params_from_jax(np_params, tcfg, device="cpu"))
     for name, t in ported.items():
-        want = torch.float32 if name.endswith("norm/scale") else torch.bfloat16
-        assert t.dtype == want, name
+        fp32 = name.endswith("norm/scale") or name == "model/lm_head/kernel"
+        assert t.dtype == (torch.float32 if fp32 else torch.bfloat16), name
     wq = ported["model/layer_0/attn/wq/kernel"]
     assert tuple(wq.shape) == (tcfg.hidden_size, tcfg.num_heads, tcfg.head_dim_)
     np.testing.assert_array_equal(
@@ -95,7 +95,8 @@ def test_random_init_builds_the_same_tree(tiny):
         if name.endswith("norm/scale"):
             assert a[name].dtype == torch.float32 and bool((a[name] == 1).all())
         else:
-            assert a[name].dtype == torch.bfloat16
+            head = name == "model/lm_head/kernel"          # the fp32 head
+            assert a[name].dtype == (torch.float32 if head else torch.bfloat16)
             assert not torch.equal(a[name], c[name])
 
 

@@ -314,3 +314,70 @@ def test_port_never_imports_jax_or_the_jax_package():
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "flax", "deepspeed_tpu"), \
                     (path, name)
+
+
+def test_bf16_serving_logits_match_jax():
+    """bf16 serving against the JAX engine on the same flax weights. The head
+    multiplies the float32 hidden state by the float32 head, as the JAX
+    policy does (``inference/v2/modules.py:143-147``), so on one normalised
+    hidden state the two heads agree within float32 atol/rtol 1e-5; the
+    product the port used to take (bf16 x bf16 head, logits rounded to bf16)
+    misses that by about a bf16 ulp of the logits. A whole bf16 prefill and
+    the decode step after it agree within 1% of the logits' spread with the
+    same argmax (the layers round at the same points but their bf16 matmuls
+    sum in other orders)."""
+    from deepspeed_tpu.inference.v2.llama_decode import _rms as j_rms
+    from deepspeed_tpu_torch.inference.v2.llama_decode import _rms
+    jcfg = dataclasses.replace(jllama.TINY_LLAMA, dtype=jnp.bfloat16,
+                               max_seq_len=512)
+    params = jllama.LlamaForCausalLM(jcfg).init(
+        jax.random.PRNGKey(0), jllama.random_tokens(1, 8, 512))["params"]
+    names = {f.name for f in dataclasses.fields(tllama.LlamaConfig)} - {"dtype"}
+    tcfg = tllama.LlamaConfig(**{n: getattr(jcfg, n) for n in names},
+                              dtype=torch.bfloat16)
+    tparams = llama_params_from_jax(jax.tree.map(np.asarray, params), tcfg,
+                                    device="cpu")
+    assert tparams["model"]["lm_head"]["kernel"].dtype == torch.float32
+
+    x = np.random.default_rng(2).normal(size=(6, jcfg.hidden_size))
+    x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    want = np.asarray(JLlamaPolicy.unembed(params, jnp.asarray(x, jnp.bfloat16),
+                                           jcfg))
+    got = LlamaPolicy.unembed(tparams, torch.from_numpy(x).bfloat16(), tcfg)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    h = _rms(torch.from_numpy(x).bfloat16(),
+             tparams["model"]["final_norm"]["scale"], tcfg.rms_norm_eps)
+    old = (h @ tparams["model"]["lm_head"]["kernel"].bfloat16()).float()
+    assert float((old - got).abs().max()) > 1e-3     # the old head misses it
+    np.testing.assert_allclose(
+        np.asarray(j_rms(jnp.asarray(x, jnp.bfloat16),
+                         params["model"]["final_norm"]["scale"], 1e-5),
+                   np.float32), h.float().numpy(), atol=0, rtol=0)
+
+    jc, tc = _fresh_caches((jcfg, params, tcfg, tparams), jnp.bfloat16,
+                           torch.bfloat16)
+    tokens = np.zeros(32, np.int32)
+    tokens[:20] = _prompt(5, 20)
+    table = np.arange(4, dtype=np.int32)
+    jl, jc = j_prefill_chunk_g(params, jc, jnp.asarray(tokens), 0,
+                               jnp.asarray(table), 20, policy=JLlamaPolicy,
+                               cfg=jcfg, block_size=16, attn_impl="gather")
+    tl, tc = prefill_chunk_g(tparams, tc, torch.from_numpy(tokens), 0,
+                             torch.from_numpy(table), 20, policy=LlamaPolicy,
+                             cfg=tcfg, block_size=16, attn_impl="auto")
+    tok = np.array([int(np.argmax(np.asarray(jl)))], np.int32)
+    pos, tables, valid = (np.array([20], np.int32), table[None],
+                          np.array([True]))
+    jd, _ = j_decode_step_g(params, jc, jnp.asarray(tok), jnp.asarray(pos),
+                            jnp.asarray(tables), jnp.asarray(valid),
+                            policy=JLlamaPolicy, cfg=jcfg, block_size=16,
+                            attn_impl="gather")
+    td, _ = decode_step_g(tparams, tc, torch.from_numpy(tok),
+                          torch.from_numpy(pos), torch.from_numpy(tables),
+                          torch.from_numpy(valid), policy=LlamaPolicy,
+                          cfg=tcfg, block_size=16, attn_impl="gather")
+    for ours, ref in ((tl, jl), (td[0], jd[0])):
+        ref = np.asarray(ref, np.float32)
+        spread = float(ref.max() - ref.min())
+        assert float(np.abs(ours.float().numpy() - ref).max()) <= 0.01 * spread
+        assert int(ours.argmax()) == int(ref.argmax())
