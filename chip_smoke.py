@@ -4,20 +4,32 @@
 Run from the repository root: ``python3 chip_smoke.py``. It builds the CUDA
 kernels from ``deepspeed_tpu_torch/csrc`` with nvcc, holds each kernel
 against its plain PyTorch version on the card and times both, then drives
-the port's two paths:
+the port's paths:
 
 - serving: 8 requests through ``InferenceEngineV2`` on Llama-3-8B at full
   width and depth (bf16, random weights from a seed), with a check that the
   path went through the paged-attention kernel and a profile of batched
   decode steps (``torch.profiler``);
+- quantization kernels: int8 and fp8 (e4m3, e5m2) quantize and dequantize
+  held bit for bit against their plain versions over seeded and
+  constructed rows (zeros, exact ties, an absmax that scales onto the
+  format's maximum or, for int8, a hair above it, a last-element maximum,
+  a row where the reciprocal's product differs from the quotient), with
+  the faults they expose as mutants, then timed at the path shapes;
+- ZeRO-Inference: Llama-3-8B at full depth with fp8 e4m3 weights (A1),
+  resident and streamed from pinned host memory, and the int8 store at 4
+  layers (A2): exact quantize/dequantize launch counts, every weight within
+  its group's error bound, resident vs streamed logits, generation;
 - training: ``deepspeed_tpu_torch.initialize`` -> ``train_batch`` on
   Llama-3-8B at full width cut to 4 layers (bf16, seq 2048, micro-batch 1,
   gas 2, AdamW, remat, the flash backend), with the flash backend held
   against the plain one on one micro-batch (loss, gradient norm and each
   attention weight's gradient), 1 + 4 steps whose loss must fall, exact
-  flash-kernel launch counts per step, a profiled step, and a probe that
+  flash-kernel launch counts per step, a profiled step, a probe that
   reruns the steps at a tenth of the lr (the loss must fall at every step)
-  and with the plain attention backend.
+  and with the plain attention backend, and the same lr with qgZ
+  (``zero_quantized_gradients``): exact int8 launches per step, a loss that
+  falls every step, the step-1 gradient norm beside the probe's.
 
 Each phase prints one JSON line; the card's name and power limit
 (``nvidia-smi``) and the ``kernels`` line come before the last line,
@@ -26,6 +38,7 @@ that line, as does a machine with no CUDA device or a directory without the
 package. Imports nothing of JAX.
 """
 
+import functools
 import gc
 import json
 import math
@@ -146,6 +159,15 @@ def phase_build(kernels):
           "kernels": info, "paged_attention_dynamic_smem_bytes": smem,
           "flash_dynamic_smem_bytes": {
               f"d{d}": flash_attention.dynamic_smem_bytes(d) for d in (64, 128)}})
+    return info
+
+
+def _build_of(info, source, kernel):
+    """(nvcc seconds of ``source``, most registers of its entries named
+    ``kernel``) from phase_build's info."""
+    regs = [e["registers"] for e in info[source]["entries"]
+            if re.search(rf"(?<![A-Za-z_]){kernel}", e["kernel"])]
+    return info[source]["nvcc_s"], max(regs) if regs else None
 
 
 # ---------------------------------------------------------------------------
@@ -650,6 +672,352 @@ def phase_flash_parity():
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the int8 and fp8 quantize/dequantize kernels vs their plain
+# versions, bit for bit
+# ---------------------------------------------------------------------------
+QUANT_QMAX = {"int8": 127.0, "e4m3": 448.0, "e5m2": 57344.0}
+# the last two outnumber the kernels' grids on a 132-SM card (the warp
+# kernel's 4,224 blocks of 8 rows, the block kernel's 1,056 blocks, the
+# dequantize's 540,672 threads), so every grid-stride loop takes more than one
+# pass; the timing phase holds the path shapes bit for bit as well
+QUANT_SHAPES = [(4099, 64), (1000, 128), (37, 4096), (9, 14336), (3, 128256),
+                (1, 130), (70001, 64), (2200, 1000)]
+QUANT_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+QUANT_KERNELS = ("quantize_int8", "dequantize_int8", "quantize_fp8",
+                 "dequantize_fp8")
+# the path shapes timed: one w_gate of A1 in groups of 64, and the lm_head
+# gradient of the qgZ training step
+QUANT_TIMING_SHAPES = {"A1_w_gate": (917504, 64), "B_lm_head": (4096, 128256)}
+# each special row and the fault of the quantize kernel it exposes
+# (None: a parity row only; no fault of the kernel changes its bits)
+QUANT_ROWS = {"zero": "scale_floor_dropped", "ties": "round_half_away",
+              "top": None, "last_max": "absmax_but_last",
+              "reciprocal": "reciprocal_multiply"}
+
+
+def _fp8_dtype(fmt):
+    return {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}[fmt]
+
+
+def _through(v, dtype):
+    """fp32 numpy values rounded through ``dtype`` (exactly representable
+    there, and back in fp32)."""
+    return torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(
+        dtype).float().numpy()
+
+
+def _host_scale(absmax, qmax):
+    """The kernels' scale on the host: absmax times the fp32 reciprocal of
+    qmax, floored at 1e-12."""
+    recip = np.float32(1.0) / np.float32(qmax)
+    return np.maximum(np.float32(absmax) * recip, np.float32(1e-12))
+
+
+def _host_codes(v, fmt):
+    """Codes of already-scaled fp32 values v: int8 rint and clip, fp8 the
+    conversion (as fp32 values, for comparing)."""
+    t = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+    if fmt == "int8":
+        return torch.clamp(torch.round(t), -127, 127).numpy()
+    return t.to(_fp8_dtype(fmt)).float().numpy()
+
+
+def _grid_midpoints(fmt):
+    """Midpoints between neighbouring non-negative codes of ``fmt``."""
+    if fmt == "int8":
+        grid = np.arange(128, dtype=np.float32)
+    else:
+        vals = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(
+            _fp8_dtype(fmt)).float()
+        grid = np.unique(vals[torch.isfinite(vals) & (vals >= 0)].numpy())
+    return ((grid[:-1] + grid[1:]) / 2).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _reciprocal_hits(fmt, dtype):
+    """(absmax a, values x < a representable in ``dtype``) where dividing
+    x by a's scale and multiplying by the scale's reciprocal give other
+    codes; no values when ``dtype`` has none (bf16 inputs do not land that
+    close to an fp8 rounding boundary)."""
+    rng = np.random.default_rng(SEED + 5)
+    qmax = QUANT_QMAX[fmt]
+    mids = _grid_midpoints(fmt)
+    x = np.float32([])
+    for _ in range(32):
+        a = _through(rng.uniform(1.0, 4.0), dtype)[0]
+        s = _host_scale(a, qmax)
+        if dtype == torch.float32:       # a few ulps around each midpoint
+            near = [(mids * s).astype(np.float32)]
+            for toward in (np.float32(0), np.float32(np.inf)):
+                step = near[0]
+                for _ in range(3):
+                    step = np.nextafter(step, toward)
+                    near.append(step)
+            x = np.unique(np.concatenate(near))
+        else:                            # every bf16 value below a
+            x = torch.arange(0, 1 << 15, dtype=torch.int32).to(
+                torch.int16).view(torch.bfloat16).float().numpy()
+            x = np.unique(x[np.isfinite(x) & (x > a / 512)])
+        x = x[np.abs(x) < a]
+        x = x[_host_codes(x / s, fmt) != _host_codes(x * (np.float32(1) / s),
+                                                      fmt)]
+        if x.size:
+            return a, x
+    return None, x
+
+
+def _reciprocal_row(d, fmt, dtype, rng):
+    """A row of _reciprocal_hits values (random signs) and its absmax, or
+    None."""
+    a, hits = _reciprocal_hits(fmt, dtype)
+    if a is None:
+        return None
+    row = np.resize(rng.permutation(hits), d).astype(np.float32)
+    row *= rng.choice(np.float32([-1.0, 1.0]), size=d)
+    row[rng.integers(d)] = a
+    return row
+
+
+def quant_special_rows(d, fmt, dtype, rng):
+    """{name: row [d] fp32, representable in ``dtype``}: each row exposes
+    the fault named in QUANT_ROWS (``reciprocal`` is left out where no row
+    can expose it)."""
+    qmax = QUANT_QMAX[fmt]
+    rows = {"zero": np.zeros(d, np.float32)}
+    # absmax qmax/8 gives a scale of exactly 1/8, so x/scale lands on exact
+    # midpoints between codes: half to even and half away then differ
+    mids = _grid_midpoints(fmt)
+    pick = np.concatenate([[0], rng.integers(0, len(mids), size=d - 2)])
+    ties = mids[pick] * np.float32(0.125)
+    ties *= rng.choice(np.float32([-1.0, 1.0]), size=d - 1)
+    rows["ties"] = np.concatenate([[np.float32(qmax / 8)], ties]).astype(
+        np.float32)
+    # the absmax element: for int8, x / scale lands a hair above 127 (rint
+    # and the clip bring it back); for fp8 the reciprocal's scale never puts
+    # it above fmax (checked over every fp32 in [1, 2)), and it lands on fmax
+    for _ in range(1000):
+        a = _through(rng.uniform(0.5, 2.0), dtype)[0]
+        if fmt != "int8" or \
+                np.float32(a) / _host_scale(a, qmax) > np.float32(qmax):
+            break
+    row = _through(rng.uniform(-a / 2, a / 2, size=d), dtype)
+    row[rng.integers(d)] = -a if rng.random() < 0.5 else a
+    rows["top"] = row
+    # the last element is the row's only maximum
+    row = _through(rng.normal(size=d) * 3.0, dtype)
+    row[-1] = _through(1.5 * np.abs(row[:-1]).max() * rng.choice([-1, 1]),
+                       dtype)[0]
+    rows["last_max"] = row
+    row = _reciprocal_row(d, fmt, dtype, rng)
+    if row is not None:
+        rows["reciprocal"] = row
+    for name, r in rows.items():
+        check(np.array_equal(_through(r, dtype), r),
+              f"special row {name} is not exact in {dtype}")
+    return rows
+
+
+def quant_cases(seed=SEED):
+    """Every case: (name, x [N, D] fp32 numpy, fmt, dtype name, special row
+    names it holds). Each QUANT_SHAPES shape of seeded normal rows (times
+    3), its leading rows replaced by the special rows where N allows; where
+    it does not, one more case of the special rows alone at that width."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for fmt in QUANT_QMAX:
+        for dname, dtype in QUANT_DTYPES.items():
+            for n, d in QUANT_SHAPES:
+                x = _through(rng.normal(size=(n, d)) * 3.0, dtype)
+                special = quant_special_rows(d, fmt, dtype, rng)
+                rows = list(special)
+                if n >= len(rows):
+                    x[:len(rows)] = np.stack([special[r] for r in rows])
+                    cases.append((f"{n}x{d}", x, fmt, dname, rows))
+                else:
+                    cases.append((f"{n}x{d}", x, fmt, dname, []))
+                    cases.append((f"special_{len(rows)}x{d}",
+                                  np.stack([special[r] for r in rows]), fmt,
+                                  dname, rows))
+    return cases
+
+
+def _quant_plain(x, fmt):
+    from deepspeed_tpu_torch.ops.fp_quant import quantize_fp8_plain
+    from deepspeed_tpu_torch.ops.quant import quantize_int8_plain
+    return quantize_int8_plain(x) if fmt == "int8" else \
+        quantize_fp8_plain(x, fmt)
+
+
+def _quant_mutant(x, fmt, fault):
+    """The plain quantize with one fault a kernel could have (codes,
+    scales)."""
+    from deepspeed_tpu_torch.ops.quant import reciprocal
+    qmax = QUANT_QMAX[fmt]
+    x2d = x.float()
+    cols = x2d[:, :-1] if fault == "absmax_but_last" else x2d
+    scale = cols.abs().amax(dim=-1, keepdim=True) * reciprocal(qmax)
+    if fault != "scale_floor_dropped":
+        scale = torch.clamp_min(scale, 1e-12)
+    v = x2d * (1.0 / scale) if fault == "reciprocal_multiply" else x2d / scale
+    if fault == "round_half_away":
+        v = torch.nextafter(v, 2.0 * v)          # ties now round away from 0
+    if fmt == "int8":
+        return torch.clamp(torch.round(v), -127, 127).to(torch.int8), scale
+    return v.to(_fp8_dtype(fmt)), scale
+
+
+def _bits(t):
+    """A tensor's bits, for exact comparison (int view of its width)."""
+    return t.contiguous().view({1: torch.uint8, 2: torch.int16,
+                                4: torch.int32}[t.element_size()])
+
+
+def _differs(a, b) -> int:
+    return int((_bits(a) != _bits(b)).sum())
+
+
+def run_quant_cases(seed=SEED, device="cuda"):
+    """Every quant_cases case on the card: the quantize kernel of its
+    format against the plain version (codes and scales bit for bit), the
+    dequantize kernel against the plain version on the plain codes (bit for
+    bit, to the case's dtype), each quantize fault of a special row the
+    case holds changing a code or a scale, and a dequantize reading the
+    next row's scale changing an output. Returns the rows; raises
+    PhaseError on any failure. The ``gpu`` test runs this too; on
+    ``device="cpu"`` the wrappers run the plain versions, which checks the
+    cases and their mutants without the card."""
+    from deepspeed_tpu_torch.ops.fp_quant import dequantize_fp8, quantize_fp8
+    from deepspeed_tpu_torch.ops.quant import (dequantize_int8,
+                                               dequantize_plain, quantize_int8)
+    rows = []
+    for name, xnp, fmt, dname, special in quant_cases(seed):
+        dtype = QUANT_DTYPES[dname]
+        x = torch.from_numpy(xnp).to(device=device, dtype=dtype)
+        quant, dequant = (quantize_int8, dequantize_int8) if fmt == "int8" \
+            else (lambda t: quantize_fp8(t, fmt), dequantize_fp8)
+        q_k, s_k = quant(x)
+        q_p, s_p = _quant_plain(x, fmt)
+        d_k = dequant(q_p, s_p, dtype)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        d_p = dequantize_plain(q_p, s_p, dtype)
+        row = {"phase": "quant_parity", "case": name, "fmt": fmt,
+               "dtype": dname, "codes_differ": _differs(q_k, q_p),
+               "scales_differ": _differs(s_k, s_p),
+               "dequant_differ": _differs(d_k, d_p),
+               "max_abs_err": max(
+                   (q_k.float() - q_p.float()).abs().max().item(),
+                   (s_k - s_p).abs().max().item(),
+                   (d_k.float() - d_p.float()).abs().max().item()),
+               "special_rows": special, "mutants": {}}
+        for r in special:
+            fault = QUANT_ROWS[r]
+            if fault is None:
+                continue
+            m_q, m_s = _quant_mutant(x, fmt, fault)
+            row["mutants"][fault] = _differs(m_q, q_p) + _differs(m_s, s_p)
+        if special:
+            shifted = dequantize_plain(q_p, s_p.roll(1, 0), dtype)
+            row["mutants"]["dequant_row_shift"] = _differs(shifted, d_p)
+        emit(row)
+        check(row["codes_differ"] == row["scales_differ"] == 0,
+              f"quantize {fmt} {dname} {name}: {row['codes_differ']} codes, "
+              f"{row['scales_differ']} scales differ from the plain version")
+        check(row["dequant_differ"] == 0,
+              f"dequantize {fmt} {dname} {name}: {row['dequant_differ']} "
+              "outputs differ from the plain version")
+        for fault, n in row["mutants"].items():
+            check(n > 0, f"{fmt} {dname} {name}: mutant {fault} gives the "
+                  "plain version's bits, so the case cannot catch that fault")
+        rows.append(row)
+        del x, q_k, s_k, q_p, s_p, d_k, d_p
+    return rows
+
+
+def phase_quant_parity():
+    rows = run_quant_cases()
+    worst = {k: 0.0 for k in QUANT_KERNELS}
+    for row in rows:
+        q = "quantize_int8" if row["fmt"] == "int8" else "quantize_fp8"
+        worst[q] = max(worst[q], row["max_abs_err"])
+        worst["de" + q] = max(worst["de" + q], row["max_abs_err"])
+    faults = sorted({f for r in rows for f in r["mutants"]})
+    emit({"phase": "quant_parity_summary", "cases": len(rows),
+          "bit_identical": True, "mutants_caught": faults,
+          "reciprocal_rows": sorted({(r["fmt"], r["dtype"]) for r in rows
+                                     if "reciprocal" in r["special_rows"]})})
+    return worst
+
+
+def _quant_bound(nbytes):
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_quant_timing(dev, smi_line):
+    """Kernel and plain times of the four kernels at the two path shapes
+    (fp32 input; dequantize to bf16 at A1's shape, to fp32 at B's), beside
+    the bytes bound: input + codes + scales for quantize, codes + scales +
+    output for dequantize. No single PyTorch call computes these functions,
+    so there is no library time. At both shapes each kernel's codes, scales
+    and outputs are held bit for bit against the plain version's (each
+    grid-stride loop runs many passes there)."""
+    from deepspeed_tpu_torch.ops.fp_quant import (dequantize_fp8, quantize_fp8,
+                                                  quantize_fp8_plain)
+    from deepspeed_tpu_torch.ops.quant import (dequantize_int8,
+                                               dequantize_plain, quantize_int8,
+                                               quantize_int8_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+    out, parity = {}, {}
+    for where, (n, d) in QUANT_TIMING_SHAPES.items():
+        x = torch.randn(n, d, generator=gen, device="cuda")
+        dt = torch.bfloat16 if where.startswith("A1") else torch.float32
+        codes = {"int8": quantize_int8(x), "fp8": quantize_fp8(x)}
+        for fmt, (q, s) in codes.items():
+            qname = f"quantize_{fmt}"
+            qk = quantize_int8 if fmt == "int8" else quantize_fp8
+            qp = quantize_int8_plain if fmt == "int8" else quantize_fp8_plain
+            dk = dequantize_int8 if fmt == "int8" else dequantize_fp8
+            q_p, s_p = qp(x)
+            differ = {qname: _differs(q, q_p) + _differs(s, s_p),
+                      "de" + qname: _differs(dk(q, s, dt),
+                                             dequantize_plain(q, s, dt))}
+            del q_p, s_p
+            parity.setdefault(where, {}).update(differ)
+            for name, n_diff in differ.items():
+                check(n_diff == 0, f"{name} at {where} {[n, d]}: {n_diff} "
+                      "codes, scales or outputs differ from the plain version")
+            q_bytes = x.numel() * 4 + q.numel() + s.numel() * 4
+            d_bytes = q.numel() + s.numel() * 4 + q.numel() * dt.itemsize
+            for name, fn, plain, nbytes in (
+                    (qname, lambda: qk(x), lambda: qp(x), q_bytes),
+                    ("de" + qname, lambda: dk(q, s, dt),
+                     lambda: dequantize_plain(q, s, dt), d_bytes)):
+                bound_ms, bound_by = _quant_bound(nbytes)
+                ms = time_ms(fn, iters=20)
+                row = {"ms": ms, "plain_ms": time_ms(plain, iters=3),
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": None, "bytes": nbytes}
+                out.setdefault(name, {})[where] = row
+        del x, codes
+        torch.cuda.empty_cache()
+    emit({"phase": "quant_timing", "shapes": {k: list(v) for k, v in
+                                              QUANT_TIMING_SHAPES.items()},
+          "input": "fp32; dequantize to bf16 at A1_w_gate, fp32 at B_lm_head",
+          "elements_differing_from_plain": parity,
+          "kernels": {k: {w: {**r, "share_of_bound": r["bound_ms"] / r["ms"]}
+                          for w, r in v.items()} for k, v in out.items()},
+          "library": "no single PyTorch call computes these functions",
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    # the kernels line: each kernel at the shape of its main path
+    path_shape = {"quantize_fp8": "A1_w_gate", "dequantize_fp8": "A1_w_gate",
+                  "quantize_int8": "B_lm_head", "dequantize_int8": "B_lm_head"}
+    return {k: {key: out[k][w][key] for key in
+                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for k, w in path_shape.items()}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the serving path
 # ---------------------------------------------------------------------------
 def run_engine(cfg, device, kv_num_blocks, prompt_lens, new_tokens,
@@ -843,7 +1211,203 @@ def phase_profile(eng, lens, dev, smi_line):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the training path
+# phase 6: ZeRO-Inference on the quantized weight store
+# ---------------------------------------------------------------------------
+ZI_PROMPT_LEN, ZI_PROMPTS, ZI_NEW = 128, 4, 32   # resident generate
+ZI_STREAM_NEW = 8                               # streamed generate
+A2_LAYERS = 4
+# a weight within its group's bound: fp8 e4m3 scale * 448 * 2^-4 (the bound
+# kv_offload.quantize_error_bound uses), int8 scale / 2; the slack covers
+# the fp32 rounding of x / scale and of code * scale
+ZI_BOUND = {"fp8": 448.0 * 2.0 ** -4, "int8": 0.5}
+ZI_BOUND_SLACK = 1e-4
+
+
+def _quantized_leaves(store):
+    from deepspeed_tpu_torch.inference.zero_inference import (QuantizedTensor,
+                                                              _items)
+    return [(p, n) for p, n in _items(store) if isinstance(n, QuantizedTensor)]
+
+
+def _weight_bound_ratio(params, store):
+    """Largest |dequantized - source| over its group's bound across every
+    quantized weight (dequantized by the plain version, so this check
+    launches no kernel)."""
+    from deepspeed_tpu_torch.inference.zero_inference import _items
+    from deepspeed_tpu_torch.ops.quant import dequantize_plain
+    source = dict(_items(params))
+    worst = 0.0
+    for path, node in _quantized_leaves(store):
+        src = source[path].float().reshape(-1)
+        n = src.numel()
+        deq = dequantize_plain(node.codes, node.scale,
+                               torch.float32).reshape(-1)[:n]
+        group = node.codes.shape[-1]
+        bound = node.scale.reshape(-1).repeat_interleave(group)[:n] * \
+            ZI_BOUND[node.fmt]
+        worst = max(worst, ((deq - src).abs() / bound).max().item())
+        del src, deq, bound
+    return worst
+
+
+def _counted(fn, names):
+    """Run fn; return (its result, launches of ``names`` it made, host
+    seconds ending in a synchronize)."""
+    from deepspeed_tpu_torch.ops import build
+    before = build.launch_counts()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    after = build.launch_counts()
+    return out, {n: after.get(n, 0) - before.get(n, 0) for n in names}, seconds
+
+
+def _logits_agree(resident, streamed):
+    spread = (resident.max() - resident.min()).item()
+    err = (resident - streamed).abs().max().item()
+    same = (resident.argmax(-1) == streamed.argmax(-1)).float().mean().item()
+    return err, spread, same
+
+
+def run_zero_inference(cfg, fmt, q_bits, n_prompts, new_tokens, stream_new,
+                       seed=SEED):
+    """ZeRO-Inference on seeded ``cfg`` weights, resident and host-streamed,
+    through ``ZeROInferenceEngine`` (bf16): quantize, check every weight
+    against its group's bound, forward one ZI_PROMPT_LEN-token prompt in
+    both modes, generate ``n_prompts`` x ``new_tokens`` resident and one x
+    ``stream_new`` streamed. Returns the numbers and each step's launches
+    (the caller resets the counts before)."""
+    from deepspeed_tpu_torch.inference.zero_inference import (
+        ZeROInferenceEngine, _items, quantized_nbytes)
+    from deepspeed_tpu_torch.models.convert import init_llama_params
+    names = ("quantize_fp8", "dequantize_fp8", "quantize_int8",
+             "dequantize_int8", "paged_attention")
+    kw = dict(model_config=cfg, q_bits=q_bits, group_size=64, fmt=fmt,
+              dtype=torch.bfloat16)
+    params = init_llama_params(cfg, seed=seed, device="cuda")
+    model_bytes = sum(t.numel() * t.element_size()
+                      for _, t in _items(params))
+    torch.cuda.reset_peak_memory_stats()
+    st = {"model_bytes": model_bytes, "launches": {}}
+    resident, st["launches"]["quantize_resident"], st["quantize_s"] = _counted(
+        lambda: ZeROInferenceEngine(None, params, offload="none", **kw), names)
+    st["weight_err_over_bound"] = _weight_bound_ratio(params, resident.qstore)
+    streamed, st["launches"]["quantize_streamed"], st["quantize_streamed_s"] \
+        = _counted(lambda: ZeROInferenceEngine(None, params, offload="cpu",
+                                               **kw), names)
+    del params                       # the bf16 source is no longer needed
+    gc.collect()
+    torch.cuda.empty_cache()
+    st["store_bytes"] = quantized_nbytes(resident.qstore)
+    rng = np.random.default_rng(seed + 6)
+    prompts = [rng.integers(0, cfg.vocab_size, ZI_PROMPT_LEN).tolist()
+               for _ in range(n_prompts)]
+    batch = {"input_ids": np.asarray([prompts[0]], np.int32)}
+    logits_r, st["launches"]["forward_resident"], st["forward_resident_s"] = \
+        _counted(lambda: resident.forward(batch), names)
+    moved = streamed.streamed_bytes
+    logits_s, st["launches"]["forward_streamed"], st["forward_streamed_s"] = \
+        _counted(lambda: streamed.forward(batch), names)
+    st["forward_streamed_bytes"] = streamed.streamed_bytes - moved
+    st["h2d_gb_per_s"] = st["forward_streamed_bytes"] / \
+        st["forward_streamed_s"] / 1e9
+    st["logits_finite"] = bool(torch.isfinite(logits_r).all()
+                               and torch.isfinite(logits_s).all())
+    st["logits_max_abs_err"], st["logits_spread"], st["argmax_agreement"] = \
+        _logits_agree(logits_r[0], logits_s[0])
+    del logits_r, logits_s
+    outs, gen_launches, gen_s = [], [], 0.0
+    for p in prompts:
+        out, launches, seconds = _counted(
+            lambda: resident.generate(p, max_new_tokens=new_tokens), names)
+        outs.append(out)
+        gen_launches.append(launches)
+        gen_s += seconds
+    st["launches"]["generate_resident"] = gen_launches
+    st["generate_resident_tokens_per_s"] = sum(map(len, outs)) / gen_s
+    moved = streamed.streamed_bytes
+    out_s, st["launches"]["generate_streamed"], seconds = _counted(
+        lambda: streamed.generate(prompts[0], max_new_tokens=stream_new), names)
+    st["generate_streamed_tokens_per_s"] = len(out_s) / seconds
+    st["generate_streamed_h2d_gb_per_s"] = \
+        (streamed.streamed_bytes - moved) / seconds / 1e9
+    st["greedy_agreement"] = float(np.mean(
+        [a == b for a, b in zip(outs[0], out_s)]))
+    st["tokens"] = {"resident": [len(o) for o in outs], "streamed": len(out_s)}
+    st["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del resident, streamed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return st
+
+
+def _zi_checks(st, cfg, quant_name, deq_name, quant_launches, label):
+    """The exact launch counts of one ZeRO-Inference run: one quantize per
+    quantized leaf per engine, one dequantize per quantized leaf per
+    dequantization (the streamed generate dequantizes the embedding and the
+    head once and every layer once per token)."""
+    leaves = 2 + 7 * cfg.num_layers           # embed, lm_head, 7 per layer
+    per_token = 7 * cfg.num_layers
+    ln = st["launches"]
+    for step in ("quantize_resident", "quantize_streamed"):
+        check(ln[step][quant_name] == quant_launches,
+              f"{label}: {step} launched {quant_name} {ln[step][quant_name]} "
+              f"times, expected {quant_launches}")
+    for step in ("forward_resident", "forward_streamed"):
+        check(ln[step][deq_name] == leaves,
+              f"{label}: {step} launched {deq_name} {ln[step][deq_name]} "
+              f"times, expected {leaves}")
+    for i, g in enumerate(ln["generate_resident"]):
+        check(g[deq_name] == leaves, f"{label}: generate {i} launched "
+              f"{deq_name} {g[deq_name]} times, expected {leaves}")
+        check(g["paged_attention"] >= cfg.num_layers * ZI_NEW // 2,
+              f"{label}: generate {i} launched paged_attention only "
+              f"{g['paged_attention']} times")
+    want = 2 + ZI_STREAM_NEW * per_token
+    got = ln["generate_streamed"][deq_name]
+    check(got == want, f"{label}: streamed generate launched {deq_name} "
+          f"{got} times, expected {want}")
+    check(st["weight_err_over_bound"] <= 1.0 + ZI_BOUND_SLACK,
+          f"{label}: a weight is {st['weight_err_over_bound']} times its "
+          "group's bound away from its source")
+    check(st["logits_finite"], f"{label}: non-finite logits")
+    check(st["logits_max_abs_err"] <= LOGITS_TOL * st["logits_spread"],
+          f"{label}: resident vs streamed logits differ by "
+          f"{st['logits_max_abs_err']} (spread {st['logits_spread']})")
+    check(st["tokens"]["resident"] == [ZI_NEW] * len(ln["generate_resident"])
+          and st["tokens"]["streamed"] == ZI_STREAM_NEW,
+          f"{label}: generated {st['tokens']} tokens")
+
+
+def phase_zero_inference(dev, smi_line):
+    """A1: Llama-3-8B at full depth, fp8 e4m3 weights in groups of 64; A2:
+    the default int8 store at full width, A2_LAYERS layers. Each is one main
+    path run of its kernels (counts reset before, read after)."""
+    import dataclasses
+    from deepspeed_tpu_torch.models.llama import LLAMA3_8B
+    from deepspeed_tpu_torch.ops import build
+    runs = {}
+    for label, cfg, fmt, deq, quant_launches in (
+            ("A1", LLAMA3_8B, "fp", "dequantize_fp8", 2 + 7 * 32),
+            ("A2", dataclasses.replace(LLAMA3_8B, num_layers=A2_LAYERS),
+             "int", "dequantize_int8", 0)):
+        build.reset_launch_counts()       # the main path's run starts here
+        st = run_zero_inference(cfg, fmt, 8, ZI_PROMPTS if label == "A1"
+                                else 1, ZI_NEW, ZI_STREAM_NEW)
+        st["path_launches"] = build.launch_counts()
+        emit({"phase": "zero_inference", "config": label,
+              "model": f"LLAMA3_8B, {cfg.num_layers} layers, bf16, "
+              f"{'fp8 e4m3' if fmt == 'fp' else 'int8'} weights, groups of 64",
+              **st, "card": dev["kind"], "nvidia_smi": smi_line})
+        quant = "quantize_fp8" if fmt == "fp" else "quantize_int8"
+        _zi_checks(st, cfg, quant, deq, quant_launches, label)
+        runs[label] = st
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the training path
 # ---------------------------------------------------------------------------
 def train_config(lr=3e-4, backend="flash"):
     """Llama-3-8B at its published width, cut to TRAIN_LAYERS layers, with
@@ -896,11 +1460,12 @@ def _flash_vs_xla(engine, cfg, micro):
     return loss_f.item(), loss_x.item(), norm_f, norm_x, attn_rel
 
 
-def _train_steps(engine, batch, steps):
+def _train_steps(engine, batch, steps, names=tuple(FLASH_PER_STEP)):
     """``steps`` train_batch calls on one batch: losses, host ms per step
-    (each ends in the loss readback) and flash launches per step."""
+    (each ends in the loss readback), launches of ``names`` per step and
+    the gradient norm of each step."""
     from deepspeed_tpu_torch.ops import build
-    losses, step_ms, per_step = [], [], []
+    losses, step_ms, per_step, norms = [], [], [], []
     for _ in range(steps):
         before = build.launch_counts()
         t0 = time.monotonic()
@@ -909,8 +1474,9 @@ def _train_steps(engine, batch, steps):
         step_ms.append((time.monotonic() - t0) * 1e3)
         after = build.launch_counts()
         per_step.append({n: after.get(n, 0) - before.get(n, 0)
-                         for n in FLASH_PER_STEP})
-    return losses, step_ms, per_step
+                         for n in names})
+        norms.append(engine.get_global_grad_norm())
+    return losses, step_ms, per_step, norms
 
 
 def phase_train(dev, smi_line):
@@ -950,7 +1516,8 @@ def phase_train(dev, smi_line):
 
     torch.cuda.synchronize()
     build.reset_launch_counts()        # the main path's run starts here
-    losses, step_ms, per_step = _train_steps(engine, batch, 1 + TRAIN_STEPS)
+    losses, step_ms, per_step, _ = _train_steps(engine, batch,
+                                                1 + TRAIN_STEPS)
     launches = build.launch_counts()
     timed = step_ms[1:]
     mean_ms = sum(timed) / len(timed)
@@ -972,9 +1539,10 @@ def phase_train(dev, smi_line):
     return engine, batch, launches, losses
 
 
-def phase_train_profile(engine, batch, dev, smi_line):
-    """One training step under torch.profiler: device busy time, idle
-    share, kernels, top device and host ops."""
+def _profiled_step(engine, batch):
+    """One warm-up step, then one training step under torch.profiler: the
+    host ms of the window, its CUDA kernel events, their busy ms, and the
+    key averages."""
     engine.train_batch(batch=batch).item()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -983,10 +1551,17 @@ def phase_train_profile(engine, batch, dev, smi_line):
         engine.train_batch(batch=batch).item()
         torch.cuda.synchronize()
         window_ms = (time.monotonic() - t0) * 1e3
-    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    kernels = [e for e in prof.events() if e.device_type == cuda]
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    events = prof.key_averages()
+    return window_ms, kernels, busy_ms, prof.key_averages()
+
+
+def phase_train_profile(engine, batch, dev, smi_line):
+    """One training step under torch.profiler: device busy time, idle
+    share, kernels, top device and host ops."""
+    window_ms, kernels, busy_ms, events = _profiled_step(engine, batch)
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
     flash_ms = {n: sum(e.time_range.elapsed_us() for e in kernels
                        if f"{n}_kernel" in e.name) / 1e3
                 for n in FLASH_PER_STEP}
@@ -1008,14 +1583,15 @@ def phase_train_probe(batch, recipe_losses, dev, smi_line):
     rises between steps."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
-    runs = {}
+    runs, norms = {}, {}
     for name, lr, backend in (("flash_lr_3e-5", LOW_LR, "flash"),
                               ("xla_lr_3e-4", 3e-4, "xla")):
         cfg, ds_config = train_config(lr=lr, backend=backend)
         engine, _, _, _ = deepspeed_tpu_torch.initialize(
             model=LlamaForCausalLM(cfg, device="cuda", seed=SEED),
             config=ds_config)
-        runs[name], _, _ = _train_steps(engine, batch, 1 + TRAIN_STEPS)
+        runs[name], _, _, norms[name] = _train_steps(engine, batch,
+                                                     1 + TRAIN_STEPS)
         del engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -1028,6 +1604,95 @@ def phase_train_probe(batch, recipe_losses, dev, smi_line):
           f"non-finite probe loss {runs}")
     check(all(b < a for a, b in zip(low, low[1:])),
           f"loss at lr {LOW_LR} did not fall at every step: {low}")
+    return norms["flash_lr_3e-5"][0]
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training with qgZ (int8 gradients)
+# ---------------------------------------------------------------------------
+QGZ_STEPS = 3                      # train_batch steps after the first
+QGZ_LEAVES = 3 + 9 * TRAIN_LAYERS  # gradients of >= 2048 elements at this width
+QGZ_NORM_REL = 0.01                # step-1 gradient norm vs no qgZ
+QGZ_KERNELS = ("quantize_int8", "dequantize_int8")
+
+
+def phase_train_qgz(batch, plain_norm1, dev, smi_line):
+    """The probe's lr-3e-5 recipe with ``zero_quantized_gradients``: 1 +
+    QGZ_STEPS steps whose loss falls at every step, exactly QGZ_LEAVES int8
+    quantize and dequantize launches per micro-batch (flash unchanged), the
+    step-1 gradient norm within QGZ_NORM_REL of the same step without qgZ,
+    and the qgZ kernels' share of a profiled step."""
+    import warnings
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import build
+    cfg, ds_config = train_config(lr=LOW_LR)
+    ds_config["zero_optimization"]["zero_quantized_gradients"] = True
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=LlamaForCausalLM(cfg, device="cuda", seed=SEED),
+            config=ds_config)
+    warned = any("NO bytes are saved" in str(w.message) for w in caught)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()        # the main path's run starts here
+    names = tuple(FLASH_PER_STEP) + QGZ_KERNELS
+    losses, step_ms, per_step, norms = _train_steps(engine, batch,
+                                                    1 + QGZ_STEPS, names)
+    launches = build.launch_counts()
+    window_ms, kernels, busy_ms, _ = _profiled_step(engine, batch)
+    qgz_ms = {n: sum(e.time_range.elapsed_us() for e in kernels
+                     if re.search(rf"(?<![A-Za-z_]){n}", e.name)) / 1e3
+              for n in QGZ_KERNELS}
+    want = {**{n: k * TRAIN_LAYERS * TRAIN_GAS
+               for n, k in FLASH_PER_STEP.items()},
+            **{n: QGZ_LEAVES * TRAIN_GAS for n in QGZ_KERNELS}}
+    norm_rel = abs(norms[0] - plain_norm1) / plain_norm1
+    timed = step_ms[1:]
+    emit({"phase": "train_qgz", "model": f"LLAMA3_8B width, {TRAIN_LAYERS} "
+          "layers, bf16, flash, lr 3e-5, zero_quantized_gradients",
+          "warned": warned, "losses": losses, "step_ms": step_ms,
+          "step_ms_mean": sum(timed) / len(timed), "grad_norms": norms,
+          "grad_norm_step1_without_qgz": plain_norm1,
+          "grad_norm_step1_rel": norm_rel, "launches_per_step": per_step,
+          "launches": launches, "profiled_step_ms": window_ms,
+          "device_busy_ms": busy_ms, "qgz_kernel_ms": qgz_ms,
+          "qgz_share_of_busy": sum(qgz_ms.values()) / busy_ms,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    check(warned, "qgZ on one card did not warn that no bytes are saved")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"qgZ loss did not fall at every step: {losses}")
+    check(all(s == want for s in per_step),
+          f"launches per step {per_step}, expected {want}")
+    check(norm_rel <= QGZ_NORM_REL, f"step-1 gradient norm {norms[0]} with "
+          f"qgZ vs {plain_norm1} without ({norm_rel:.4f} relative)")
+    return launches
+
+
+# where each kernel's source lives and which TPU kernel it replaces
+KERNEL_TABLE = {
+    "paged_attention": ("paged_attention",
+                        "deepspeed_tpu/ops/pallas/paged_attention.py:35"),
+    "flash_fwd": ("flash_attention",
+                  "deepspeed_tpu/ops/pallas/flash_attention.py:80"),
+    "flash_dq": ("flash_attention",
+                 "deepspeed_tpu/ops/pallas/flash_attention.py:238"),
+    "flash_dkv": ("flash_attention",
+                  "deepspeed_tpu/ops/pallas/flash_attention.py:279"),
+    "quantize_int8": ("quant", "deepspeed_tpu/ops/pallas/quant.py:22"),
+    "dequantize_int8": ("quant", "deepspeed_tpu/ops/pallas/quant.py:31"),
+    "quantize_fp8": ("quant", "deepspeed_tpu/ops/pallas/fp_quant.py:29"),
+    "dequantize_fp8": ("quant", "deepspeed_tpu/ops/pallas/fp_quant.py:37"),
+}
+# the main paths each kernel lies on; the first is the one whose shape the
+# kernel's timing uses (serve: InferenceEngineV2, train: the recipe, A1/A2:
+# ZeRO-Inference fp8/int8, B: training with qgZ)
+KERNEL_PATHS = {"paged_attention": ("serve", "A1", "A2"),
+                **{n: ("train",) for n in FLASH_PER_STEP},
+                "quantize_fp8": ("A1",), "dequantize_fp8": ("A1",),
+                "quantize_int8": ("B",), "dequantize_int8": ("B", "A2")}
 
 
 def main() -> int:
@@ -1039,11 +1704,15 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 stays fp32
         torch.backends.cudnn.allow_tf32 = False
         phase = "build"
-        phase_build(["paged_attention", "flash_attention"])
+        build_info = phase_build(["paged_attention", "flash_attention", "quant"])
         phase = "kernel_parity"
         worst, timing = phase_kernel_parity()
         phase = "flash_parity"
         flash_worst, flash_timing = phase_flash_parity()
+        phase = "quant_parity"
+        quant_worst = phase_quant_parity()
+        phase = "quant_timing"
+        quant_timing = phase_quant_timing(dev, smi_line)
         phase = "engine"
         st, eng, lens = phase_engine(dev, smi_line)
         phase = "profile"
@@ -1051,6 +1720,8 @@ def main() -> int:
         del eng                          # free the serving engine's 25 GB
         gc.collect()
         torch.cuda.empty_cache()
+        phase = "zero_inference"
+        zi = phase_zero_inference(dev, smi_line)
         torch.cuda.reset_peak_memory_stats()
         phase = "train"
         engine, batch, train_launches, losses = phase_train(dev, smi_line)
@@ -1060,24 +1731,42 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase = "train_probe"
-        phase_train_probe(batch, losses, dev, smi_line)
+        plain_norm1 = phase_train_probe(batch, losses, dev, smi_line)
+        phase = "train_qgz"
+        qgz_launches = phase_train_qgz(batch, plain_norm1, dev, smi_line)
+        phase = "kernels"
+        # each kernel's launches on every main path run it lies on, each run
+        # with its own reset; the line's count is that of the path its
+        # timing shape comes from (first listed)
+        path_counts = {"serve": st["launches"], "train": train_launches,
+                       "A1": zi["A1"]["path_launches"],
+                       "A2": zi["A2"]["path_launches"], "B": qgz_launches}
+        launches_by_path = {
+            name: {p: path_counts[p].get(name, 0) for p in paths}
+            for name, paths in KERNEL_PATHS.items()}
+        check(all(n > 0 for by in launches_by_path.values()
+                  for n in by.values()),
+              f"a kernel was not launched on its path: {launches_by_path}")
     except Exception as exc:  # any failed phase: report it, exit non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False, "error": f"{type(exc).__name__}: {exc}"})
         return 1
-    flash_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
-    flash_tpu = {"flash_fwd": 80, "flash_dq": 238, "flash_dkv": 279}
-    emit({"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:35",
-        "launches": st["launches"].get("paged_attention", 0),
-        "max_abs_err": worst, "ok": True, **timing}] + [{
-            "name": name, "route": "cuda", "source": flash_src,
-            "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}",
-            "launches": train_launches.get(name, 0),
-            "max_abs_err": flash_worst[name], "ok": True,
-            **flash_timing[name]} for name, line in flash_tpu.items()]})
+    numbers = {"paged_attention": {"max_abs_err": worst, **timing},
+               **{n: {"max_abs_err": flash_worst[n], **flash_timing[n]}
+                  for n in FLASH_PER_STEP},
+               **{n: {"max_abs_err": quant_worst[n], **quant_timing[n]}
+                  for n in QUANT_KERNELS}}
+    rows = []
+    for name, (source, replaces) in KERNEL_TABLE.items():
+        build_s, registers = _build_of(build_info, source, name)
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"deepspeed_tpu_torch/csrc/{source}.cu",
+                     "replaces": replaces,
+                     "launches": launches_by_path[name][KERNEL_PATHS[name][0]],
+                     "launches_by_path": launches_by_path[name],
+                     "build_s": build_s, "registers": registers, "ok": True,
+                     **numbers[name]})
+    emit({"kernels": rows})
     print(smi_line, flush=True)
     emit({"ok": True, "device": dev})
     return 0

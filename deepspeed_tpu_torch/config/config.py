@@ -68,10 +68,13 @@ class OffloadConfig:
 class ZeroConfig:
     """reference: runtime/zero/config.py. The port runs stage 0 (plain data
     parallel, one card); stages 1-3 and the offload tiers come with
-    ROADMAP Queue 1 item 5."""
+    ROADMAP Queue 1 item 5. ``zero_quantized_gradients`` (qgZ) is read at
+    stage 0: on one card it is the int8 round trip of every micro-batch
+    gradient (``runtime/engine.py``)."""
     stage: int = 0
     offload_param: Any = None
     offload_optimizer: Any = None
+    zero_quantized_gradients: bool = False
 
     def __post_init__(self):
         if self.stage not in (0, 1, 2, 3):

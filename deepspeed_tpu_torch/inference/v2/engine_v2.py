@@ -14,12 +14,13 @@ chunk's tokens and table (or the decode batch's tokens, positions and valid
 flags, and its tables when they changed) and reads back only the sampled
 ids.
 
-Not ported yet (they come with the serving-layer slice, with
-``kv_offload.py``): the host KV tier — ``demote_kv``, ``promote_kv``,
-``adopt_kv_handoff``, ``export_prefix_handoff``, ``import_prefix_handoff``
-and the gauges over both tiers (``kv_ledger``, ``kv_resident_bytes``,
-``resident_tokens``, ``demoted_uids``, ``demoted_blocks``,
-``host_kv_bytes``).
+The host KV tier (``kv_offload.py``): ``demote_kv`` spills a sequence's
+pages to host RAM (full width, or int8/fp8 per page) and pauses it,
+``promote_kv`` brings them back into free blocks; ``kv_ledger``,
+``kv_resident_bytes``, ``resident_tokens``, ``demoted_uids``,
+``demoted_blocks`` and ``host_kv_bytes`` gauge both tiers. Not ported yet
+(they come with the serving-layer slice): ``adopt_kv_handoff``,
+``export_prefix_handoff`` and ``import_prefix_handoff``, which raise.
 """
 
 import dataclasses
@@ -34,6 +35,10 @@ from deepspeed_tpu_torch.inference.v2.generic_decode import (decode_step_g,
                                                              verify_chunk_g)
 from deepspeed_tpu_torch.inference.v2.kv_cache import (BlockedKVCache,
                                                        KVCacheConfig)
+from deepspeed_tpu_torch.inference.v2.kv_offload import (HostKVEntry,
+                                                         HostKVStore,
+                                                         dequantize_pages,
+                                                         quantize_pages)
 from deepspeed_tpu_torch.inference.v2.modules import policy_for
 from deepspeed_tpu_torch.inference.v2.prefix_cache import PrefixCache
 from deepspeed_tpu_torch.inference.v2.ragged_manager import (SequenceDescriptor,
@@ -150,6 +155,8 @@ class InferenceEngineV2:
         self._spec_steps = 0
         self._spec_proposed = 0
         self._spec_accepted = 0
+        # host KV tier: demoted sequences' pages (kv_offload.py)
+        self.host_kv = HostKVStore()
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without waiting for the device
@@ -430,7 +437,131 @@ class InferenceEngineV2:
             self.kv.release([b for b in seq.blocks if not cache.owns(b)])
         else:
             self.kv.release(seq.blocks)
+        self.host_kv.pop(uid)     # no-op unless the sequence was demoted
         return seq.generated
+
+    # ------------------------------------------------------------------
+    # host KV offload tier (serving demotion/promotion; kv_offload.py)
+    # ------------------------------------------------------------------
+    def demote_kv(self, uid: int, quantize: str = "none") -> int:
+        """Spill a sequence's KV pages to host RAM and release its device
+        blocks; the sequence pauses (invisible to the step planner) until
+        ``promote_kv``. Returns the host bytes now held for it (0 when the
+        uid is unknown, done or already demoted). ``quantize`` is the
+        host-tier page codec ("none" | "int8" | "fp8"); device-fp8 pages
+        are never re-quantized. Pages the prefix cache owns stay on the
+        device for their other readers and travel in the entry too."""
+        seq = self.state.get(uid)
+        if seq is None or seq.paused or seq.done:
+            return 0
+        data, scales = self.kv.gather_blocks(seq.blocks) if seq.blocks \
+            else (None, None)
+        raw = (data.numel() * data.element_size() if data is not None else 0) \
+            + (scales.numel() * scales.element_size()
+               if scales is not None else 0)
+        codec, qscales = "none", None
+        if data is not None and quantize != "none" and \
+                self.kv.cfg.dtype != torch.float8_e4m3fn:
+            data, qscales = quantize_pages(data, quantize)
+            codec = quantize
+        entry = HostKVEntry(blocks=len(seq.blocks), data=data, scales=scales,
+                            seen_tokens=seq.seen_tokens, codec=codec,
+                            qscales=qscales, raw_nbytes=raw)
+        self.host_kv.put(uid, entry)
+        if self.prefix_cache is not None:
+            self.prefix_cache.release_seq(uid)
+            cache = self.prefix_cache
+            self.kv.release([b for b in seq.blocks if not cache.owns(b)])
+        else:
+            self.kv.release(seq.blocks)
+        seq.blocks = []
+        seq.paused = True
+        self._table_sig = None    # decode tables must rebuild
+        return entry.nbytes
+
+    def promote_kv(self, uid: int) -> Optional[int]:
+        """Bring a demoted sequence back: reserve (possibly other) device
+        blocks, scatter its pages in, resume scheduling. Returns the bytes
+        restored, or None when the uid is unknown, done, or the device has
+        too few free blocks right now."""
+        seq = self.state.get(uid)
+        entry = self.host_kv.get(uid)
+        if seq is None or entry is None or seq.done:
+            return None
+        if entry.blocks > self.kv.free_blocks + self._evictable_blocks():
+            return None
+        blocks = self._reserve(entry.blocks)
+        if entry.blocks:
+            data = dequantize_pages(entry.data, entry.qscales, entry.codec,
+                                    torch.float32 if entry.codec != "none"
+                                    else entry.data.dtype)
+            self.kv.scatter_blocks(blocks, data, entry.scales)
+        seq.blocks = list(blocks)
+        seq.paused = False
+        self.host_kv.pop(uid, promoted=True)
+        self._table_sig = None
+        return entry.nbytes
+
+    def _unported_handoff(self, api: str):
+        raise NotImplementedError(
+            f"{api} (prefill/decode and fleet KV handoffs) is not ported yet: "
+            "it comes with the serving-layer slice (ROADMAP Queue 1)")
+
+    def adopt_kv_handoff(self, uid, prompt_tokens, generated, entry) -> bool:
+        self._unported_handoff("adopt_kv_handoff")
+
+    def export_prefix_handoff(self, path: str, quantize: str = "none"):
+        self._unported_handoff("export_prefix_handoff")
+
+    def import_prefix_handoff(self, path: str):
+        self._unported_handoff("import_prefix_handoff")
+
+    def demoted_uids(self) -> List[int]:
+        """Demotion-ordered uids currently in the host tier."""
+        return self.host_kv.uids()
+
+    def demoted_blocks(self, uid: int) -> int:
+        """Device blocks a demoted sequence will need back at promotion."""
+        entry = self.host_kv.get(uid)
+        return entry.blocks if entry is not None else 0
+
+    def host_kv_bytes(self) -> int:
+        return self.host_kv.total_bytes
+
+    def kv_ledger(self) -> Dict[str, int]:
+        """Both tiers' occupancy in one dict. ``device_blocks_reserved``
+        excludes prefix-cache-held blocks (``prefix_cached_blocks``)."""
+        cached = (self.prefix_cache.cached_blocks()
+                  if self.prefix_cache is not None else 0)
+        return {
+            "device_blocks_reserved": self.kv_reserved_blocks() - cached,
+            "device_block_bytes": self.kv_block_bytes(),
+            "prefix_cached_blocks": cached,
+            "host_entries": len(self.host_kv),
+            "host_bytes": self.host_kv.total_bytes,
+            "host_raw_bytes": self.host_kv.raw_bytes,
+            "demotions": self.host_kv.demotions,
+            "promotions": self.host_kv.promotions,
+            "demoted_bytes": self.host_kv.demoted_bytes,
+            "promoted_bytes": self.host_kv.promoted_bytes,
+            "demoted_raw_bytes": self.host_kv.demoted_raw_bytes,
+            "host_compression_ratio": self.host_kv.compression_ratio(),
+        }
+
+    def resident_tokens(self) -> int:
+        """Tokens whose KV is resident in either tier right now."""
+        total = sum(s.seen_tokens for s in self.state.all() if not s.paused)
+        for u in self.host_kv.uids():
+            entry = self.host_kv.get(u)
+            if entry is not None:
+                total += entry.seen_tokens
+        return total
+
+    def kv_resident_bytes(self) -> int:
+        """Bytes holding resident KV across both tiers (device blocks at
+        block-byte width + host entries at stored width)."""
+        return (self.kv_reserved_blocks() * self.kv_block_bytes()
+                + self.host_kv.total_bytes)
 
     def prefix_stats(self) -> Dict[str, float]:
         """Prefix-cache counters + the prefill-work conservation triple:

@@ -12,7 +12,7 @@ the pool on the device.
 """
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -72,6 +72,29 @@ class BlockedKVCache:
             # its grown scale on the next sequence that gets it
             idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
             self.scales[:, :, :, idx] = 1.0
+
+    # ------------------------------------------------------------------
+    # host offload tier (serving demotion/promotion; see kv_offload.py)
+    # ------------------------------------------------------------------
+    def gather_blocks(self, blocks: List[int]
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Copy the listed blocks' pages (and, for fp8, their scales) to
+        host tensors ``[L, 2, H_kv, len(blocks), bs, D]``: a deliberate
+        device-to-host copy, made only when a sequence is demoted."""
+        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        data = self.data[:, :, :, idx].cpu()
+        scales = (self.scales[:, :, :, idx].cpu()
+                  if self.scales is not None else None)
+        return data, scales
+
+    def scatter_blocks(self, blocks: List[int], data: torch.Tensor,
+                       scales: Optional[torch.Tensor] = None) -> None:
+        """Write gathered pages back into (possibly other) blocks, the
+        promotion path; fp8 scales are restored with them."""
+        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        self.data[:, :, :, idx] = data.to(self.device, self.cfg.dtype)
+        if self.scales is not None and scales is not None:
+            self.scales[:, :, :, idx] = scales.to(self.device, torch.float32)
 
 
 FP8_MAX = 448.0     # float8_e4m3fn max finite; overflow casts become NaN

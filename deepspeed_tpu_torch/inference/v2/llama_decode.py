@@ -47,28 +47,29 @@ def _rms(x, scale, eps):
     return (y * scale.float()).to(x.dtype)
 
 
-def _qkv(lp, x):
+def _qkv(lp, x, dtype):
     """x: [T, D] -> q [T,H,d], k/v [T,Hkv,d] (+ bias when present —
-    qwen2-style attention_bias)."""
+    qwen2-style attention_bias); weights cast to ``dtype`` (the reference's
+    ``.astype(dtype)``)."""
     a = lp["attn"]
-    q = torch.einsum("td,dhk->thk", x, a["wq"]["kernel"])
-    k = torch.einsum("td,dhk->thk", x, a["wk"]["kernel"])
-    v = torch.einsum("td,dhk->thk", x, a["wv"]["kernel"])
+    q = torch.einsum("td,dhk->thk", x, a["wq"]["kernel"].to(dtype))
+    k = torch.einsum("td,dhk->thk", x, a["wk"]["kernel"].to(dtype))
+    v = torch.einsum("td,dhk->thk", x, a["wv"]["kernel"].to(dtype))
     if "bias" in a["wq"]:
-        q = q + a["wq"]["bias"]
-        k = k + a["wk"]["bias"]
-        v = v + a["wv"]["bias"]
+        q = q + a["wq"]["bias"].to(dtype)
+        k = k + a["wk"]["bias"].to(dtype)
+        v = v + a["wv"]["bias"].to(dtype)
     return q, k, v
 
 
-def _mlp(lp, x, act: str = "silu"):
+def _mlp(lp, x, act: str, dtype):
     m = lp["mlp"]
-    g = x @ m["w_gate"]["kernel"]
-    u = x @ m["w_up"]["kernel"]
+    g = x @ m["w_gate"]["kernel"].to(dtype)
+    u = x @ m["w_up"]["kernel"].to(dtype)
     if act == "silu":
         gated = F.silu(g)
     elif act == "gelu_tanh":
         gated = F.gelu(g, approximate="tanh")
     else:
         raise ValueError(f"unsupported hidden_act {act!r} (silu | gelu_tanh)")
-    return (gated * u) @ m["w_down"]["kernel"]
+    return (gated * u) @ m["w_down"]["kernel"].to(dtype)

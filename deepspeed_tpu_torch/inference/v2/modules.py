@@ -115,13 +115,14 @@ class LlamaPolicy:
         cos, sin = _rope_tables(cfg.head_dim_, cfg.max_seq_len,
                                 cfg.rope_theta, x.device)
         h = _rms(x, ns(lp["attn_norm"]["scale"], cfg), cfg.rms_norm_eps)
-        q, k, v = _qkv(lp, h)
+        q, k, v = _qkv(lp, h, cfg.dtype)
         q = _rope_rows(q, cos, sin, positions)
         k = _rope_rows(k, cos, sin, positions)
         attn = attend(q, k, v)
-        x = x + torch.einsum("thk,hkd->td", attn, lp["attn"]["wo"]["kernel"])
+        x = x + torch.einsum("thk,hkd->td", attn,
+                             lp["attn"]["wo"]["kernel"].to(cfg.dtype))
         h2 = _rms(x, ns(lp["mlp_norm"]["scale"], cfg), cfg.rms_norm_eps)
-        return x + _mlp(lp, h2, act=cfg.hidden_act)
+        return x + _mlp(lp, h2, act=cfg.hidden_act, dtype=cfg.dtype)
 
     @staticmethod
     def unembed(params, x, cfg):

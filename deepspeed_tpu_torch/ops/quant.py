@@ -1,0 +1,221 @@
+"""Per-row symmetric int8 quantization: plain versions, the CUDA kernels'
+wrappers and launch counts.
+
+Port of ``deepspeed_tpu/ops/pallas/quant.py``. The TPU kernels
+``_quant_kernel`` and ``_dequant_kernel`` (run through
+``rowwise_pallas_op``) become the hand-written CUDA kernels of
+``csrc/quant.cu`` (design notes there), launched by ``quantize_int8`` and
+``dequantize_int8`` and counted under those names. The same source holds
+the fp8 kernels that ``ops/fp_quant.py`` wraps; ``quantize_rows_cuda`` and
+``dequantize_rows_cuda`` launch either.
+
+``quantize_int8_plain`` and ``dequantize_int8_plain`` compute the
+reference's function with the reference's rounding points (the scale as
+``absmax`` times the fp32 reciprocal of 127, which is what XLA makes of
+``absmax / 127.0``; then the true division ``x / scale``, round half to
+even, one fp32 product and one cast), so a kernel and its plain version
+agree bit for bit. CPU tensors run the plain
+versions; CUDA tensors launch the kernels or raise. Nothing catches a build
+or launch failure to run a plain version instead.
+
+Rows are the last axis: ``x [..., D]`` gives codes ``[..., D]`` and fp32
+scales ``[..., 1]``. The TPU's ``block_rows`` padding has no counterpart.
+The collectives built on these kernels (``quantized_all_gather``,
+``quantized_psum_scatter``, ``all_to_all_quant_reduce``,
+``quantized_psum``, ``quantized_all_to_all``) come with the distribution
+slice (ROADMAP Queue 1 item 5) and raise here.
+"""
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.ops import build
+
+KERNEL = "quant"
+INT8_MAX = 127.0
+SCALE_FLOOR = 1e-12
+# codes of csrc/quant.cu
+CODE_INT8, CODE_E4M3, CODE_E5M2 = 0, 1, 2
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_CODE_DTYPES = {CODE_INT8: torch.int8, CODE_E4M3: torch.float8_e4m3fn,
+                CODE_E5M2: torch.float8_e5m2}
+_lib: Optional[ctypes.CDLL] = None
+
+
+# ---------------------------------------------------------------------------
+# the plain versions
+# ---------------------------------------------------------------------------
+def reciprocal(qmax: float) -> float:
+    """The fp32 reciprocal of ``qmax``, rounded once, as XLA folds it."""
+    return float(np.float32(1.0) / np.float32(qmax))
+
+
+def row_scales(x2d: torch.Tensor, qmax: float) -> torch.Tensor:
+    """[N, D] -> fp32 [N, 1]: the reference's ``max(absmax / qmax,
+    1e-12)`` per row as XLA computes it: a division by a constant becomes a
+    product with the constant's fp32 reciprocal (``x / scale``, a division
+    by a tensor, stays a division)."""
+    absmax = x2d.float().abs().amax(dim=-1, keepdim=True)
+    return torch.clamp_min(absmax * reciprocal(qmax), SCALE_FLOOR)
+
+
+def quantize_int8_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What ``_quant_kernel`` computes: x [..., D] -> (int8 codes [..., D],
+    fp32 scales [..., 1])."""
+    shape = x.shape
+    x2d = x.reshape(-1, shape[-1]).float()
+    scale = row_scales(x2d, INT8_MAX)
+    q = torch.clamp(torch.round(x2d / scale), -INT8_MAX, INT8_MAX)
+    return q.to(torch.int8).reshape(shape), scale.reshape(*shape[:-1], 1)
+
+
+def dequantize_plain(q: torch.Tensor, scales: torch.Tensor,
+                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """What ``_dequant_kernel`` and ``_fp8_dequant_kernel`` compute:
+    ``(float(q) * scale)`` cast to ``dtype``, q [..., D], scales [..., 1]."""
+    d = q.shape[-1]
+    out = q.reshape(-1, d).float() * scales.reshape(-1, 1).float()
+    return out.to(dtype).reshape(q.shape)
+
+
+dequantize_int8_plain = dequantize_plain
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = build.load(KERNEL)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.dstt_quantize_rows.argtypes = [p, p, p, ll, i, i, i, p]
+        lib.dstt_dequantize_rows.argtypes = [p, p, p, ll, i, i, i, p]
+        lib.dstt_quantize_rows.restype = ctypes.c_int
+        lib.dstt_dequantize_rows.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"quant kernel: {msg}")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def quantize_rows_cuda(x: torch.Tensor, code: int, name: str
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the quantize kernel of ``code`` on x [..., D] (fp32, bf16 or
+    fp16 on the card); counted as ``name``."""
+    _check(x.device.type == "cuda", f"tensor on {x.device}")
+    _check(x.dtype in _DTYPES, f"dtype {x.dtype} (float32, bfloat16, float16)")
+    _check(x.dim() >= 1 and x.shape[-1] > 0, "x needs a last axis of D > 0")
+    shape = x.shape
+    d = shape[-1]
+    x2d = x.reshape(-1, d).contiguous()
+    n = x2d.shape[0]
+    q = torch.empty(shape, dtype=_CODE_DTYPES[code], device=x.device)
+    s = torch.empty(*shape[:-1], 1, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return q, s
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dstt_quantize_rows(x2d.data_ptr(), q.data_ptr(), s.data_ptr(),
+                                     n, d, _DTYPES[x.dtype], code, stream)
+    _raise_on(err, name)
+    build.count_launch(name)
+    return q, s
+
+
+def dequantize_rows_cuda(q: torch.Tensor, scales: torch.Tensor, code: int,
+                         dtype: torch.dtype, name: str) -> torch.Tensor:
+    """Launch the dequantize kernel of ``code``: q [..., D], scales
+    [..., 1] fp32 -> [..., D] in ``dtype``; counted as ``name``."""
+    _check(q.device.type == "cuda" and scales.device == q.device,
+           f"q on {q.device}, scales on {scales.device}")
+    _check(q.dtype == _CODE_DTYPES[code], f"codes {q.dtype}, expected "
+           f"{_CODE_DTYPES[code]}")
+    _check(scales.dtype == torch.float32, f"scales {scales.dtype} (float32)")
+    _check(dtype in _DTYPES, f"output dtype {dtype}")
+    _check(q.dim() >= 1 and q.shape[-1] > 0, "q needs a last axis of D > 0")
+    d = q.shape[-1]
+    q2d = q.reshape(-1, d).contiguous()
+    s = scales.reshape(-1).contiguous()
+    n = q2d.shape[0]
+    _check(s.numel() == n, f"{s.numel()} scales for {n} rows")
+    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    if n == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.dstt_dequantize_rows(q2d.data_ptr(), s.data_ptr(),
+                                       out.data_ptr(), n, d, code,
+                                       _DTYPES[dtype], stream)
+    _raise_on(err, name)
+    build.count_launch(name)
+    return out
+
+
+def on_card(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); anything else raises."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return x.device.type == "cuda"
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [..., D] -> (int8 codes [..., D], fp32 scales [..., 1]) per row:
+    the kernel on CUDA tensors, the plain version on CPU tensors."""
+    if on_card(x, "quantize_int8"):
+        return quantize_rows_cuda(x, CODE_INT8, "quantize_int8")
+    return quantize_int8_plain(x)
+
+
+def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Inverse of ``quantize_int8``: ``(float(q) * scale)`` in ``dtype``."""
+    if on_card(q, "dequantize_int8"):
+        return dequantize_rows_cuda(q, scales, CODE_INT8, dtype,
+                                    "dequantize_int8")
+    return dequantize_int8_plain(q, scales, dtype)
+
+
+# ---------------------------------------------------------------------------
+# not ported yet: the collectives on top of the kernels
+# ---------------------------------------------------------------------------
+def _unported(name: str):
+    raise NotImplementedError(
+        f"{name} (a quantized collective) is not ported yet: it comes with "
+        "the distribution slice on torch.distributed (ROADMAP Queue 1 item 5)")
+
+
+def quantized_all_gather(x, axis_name):
+    _unported("quantized_all_gather")
+
+
+def quantized_psum_scatter(x, axis_name, mean: bool = False):
+    _unported("quantized_psum_scatter")
+
+
+def all_to_all_quant_reduce(x, axis_name, outer_axis_name=None,
+                            mean: bool = False):
+    _unported("all_to_all_quant_reduce")
+
+
+def quantized_psum(x, axes, mean: bool = False):
+    _unported("quantized_psum")
+
+
+def quantized_all_to_all(x, axis_name, split_axis: int = 0,
+                         concat_axis: int = 0):
+    _unported("quantized_all_to_all")

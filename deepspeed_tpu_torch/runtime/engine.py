@@ -11,6 +11,9 @@ reference ``deepspeed/runtime/engine.py``) on one device, ZeRO stage 0:
   ``grad_accum_dtype`` into buffers of that dtype (autograd's own ``.grad``
   would sum in fp32), and only after the sum divides by ``scale * gas`` in
   fp32 (reference ``:993``);
+- with ``zero_quantized_gradients`` (qgZ) each micro-batch gradient takes
+  the int8 round trip through the quantize/dequantize kernels before it is
+  accumulated (reference ``:781-805``);
 - ``_update`` is the reference's (``:1018-1057``): overflow check under
   fp16 or the non-finite guard, clipping by the global norm, the Adam
   update, and on overflow the old parameters, optimizer state and step kept
@@ -24,6 +27,7 @@ Without them a step never waits for the device. The micro-step protocol
 prefetcher are not ported yet (ROADMAP Queue 1).
 """
 
+import warnings
 from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import numpy as np
@@ -31,8 +35,10 @@ import torch
 
 from deepspeed_tpu_torch.config.config import DeepSpeedTPUConfig
 from deepspeed_tpu_torch.ops.optimizers import build_optimizer
+from deepspeed_tpu_torch.ops.quant import dequantize_int8, quantize_int8
 from deepspeed_tpu_torch.runtime import precision
 from deepspeed_tpu_torch.runtime.lr_schedules import build_schedule, constant_lr
+from deepspeed_tpu_torch.runtime.zero.qgz import MIN_QUANT_SIZE
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.logging import log_dist
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
@@ -44,6 +50,14 @@ class StepOutput(NamedTuple):
     grad_norm: torch.Tensor
     lr: float
     overflow: bool
+
+
+def _int8_round_trip(g: torch.Tensor) -> torch.Tensor:
+    """qgZ's numerics on one card: ``dequantize_int8(*quantize_int8(g))``
+    in g's dtype; tiny leaves (norm scales, biases) keep full precision."""
+    if g.dim() < 1 or g.numel() < MIN_QUANT_SIZE:
+        return g
+    return dequantize_int8(*quantize_int8(g), dtype=g.dtype)
 
 
 def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -70,6 +84,21 @@ class DeepSpeedTPUEngine:
         self.zero_stage = config.zero_config.stage
         self.loss_fn = loss_fn
         log_dist(f"engine: {config!r} device={self.device}", ranks=[0])
+        # qgZ on one card: no data-parallel reduction to put int8 on, so
+        # every micro-batch gradient takes the int8 round trip instead, the
+        # numerics of the reference's quantized-gradient collectives
+        # (reference engine.py:381-418, the no-replica-axis case)
+        self._quantized_gradients = bool(
+            config.zero_config.zero_quantized_gradients)
+        if self._quantized_gradients:
+            warnings.warn(
+                "qgZ: zero_quantized_gradients=true on one device: there is "
+                "no data-parallel all-reduce hop to compress, so NO bytes "
+                "are saved on the wire. Gradients still pay the int8 "
+                "round-trip quantization noise (reference-fidelity "
+                "numerics). Disable zero_quantized_gradients, or wait for "
+                "the distribution slice (ROADMAP Queue 1 item 5).",
+                UserWarning, stacklevel=3)
 
         # --- LR schedule ----------------------------------------------------
         if lr_scheduler is not None:
@@ -137,10 +166,14 @@ class DeepSpeedTPUEngine:
 
     def _grads_one_micro(self, batch, scale: float):
         """Loss and the gradients of ``loss * scale`` with respect to the
-        fp32 masters (fp32 tensors)."""
+        fp32 masters (fp32 tensors). With qgZ every gradient of at least
+        ``MIN_QUANT_SIZE`` elements goes through the int8 kernels (rows are
+        its last axis) before it is accumulated."""
         loss = self._compute_loss(batch)
-        grads = torch.autograd.grad(loss * scale, self._masters)
-        return loss.detach(), list(grads)
+        grads = list(torch.autograd.grad(loss * scale, self._masters))
+        if self._quantized_gradients:
+            grads = [_int8_round_trip(g) for g in grads]
+        return loss.detach(), grads
 
     def _grads_phase(self, stacked: Dict[str, torch.Tensor], scale: float):
         """(mean loss, per-micro gradients summed in grad_accum_dtype)."""
