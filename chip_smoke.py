@@ -29,7 +29,13 @@ the port's paths:
   reruns the steps at a tenth of the lr (the loss must fall at every step)
   and with the plain attention backend, and the same lr with qgZ
   (``zero_quantized_gradients``): exact int8 launches per step, a loss that
-  falls every step, the step-1 gradient norm beside the probe's.
+  falls every step, the step-1 gradient norm beside the probe's;
+- evoformer attention: the five kernels against their plain versions in 10
+  cases (fp32 and bf16, head dims 8 to 128, every bias combination, Lq !=
+  Lk) with mutants, then ``DS4Sci_EvoformerAttention`` forward and backward
+  at OpenFold's widths (E1 MSA row attention with pair bias, E2 MSA column,
+  E3 triangle, E4 extra-MSA row) with exact launch counts, held against the
+  chunked plain versions, and the kernels timed at E1 beside SDPA.
 
 Each phase prints one JSON line; the card's name and power limit
 (``nvidia-smi``) and the ``kernels`` line come before the last line,
@@ -131,8 +137,7 @@ def _demangle(names):
 
 
 def phase_build(kernels):
-    from deepspeed_tpu_torch.ops import build
-    from deepspeed_tpu_torch.ops import flash_attention
+    from deepspeed_tpu_torch.ops import build, evoformer, flash_attention
     from deepspeed_tpu_torch.ops.paged_attention import dynamic_smem_bytes
     t0 = time.monotonic()
     results = build.build(kernels)
@@ -158,7 +163,10 @@ def phase_build(kernels):
     emit({"phase": "build", "wall_s": round(time.monotonic() - t0, 3),
           "kernels": info, "paged_attention_dynamic_smem_bytes": smem,
           "flash_dynamic_smem_bytes": {
-              f"d{d}": flash_attention.dynamic_smem_bytes(d) for d in (64, 128)}})
+              f"d{d}": flash_attention.dynamic_smem_bytes(d) for d in (64, 128)},
+          "evo_dynamic_smem_bytes": {
+              f"d{d}": evoformer.dynamic_smem_bytes(d)
+              for d in evoformer.HEAD_DIMS}})
     return info
 
 
@@ -216,8 +224,10 @@ def _row_tol(want):
 
 def _err_ratio(got, want, tol):
     """Largest |got - want| / tol (tol broadcast over the row); a row whose
-    tolerance is 0 (all plain values 0) must match exactly."""
+    tolerance is 0 (all plain values 0) must match exactly, and a
+    non-finite difference counts as infinitely far."""
     diff = (got.float() - want.float()).abs()
+    diff = torch.where(torch.isfinite(diff), diff, math.inf)
     ratio = torch.where(tol > 0, diff / tol.clamp_min(1e-30),
                         torch.where(diff > 0, math.inf, 0.0))
     return ratio.max().item() if ratio.numel() else 0.0
@@ -1018,6 +1028,451 @@ def phase_quant_timing(dev, smi_line):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the evoformer kernels vs their plain versions, the E1-E4 path
+# and the kernels' times
+# ---------------------------------------------------------------------------
+EVO_KERNELS = ("evo_fwd", "evo_dq", "evo_dkv", "evo_dbias2", "evo_dbias1")
+EVO_OUTPUTS = ("out", "lse", "dq", "dk", "dv", "db1", "db2")
+# db1/db2, kernel vs plain: share of each panel's largest |plain| value (a
+# panel is one (b, n) key row of db1, one (b, h) [Lq, Lk] panel of db2);
+# both sides sum the same fp32 dS in other orders
+DB_REL = 1e-3
+EVO_MASKED = 0.1                   # share of keys OpenFold's mask removes
+
+# name, shape: (B, N, Lq, Lk, H, D, dtype, bias1, bias2). Every head dim in
+# both dtypes, every bias combination, L never a multiple of the tiles,
+# Lq != Lk; the d8 bf16 case has 2,400 (b, n, h) rows (4,800 forward blocks,
+# more than the card holds at once) and a 150-row dbias2 loop, the d32 one
+# OpenFold's widths with a shorter N
+EVO_CASES = [
+    ("d8_fp32_both", (2, 3, 100, 100, 4, 8, torch.float32, True, True)),
+    ("d16_fp32_mask_lq_ne_lk", (2, 2, 70, 130, 4, 16, torch.float32, True, False)),
+    ("d32_fp32_pair", (2, 2, 200, 200, 4, 32, torch.float32, False, True)),
+    ("d64_fp32_none_lq_ne_lk", (1, 2, 50, 96, 2, 64, torch.float32, False, False)),
+    ("d128_fp32_both", (2, 2, 80, 80, 2, 128, torch.float32, True, True)),
+    ("d8_bf16_many_rows", (2, 150, 40, 72, 8, 8, torch.bfloat16, True, True)),
+    ("d16_bf16_pair", (2, 4, 130, 130, 4, 16, torch.bfloat16, False, True)),
+    ("d32_bf16_openfold", (2, 8, 384, 384, 8, 32, torch.bfloat16, True, True)),
+    ("d64_bf16_mask_lq_ne_lk", (1, 3, 100, 200, 4, 64, torch.bfloat16, True, False)),
+    ("d128_bf16_both", (2, 2, 130, 130, 4, 128, torch.bfloat16, True, True)),
+]
+
+
+def _evo_inputs(gen, b, n, lq, lk, h, d, dtype, with_b1, with_b2):
+    """Seeded canonical (q, k, v, dO) on the card, bias1 [B, N, Lk] (normal,
+    with EVO_MASKED of the keys at -1e9 and row (0, N-1) fully masked) and
+    bias2 [B, H, Lq, Lk] (normal), each None when not asked for."""
+    def rnd(*s):
+        return torch.randn(*s, generator=gen, device="cuda")
+    q, do = (rnd(b, n, lq, h, d).to(dtype) for _ in range(2))
+    k, v = (rnd(b, n, lk, h, d).to(dtype) for _ in range(2))
+    b1 = b2 = None
+    if with_b1:
+        b1 = rnd(b, n, lk)
+        b1[torch.rand(b, n, lk, generator=gen, device="cuda") < EVO_MASKED] = -1e9
+        b1[0, n - 1] = -1e9
+    if with_b2:
+        b2 = rnd(b, h, lq, lk)
+    return (q, k, v, do), b1, b2
+
+
+def _evo_plain_all(args, b1, b2, res=None):
+    """(out, lse, dq, dk, dv, db1, db2) of the plain versions; the backward
+    runs on ``res`` (the kernel's own out, lse) where given."""
+    from deepspeed_tpu_torch.ops.evoformer import evo_bwd_plain, evo_fwd_plain
+    q, k, v, do = args
+    out, lse = evo_fwd_plain(q, k, v, b1, b2)
+    grads = evo_bwd_plain(q, k, v, b1, b2, *(res or (out, lse)), do)
+    return [out, lse, *grads]
+
+
+def _evo_tol(name, want):
+    if want is None:
+        return None
+    if name == "lse":
+        return torch.full_like(want, LSE_TOL)
+    if name == "db1":
+        return DB_REL * want.abs().amax(-1, keepdim=True)
+    if name == "db2":
+        return DB_REL * want.abs().amax((-2, -1), keepdim=True)
+    return _row_tol(want)
+
+
+# Mutants: the plain versions with one fault a kernel could have. Each takes
+# (args, b1, b2, res, want) and returns the seven outputs; each must land
+# outside the tolerance on the outputs it names (on one at least for ANY).
+def _evo_b1_dropped_in_bwd(args, b1, b2, res, want):
+    """The backward's recompute leaves bias1 out."""
+    from deepspeed_tpu_torch.ops.evoformer import evo_bwd_plain
+    q, k, v, do = args
+    dq, dk, dv, _, db2 = evo_bwd_plain(q, k, v, None, b2, *res, do)
+    return want[:2] + [dq, dk, dv, want[5], db2]
+
+
+def _evo_scaled_bias_grad(args, b1, b2, res, want):
+    """The bias gradients carry ``scale`` as dq and dk do."""
+    scale = 1.0 / math.sqrt(args[0].shape[-1])
+    return want[:5] + [None if g is None else g * scale for g in want[5:]]
+
+
+def _evo_last_key_tile_dropped(args, b1, b2, res, want):
+    """The last KEY_TILE-key tile is skipped everywhere."""
+    from deepspeed_tpu_torch.ops.evoformer import KEY_TILE, NEG_INF
+    lk = args[1].shape[2]
+    b1m = torch.zeros(*args[0].shape[:2], lk, device=args[0].device) \
+        if b1 is None else b1.clone()
+    b1m[..., (lk - 1) // KEY_TILE * KEY_TILE:] = NEG_INF
+    got = _evo_plain_all(args, b1m, b2)
+    got[5] = got[5] if b1 is not None else None
+    return got
+
+
+def _evo_db2_wrong_batch(args, b1, b2, res, want):
+    """Panel b of db2 sums the rows of batch entry b + 1."""
+    from deepspeed_tpu_torch.ops.evoformer import evo_bwd_plain
+    roll = lambda x: None if x is None else torch.roll(x, 1, 0)   # noqa: E731
+    q, k, v, do = (roll(x) for x in args)
+    db2 = evo_bwd_plain(q, k, v, roll(b1), b2, roll(res[0]), roll(res[1]),
+                        do, need_db1=False)[4]
+    return want[:6] + [db2]
+
+
+def _evo_mutants(b, with_b1, with_b2):
+    """{name: (mutant, outputs it must miss)} that apply to a case."""
+    mutants = {"last_key_tile_dropped": (_evo_last_key_tile_dropped,
+                                         ("out", "dk", "dv"))}
+    if with_b1:
+        mutants["bias1_dropped_in_bwd"] = (_evo_b1_dropped_in_bwd, ANY)
+    if with_b1 or with_b2:
+        mutants["scale_on_bias_grad"] = (
+            _evo_scaled_bias_grad,
+            tuple(n for n, on in (("db1", with_b1), ("db2", with_b2)) if on))
+    if with_b2 and b >= 2:
+        mutants["db2_wrong_batch"] = (_evo_db2_wrong_batch, ("db2",))
+    return mutants
+
+
+def run_evo_cases(gen):
+    """Every EVO_CASES case: the five kernels (each bias kernel where its
+    bias is present) against the plain versions, each output within its
+    tolerance and finite, each kernel launched exactly once, and each
+    mutant that applies outside the tolerance on the outputs it names.
+    Returns the rows; raises PhaseError on any failure. The ``gpu`` test
+    runs this too."""
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.evoformer import evo_bwd, evo_fwd
+    rows = []
+    for name, shape in EVO_CASES:
+        b, _, _, _, _, _, dtype, with_b1, with_b2 = shape
+        args, b1, b2 = _evo_inputs(gen, *shape)
+        q, k, v, do = args
+        before = build.launch_counts()
+        out, lse = evo_fwd(q, k, v, b1, b2)
+        grads = evo_bwd(q, k, v, b1, b2, out, lse, do)
+        torch.cuda.synchronize()
+        after = build.launch_counts()
+        want_n = {"evo_fwd": 1, "evo_dq": 1, "evo_dkv": 1,
+                  "evo_dbias2": int(with_b2), "evo_dbias1": int(with_b1)}
+        launched = {n: after.get(n, 0) - before.get(n, 0) for n in want_n}
+        check(launched == want_n, f"evo {name}: launches {launched}, "
+              f"expected {want_n}")
+        got = [out, lse, *grads]
+        res = (out, lse)
+        want = _evo_plain_all(args, b1, b2, res)
+        tols = [_evo_tol(n, w) for n, w in zip(EVO_OUTPUTS, want)]
+        check(all((g is None) == (w is None) for g, w in zip(got, want)),
+              f"evo {name}: the kernels and the plain version return "
+              "different sets of outputs")
+        errs = {n: _max_err(g, w, n) for n, g, w in zip(EVO_OUTPUTS, got, want)
+                if w is not None}
+        ratios = {n: _err_ratio(g, w, t) for n, g, w, t in
+                  zip(EVO_OUTPUTS, got, want, tols) if w is not None}
+        finite = all(bool(torch.isfinite(g).all()) for g in got if g is not None)
+        row = {"phase": "evo_parity", "case": name,
+               "shape": dict(zip(("b", "n", "lq", "lk", "h", "d"), shape[:6]),
+                             dtype=str(dtype), bias1=with_b1, bias2=with_b2),
+               "max_abs_err": errs, "err_over_tol": ratios, "finite": finite,
+               "launches": launched, "mutants": {}}
+        mutants = _evo_mutants(b, with_b1, with_b2)
+        for m_name, (mutant, _) in mutants.items():
+            m_want = mutant(args, b1, b2, res, want)
+            row["mutants"][m_name] = {
+                n: _json_ratio(_err_ratio(m, w, t)) for n, m, w, t in
+                zip(EVO_OUTPUTS, m_want, want, tols)
+                if w is not None and m is not None}
+            del m_want
+        emit(row)
+        check(finite, f"evo {name}: non-finite output")
+        for n, r in ratios.items():
+            check(r <= 1.0, f"evo {name}: {n} error {r} times its tolerance")
+        for m_name, (_, must) in mutants.items():
+            m_ratios = row["mutants"][m_name]
+            caught = (max(m_ratios.values()) > 1.0 if must == ANY else
+                      all(m_ratios[n] > 1.0 for n in must))
+            check(caught, f"evo {name}: mutant {m_name} lands within the "
+                  f"tolerance of {must} ({m_ratios}), so the case cannot "
+                  "catch that fault")
+        rows.append(row)
+        del args, got, want, out, lse, grads, res
+    return rows
+
+
+def phase_evo_parity():
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    rows = run_evo_cases(gen)
+    outs = {"evo_fwd": ("out", "lse"), "evo_dq": ("dq",),
+            "evo_dkv": ("dk", "dv"), "evo_dbias2": ("db2",),
+            "evo_dbias1": ("db1",)}
+    worst = {n: 0.0 for n in EVO_KERNELS}
+    worst_ratio = {n: 0.0 for n in EVO_KERNELS}
+    for row in rows:
+        for kernel, names in outs.items():
+            for o in names:
+                if o in row["max_abs_err"]:
+                    worst[kernel] = max(worst[kernel], row["max_abs_err"][o])
+                    worst_ratio[kernel] = max(worst_ratio[kernel],
+                                              row["err_over_tol"][o])
+    emit({"phase": "evo_parity_summary", "cases": len(rows),
+          "worst_err_over_tol": worst_ratio, "db_rel_tol": DB_REL,
+          "mutants_caught": sorted({m for r in rows for m in r["mutants"]})})
+    return worst
+
+
+# OpenFold's published widths (openfold/config.py: model.evoformer_stack,
+# model.extra_msa; fine-tuning crop_size 384, max_msa_clusters 512,
+# max_extra_msa 5120; AlphaFold2 supplement Table 4), B = 1, bf16:
+# name: (call, N, L, H, D, pair bias, mask bias takes a gradient)
+EVO_PATH_CASES = {
+    "E1": ("MSA row attention with pair bias", 512, 384, 8, 32, True, True),
+    "E2": ("MSA column attention", 384, 512, 8, 32, False, False),
+    "E3": ("triangle attention, starting node", 384, 384, 4, 32, True, False),
+    "E4": ("extra-MSA row attention with pair bias", 5120, 384, 8, 8, True,
+           False),
+}
+
+
+def _evo_path_inputs(gen, n, l, h, d, pair):
+    """q/k/v/w [1, N, L, H, D] bf16, OpenFold's mask bias ``1e9 * (mask -
+    1)`` [1, N, 1, 1, L] (EVO_MASKED of the keys masked, row N-1 fully) and
+    the pair bias [1, 1, H, L, L] (or None), seeded on the card."""
+    def rnd(*s):
+        return torch.randn(*s, generator=gen, device="cuda")
+    q, k, v, w = (rnd(1, n, l, h, d).to(torch.bfloat16) for _ in range(4))
+    keep = (torch.rand(1, n, 1, 1, l, generator=gen, device="cuda")
+            >= EVO_MASKED).float()
+    keep[0, n - 1] = 0.0
+    mask = 1e9 * (keep - 1.0)
+    pair_bias = rnd(1, 1, h, l, l) if pair else None
+    return (q, k, v, w), mask, pair_bias
+
+
+def phase_evoformer(dev, smi_line):
+    """E1-E4 through ``DS4Sci_EvoformerAttention``: forward, then
+    ``.backward()`` of a seeded weighted sum, gradients to q, k, v and the
+    pair bias (and in E1 the mask bias). Each case's launches are counted
+    from 0 around that run and held exactly; the output and every gradient
+    is held against the chunked plain versions (on the kernel's own out and
+    lse), and a second backward gives the same bits. Returns the launches
+    summed over the cases."""
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.evoformer import (canonicalize, evo_bwd,
+                                                   evo_fwd)
+    from deepspeed_tpu_torch.ops.evoformer_attn import DS4Sci_EvoformerAttention
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    total = {}
+    for name, (call, n, l, h, d, pair, mask_grad) in EVO_PATH_CASES.items():
+        (q, k, v, w), mask, pair_bias = _evo_path_inputs(gen, n, l, h, d, pair)
+        for x in (q, k, v):
+            x.requires_grad_(True)
+        mask.requires_grad_(mask_grad)
+        if pair_bias is not None:
+            pair_bias.requires_grad_(True)
+        biases = [mask, pair_bias]
+        torch.cuda.synchronize()
+        build.reset_launch_counts()      # the main path's run starts here
+        t0 = time.monotonic()
+        out = DS4Sci_EvoformerAttention(q, k, v, biases)
+        (out.float() * w.float()).sum().backward()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+        launches = build.launch_counts()
+        for kname, count in launches.items():
+            total[kname] = total.get(kname, 0) + count
+        want_n = {"evo_fwd": 1, "evo_dq": 1, "evo_dkv": 1}
+        if pair:
+            want_n["evo_dbias2"] = 1
+        if mask_grad:
+            want_n["evo_dbias1"] = 1
+        # the plain versions on the kernel's own (out, lse)
+        with torch.no_grad():
+            q5, k5, v5, b1, b2 = canonicalize(q.detach(), k.detach(),
+                                              v.detach(), [mask.detach(),
+                                                           pair_bias])
+            b1 = b1.contiguous()
+            b2 = None if b2 is None else b2.detach().contiguous()
+            out_k, lse_k = evo_fwd(q5, k5, v5, b1, b2)
+            do = w
+            again = evo_bwd(q5, k5, v5, b1, b2, out_k, lse_k, do,
+                            need_db1=mask_grad, need_db2=pair)
+            want = _evo_plain_all((q5, k5, v5, do), b1, b2, (out_k, lse_k))
+            # need_db1 as on the path: the plain db1 only where asked
+            want[5] = want[5] if mask_grad else None
+        got = [out.detach(), lse_k, q.grad, k.grad, v.grad,
+               None if not mask_grad else mask.grad.reshape(1, n, l),
+               None if pair_bias is None else pair_bias.grad.reshape(1, h, l, l)]
+        tols = [_evo_tol(nm, x) for nm, x in zip(EVO_OUTPUTS, want)]
+        ratios = {nm: _err_ratio(g, x, t) for nm, g, x, t in
+                  zip(EVO_OUTPUTS, got, want, tols) if x is not None}
+        repeat = [torch.equal(a, b) for a, b in
+                  zip(again, got[2:]) if a is not None]
+        finite = all(bool(torch.isfinite(g).all()) for g in got
+                     if g is not None)
+        emit({"phase": "evoformer", "case": name, "call": call,
+              "shape": {"q": [1, n, l, h, d], "mask": [1, n, 1, 1, l],
+                        "pair": [1, 1, h, l, l] if pair else None},
+              "grads": ["q", "k", "v"] + (["pair"] if pair else []) +
+                       (["mask"] if mask_grad else []),
+              "launches": launches, "expected": want_n,
+              "err_over_tol": ratios, "finite": finite,
+              "same_out_as_path": torch.equal(out_k, out.detach()),
+              "backward_repeats_bit_for_bit": all(repeat),
+              "wall_ms_fwd_bwd": wall_ms,
+              "card": dev["kind"], "nvidia_smi": smi_line})
+        check(launches == want_n, f"evoformer {name}: launches {launches}, "
+              f"expected {want_n}")
+        check(finite, f"evoformer {name}: non-finite output or gradient")
+        check(out.shape == q.shape, f"evoformer {name}: output {out.shape}")
+        for nm, r in ratios.items():
+            check(r <= 1.0, f"evoformer {name}: {nm} {r} times its tolerance")
+        check(all(repeat) and torch.equal(out_k, out.detach()),
+              f"evoformer {name}: a rerun gave other bits")
+        del q, k, v, w, mask, pair_bias, out, got, want, again
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def _evo_work(b, n, lq, lk, h, d, elem):
+    """(flops of one [Lq, Lk, D] product over all rows, {kernel: unique
+    bytes}), each input read once and each output written once."""
+    mm = 2 * b * n * h * lq * lk * d
+    qo = b * n * lq * h * d * elem                 # q, out, dO or dq
+    kv = b * n * lk * h * d * elem                 # k, v, dk or dv
+    stats = b * n * h * lq * 4                     # lse or delta
+    bias = b * n * lk * 4 + b * h * lq * lk * 4    # bias1 + bias2 (fp32)
+    bwd_in = 2 * qo + 2 * kv + bias + 2 * stats    # q k v dO b1 b2 lse delta
+    return mm, {"evo_fwd": 2 * qo + 2 * kv + bias + stats,
+                "evo_dq": bwd_in + qo, "evo_dkv": bwd_in + 2 * kv,
+                "evo_dbias2": bwd_in + b * h * lq * lk * 4,
+                "evo_dbias1": bwd_in + b * n * lk * 4}
+
+
+def _sdpa_yardstick(q5, k5, v5, b1, b2):
+    """One ``F.scaled_dot_product_attention`` over the same problem (rows
+    [B*N, H, L, D], the summed bias materialized as a bf16 ``attn_mask``),
+    forward and backward (q, k, v and the mask), on the first backend that
+    takes it; a yardstick only, the port never calls it."""
+    import torch.nn.functional as F
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+    except ImportError as e:
+        return {"backend": "none", "errors": {"import": str(e)}}
+    b, n, lq, h, d = q5.shape
+    lk = k5.shape[2]
+    rows = lambda x: x.permute(0, 1, 3, 2, 4).reshape(b * n, h, -1, d)  # noqa: E731
+    qs, ks, vs = (rows(x).contiguous() for x in (q5, k5, v5))
+    mask = torch.zeros(b, n, h, lq, lk, dtype=q5.dtype, device=q5.device)
+    if b1 is not None:
+        mask += b1.to(q5.dtype)[:, :, None, None, :]
+    if b2 is not None:
+        mask += b2.to(q5.dtype)[:, None]
+    mask = mask.reshape(b * n, h, lq, lk)
+    errors = {}
+    for name, backend in (("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION)):
+        try:
+            with sdpa_kernel([backend]):
+                fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask), iters=5, warmup=1)
+                leaves = [x.detach().requires_grad_() for x in (qs, ks, vs, mask)]
+                o = F.scaled_dot_product_attention(*leaves[:3],
+                                                   attn_mask=leaves[3])
+                g = torch.ones_like(o)
+                bwd_ms = time_ms(lambda: torch.autograd.grad(
+                    o, leaves, g, retain_graph=True), iters=5, warmup=1)
+                del o, leaves, g
+            return {"backend": name, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                    "fwd_plus_bwd_ms": fwd_ms + bwd_ms, "errors": errors}
+        except RuntimeError as e:
+            errors[name] = str(e).splitlines()[0][:200] if str(e) else "error"
+        finally:
+            torch.cuda.empty_cache()
+    return {"backend": "none", "errors": errors}
+
+
+def phase_evo_timing(dev, smi_line):
+    """At E1: each kernel's time (the forward with CUDA events, the four
+    backward kernels by name in one profiled backward), the plain versions'
+    (whole forward, whole backward) and each kernel's bound; at E1 and E4
+    the SDPA yardstick. Returns the kernels line's numbers."""
+    from deepspeed_tpu_torch.ops.evoformer import (canonicalize, evo_bwd,
+                                                   evo_bwd_plain, evo_fwd,
+                                                   evo_fwd_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    timing, sdpa = {}, {}
+    for name in ("E1", "E4"):
+        _, n, l, h, d, pair, _ = EVO_PATH_CASES[name]
+        (q, k, v, do), mask, pair_bias = _evo_path_inputs(gen, n, l, h, d, pair)
+        q5, k5, v5, b1, b2 = canonicalize(q, k, v, [mask, pair_bias])
+        b1, b2 = b1.contiguous(), b2.contiguous()
+        if name == "E1":
+            fwd_ms = time_ms(lambda: evo_fwd(q5, k5, v5, b1, b2), iters=10)
+            out, lse = evo_fwd(q5, k5, v5, b1, b2)
+            per = _kernel_device_ms(
+                lambda: evo_bwd(q5, k5, v5, b1, b2, out, lse, do),
+                [f"{kn}_kernel" for kn in EVO_KERNELS[1:]], iters=5)
+            plain_fwd = time_ms(lambda: evo_fwd_plain(q5, k5, v5, b1, b2),
+                                iters=2, warmup=1)
+            plain_bwd = time_ms(lambda: evo_bwd_plain(
+                q5, k5, v5, b1, b2, out, lse, do), iters=2, warmup=1)
+            mm, nbytes = _evo_work(1, n, l, l, h, d, 2)
+            flops = {"evo_fwd": 2 * mm, "evo_dq": 3 * mm, "evo_dkv": 4 * mm,
+                     "evo_dbias2": 2 * mm, "evo_dbias1": 2 * mm}
+            for kn in EVO_KERNELS:
+                bound_ms, bound_by = _bound(flops[kn], nbytes[kn])
+                timing[kn] = {
+                    "ms": fwd_ms if kn == "evo_fwd" else per[f"{kn}_kernel"],
+                    "plain_ms": plain_fwd if kn == "evo_fwd" else plain_bwd,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "flops": flops[kn], "bytes": nbytes[kn]}
+            del out, lse
+        sdpa[name] = _sdpa_yardstick(q5, k5, v5, b1, b2)
+        del q, k, v, do, mask, pair_bias, q5, k5, v5, b1, b2
+        gc.collect()
+        torch.cuda.empty_cache()
+    e1 = sdpa["E1"]
+    for kn in EVO_KERNELS:
+        timing[kn]["library_ms"] = (None if e1["backend"] == "none" else
+                                    e1["fwd_ms"] if kn == "evo_fwd" else
+                                    e1["bwd_ms"])
+    emit({"phase": "evo_timing", "shape": "E1: B=1 N=512 L=384 H=8 D=32 "
+          "bf16, mask + pair bias, both bias gradients",
+          **{kn: {**t, "share_of_bound": t["bound_ms"] / t["ms"]}
+             for kn, t in timing.items()},
+          "sdpa": sdpa,
+          "notes": "plain_ms of the four backward kernels is the whole "
+                   "plain backward; library_ms of them is one SDPA backward "
+                   "(q, k, v, mask) at E1",
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    return {kn: {key: t[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}
+            for kn, t in timing.items()}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the serving path
 # ---------------------------------------------------------------------------
 def run_engine(cfg, device, kv_num_blocks, prompt_lens, new_tokens,
@@ -1685,14 +2140,21 @@ KERNEL_TABLE = {
     "dequantize_int8": ("quant", "deepspeed_tpu/ops/pallas/quant.py:31"),
     "quantize_fp8": ("quant", "deepspeed_tpu/ops/pallas/fp_quant.py:29"),
     "dequantize_fp8": ("quant", "deepspeed_tpu/ops/pallas/fp_quant.py:37"),
+    "evo_fwd": ("evoformer", "deepspeed_tpu/ops/pallas/evoformer.py:58"),
+    "evo_dq": ("evoformer", "deepspeed_tpu/ops/pallas/evoformer.py:92"),
+    "evo_dkv": ("evoformer", "deepspeed_tpu/ops/pallas/evoformer.py:119"),
+    "evo_dbias2": ("evoformer", "deepspeed_tpu/ops/pallas/evoformer.py:152"),
+    "evo_dbias1": ("evoformer", "deepspeed_tpu/ops/pallas/evoformer.py:179"),
 }
 # the main paths each kernel lies on; the first is the one whose shape the
 # kernel's timing uses (serve: InferenceEngineV2, train: the recipe, A1/A2:
-# ZeRO-Inference fp8/int8, B: training with qgZ)
+# ZeRO-Inference fp8/int8, B: training with qgZ, evoformer: E1-E4 through
+# DS4Sci_EvoformerAttention, timed at E1)
 KERNEL_PATHS = {"paged_attention": ("serve", "A1", "A2"),
                 **{n: ("train",) for n in FLASH_PER_STEP},
                 "quantize_fp8": ("A1",), "dequantize_fp8": ("A1",),
-                "quantize_int8": ("B",), "dequantize_int8": ("B", "A2")}
+                "quantize_int8": ("B",), "dequantize_int8": ("B", "A2"),
+                **{n: ("evoformer",) for n in EVO_KERNELS}}
 
 
 def main() -> int:
@@ -1704,7 +2166,8 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 stays fp32
         torch.backends.cudnn.allow_tf32 = False
         phase = "build"
-        build_info = phase_build(["paged_attention", "flash_attention", "quant"])
+        build_info = phase_build(["paged_attention", "flash_attention", "quant",
+                                  "evoformer"])
         phase = "kernel_parity"
         worst, timing = phase_kernel_parity()
         phase = "flash_parity"
@@ -1713,6 +2176,14 @@ def main() -> int:
         quant_worst = phase_quant_parity()
         phase = "quant_timing"
         quant_timing = phase_quant_timing(dev, smi_line)
+        phase = "evo_parity"
+        evo_worst = phase_evo_parity()
+        phase = "evoformer"
+        evo_launches = phase_evoformer(dev, smi_line)
+        phase = "evo_timing"
+        evo_timing = phase_evo_timing(dev, smi_line)
+        gc.collect()
+        torch.cuda.empty_cache()
         phase = "engine"
         st, eng, lens = phase_engine(dev, smi_line)
         phase = "profile"
@@ -1740,7 +2211,8 @@ def main() -> int:
         # timing shape comes from (first listed)
         path_counts = {"serve": st["launches"], "train": train_launches,
                        "A1": zi["A1"]["path_launches"],
-                       "A2": zi["A2"]["path_launches"], "B": qgz_launches}
+                       "A2": zi["A2"]["path_launches"], "B": qgz_launches,
+                       "evoformer": evo_launches}
         launches_by_path = {
             name: {p: path_counts[p].get(name, 0) for p in paths}
             for name, paths in KERNEL_PATHS.items()}
@@ -1755,7 +2227,9 @@ def main() -> int:
                **{n: {"max_abs_err": flash_worst[n], **flash_timing[n]}
                   for n in FLASH_PER_STEP},
                **{n: {"max_abs_err": quant_worst[n], **quant_timing[n]}
-                  for n in QUANT_KERNELS}}
+                  for n in QUANT_KERNELS},
+               **{n: {"max_abs_err": evo_worst[n], **evo_timing[n]}
+                  for n in EVO_KERNELS}}
     rows = []
     for name, (source, replaces) in KERNEL_TABLE.items():
         build_s, registers = _build_of(build_info, source, name)

@@ -7,8 +7,8 @@ group are ignored, as the reference's models ignore them.
 
 Groups the port does not carry yet raise ``NotImplementedError`` instead
 of being parsed and ignored: ZeRO stages above 0 and every ``offload_*``
-tier (ROADMAP Queue 1 item 5), and any other top-level group that the
-training path does not read.
+tier (ROADMAP Queue 1, "Distribution and memory tiers"), and any other
+top-level group that the training path does not read.
 """
 
 import dataclasses
@@ -68,7 +68,8 @@ class OffloadConfig:
 class ZeroConfig:
     """reference: runtime/zero/config.py. The port runs stage 0 (plain data
     parallel, one card); stages 1-3 and the offload tiers come with
-    ROADMAP Queue 1 item 5. ``zero_quantized_gradients`` (qgZ) is read at
+    ROADMAP Queue 1, "Distribution and memory tiers".
+    ``zero_quantized_gradients`` (qgZ) is read at
     stage 0: on one card it is the int8 round trip of every micro-batch
     gradient (``runtime/engine.py``)."""
     stage: int = 0
@@ -157,13 +158,13 @@ class DeepSpeedTPUConfig:
         zc = self.zero_config
         if zc.stage > 0:
             raise NotImplementedError(
-                f"ZeRO stage {zc.stage} is not ported yet (ROADMAP Queue 1 "
-                "item 5: distribution and memory tiers); use stage 0")
+                f"ZeRO stage {zc.stage} is not ported yet (ROADMAP Queue 1: "
+                "distribution and memory tiers); use stage 0")
         for name in ("offload_param", "offload_optimizer"):
             if getattr(zc, name).device != "none":
                 raise NotImplementedError(
                     f"zero_optimization.{name} is not ported yet (ROADMAP "
-                    "Queue 1 item 5: distribution and memory tiers)")
+                    "Queue 1: distribution and memory tiers)")
         unported = sorted(set(self._raw) - _READ_KEYS)
         if unported:
             raise NotImplementedError(

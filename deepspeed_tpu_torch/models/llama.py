@@ -16,8 +16,8 @@ compute dtype at its use, as the reference engine's ``cast_to_compute``
 does before ``apply``, so gradients reach the fp32 masters through the
 cast. Remat is ``torch.utils.checkpoint`` (non-reentrant) per block.
 
-Not ported yet: the ``ulysses`` and ``ring`` backends (ROADMAP Queue 1
-item 6), the chunked loss (``loss_chunk_size``, with
+Not ported yet: the ``ulysses`` and ``ring`` backends (ROADMAP Queue 1,
+sequence parallel), the chunked loss (``loss_chunk_size``, with
 ``sequence/cross_entropy.py``) and the scanned-layer tree
 (``scan_layers``).
 """
@@ -203,7 +203,7 @@ def _dispatch_attention(backend: str, q, k, v, causal=True, segment_ids=None,
     if backend in ("ulysses", "ring"):
         raise NotImplementedError(
             f"attention backend '{backend}' is not ported yet (ROADMAP "
-            "Queue 1 item 6: sequence parallel); use 'flash' or 'xla'")
+            "Queue 1: sequence parallel); use 'flash' or 'xla'")
     raise ValueError(f"unknown attention backend '{backend}'")
 
 

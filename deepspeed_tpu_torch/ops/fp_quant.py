@@ -84,7 +84,7 @@ def selective_dequantize_fp8(q: torch.Tensor, scales: torch.Tensor,
 def _unported(name: str):
     raise NotImplementedError(
         f"{name} is not ported yet (ROADMAP Queue 2: an fp8 GEMM kernel for "
-        "Hopper; the fp8 all-gather comes with Queue 1 item 5)")
+        "Hopper; the fp8 all-gather comes with the distribution slice)")
 
 
 def quantized_all_gather_fp8(x, axis_name, fmt: str = "e4m3"):

@@ -23,7 +23,7 @@ scales ``[..., 1]``. The TPU's ``block_rows`` padding has no counterpart.
 The collectives built on these kernels (``quantized_all_gather``,
 ``quantized_psum_scatter``, ``all_to_all_quant_reduce``,
 ``quantized_psum``, ``quantized_all_to_all``) come with the distribution
-slice (ROADMAP Queue 1 item 5) and raise here.
+slice (ROADMAP Queue 1, "Distribution and memory tiers") and raise here.
 """
 
 import ctypes
@@ -196,7 +196,7 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
 def _unported(name: str):
     raise NotImplementedError(
         f"{name} (a quantized collective) is not ported yet: it comes with "
-        "the distribution slice on torch.distributed (ROADMAP Queue 1 item 5)")
+        "the distribution slice on torch.distributed (ROADMAP Queue 1)")
 
 
 def quantized_all_gather(x, axis_name):

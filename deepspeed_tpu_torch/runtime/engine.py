@@ -97,7 +97,7 @@ class DeepSpeedTPUEngine:
                 "are saved on the wire. Gradients still pay the int8 "
                 "round-trip quantization noise (reference-fidelity "
                 "numerics). Disable zero_quantized_gradients, or wait for "
-                "the distribution slice (ROADMAP Queue 1 item 5).",
+                "the distribution slice (ROADMAP Queue 1).",
                 UserWarning, stacklevel=3)
 
         # --- LR schedule ----------------------------------------------------

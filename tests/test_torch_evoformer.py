@@ -1,0 +1,439 @@
+"""Port parity: the PyTorch evoformer attention against the JAX package.
+
+The port's CPU path (``fused_evoformer_attention`` ->
+``EvoformerAttentionFunction`` -> the plain versions of the five kernels) is
+held against ``pallas_evoformer_attention(..., block_q=16, block_k=16,
+interpret=True)`` on the same inputs made from a numpy seed: the forward for
+each bias combination, the full gradient set (q, k, v, bias1, bias2), a
+broadcast bias whose gradient sums back, one and more than two lead dims,
+Lq != Lk, an OpenFold ``-1e9`` mask with a fully masked row, and L=20, which
+pads keys to the 16-key blocks. The plain versions are held against the
+JAX ``_evo_fwd_impl``/``_evo_bwd_impl`` outputs (lse, dq, dk, dv, db1,
+db2); the blockwise path, the oracle and ``DS4Sci_EvoformerAttention`` (its
+typed layout error, its route to the blockwise path, the row-varying
+rejection, the >2-bias ``ValueError``) against theirs.
+
+Tolerances: float32 forward to 2e-5 and gradients to 3e-5 (atol and rtol,
+as ``tests/test_evoformer_pallas.py`` holds the JAX kernels to their oracle;
+the two sides sum in other orders); bfloat16 each row (last axis) within 4
+bf16 ulps of its largest |JAX| value.
+
+The CUDA kernels run only on the card: ``test_kernels_match_plain_on_card``
+is marked ``gpu`` and skips where there is none. On the card:
+``python -m pytest --noconftest -m gpu tests/test_torch_evoformer.py``.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu_torch.ops import build
+from deepspeed_tpu_torch.ops import evoformer as te
+from deepspeed_tpu_torch.ops.evoformer import (
+    EvoformerAttentionFunction, UnsupportedBiasLayout, canonicalize, evo_bwd,
+    evo_bwd_plain, evo_fwd, evo_fwd_plain, fused_evoformer_attention)
+from deepspeed_tpu_torch.ops.evoformer_attn import (
+    DS4Sci_EvoformerAttention, evoformer_attention,
+    evoformer_attention_reference)
+
+B, N, L, H, D = 2, 3, 20, 2, 16     # L=20 against 16-key blocks pads keys
+FWD_TOL, BWD_TOL = 2e-5, 3e-5
+BF16_ULPS = 4
+BLK = dict(block_q=16, block_k=16, interpret=True)
+NAMES = ("q", "k", "v", "bias1", "bias2")
+
+
+def _jax():
+    """The JAX side, imported where it is used (the card's machine lacks
+    flax, and the card-only test below must still be collected there)."""
+    pytest.importorskip("flax")
+    jax = pytest.importorskip("jax")
+    from deepspeed_tpu.ops import evoformer_attn as jea
+    from deepspeed_tpu.ops.pallas import evoformer as jpe
+    return jax, jea, jpe
+
+
+def _arrays(seed=0, lead=(B, N), lq=L, lk=L, h=H, d=D, mask=False):
+    """Seeded numpy (q, k, v, bias1 [*lead, 1, 1, Lk], bias2 [lead[0], 1,
+    H, Lq, Lk], w [*lead, Lq, H, D]); ``mask`` makes bias1 OpenFold's
+    ``1e9 * (mask - 1)`` with some keys masked and row 0 fully masked."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)   # noqa: E731
+    q, k, v = f(*lead, lq, h, d), f(*lead, lk, h, d), f(*lead, lk, h, d)
+    b1 = f(*lead, 1, 1, lk)
+    if mask:
+        keep = (rng.random(size=b1.shape) > 0.2).astype(np.float32)
+        keep.reshape(-1, lk)[0] = 0.0
+        b1 = (1e9 * (keep - 1.0)).astype(np.float32)
+    b2 = f(lead[0], 1, h, lq, lk)
+    return q, k, v, b1, b2, f(*lead, lq, h, d)
+
+
+def _t(x, dtype=torch.float32, grad=False):
+    return torch.from_numpy(np.array(x, np.float32)).to(dtype) \
+        .requires_grad_(grad)
+
+
+def _jax_grads(arrays, biases_on, dtype=None, argnums=(0, 1, 2, 3, 4)):
+    """(out, grads) of the Pallas op in interpret mode through the loss
+    sum(out * w); bias slots that are off are passed as None."""
+    jax, _, jpe = _jax()
+    import jax.numpy as jnp
+    q, k, v, b1, b2, w = (jnp.asarray(a) for a in arrays)
+    if dtype is not None:
+        q, k, v, w = (x.astype(dtype) for x in (q, k, v, w))
+    b1 = b1 if biases_on[0] else None
+    b2 = b2 if biases_on[1] else None
+
+    def loss(q, k, v, b1, b2):
+        out = jpe.pallas_evoformer_attention(q, k, v, (b1, b2), **BLK)
+        return jnp.sum(out.astype(jnp.float32) * w.astype(jnp.float32)), out
+
+    argnums = tuple(a for a in argnums if a < 3 or (b1, b2)[a - 3] is not None)
+    (_, out), grads = jax.value_and_grad(loss, argnums=argnums,
+                                         has_aux=True)(q, k, v, b1, b2)
+    f32 = lambda x: np.asarray(x.astype(jnp.float32))      # noqa: E731
+    return f32(out), dict(zip(argnums, (f32(g) for g in grads)))
+
+
+def _port_grads(arrays, biases_on, dtype=torch.float32, argnums=(0, 1, 2, 3, 4)):
+    q, k, v, b1, b2, w = arrays
+    ts = [_t(x, dtype, i in argnums) for i, x in enumerate((q, k, v))]
+    bs = [_t(b, grad=(3 + i) in argnums) if on else None
+          for i, (b, on) in enumerate(zip((b1, b2), biases_on))]
+    out = fused_evoformer_attention(*ts, bs)
+    if argnums:
+        (out.float() * _t(w, dtype).float()).sum().backward()
+    grads = {i: x.grad.float().numpy() for i, x in enumerate(ts + bs)
+             if x is not None and x.grad is not None}
+    return out.detach().float().numpy(), grads
+
+
+def _close(got, want, tol, what):
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol, err_msg=what)
+
+
+def _bf16_rows_close(got, want, what):
+    """Each row (last axis) within BF16_ULPS bf16 ulps of its largest |want|."""
+    top = np.abs(want).max(-1, keepdims=True)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(top, 1e-30))) - 7)
+    tol = np.where(top > 0, BF16_ULPS * ulp, 0.0)
+    err = np.abs(got - want)
+    assert (err <= tol).all(), (what, float((err - tol).max()))
+
+
+@pytest.mark.parametrize("use_b1,use_b2", [(False, False), (True, False),
+                                           (False, True), (True, True)])
+def test_fwd_matches_jax(use_b1, use_b2):
+    arrays = _arrays()
+    out_j, _ = _jax_grads(arrays, (use_b1, use_b2), argnums=(0,))
+    out, _ = _port_grads(arrays, (use_b1, use_b2), argnums=())
+    _close(out, out_j, FWD_TOL, "out")
+
+
+def test_grads_match_jax():
+    arrays = _arrays(seed=1)
+    out_j, grads_j = _jax_grads(arrays, (True, True))
+    out, grads = _port_grads(arrays, (True, True))
+    _close(out, out_j, FWD_TOL, "out")
+    assert sorted(grads) == sorted(grads_j) == [0, 1, 2, 3, 4]
+    for i in grads:
+        assert grads[i].shape == grads_j[i].shape
+        _close(grads[i], grads_j[i], BWD_TOL, NAMES[i])
+
+
+def test_broadcast_bias_grad_sums():
+    """A [1, 1, H, L, L] bias broadcast over B=2 takes its gradient summed
+    back to its own shape, as JAX's autodiff of ``_bcast`` does."""
+    jax, _, jpe = _jax()
+    import jax.numpy as jnp
+    q, k, v, _, _, _ = _arrays(seed=2)
+    shared = np.random.default_rng(3).normal(size=(1, 1, H, L, L)).astype(
+        np.float32)
+    g_j = jax.grad(lambda b: jnp.sum(jpe.pallas_evoformer_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), (b,), **BLK) ** 2))(
+            jnp.asarray(shared))
+    b = _t(shared, grad=True)
+    (fused_evoformer_attention(_t(q), _t(k), _t(v), [b]) ** 2).sum().backward()
+    assert b.grad.shape == shared.shape
+    _close(b.grad.numpy(), np.asarray(g_j), BWD_TOL, "bias2")
+
+
+@pytest.mark.parametrize("lead", [(B,), (2, 2, 3)], ids=["one", "three"])
+def test_lead_dims(lead):
+    """One lead dim (N = 1) and three (the first two fold into B), with a
+    1-d per-key bias; forward and q's gradient."""
+    _, _, jpe = _jax()
+    import jax
+    import jax.numpy as jnp
+    q, k, v, _, _, w = _arrays(seed=4, lead=lead)
+    b1 = np.random.default_rng(5).normal(size=(L,)).astype(np.float32)
+
+    def loss(q):
+        out = jpe.pallas_evoformer_attention(
+            q, jnp.asarray(k), jnp.asarray(v), (jnp.asarray(b1),), **BLK)
+        return jnp.sum(out * jnp.asarray(w)), out
+    (_, out_j), gq_j = jax.value_and_grad(loss, has_aux=True)(jnp.asarray(q))
+    qt = _t(q, grad=True)
+    out = fused_evoformer_attention(qt, _t(k), _t(v), [_t(b1)])
+    assert out.shape == (*lead, L, H, D)
+    (out * _t(w)).sum().backward()
+    _close(out.detach().numpy(), np.asarray(out_j), FWD_TOL, "out")
+    _close(qt.grad.numpy(), np.asarray(gq_j), BWD_TOL, "q")
+
+
+def test_lq_ne_lk():
+    arrays = _arrays(seed=6, lq=12, lk=28)
+    out_j, grads_j = _jax_grads(arrays, (True, True))
+    out, grads = _port_grads(arrays, (True, True))
+    assert out.shape == (B, N, 12, H, D)
+    _close(out, out_j, FWD_TOL, "out")
+    for i in grads_j:
+        _close(grads[i], grads_j[i], BWD_TOL, NAMES[i])
+
+
+def test_openfold_mask_with_fully_masked_row():
+    """OpenFold's ``1e9 * (mask - 1)`` bias (row 0 fully masked: uniform
+    attention, as the reference gives) with a pair bias; the mask takes no
+    gradient, as in OpenFold."""
+    arrays = _arrays(seed=7, mask=True)
+    out_j, grads_j = _jax_grads(arrays, (True, True), argnums=(0, 1, 2, 4))
+    out, grads = _port_grads(arrays, (True, True), argnums=(0, 1, 2, 4))
+    assert sorted(grads) == [0, 1, 2, 4]
+    _close(out, out_j, FWD_TOL, "out")
+    v = arrays[2]
+    np.testing.assert_allclose(out[0, 0], v[0, 0].mean(0, keepdims=True)
+                               .repeat(L, 0), atol=1e-5)
+    for i in grads_j:
+        _close(grads[i], grads_j[i], BWD_TOL, NAMES[i])
+
+
+def test_bf16_matches_jax():
+    import jax.numpy as jnp
+    _jax()
+    arrays = list(_arrays(seed=8))
+    arrays[:3] = [np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(
+        jnp.float32)) for a in arrays[:3]]
+    out_j, grads_j = _jax_grads(arrays, (True, True), dtype=jnp.bfloat16)
+    out, grads = _port_grads(arrays, (True, True), dtype=torch.bfloat16)
+    _bf16_rows_close(out, out_j, "out")
+    for i in grads_j:
+        _bf16_rows_close(grads[i], grads_j[i], NAMES[i])
+
+
+@pytest.mark.parametrize("case", ["both_l20", "bias1_lq_ne_lk", "bias2_only",
+                                  "none"])
+def test_plain_versions_match_jax_impls(case, monkeypatch):
+    """``evo_fwd_plain``/``evo_bwd_plain`` against ``_evo_fwd_impl``/
+    ``_evo_bwd_impl`` (interpret mode) on canonical inputs: out, lse, dq,
+    dk, dv, db1, db2; the backward on the JAX forward's own (out, lse). The
+    plain versions in one-row chunks give the same values."""
+    _, _, jpe = _jax()
+    import jax.numpy as jnp
+    lq, lk, on = {"both_l20": (L, L, (1, 1)), "bias1_lq_ne_lk": (12, 28, (1, 0)),
+                  "bias2_only": (L, L, (0, 1)), "none": (L, L, (0, 0))}[case]
+    q, k, v, b1, b2, do = _arrays(seed=9, lq=lq, lk=lk)
+    b1 = b1.reshape(B, N, lk) if on[0] else None
+    b2 = b2.reshape(B, H, lq, lk) if on[1] else None
+    jx = lambda x: None if x is None else jnp.asarray(x)    # noqa: E731
+    # lse in the JAX kernels' own padded [B*N*H, Lq_padded, 1] layout
+    out_j, (lse_raw, lq_p, _) = jpe._evo_fwd_impl(
+        jx(q), jx(k), jx(v), jx(b1), jx(b2), 16, 16, True)
+    lse_j = np.asarray(lse_raw).reshape(B, N, H, lq_p)[..., :lq]
+    grads_j = jpe._evo_bwd_impl(jx(q), jx(k), jx(v), jx(b1), jx(b2), out_j,
+                                lse_raw, jx(do), 16, 16, True)
+    tq, tk, tv, tdo = (_t(x) for x in (q, k, v, do))
+    tb1 = None if b1 is None else _t(b1)
+    tb2 = None if b2 is None else _t(b2)
+    out, lse = evo_fwd_plain(tq, tk, tv, tb1, tb2)
+    _close(out.numpy(), np.asarray(out_j), FWD_TOL, "out")
+    _close(lse.numpy(), lse_j, FWD_TOL, "lse")
+    res = (_t(np.asarray(out_j)), torch.from_numpy(np.array(lse_j)))
+    grads = evo_bwd_plain(tq, tk, tv, tb1, tb2, *res, tdo)
+    for name, got, want in zip(("dq", "dk", "dv", "db1", "db2"), grads,
+                               grads_j):
+        assert (got is None) == (want is None), name
+        if got is not None:
+            _close(got.numpy(), np.asarray(want), BWD_TOL, name)
+    monkeypatch.setattr(te, "PLAIN_CHUNK_ELEMS", 1)     # one-row chunks
+    chunked = evo_bwd_plain(tq, tk, tv, tb1, tb2, *res, tdo)
+    for got, want in zip(chunked, grads):
+        if got is not None:
+            _close(got.numpy(), want.numpy(), 1e-6, "chunked")
+    out1, lse1 = evo_fwd_plain(tq, tk, tv, tb1, tb2)
+    _close(out1.numpy(), out.numpy(), 1e-6, "chunked out")
+    _close(lse1.numpy(), lse.numpy(), 1e-6, "chunked lse")
+
+
+def test_blockwise_matches_jax():
+    """``evoformer_attention`` (key tiles of 8 over L=20: padding and three
+    tiles) and its autograd against JAX's blockwise scan and autodiff."""
+    jax, jea, _ = _jax()
+    import jax.numpy as jnp
+    q, k, v, b1, b2, w = _arrays(seed=10)
+
+    def loss(q, k, v, b1, b2):
+        out = jea.evoformer_attention(q, k, v, (b1, b2), block_k=8)
+        return jnp.sum(out * jnp.asarray(w)), out
+    (_, out_j), grads_j = jax.value_and_grad(loss, argnums=(0, 1, 2, 3, 4),
+                                             has_aux=True)(
+        *(jnp.asarray(x) for x in (q, k, v, b1, b2)))
+    ts = [_t(x, grad=True) for x in (q, k, v, b1, b2)]
+    out = evoformer_attention(*ts[:3], ts[3:], block_k=8)
+    (out * _t(w)).sum().backward()
+    _close(out.detach().numpy(), np.asarray(out_j), FWD_TOL, "out")
+    for name, t, g in zip(NAMES, ts, grads_j):
+        _close(t.grad.numpy(), np.asarray(g), BWD_TOL, name)
+
+
+def test_reference_matches_jax():
+    _, jea, _ = _jax()
+    import jax.numpy as jnp
+    q, k, v, b1, b2, _ = _arrays(seed=11)
+    want = jea.evoformer_attention_reference(
+        *(jnp.asarray(x) for x in (q, k, v)), (jnp.asarray(b1), jnp.asarray(b2)))
+    got = evoformer_attention_reference(_t(q), _t(k), _t(v), (_t(b1), _t(b2)))
+    _close(got.numpy(), np.asarray(want), FWD_TOL, "reference")
+
+
+def test_ds4sci_matches_jax_on_cpu():
+    """The port's entry (the plain versions through the autograd function)
+    against JAX's on the CPU (its blockwise scan), for each supported
+    combination and with a None entry dropped."""
+    _, jea, _ = _jax()
+    import jax.numpy as jnp
+    q, k, v, b1, b2, _ = _arrays(seed=12)
+    for biases in ([], [b1], [b2], [b1, b2], [None, b2]):
+        want = jea.DS4Sci_EvoformerAttention(
+            *(jnp.asarray(x) for x in (q, k, v)),
+            [None if b is None else jnp.asarray(b) for b in biases])
+        got = DS4Sci_EvoformerAttention(
+            _t(q), _t(k), _t(v), [None if b is None else _t(b) for b in biases])
+        _close(got.numpy(), np.asarray(want), FWD_TOL, str(len(biases)))
+
+
+def test_ds4sci_dispatch_contract(monkeypatch):
+    """More than 2 biases raise ValueError; a layout outside the kernels'
+    contract raises the typed error from the fused op and routes to the
+    blockwise path (matching JAX's); a row-varying pair bias is rejected
+    by the fused op; any other error of the fused op propagates."""
+    _, jea, jpe = _jax()
+    import jax.numpy as jnp
+    import deepspeed_tpu_torch.ops.evoformer_attn as ea
+    q, k, v, _, _, _ = _arrays(seed=13)
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    zeros = torch.zeros(L)
+    with pytest.raises(ValueError, match="at most 2"):
+        DS4Sci_EvoformerAttention(tq, tk, tv, [zeros, zeros, zeros])
+    with pytest.raises(UnsupportedBiasLayout):      # wrong key length
+        fused_evoformer_attention(tq, tk, tv, [torch.zeros(L + 3)])
+    with pytest.raises(jpe.UnsupportedBiasLayout):
+        jpe.pallas_evoformer_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                       (jnp.zeros((L + 3,)),), **BLK)
+    row_varying = np.random.default_rng(14).normal(
+        size=(B, N, H, L, L)).astype(np.float32)
+    with pytest.raises(UnsupportedBiasLayout, match="row"):
+        fused_evoformer_attention(tq, tk, tv, [_t(row_varying)])
+    calls = []
+    monkeypatch.setattr(ea, "evoformer_attention",
+                        lambda *a, **kw: calls.append(1) or
+                        evoformer_attention(*a, **kw))
+    got = DS4Sci_EvoformerAttention(tq, tk, tv, [_t(row_varying)])
+    assert calls == [1]                              # the blockwise route
+    want = jea.DS4Sci_EvoformerAttention(*(jnp.asarray(x) for x in (q, k, v)),
+                                         [jnp.asarray(row_varying)])
+    _close(got.numpy(), np.asarray(want), FWD_TOL, "blockwise route")
+    calls.clear()
+    DS4Sci_EvoformerAttention(tq, tk, tv, [zeros])
+    assert calls == []                               # the fused route
+
+    def broken(*a, **kw):
+        raise RuntimeError("kernel launch failed")
+    monkeypatch.setattr(ea, "fused_evoformer_attention", broken)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        DS4Sci_EvoformerAttention(tq, tk, tv, [zeros])
+    assert calls == []
+
+
+def test_canonicalize_rules():
+    """The reference's ``_canon`` classification on the port's side."""
+    q = torch.zeros(2, 3, 4, 5, H, 8)                  # lead (2, 3, 4)
+    k = torch.zeros(2, 3, 4, 7, H, 8)
+    q5, k5, _, b1, b2 = canonicalize(q, k, k, [torch.tensor(1.0)])
+    assert q5.shape == (6, 4, 5, H, 8) and k5.shape == (6, 4, 7, H, 8)
+    assert b1.shape == (6, 4, 7) and b2 is None and b1.dtype == torch.float32
+    _, _, _, b1, b2 = canonicalize(q, k, k, [torch.zeros(H, 5, 7)])
+    assert b1 is None and b2.shape == (6, H, 5, 7)
+    _, _, _, b1, b2 = canonicalize(q, k, k, [torch.zeros(7), torch.zeros(1, 5, 7)])
+    assert b1.shape == (6, 4, 7) and b2.shape == (6, H, 5, 7)
+    for bad in ([torch.zeros(3, 5, 7)],                # head dim 3 != H
+                [torch.zeros(7), torch.zeros(1, 1, 7)],  # two mask-like
+                [torch.zeros(H, 5, 7), torch.zeros(H, 5, 7)],
+                [torch.zeros(5, 1, 1, 1, 1, 1, 7)]):   # more dims than B,N
+        with pytest.raises(UnsupportedBiasLayout):
+            canonicalize(q, k, k, bad)
+    with pytest.raises(UnsupportedBiasLayout):
+        canonicalize(torch.zeros(5, H, 8), k, k, [])
+
+
+def test_bias_grad_kernels_run_only_when_asked(monkeypatch):
+    """The backward asks for a bias gradient only where autograd needs it
+    (``ctx.needs_input_grad``), as the kernels' launches follow."""
+    seen = []
+    real = te.evo_bwd_plain
+    monkeypatch.setattr(te, "evo_bwd_plain", lambda *a, **kw: seen.append(
+        a[8:10]) or real(*a, **kw))
+    q, k, v, b1, b2, w = _arrays(seed=15)
+    for g1, g2 in ((False, True), (True, False), (True, True)):
+        tb1, tb2 = _t(b1, grad=g1), _t(b2, grad=g2)
+        out = fused_evoformer_attention(_t(q, grad=True), _t(k), _t(v),
+                                        [tb1, tb2])
+        (out * _t(w)).sum().backward()
+        assert seen[-1] == (g1, g2)
+        assert (tb1.grad is not None) == g1 and (tb2.grad is not None) == g2
+
+
+def test_cpu_dispatch_runs_plain_and_counts_nothing():
+    q, k, v, b1, b2, do = (_t(x) for x in _arrays(seed=16))
+    q5, k5, v5, c1, c2 = canonicalize(q, k, v, [b1, b2])
+    c1, c2 = c1.contiguous(), c2.contiguous()
+    build.reset_launch_counts()
+    out, lse = evo_fwd(q5, k5, v5, c1, c2)
+    want_out, want_lse = evo_fwd_plain(q5, k5, v5, c1, c2)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    got = evo_bwd(q5, k5, v5, c1, c2, out, lse, do)
+    for g, w in zip(got, evo_bwd_plain(q5, k5, v5, c1, c2, out, lse, do)):
+        assert torch.equal(g, w)
+    assert build.launch_counts() == {}
+    assert EvoformerAttentionFunction.apply(q5, k5, v5, c1, c2).shape == q5.shape
+    with pytest.raises(ValueError, match="unsupported device"):
+        evo_fwd(q5.to("meta"), k5.to("meta"), v5.to("meta"))
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_on_card():
+    """The five CUDA kernels against their plain versions on the card, in
+    the cases and at the tolerances of ``chip_smoke.py``
+    (``run_evo_cases``: fp32 and bf16, head dims 8 to 128, every bias
+    combination, L not a multiple of the tiles, Lq != Lk; rows of out, dq,
+    dk, dv within 4 bf16 ulps of the row's largest |plain| value (fp32 1e-4
+    of it), lse within 1e-4, db1/db2 within a share of each panel's largest
+    |plain| value), each with the mutants that apply, which must land
+    outside. Then a head dim outside the instances raises, as does a
+    non-contiguous operand."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels; no CPU mode)")
+    import chip_smoke
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows = chip_smoke.run_evo_cases(gen)
+    assert len(rows) == len(chip_smoke.EVO_CASES)
+    x = torch.randn(1, 2, 16, 2, 24, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        evo_fwd(x, x, x)
+    x = torch.randn(1, 2, 16, 2, 32, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        evo_fwd(x.transpose(2, 3).contiguous().transpose(2, 3), x, x)
+    assert math.isfinite(float(evo_fwd(x, x, x)[0].sum()))
