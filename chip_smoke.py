@@ -35,7 +35,17 @@ the port's paths:
   Lk) with mutants, then ``DS4Sci_EvoformerAttention`` forward and backward
   at OpenFold's widths (E1 MSA row attention with pair bias, E2 MSA column,
   E3 triangle, E4 extra-MSA row) with exact launch counts, held against the
-  chunked plain versions, and the kernels timed at E1 beside SDPA.
+  chunked plain versions, and the kernels timed at E1 beside SDPA;
+- slice 5: the RMSNorm kernel (7 cases), the four fused bias + activation
+  (+ dropout) kernels (8 cases, every activation, dropout masks bit for bit)
+  and the block-sparse attention kernel (9 cases, blocks 16 to 128, head
+  dims 32 to 128, causal and per-head layouts) against their plain versions
+  with mutants; then the paths: ``SparseSelfAttention`` forward and backward
+  at BigBird-base (S1) and the Fixed pattern (S2), 4096 tokens; ``rms_norm``
+  at Llama-3-8B's width (R); ``fused_bias_act`` and
+  ``fused_bias_act_dropout`` at BERT-base's FFN (F); exact launch counts,
+  every output and gradient held against the plain versions, and the six
+  kernels timed beside their bounds, plain versions and library calls.
 
 Each phase prints one JSON line; the card's name and power limit
 (``nvidia-smi``) and the ``kernels`` line come before the last line,
@@ -139,6 +149,7 @@ def _demangle(names):
 def phase_build(kernels):
     from deepspeed_tpu_torch.ops import build, evoformer, flash_attention
     from deepspeed_tpu_torch.ops.paged_attention import dynamic_smem_bytes
+    from deepspeed_tpu_torch.ops.sparse_attention import attention as sparse
     t0 = time.monotonic()
     results = build.build(kernels)
     info = {}
@@ -166,7 +177,10 @@ def phase_build(kernels):
               f"d{d}": flash_attention.dynamic_smem_bytes(d) for d in (64, 128)},
           "evo_dynamic_smem_bytes": {
               f"d{d}": evoformer.dynamic_smem_bytes(d)
-              for d in evoformer.HEAD_DIMS}})
+              for d in evoformer.HEAD_DIMS},
+          "sparse_dynamic_smem_bytes": {
+              f"d{d}_block{blk}": sparse.dynamic_smem_bytes(d, blk)
+              for d in sparse.HEAD_DIMS for blk in sparse.BLOCKS}})
     return info
 
 
@@ -1473,6 +1487,682 @@ def phase_evo_timing(dev, smi_line):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: slice 5 — RMSNorm, fused bias + activation (+ dropout) and
+# block-sparse attention: each kernel vs its plain version, the S1, S2, R
+# and F paths, and the kernels' times
+# ---------------------------------------------------------------------------
+F32_ULPS = 4            # fp32 row-kernel outputs: ulps of each row's max |plain|
+REDUCE_REL = 1e-5       # db, dscale: share of their largest |plain|
+RMS_EPS = 1e-5          # Meta's Llama-3 config
+DROPOUT_RATE = 0.1      # BERT's published hidden dropout
+BLOCK_ROWS = 256        # the reference's default block_rows (the db mutant)
+RMS_MUTANTS = ("eps_dropped", "mean_over_d_minus_1")
+
+# name, (N, D, x dtype, scale dtype, x std), mutants that must land outside.
+# fp32 and bf16, N never a multiple of a block, D odd and unaligned, two
+# shapes with more rows than one grid pass holds (20011 rows of the warp
+# kernel, 2500 of the block kernel), Llama-3-8B's width; a bf16 case with
+# x at 1e-3, where eps outweighs the mean of squares
+RMS_CASES = [
+    ("f32_w64_many_rows", (20011, 64, torch.float32, torch.float32, 1.0), RMS_MUTANTS),
+    ("f32_w4096", (1001, 4096, torch.float32, torch.float32, 1.0), RMS_MUTANTS),
+    ("f32_w3001_bf16_scale", (257, 3001, torch.float32, torch.bfloat16, 1.0),
+     RMS_MUTANTS),
+    ("bf16_w4096", (1001, 4096, torch.bfloat16, torch.bfloat16, 1.0), ()),
+    ("bf16_w100_f32_scale", (3001, 100, torch.bfloat16, torch.float32, 1.0), ()),
+    ("bf16_w2048_many_rows", (2500, 2048, torch.bfloat16, torch.bfloat16, 1.0), ()),
+    ("bf16_small_x", (513, 256, torch.bfloat16, torch.bfloat16, 1e-3), ("eps_dropped",)),
+]
+
+# name, (N, D, dtype, act, rate): every activation in both dtypes, D odd or
+# not a multiple of 4 (element-wise accesses, quads across two Philox
+# counters), N uneven, [140001, 6] and [4097, 3072] with more rows than one
+# grid pass holds; rate 0 runs the two plain kernels only
+BIAS_ACT_CASES = [
+    ("f32_gelu", (1000, 3072, torch.float32, "gelu", 0.1)),
+    ("f32_relu_uneven", (1001, 100, torch.float32, "relu", 0.0)),
+    ("f32_silu_d1001", (777, 1001, torch.float32, "silu", 0.25)),
+    ("f32_identity", (300, 512, torch.float32, "identity", 0.5)),
+    ("bf16_gelu_bert", (4097, 3072, torch.bfloat16, "gelu", 0.1)),
+    ("bf16_relu_d6_many_rows", (140001, 6, torch.bfloat16, "relu", 0.3)),
+    ("bf16_silu_w4096", (513, 4096, torch.bfloat16, "silu", 0.0)),
+    ("bf16_identity_d1001", (1003, 1001, torch.bfloat16, "identity", 0.2)),
+]
+BIAS_ACT_KERNELS = ("bias_act", "bias_act_bwd", "bias_act_dropout",
+                    "bias_act_dropout_bwd")
+
+
+def _elem_tol(want):
+    """Tolerance of a row kernel's output: 1 bf16 ulp of each plain value
+    (0 where it is 0), or F32_ULPS fp32 ulps of each row's largest
+    |plain|."""
+    if want.dtype == torch.bfloat16:
+        a, ulps, bits = want.float().abs(), 1, 7
+    else:
+        a, ulps, bits = want.float().abs().amax(-1, keepdim=True), F32_ULPS, 23
+    ulp = torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-30))) - bits)
+    return torch.where(a > 0, ulps * ulp, torch.zeros_like(a))
+
+
+def _reduce_tol(want):
+    """db, dscale: REDUCE_REL of the largest |plain| value."""
+    return (REDUCE_REL * want.float().abs().max()).reshape(1)
+
+
+def _rms_mutant(name, x, scale):
+    from deepspeed_tpu_torch.ops.rms_norm import rms_norm_plain
+    if name == "eps_dropped":
+        return rms_norm_plain(x, scale, 0.0)
+    x32 = x.float()                         # mean_over_d_minus_1
+    var = x32.square().sum(-1, keepdim=True) / (x.shape[-1] - 1)
+    return (x32 * torch.rsqrt(var + RMS_EPS) * scale.float()).to(x.dtype)
+
+
+def _launched(before, names):
+    """Launches of ``names`` since the counts ``before``."""
+    from deepspeed_tpu_torch.ops import build
+    after = build.launch_counts()
+    return {n: after.get(n, 0) - before.get(n, 0) for n in names}
+
+
+def run_rms_cases(gen):
+    """Every RMS_CASES case: the kernel (one launch) against the plain
+    version within its tolerance, each named mutant outside it. Returns
+    the rows; raises PhaseError on any failure. The ``gpu`` test runs this
+    too."""
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.rms_norm import rms_norm_cuda, rms_norm_plain
+    rows = []
+    for name, (n, d, dtype, sdtype, std), must in RMS_CASES:
+        x = (torch.randn(n, d, generator=gen, device="cuda") * std).to(dtype)
+        scale = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(sdtype)
+        before = build.launch_counts()
+        got = rms_norm_cuda(x, scale, RMS_EPS)
+        torch.cuda.synchronize()
+        launched = _launched(before, ("rms_norm",))
+        want = rms_norm_plain(x, scale, RMS_EPS)
+        tol = _elem_tol(want)
+        ratio = _err_ratio(got, want, tol)
+        mutants = {m: _json_ratio(_err_ratio(_rms_mutant(m, x, scale), want, tol))
+                   for m in RMS_MUTANTS}
+        finite = bool(torch.isfinite(got).all())
+        row = {"phase": "rms_parity", "case": name,
+               "shape": [n, d], "dtype": str(dtype), "scale_dtype": str(sdtype),
+               "max_abs_err": _max_err(got, want, "out"), "err_over_tol": ratio,
+               "finite": finite, "launches": launched, "mutants": mutants,
+               "must_miss": list(must)}
+        emit(row)
+        check(launched == {"rms_norm": 1}, f"rms {name}: launches {launched}")
+        check(finite and ratio <= 1.0,
+              f"rms {name}: error {ratio} times its tolerance")
+        for m in must:
+            check(mutants[m] > 1.0, f"rms {name}: mutant {m} lands within the "
+                  f"tolerance ({mutants[m]}), so the case cannot catch that fault")
+        rows.append(row)
+        del x, got, want, tol
+    return rows
+
+
+def _dropout_masks(n, d, dtype, seed, rate):
+    """(forward mask, backward mask) the two dropout kernels draw, read by
+    running them on ones with the identity activation and a zero bias."""
+    from deepspeed_tpu_torch.ops.fused_bias_act import (bias_act_dropout_bwd,
+                                                        bias_act_dropout_fwd)
+    ones = torch.ones(n, d, dtype=dtype, device="cuda")
+    zero = torch.zeros(d, dtype=dtype, device="cuda")
+    fwd = bias_act_dropout_fwd(ones, zero, seed, "identity", rate) != 0
+    bwd = bias_act_dropout_bwd(ones, zero, ones, seed, "identity", rate)[0] != 0
+    return fwd, bwd
+
+
+def _gelu_erf(x, bias, dtype):
+    xb = x.float() + bias.float()
+    return (0.5 * xb * (1.0 + torch.erf(xb / math.sqrt(2.0)))).to(dtype)
+
+
+def run_bias_act_cases(gen):
+    """Every BIAS_ACT_CASES case: bias_act and bias_act_bwd (and, at a
+    rate > 0, the two dropout kernels), one launch each, against the plain
+    versions: outputs and dx within the row kernels' tolerance, db within
+    REDUCE_REL of its largest |plain|, the dropout masks of forward and
+    backward bit-identical to the plain mask; the mutants outside (erf-gelu
+    in the fp32 gelu cases, db from the first BLOCK_ROWS rows, the mask's
+    counter shifted by one row). Returns the rows; raises PhaseError on any
+    failure. The ``gpu`` test runs this too."""
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.fused_bias_act import (
+        bias_act_bwd, bias_act_bwd_plain, bias_act_dropout_bwd,
+        bias_act_dropout_fwd, bias_act_fwd, bias_act_plain, dropout_keep)
+    rows = []
+    for idx, (name, (n, d, dtype, act, rate)) in enumerate(BIAS_ACT_CASES):
+        seed = 1000 + idx
+        x, g = (torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        # an fp32 bias (the master weight): db stays fp32, so its tolerance
+        # sees the partials' order, not a final bf16 rounding
+        bias = torch.randn(d, generator=gen, device="cuda")
+        before = build.launch_counts()
+        got = {"out": bias_act_fwd(x, bias, act)}
+        got["dx"], got["db"] = bias_act_bwd(x, bias, g, act)
+        if rate > 0:
+            got["drop_out"] = bias_act_dropout_fwd(x, bias, seed, act, rate)
+            got["drop_dx"], got["drop_db"] = bias_act_dropout_bwd(
+                x, bias, g, seed, act, rate)
+        torch.cuda.synchronize()
+        launched = _launched(before, BIAS_ACT_KERNELS)
+        want_n = {k: int(k in ("bias_act", "bias_act_bwd") or rate > 0)
+                  for k in BIAS_ACT_KERNELS}
+        keep = dropout_keep(n, d, seed, rate, "cuda") if rate > 0 else None
+        want = {"out": bias_act_plain(x, bias, act)}
+        want["dx"], want["db"] = bias_act_bwd_plain(x, bias, g, act)
+        if rate > 0:
+            want["drop_out"] = bias_act_plain(x, bias, act, keep, rate)
+            want["drop_dx"], want["drop_db"] = bias_act_bwd_plain(
+                x, bias, g, act, keep, rate)
+        tols = {k: _reduce_tol(w) if k.endswith("db") else _elem_tol(w)
+                for k, w in want.items()}
+        ratios = {k: _err_ratio(got[k], w, tols[k]) for k, w in want.items()}
+        mutants = {}
+        first_db = bias_act_bwd_plain(x[:BLOCK_ROWS], bias, g[:BLOCK_ROWS], act)[1]
+        mutants["db_first_block_only"] = _json_ratio(
+            _err_ratio(first_db, want["db"], tols["db"]))
+        if act == "gelu" and dtype == torch.float32:
+            mutants["erf_gelu"] = _json_ratio(
+                _err_ratio(_gelu_erf(x, bias, dtype), want["out"], tols["out"]))
+        mask = {}
+        if rate > 0:
+            shifted = dropout_keep(n + 1, d, seed, rate, "cuda")[1:]
+            mutants["mask_shifted_one_row"] = _json_ratio(_err_ratio(
+                bias_act_plain(x, bias, act, shifted, rate), want["drop_out"],
+                tols["drop_out"]))
+            fwd_mask, bwd_mask = _dropout_masks(n, d, dtype, seed, rate)
+            mask = {"fwd_vs_plain": int((fwd_mask != keep).sum()),
+                    "bwd_vs_plain": int((bwd_mask != keep).sum()),
+                    "fwd_vs_bwd": int((fwd_mask != bwd_mask).sum()),
+                    "shifted_vs_plain": int((shifted != keep).sum()),
+                    "drop_share": 1.0 - keep.float().mean().item()}
+            del shifted, fwd_mask, bwd_mask
+        finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+        row = {"phase": "bias_act_parity", "case": name, "shape": [n, d],
+               "dtype": str(dtype), "act": act, "rate": rate,
+               "max_abs_err": {k: _max_err(got[k], w, k) for k, w in want.items()},
+               "err_over_tol": ratios, "finite": finite, "launches": launched,
+               "mutants": mutants, "mask_differences": mask}
+        emit(row)
+        check(launched == want_n, f"bias_act {name}: launches {launched}, "
+              f"expected {want_n}")
+        check(finite, f"bias_act {name}: non-finite output")
+        for k, r in ratios.items():
+            check(r <= 1.0, f"bias_act {name}: {k} error {r} times its tolerance")
+        if mask:
+            check(mask["fwd_vs_plain"] == 0 and mask["bwd_vs_plain"] == 0 and
+                  mask["fwd_vs_bwd"] == 0, f"bias_act {name}: dropout masks "
+                  f"differ {mask}")
+            check(mask["shifted_vs_plain"] > 0, f"bias_act {name}: the shifted "
+                  "mask equals the mask")
+        for m, r in mutants.items():
+            check(r > 1.0, f"bias_act {name}: mutant {m} lands within the "
+                  f"tolerance ({r}), so the case cannot catch that fault")
+        rows.append(row)
+        del x, g, bias, got, want, tols, keep
+    return rows
+
+
+def _last_live_dropped(layout):
+    lay = np.array(layout, copy=True)
+    h, nb, _ = lay.shape
+    for hh in range(h):
+        for qi in range(nb):
+            live = np.nonzero(lay[hh, qi])[0]
+            if live.size:
+                lay[hh, qi, live[-1]] = 0
+    return lay
+
+
+def _sparse_case_layouts():
+    """name -> (layout [H, nb, nb], block, causal, B, S, H, D, dtype,
+    layouts differ per head): every block and head dim, both dtypes, causal
+    on and off, per-head random layouts, and a layout with query blocks that
+    have no live key block."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
+        FixedSparsityConfig, LocalSlidingWindowSparsityConfig,
+        VariableSparsityConfig)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {}
+
+    def add(name, cfg, s, b, d, dtype, causal, per_head=False, edit=None):
+        lay = cfg.make_layout(s)
+        if edit is not None:
+            lay = edit(lay)
+        cases[name] = (lay, cfg.block, causal, b, s, cfg.num_heads, d, dtype,
+                       per_head)
+
+    def empty_rows(lay):
+        lay = lay.copy()
+        lay[:, 3] = 0
+        lay[1, 5] = 0
+        return lay
+
+    add("b16_d64_bf16_fixed_causal", FixedSparsityConfig(
+        4, block=16, num_local_blocks=4, attention="unidirectional"),
+        512, 2, 64, bf16, True)
+    add("b32_d32_f32_bigbird_per_head", BigBirdSparsityConfig(
+        4, block=32, different_layout_per_head=True, num_random_blocks=2),
+        512, 2, 32, f32, False, per_head=True)
+    add("b64_d128_bf16_bigbird_per_head_causal", BigBirdSparsityConfig(
+        4, block=64, different_layout_per_head=True, num_random_blocks=1,
+        attention="unidirectional"), 1024, 2, 128, bf16, True, per_head=True)
+    add("b128_d64_f32_longformer", BSLongformerSparsityConfig(
+        2, block=128, global_block_indices=[0]), 1024, 2, 64, f32, False)
+    add("b128_d128_bf16_variable_per_head_causal", VariableSparsityConfig(
+        2, block=128, different_layout_per_head=True, num_random_blocks=1,
+        local_window_blocks=[2], global_block_indices=[1],
+        attention="unidirectional"), 1024, 2, 128, bf16, True, per_head=True)
+    add("b16_d128_f32_local_causal", LocalSlidingWindowSparsityConfig(
+        2, block=16), 256, 2, 128, f32, True)
+    add("b32_d64_bf16_dense", DenseSparsityConfig(2, block=32), 256, 2, 64,
+        bf16, False)
+    add("b64_d32_bf16_bigbird", BigBirdSparsityConfig(
+        4, block=64, num_random_blocks=2), 1024, 2, 32, bf16, False)
+    add("b32_d128_f32_empty_rows", BigBirdSparsityConfig(
+        2, block=32, different_layout_per_head=True), 256, 2, 128, f32, False,
+        per_head=True, edit=empty_rows)
+    return cases
+
+
+def run_sparse_cases(gen):
+    """Every sparse case: the kernel (one launch) against the plain
+    blockwise version, each row within BF16_ULPS bf16 ulps (fp32: F32_REL)
+    of its largest |plain|, and the mutants outside: the last live key block
+    of every (head, query block) dropped, head 0's layout for every head
+    (layouts that differ per head), token-level causal dropped (causal
+    cases). Returns the rows; raises PhaseError on any failure. The ``gpu``
+    test runs this too."""
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        block_sparse_attention, sparse_attention_cuda)
+    rows = []
+    for name, (lay, block, causal, b, s, h, d, dtype, per_head) in \
+            _sparse_case_layouts().items():
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        before = build.launch_counts()
+        got = sparse_attention_cuda(q, k, v, lay, block, causal)
+        torch.cuda.synchronize()
+        launched = _launched(before, ("sparse_attention",))
+        want = block_sparse_attention(q, k, v, lay, block, causal)
+        tol = _row_tol(want)
+        ratio = _err_ratio(got, want, tol)
+        mutants = {"last_live_block_dropped": block_sparse_attention(
+            q, k, v, _last_live_dropped(lay), block, causal)}
+        if per_head:
+            mutants["head0_layout_everywhere"] = block_sparse_attention(
+                q, k, v, np.broadcast_to(lay[:1], lay.shape).copy(), block, causal)
+        if causal:
+            mutants["causal_dropped"] = block_sparse_attention(
+                q, k, v, lay, block, False)
+        m_ratios = {m: _json_ratio(_err_ratio(o, want, tol))
+                    for m, o in mutants.items()}
+        finite = bool(torch.isfinite(got).all())
+        dead_rows = int((want.float().abs().amax(-1) == 0).sum())
+        row = {"phase": "sparse_parity", "case": name,
+               "shape": {"b": b, "s": s, "h": h, "d": d, "block": block},
+               "dtype": str(dtype), "causal": causal,
+               "live_blocks": int(lay.sum()), "all_blocks": int(lay.size),
+               "rows_without_live_key": dead_rows,
+               "max_abs_err": _max_err(got, want, "out"), "err_over_tol": ratio,
+               "finite": finite, "launches": launched, "mutants": m_ratios}
+        emit(row)
+        check(launched == {"sparse_attention": 1},
+              f"sparse {name}: launches {launched}")
+        check(finite and ratio <= 1.0,
+              f"sparse {name}: error {ratio} times its row tolerance")
+        for m, r in m_ratios.items():
+            check(r > 1.0, f"sparse {name}: mutant {m} lands within the row "
+                  f"tolerance ({r}), so the case cannot catch that fault")
+        rows.append(row)
+        del q, k, v, got, want, tol, mutants
+    return rows
+
+
+def phase_slice5_parity():
+    """The six slice-5 kernels against their plain versions; returns the
+    worst absolute error of each."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    worst = {n: 0.0 for n in SLICE5_KERNELS}
+    for row in run_rms_cases(gen):
+        worst["rms_norm"] = max(worst["rms_norm"], row["max_abs_err"])
+    outs = {"bias_act": ("out",), "bias_act_bwd": ("dx", "db"),
+            "bias_act_dropout": ("drop_out",),
+            "bias_act_dropout_bwd": ("drop_dx", "drop_db")}
+    for row in run_bias_act_cases(gen):
+        for kernel, names in outs.items():
+            for o in names:
+                if o in row["max_abs_err"]:
+                    worst[kernel] = max(worst[kernel], row["max_abs_err"][o])
+    for row in run_sparse_cases(gen):
+        worst["sparse_attention"] = max(worst["sparse_attention"],
+                                        row["max_abs_err"])
+    emit({"phase": "slice5_parity_summary", "worst_max_abs_err": worst,
+          "rms_cases": len(RMS_CASES), "bias_act_cases": len(BIAS_ACT_CASES),
+          "sparse_cases": len(_sparse_case_layouts())})
+    return worst
+
+
+# The slice-5 paths, published widths, bf16, nothing cut:
+# S1 BigBird-base (google/bigbird-roberta-base: hidden 768, 12 heads, block
+#    64, 3 random blocks, 4096 positions), bidirectional, B = 4;
+# S2 the reference's FixedSparsityConfig defaults at BERT-base widths
+#    (12 heads, D = 64), block 16, unidirectional (token-level causal), B = 4;
+# R  RMSNorm at Llama-3-8B's width, [2048, 4096], eps 1e-5 (Meta's config);
+# F  bias + gelu at BERT-base's FFN, [16 * 512, 3072], rate 0 then 0.1.
+SPARSE_PATHS = {"S1": ("BigBird", 4, 4096, 12, 64, 488),
+                "S2": ("Fixed", 4, 4096, 12, 64, 8704)}
+RMS_PATH = (2048, 4096)
+BIAS_ACT_PATH = (16 * 512, 3072)
+DROPOUT_SEED = 1234
+
+
+def _sparse_path_config(name):
+    from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
+                                                          FixedSparsityConfig)
+    if name == "S1":
+        return BigBirdSparsityConfig(num_heads=12, block=64, num_random_blocks=3,
+                                     num_sliding_window_blocks=3,
+                                     num_global_blocks=1)
+    return FixedSparsityConfig(num_heads=12, block=16, num_local_blocks=4,
+                               num_global_blocks=1, attention="unidirectional")
+
+
+def phase_sparse_path(dev, smi_line):
+    """S1 and S2 through ``SparseSelfAttention``: forward, then
+    ``.backward()`` of a seeded output gradient. Launches counted from 0
+    around each run: exactly one ``sparse_attention`` (the backward
+    recomputes through the plain version). The output and the q, k, v
+    gradients are held against the plain blockwise version and its autograd
+    on the card. Returns {path: launches}."""
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.sparse_attention import (SparseSelfAttention,
+                                                          block_sparse_attention)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 10)
+    launches_by_path = {}
+    for name, (kind, b, s, h, d, live_per_head) in SPARSE_PATHS.items():
+        cfg = _sparse_path_config(name)
+        attn = SparseSelfAttention(cfg)
+        q, k, v, gy = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        for x in (q, k, v):
+            x.requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()      # the main path's run starts here
+        t0 = time.monotonic()
+        out = attn(q, k, v)
+        out.backward(gy)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+        launches = build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        launches_by_path[name] = launches
+        lay = attn.layout(s)
+        with torch.enable_grad():
+            qp, kp, vp = (x.detach().requires_grad_(True) for x in (q, k, v))
+            want = block_sparse_attention(qp, kp, vp, lay, cfg.block, attn.causal)
+            wgrads = torch.autograd.grad(want, (qp, kp, vp), gy)
+        got = [out.detach(), q.grad, k.grad, v.grad]
+        wants = [want.detach(), *wgrads]
+        ratios = {nm: _err_ratio(g, w, _row_tol(w)) for nm, g, w in
+                  zip(("out", "dq", "dk", "dv"), got, wants)}
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        live = [int(x) for x in lay.reshape(h, -1).sum(1)]
+        emit({"phase": "sparse_path", "path": name, "config": kind,
+              "shape": [b, s, h, d], "block": cfg.block, "causal": attn.causal,
+              "live_blocks_per_head": sorted(set(live)),
+              "blocks_per_head": int(lay[0].size),
+              "launches": launches, "err_over_tol": ratios, "finite": finite,
+              "wall_ms_fwd_bwd": wall_ms, "peak_gb": peak / 1e9,
+              "card": dev["kind"], "nvidia_smi": smi_line})
+        check(launches == {"sparse_attention": 1},
+              f"{name}: launches {launches}, expected one sparse_attention")
+        check(attn.causal == (name == "S2"), f"{name}: causal {attn.causal}")
+        check(set(live) == {live_per_head},
+              f"{name}: live blocks per head {sorted(set(live))}")
+        check(finite, f"{name}: non-finite output or gradient")
+        for nm, r in ratios.items():
+            check(r <= 1.0, f"{name}: {nm} {r} times its row tolerance")
+        del q, k, v, gy, out, want, wgrads, got, wants, qp, kp, vp, attn
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches_by_path
+
+
+def phase_rms_path(dev, smi_line):
+    """R: ``rms_norm`` forward and backward on [2048, 4096] bf16 with an
+    fp32 scale (the master weight); exactly one ``rms_norm`` launch; output,
+    dx and dscale held against autograd through ``rms_norm_reference``."""
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.rms_norm import rms_norm, rms_norm_reference
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    n, d = RMS_PATH
+    x = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    gy = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    x.requires_grad_(True)
+    scale.requires_grad_(True)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()          # the main path's run starts here
+    out = rms_norm(x, scale, RMS_EPS)
+    out.backward(gy)
+    torch.cuda.synchronize()
+    launches = build.launch_counts()
+    with torch.enable_grad():
+        xp, sp = x.detach().requires_grad_(True), scale.detach().requires_grad_(True)
+        want = rms_norm_reference(xp, sp, RMS_EPS)
+        wdx, wds = torch.autograd.grad(want, (xp, sp), gy)
+    ratios = {"out": _err_ratio(out, want, _elem_tol(want)),
+              "dx": _err_ratio(x.grad, wdx, _row_tol(wdx)),
+              "dscale": _err_ratio(scale.grad, wds, _reduce_tol(wds))}
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, x.grad, scale.grad))
+    emit({"phase": "rms_path", "path": "R", "shape": [n, d], "eps": RMS_EPS,
+          "dtype": "bf16, fp32 scale", "launches": launches,
+          "err_over_tol": ratios, "finite": finite,
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    check(launches == {"rms_norm": 1}, f"R: launches {launches}")
+    check(finite, "R: non-finite output or gradient")
+    for nm, r in ratios.items():
+        check(r <= 1.0, f"R: {nm} {r} times its tolerance")
+    return launches
+
+
+def phase_bias_act_path(dev, smi_line):
+    """F: ``fused_bias_act`` (gelu) forward and backward on [8192, 3072]
+    bf16 with an fp32 bias (the master weight), then
+    ``fused_bias_act_dropout`` at rate 0.1: exactly one launch of each
+    kernel per run; outputs, dx and db held against the plain versions; the
+    dropout masks of the forward and the backward
+    bit-identical to the plain mask (read after the counted run by the
+    kernels on ones with the identity activation), and the run's output 0
+    at every dropped position."""
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.fused_bias_act import (
+        bias_act_bwd_plain, bias_act_plain, dropout_keep, fused_bias_act,
+        fused_bias_act_dropout)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 12)
+    n, d = BIAS_ACT_PATH
+    x = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    gy = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    bias = 0.1 * torch.randn(d, generator=gen, device="cuda")   # fp32 master
+    total = {}
+    keep = dropout_keep(n, d, DROPOUT_SEED, DROPOUT_RATE, "cuda")
+    for run, rate in (("rate_0", 0.0), ("rate_0.1", DROPOUT_RATE)):
+        xr, br = x.detach().requires_grad_(True), bias.detach().requires_grad_(True)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()      # the main path's run starts here
+        out = fused_bias_act_dropout(xr, br, DROPOUT_SEED, "gelu", rate) \
+            if rate > 0 else fused_bias_act(xr, br, "gelu")
+        out.backward(gy)
+        torch.cuda.synchronize()
+        launches = build.launch_counts()
+        for kname, c in launches.items():
+            total[kname] = total.get(kname, 0) + c
+        mask = keep if rate > 0 else None
+        want = bias_act_plain(x, bias, "gelu", mask, rate)
+        wdx, wdb = bias_act_bwd_plain(x, bias, gy, "gelu", mask, rate)
+        ratios = {"out": _err_ratio(out, want, _elem_tol(want)),
+                  "dx": _err_ratio(xr.grad, wdx, _elem_tol(wdx)),
+                  "db": _err_ratio(br.grad, wdb, _reduce_tol(wdb))}
+        expected = ({"bias_act_dropout": 1, "bias_act_dropout_bwd": 1} if rate > 0
+                    else {"bias_act": 1, "bias_act_bwd": 1})
+        row = {"phase": "bias_act_path", "path": "F", "run": run,
+               "shape": [n, d], "act": "gelu", "rate": rate,
+               "launches": launches, "expected": expected,
+               "err_over_tol": ratios,
+               "finite": all(bool(torch.isfinite(t).all())
+                             for t in (out, xr.grad, br.grad))}
+        if rate > 0:
+            fwd_mask, bwd_mask = _dropout_masks(n, d, torch.bfloat16,
+                                                DROPOUT_SEED, rate)
+            row["mask_differences"] = {
+                "fwd_vs_plain": int((fwd_mask != keep).sum()),
+                "bwd_vs_plain": int((bwd_mask != keep).sum()),
+                "fwd_vs_bwd": int((fwd_mask != bwd_mask).sum()),
+                "nonzero_at_dropped": int(((out != 0) & ~keep).sum())}
+            row["drop_share"] = 1.0 - keep.float().mean().item()
+        emit({**row, "card": dev["kind"], "nvidia_smi": smi_line})
+        check(launches == expected, f"F {run}: launches {launches}")
+        check(row["finite"], f"F {run}: non-finite output or gradient")
+        for nm, r in ratios.items():
+            check(r <= 1.0, f"F {run}: {nm} {r} times its tolerance")
+        if rate > 0:
+            check(all(v == 0 for v in row["mask_differences"].values()),
+                  f"F {run}: masks differ {row['mask_differences']}")
+        del xr, br, out, want, wdx, wdb
+    return total
+
+
+def phase_slice5_timing(dev, smi_line):
+    """Each slice-5 kernel's time at its path shape beside its bound, its
+    plain version's time and one PyTorch call's (``F.rms_norm``; SDPA with
+    the dense boolean layout mask; none for the bias kernels). Returns the
+    kernels line's numbers."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.fused_bias_act import (
+        bias_act_bwd, bias_act_bwd_plain, bias_act_dropout_bwd,
+        bias_act_dropout_bwd_plain, bias_act_dropout_fwd,
+        bias_act_dropout_plain, bias_act_fwd, bias_act_plain)
+    from deepspeed_tpu_torch.ops.rms_norm import rms_norm_cuda, rms_norm_plain
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        SparseLayout, block_sparse_attention, dense_mask_from_layout,
+        sparse_attention_cuda)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    timing = {}
+    # R
+    n, d = RMS_PATH
+    x = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    # F.rms_norm with the path's fp32 weight (the same function), and with
+    # the weight in x's dtype, which torch may send to a fused kernel
+    lib = {}
+    for weight in (scale, scale.to(x.dtype)):
+        try:
+            lib[str(weight.dtype)] = time_ms(
+                lambda: F.rms_norm(x, (d,), weight, RMS_EPS), iters=50)
+        except (AttributeError, RuntimeError):
+            lib[str(weight.dtype)] = None
+    timing["rms_norm"] = {
+        "ms": time_ms(lambda: rms_norm_cuda(x, scale, RMS_EPS), iters=50),
+        "plain_ms": time_ms(lambda: rms_norm_plain(x, scale, RMS_EPS), iters=20),
+        "library_ms": lib["torch.float32"], "library_ms_by_weight": lib,
+        "bytes": 2 * x.numel() * 2 + d * 4, "flops": 0}
+    del x
+    # F
+    n, d = BIAS_ACT_PATH
+    x, g = (torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    bias = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    s, r = DROPOUT_SEED, DROPOUT_RATE
+    per = _kernel_device_ms(lambda: (bias_act_bwd(x, bias, g),
+                                     bias_act_dropout_bwd(x, bias, g, s, "gelu", r)),
+                            ["bias_act_bwd_kernel", "bias_act_dropout_bwd_kernel"])
+    fwd_bytes = 2 * x.numel() * 2 + d * 4
+    bwd_bytes = 3 * x.numel() * 2 + 2 * d * 4
+    timing["bias_act"] = {
+        "ms": time_ms(lambda: bias_act_fwd(x, bias), iters=50),
+        "plain_ms": time_ms(lambda: bias_act_plain(x, bias), iters=10),
+        "library_ms": None, "bytes": fwd_bytes, "flops": 0}
+    timing["bias_act_bwd"] = {
+        "ms": per["bias_act_bwd_kernel"],
+        "plain_ms": time_ms(lambda: bias_act_bwd_plain(x, bias, g), iters=10),
+        "library_ms": None, "bytes": bwd_bytes, "flops": 0}
+    timing["bias_act_dropout"] = {
+        "ms": time_ms(lambda: bias_act_dropout_fwd(x, bias, s, "gelu", r), iters=50),
+        "plain_ms": time_ms(lambda: bias_act_dropout_plain(x, bias, s, "gelu", r),
+                            iters=5),
+        "library_ms": None, "bytes": fwd_bytes, "flops": 0}
+    timing["bias_act_dropout_bwd"] = {
+        "ms": per["bias_act_dropout_bwd_kernel"],
+        "plain_ms": time_ms(lambda: bias_act_dropout_bwd_plain(
+            x, bias, g, s, "gelu", r), iters=5),
+        "library_ms": None, "bytes": bwd_bytes, "flops": 0}
+    del x, g
+    # S1 and S2
+    sparse = {}
+    for name, (_, b, s_len, h, dh, _) in SPARSE_PATHS.items():
+        cfg = _sparse_path_config(name)
+        causal = name == "S2"
+        lay = SparseLayout(cfg.make_layout(s_len))
+        q, k, v = (torch.randn(b, s_len, h, dh, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        dense = torch.as_tensor(dense_mask_from_layout(lay, cfg.block, s_len),
+                                device="cuda")
+        if causal:
+            pos = torch.arange(s_len, device="cuda")
+            dense = dense & (pos[:, None] >= pos[None, :])
+        pairs = int(dense.sum()) * b                 # live (row, key) pairs
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        try:
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=dense[None]), iters=5, warmup=1)
+        except RuntimeError:
+            lib_ms = None
+        sparse[name] = {
+            "ms": time_ms(lambda: sparse_attention_cuda(q, k, v, lay, cfg.block,
+                                                        causal), iters=20),
+            "plain_ms": time_ms(lambda: block_sparse_attention(
+                q, k, v, lay, cfg.block, causal), iters=2, warmup=1),
+            "library_ms": lib_ms,
+            "bytes": 4 * q.numel() * 2 + sum(t.numel() * 4 for t in lay.csr("cuda")),
+            "flops": 4 * pairs * dh, "live_pairs": pairs}
+        del q, k, v, qs, ks, vs, dense
+        gc.collect()
+        torch.cuda.empty_cache()
+    timing["sparse_attention"] = sparse["S1"]
+    for t in list(timing.values()) + [sparse["S2"]]:
+        t["bound_ms"], t["bound_by"] = _bound(t["flops"], t["bytes"])
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    emit({"phase": "slice5_timing",
+          "shapes": {"rms_norm": "R [2048, 4096] bf16, fp32 scale",
+                     "bias_act*": "F [8192, 3072] bf16, fp32 bias, gelu, rate 0.1",
+                     "sparse_attention": "S1 (S2 beside it)"},
+          **timing, "sparse_attention_S2": sparse["S2"],
+          "notes": "bytes: each input read once, each output written once; "
+                   "sparse flops 4 * live (row, key) pairs * D; library of "
+                   "sparse_attention: SDPA with the dense boolean layout "
+                   "mask (and the causal triangle for S2); of rms_norm: "
+                   "F.rms_norm",
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    return {kn: {key: t[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}
+            for kn, t in timing.items()}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the serving path
 # ---------------------------------------------------------------------------
 def run_engine(cfg, device, kv_num_blocks, prompt_lens, new_tokens,
@@ -2145,16 +2835,34 @@ KERNEL_TABLE = {
     "evo_dkv": ("evoformer", "deepspeed_tpu/ops/pallas/evoformer.py:119"),
     "evo_dbias2": ("evoformer", "deepspeed_tpu/ops/pallas/evoformer.py:152"),
     "evo_dbias1": ("evoformer", "deepspeed_tpu/ops/pallas/evoformer.py:179"),
+    "rms_norm": ("rms_norm", "deepspeed_tpu/ops/pallas/rms_norm.py:15"),
+    "bias_act": ("fused_bias_act",
+                 "deepspeed_tpu/ops/pallas/fused_bias_act.py:39"),
+    "bias_act_bwd": ("fused_bias_act",
+                     "deepspeed_tpu/ops/pallas/fused_bias_act.py:44"),
+    "bias_act_dropout": ("fused_bias_act",
+                         "deepspeed_tpu/ops/pallas/fused_bias_act.py:146"),
+    "bias_act_dropout_bwd": ("fused_bias_act",
+                             "deepspeed_tpu/ops/pallas/fused_bias_act.py:156"),
+    "sparse_attention": ("sparse_attention",
+                         "deepspeed_tpu/ops/sparse_attention/attention.py:107"),
 }
+SLICE5_KERNELS = ("rms_norm",) + BIAS_ACT_KERNELS + ("sparse_attention",)
+# entry names where the table's name is the prefix of several kernels'
+ENTRY_NAMES = {n: f"{n}_kernel" for n in BIAS_ACT_KERNELS}
 # the main paths each kernel lies on; the first is the one whose shape the
 # kernel's timing uses (serve: InferenceEngineV2, train: the recipe, A1/A2:
 # ZeRO-Inference fp8/int8, B: training with qgZ, evoformer: E1-E4 through
-# DS4Sci_EvoformerAttention, timed at E1)
+# DS4Sci_EvoformerAttention, timed at E1; S1/S2: SparseSelfAttention at
+# BigBird-base and Fixed, timed at S1; R: rms_norm; F: fused_bias_act and
+# fused_bias_act_dropout)
 KERNEL_PATHS = {"paged_attention": ("serve", "A1", "A2"),
                 **{n: ("train",) for n in FLASH_PER_STEP},
                 "quantize_fp8": ("A1",), "dequantize_fp8": ("A1",),
                 "quantize_int8": ("B",), "dequantize_int8": ("B", "A2"),
-                **{n: ("evoformer",) for n in EVO_KERNELS}}
+                **{n: ("evoformer",) for n in EVO_KERNELS},
+                "rms_norm": ("R",), **{n: ("F",) for n in BIAS_ACT_KERNELS},
+                "sparse_attention": ("S1", "S2")}
 
 
 def main() -> int:
@@ -2167,7 +2875,8 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         phase = "build"
         build_info = phase_build(["paged_attention", "flash_attention", "quant",
-                                  "evoformer"])
+                                  "evoformer", "rms_norm", "fused_bias_act",
+                                  "sparse_attention"])
         phase = "kernel_parity"
         worst, timing = phase_kernel_parity()
         phase = "flash_parity"
@@ -2182,6 +2891,16 @@ def main() -> int:
         evo_launches = phase_evoformer(dev, smi_line)
         phase = "evo_timing"
         evo_timing = phase_evo_timing(dev, smi_line)
+        phase = "slice5_parity"
+        slice5_worst = phase_slice5_parity()
+        phase = "sparse_path"
+        sparse_launches = phase_sparse_path(dev, smi_line)
+        phase = "rms_path"
+        rms_launches = phase_rms_path(dev, smi_line)
+        phase = "bias_act_path"
+        bias_act_launches = phase_bias_act_path(dev, smi_line)
+        phase = "slice5_timing"
+        slice5_timing = phase_slice5_timing(dev, smi_line)
         gc.collect()
         torch.cuda.empty_cache()
         phase = "engine"
@@ -2212,7 +2931,8 @@ def main() -> int:
         path_counts = {"serve": st["launches"], "train": train_launches,
                        "A1": zi["A1"]["path_launches"],
                        "A2": zi["A2"]["path_launches"], "B": qgz_launches,
-                       "evoformer": evo_launches}
+                       "evoformer": evo_launches, **sparse_launches,
+                       "R": rms_launches, "F": bias_act_launches}
         launches_by_path = {
             name: {p: path_counts[p].get(name, 0) for p in paths}
             for name, paths in KERNEL_PATHS.items()}
@@ -2229,10 +2949,13 @@ def main() -> int:
                **{n: {"max_abs_err": quant_worst[n], **quant_timing[n]}
                   for n in QUANT_KERNELS},
                **{n: {"max_abs_err": evo_worst[n], **evo_timing[n]}
-                  for n in EVO_KERNELS}}
+                  for n in EVO_KERNELS},
+               **{n: {"max_abs_err": slice5_worst[n], **slice5_timing[n]}
+                  for n in SLICE5_KERNELS}}
     rows = []
     for name, (source, replaces) in KERNEL_TABLE.items():
-        build_s, registers = _build_of(build_info, source, name)
+        build_s, registers = _build_of(build_info, source,
+                                       ENTRY_NAMES.get(name, name))
         rows.append({"name": name, "route": "cuda",
                      "source": f"deepspeed_tpu_torch/csrc/{source}.cu",
                      "replaces": replaces,
