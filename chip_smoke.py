@@ -2,9 +2,11 @@
 """Smoke test of deepspeed_tpu_torch on one NVIDIA card.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the CUDA
-kernels from ``deepspeed_tpu_torch/csrc`` with nvcc, holds each kernel
-against its plain PyTorch version on the card and times both, then drives
-the port's paths:
+kernels from ``deepspeed_tpu_torch/csrc`` with nvcc (and checks that the bf16
+flash forward and dK/dV entries hold tensor-core products and TMA loads in
+their SASS), holds each kernel against its plain PyTorch version on the card
+(the flash dK/dV also against a second backward, bit for bit) and times
+both, then drives the port's paths:
 
 - serving: 8 requests through ``InferenceEngineV2`` on Llama-3-8B at full
   width and depth (bf16, random weights from a seed), with a check that the
@@ -146,6 +148,38 @@ def _demangle(names):
         return names
 
 
+# the tensor-core entries and the SASS instructions each must hold: HGMMA
+# (wgmma) and UTMALDG (a TMA tile load)
+SASS_ENTRIES = ("flash_fwd_kernel_wgmma", "flash_dkv_kernel_wgmma")
+SASS_OPS = ("HGMMA", "UTMALDG")
+FLASH_HEAD_DIMS = (64, 128)
+
+
+def _sass_counts(library):
+    """{demangled entry: {op: count}} of SASS_OPS in each SASS_ENTRIES
+    entry of ``library`` (``cuobjdump --dump-sass``, from nvcc's folder)."""
+    import os
+    from deepspeed_tpu_torch.ops import build
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "--dump-sass", str(library)],
+                         capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-400:]}")
+    counts, cur = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if any(n in m.group(1) for n in SASS_ENTRIES) \
+                else None
+            if cur:
+                counts[cur] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        if cur:
+            for op in SASS_OPS:
+                counts[cur][op] += op in line
+    names = _demangle(list(counts))
+    return {n: c for n, c in zip(names, counts.values())}
+
+
 def phase_build(kernels):
     from deepspeed_tpu_torch.ops import build, evoformer, flash_attention
     from deepspeed_tpu_torch.ops.paged_attention import dynamic_smem_bytes
@@ -169,18 +203,27 @@ def phase_build(kernels):
                       "entries": [{"kernel": k, "registers": r, "spill_stores": s}
                                   for k, r, s in zip(_demangle(entries), regs,
                                                      spills)]}
+    sass = _sass_counts(results["flash_attention"].path)
     smem = {f"d{d}_rows{rows}": dynamic_smem_bytes(d, rows)
             for d in (64, 128) for rows in (8, 32)}
     emit({"phase": "build", "wall_s": round(time.monotonic() - t0, 3),
           "kernels": info, "paged_attention_dynamic_smem_bytes": smem,
           "flash_dynamic_smem_bytes": {
-              f"d{d}": flash_attention.dynamic_smem_bytes(d) for d in (64, 128)},
+              f"d{d}": flash_attention.dynamic_smem_bytes(d)
+              for d in FLASH_HEAD_DIMS},
+          "flash_sass": sass,
           "evo_dynamic_smem_bytes": {
               f"d{d}": evoformer.dynamic_smem_bytes(d)
               for d in evoformer.HEAD_DIMS},
           "sparse_dynamic_smem_bytes": {
               f"d{d}_block{blk}": sparse.dynamic_smem_bytes(d, blk)
               for d in sparse.HEAD_DIMS for blk in sparse.BLOCKS}})
+    check(len(sass) == len(SASS_ENTRIES) * len(FLASH_HEAD_DIMS),
+          f"expected {len(SASS_ENTRIES)} tensor-core entries per head dim, "
+          f"found {list(sass)}")
+    for entry, ops in sass.items():
+        check(all(ops[op] > 0 for op in SASS_OPS),
+              f"{entry}: {ops} (no tensor-core product or no TMA load)")
     return info
 
 
@@ -517,6 +560,23 @@ FLASH_CASES = [
     ("causal_shift", dict(b=1, s=512, h=8, hkv=2, d=128, dtype=torch.bfloat16),
      dict(causal=True, causal_shift=1),
      {"mask_off_by_one": (_changed_opts(_off_by_one), ANY)}),
+    # what the tensor-core kernels newly risk: d=64 atoms and Sq != Sk in
+    # bf16, a window narrower than a tile, and one row/key past the tiles
+    ("noncausal_sq_ne_sk_d64", dict(b=1, s=200, h=4, hkv=2, d=64,
+                                    dtype=torch.bfloat16, sk=333),
+     dict(causal=False),
+     {"kv_head_mod": (_kv_head_mod, ANY),
+      "late_tile_dropped": (_late_tile_dropped, FLASH_OUTPUTS)}),
+    ("window_100", dict(b=1, s=512, h=8, hkv=2, d=128, dtype=torch.bfloat16),
+     dict(causal=True, window=100),
+     {"window_dropped": (_changed_opts(lambda o: {**o, "window": None}), ANY),
+      "window_off_by_one": (_changed_opts(lambda o: {**o, "window": 101}),
+                            ANY)}),
+    ("one_past_128", dict(b=2, s=257, h=8, hkv=2, d=128, dtype=torch.bfloat16),
+     dict(causal=True),
+     {"mask_off_by_one": (_changed_opts(_off_by_one), ANY),
+      "kv_head_mod": (_kv_head_mod, ANY),
+      "late_tile_dropped": (_late_tile_dropped, FLASH_OUTPUTS)}),
 ]
 
 
@@ -530,8 +590,9 @@ def run_flash_cases(gen):
     """Every FLASH_CASES case: the three kernels against the plain mirrors
     (each output within its per-row tolerance, finite), and each mutant of
     the plain version outside the tolerance on the outputs it names (on at
-    least one when it names ``any``). Returns the rows; raises PhaseError on
-    any failure. The ``gpu`` test runs this too."""
+    least one when it names ``any``), and a second backward on the same
+    inputs repeating dK and dV bit for bit. Returns the rows; raises
+    PhaseError on any failure. The ``gpu`` test runs this too."""
     from deepspeed_tpu_torch.ops import build
     from deepspeed_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
     rows = []
@@ -546,6 +607,9 @@ def run_flash_cases(gen):
         check(all(after.get(n, 0) == before.get(n, 0) + 1
                   for n in FLASH_PER_STEP),
               f"flash {name}: each kernel should have launched once")
+        again = flash_bwd(q, k, v, out, lse, do, segment_ids=segs, **opts)
+        repeats = all(torch.equal(a, g) for a, g in zip(again[1:], grads[1:]))
+        del again
         got = (out, lse) + grads
         res = (out, lse)
         want = _flash_plain_all(args, segs, opts, res)
@@ -561,7 +625,7 @@ def run_flash_cases(gen):
                "options": opts, "max_abs_err": errs, "err_over_tol": ratios,
                "row_tol_range": {n: [t.min().item(), t.max().item()]
                                  for n, t in zip(FLASH_OUTPUTS, tols)},
-               "finite": finite, "mutants": {}}
+               "finite": finite, "dkv_repeats_bitwise": repeats, "mutants": {}}
         for m_name, (mutant, must) in mutants.items():
             m_want = mutant(args, segs, opts, res, want)
             row["mutants"][m_name] = {
@@ -570,6 +634,7 @@ def run_flash_cases(gen):
             del m_want
         emit(row)
         check(finite, f"flash {name}: non-finite output")
+        check(repeats, f"flash {name}: a second backward gave other dK/dV bits")
         for n in FLASH_OUTPUTS:
             check(ratios[n] <= 1.0, f"flash {name}: {n} error {ratios[n]} "
                   "times its row tolerance")
@@ -604,9 +669,9 @@ def _bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _kernel_device_ms(fn, names, iters=10):
-    """Mean device time per call of each named CUDA kernel inside ``fn``
-    (torch.profiler over ``iters`` calls, after a warm-up call)."""
+def _device_events(fn, iters):
+    """The CUDA kernel events of ``iters`` calls of ``fn`` (torch.profiler,
+    after a warm-up call)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -615,12 +680,27 @@ def _kernel_device_ms(fn, names, iters=10):
             fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.events() if e.device_type == cuda]
+
+
+def _kernel_device_ms(fn, names, iters=10):
+    """Mean device time per call of each named CUDA kernel inside ``fn``;
+    a name that matches no kernel event raises."""
+    events = _device_events(fn, iters)
     out = {}
     for n in names:
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == cuda and n in e.name)
-        out[n] = us / 1e3 / iters
+        mine = [e for e in events if n in e.name]
+        check(mine, f"the profiler saw no kernel whose name holds {n!r}")
+        out[n] = sum(e.time_range.elapsed_us() for e in mine) / 1e3 / iters
     return out
+
+
+def _call_device_ms(fn, iters=10):
+    """Mean device time per call of every kernel ``fn`` launches (a library
+    call's yardstick, without the host's share)."""
+    events = _device_events(fn, iters)
+    check(events, "the profiler saw no kernel")
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
 
 
 def phase_flash_timing(gen):
@@ -634,7 +714,9 @@ def phase_flash_timing(gen):
     b, s, h, hkv, d = 1, TRAIN_SEQ, 32, 8, 128
     (q, k, v, do), _ = _flash_inputs(gen, b, s, h, hkv, d, torch.bfloat16)
     out, lse = flash_fwd(q, k, v, causal=True)
-    fwd_ms = time_ms(lambda: flash_fwd(q, k, v, causal=True), iters=20)
+    fwd_ms = _kernel_device_ms(lambda: flash_fwd(q, k, v, causal=True),
+                               ["flash_fwd_kernel"], iters=20)["flash_fwd_kernel"]
+    wrapper_fwd_ms = time_ms(lambda: flash_fwd(q, k, v, causal=True), iters=20)
     bwd_ms = time_ms(lambda: flash_bwd(q, k, v, out, lse, do, causal=True),
                      iters=10)
     per_kernel = _kernel_device_ms(
@@ -646,10 +728,10 @@ def phase_flash_timing(gen):
     qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(      # noqa: E731
         qs, ks, vs, is_causal=True, enable_gqa=True)
-    sdpa_fwd_ms = time_ms(sdpa, iters=20)
+    sdpa_fwd_ms = _call_device_ms(sdpa, iters=20)
     o_sdpa = sdpa()
     g = do.transpose(1, 2)
-    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+    sdpa_bwd_ms = _call_device_ms(lambda: torch.autograd.grad(
         o_sdpa, (qs, ks, vs), g, retain_graph=True), iters=20)
     pairs, fwd_b, dq_b, dkv_b = _flash_work(b, s, h, hkv, d, 2)
     mm = 2 * pairs * d                       # one causal-half matmul, flops
@@ -670,14 +752,18 @@ def phase_flash_timing(gen):
           "shape": "B=1 S=2048 H=32 Hkv=8 d=128 causal bf16",
           **{n: {**t, "share_of_bound": t["bound_ms"] / t["ms"]}
              for n, t in timing.items()},
-          "fwd_plus_bwd_ms": fwd_ms + bwd_ms,
+          "fwd_plus_bwd_ms": wrapper_fwd_ms + bwd_ms,
           "plain_fwd_plus_bwd_ms": plain_fwd_ms + plain_bwd_ms,
           "sdpa_fwd_plus_bwd_ms": sdpa_fwd_ms + sdpa_bwd_ms,
           "flops": {"fwd": 2 * mm, "bwd_two_kernel": 7 * mm,
                     "bwd_minimum": 5 * mm},
           "bwd_minimum_bound_ms": 5 * mm / BF16_FLOPS * 1e3,
-          "notes": "plain_ms of dq/dkv is the whole plain backward; "
-                   "library_ms of dq/dkv is one SDPA backward (dq, dk, dv)"})
+          "notes": "ms and library_ms are profiler device time (a "
+                   "kernel's, or all kernels of one SDPA call); "
+                   "fwd_plus_bwd_ms is CUDA-event time of back-to-back "
+                   "wrapper calls (host work included); plain_ms of dq/dkv "
+                   "is the whole plain backward; library_ms of dq/dkv is one "
+                   "SDPA backward (dq, dk, dv)"})
     return timing
 
 

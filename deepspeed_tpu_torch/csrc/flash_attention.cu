@@ -2,9 +2,9 @@
 // per-row logsumexp, and the two backward kernels (dQ, and dK/dV).
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/pallas/flash_attention.py:
-//   flash_fwd_kernel  <- `_flash_kernel` (wrapper `_pallas_flash_fwd_impl`)
-//   flash_dq_kernel   <- `_dq_kernel`    (wrapper `_pallas_flash_bwd_impl`)
-//   flash_dkv_kernel  <- `_dkv_kernel`   (wrapper `_pallas_flash_bwd_impl`)
+//   forward <- `_flash_kernel` (wrapper `_pallas_flash_fwd_impl`)
+//   dQ      <- `_dq_kernel`    (wrapper `_pallas_flash_bwd_impl`)
+//   dK/dV   <- `_dkv_kernel`   (wrapper `_pallas_flash_bwd_impl`)
 //
 // Function (the TPU kernels' whole contract): q [B,Sq,H,d], k/v [B,Sk,Hkv,d];
 // query head h reads KV head h / rep. Row qpos sees key kpos when
@@ -22,30 +22,78 @@
 // about -1e30, and contribute exactly 0 to every gradient (p is 0 there,
 // never exp() of a masked score).
 //
-// What bounds it: at the training shape (S = 2048, d = 128, causal) the
-// work is arithmetic (34 GFLOP forward, 120 GFLOP in this two-kernel
-// backward, against 42 MB of operands), so the bound is the tensor cores'
-// bf16 rate. This first version is simple and correct, not fast: it
-// multiplies on the fp32 CUDA cores from shared memory.
-//   * The TPU grid's sequential key axis, which carried (m, l, acc) or the
-//     dQ/dK/dV sums in VMEM from one grid step to the next, is a loop
-//     inside the block: forward and dQ run one block per (32-row q tile,
-//     batch x head) over 64-key tiles; dK/dV runs one block per (32-key
-//     tile, batch x KV head) over (group member x 32-row q tile), as the
-//     TPU's folded innermost grid axis does, so the gradients of a KV head
-//     shared by `rep` query heads sum in registers, with no atomics and no
-//     rep-times-larger buffer.
-//   * Dead tiles are never loaded: each block computes its live key (or
-//     query) range from the causal band and the window, as `_block_live`
-//     skips whole blocks.
-//   * Tiles are stored in shared memory as fp32 with a padded row stride;
-//     the 1024-row blocks the TPU wrapper picks for VMEM are gone.
-// Not done yet (later work): mma.sync / wgmma on the tensor cores, TMA or
-// cp.async pipelining, and a split of the key range for short sequences.
+// Five kernels; the launcher (`run`) picks by dtype, and a failure raises:
+//   bf16 forward  flash_fwd_kernel_wgmma   tensor cores (wgmma) fed by TMA
+//   bf16 dK/dV    flash_dkv_kernel_wgmma   tensor cores (wgmma) fed by TMA
+//   fp32 forward  flash_fwd_kernel         fp32 CUDA cores
+//   fp32 dK/dV    flash_dkv_kernel         fp32 CUDA cores
+//   dQ (both)     flash_dq_kernel          fp32 CUDA cores
+//
+// What bounds them: at the training shape (B=1, S=2048, H=32, Hkv=8, d=128,
+// causal) the work is arithmetic (34 GFLOP forward, 52 dQ, 69 dK/dV, against
+// 42-59 MB of operands each), so the bound is the tensor cores' bf16 rate.
+//
+// The bf16 kernels (one design, shared device helpers below):
+//   * Warp specialisation. A block is two consumer warpgroups and one
+//     producer warpgroup (384 threads). One thread of the producer keeps a
+//     ring of 2 stages of tiles in shared memory filled with TMA
+//     (`cp.async.bulk.tensor.4d` over the [d, heads, S, B] view of each
+//     tensor, so positions past S load as zeros and never from the next
+//     batch) and signals each with an mbarrier; consumers release a stage
+//     on a second mbarrier. `setmaxnreg` moves registers from the producer
+//     (40) to the consumers (232).
+//   * Tiles are [rows][64] bf16 "atoms" of 128-byte rows in TMA's 128-byte
+//     swizzle (d = 128 is two atoms), which is the layout a wgmma shared-
+//     memory descriptor reads: K-major with a stride of 1024 bytes between
+//     8-row groups, or MN-major (the transpose bit) with the next atom at
+//     LBO. So V, Q and dO serve as B operands of P.V, dS^T.Q and P^T.dO
+//     where they lie, nothing is transposed in memory.
+//   * An fp32 score accumulator of m64nNk16 is, as bf16 pairs, the register
+//     A operand of the next product (rows r, r+8 and columns 2c, 2c+1 of
+//     each 8-column group, per thread): p and dS are rounded to bf16 in
+//     registers and fed back without shared memory. That rounding is the
+//     reference's rounding point.
+//   * Forward: 128 query rows per block (64 per consumer warpgroup), 64-key
+//     tiles. S = Q.K^T is wgmma from shared memory; the online softmax runs
+//     in registers (the row max and sum reduce over the 4 threads that share
+//     a row); O += P.V is wgmma with P from registers. The row sum l is
+//     summed per thread and reduced once at the end.
+//   * dK/dV: 64 keys per block; the two consumer warpgroups take the same
+//     keys and alternate over the `rep` query heads of the KV head (heads
+//     0, 2, .. and 1, 3, ..). Per 64-row query tile: S^T = K.Q^T and dP^T =
+//     V.dO^T from shared memory (Q and dO K-major), P^T and dS^T rounded in
+//     registers, dV += P^T.dO and dK += dS^T.Q (dO and Q MN-major). lse and
+//     delta are per query, the accumulator's column: each warpgroup stages
+//     them in shared memory per tile and reads them by column. At the end
+//     the second warpgroup hands its fp32 dK/dV to the first through shared
+//     memory and the first adds them: a fixed order, no atomics, so a second
+//     backward repeats dK and dV bit for bit. 64-key blocks (256 at the
+//     training shape) rather than 128 keep the causal imbalance low enough
+//     for 132 SMs without splitting the group into partials.
+//   * Only tiles that cross the causal diagonal, the window's lower edge, or
+//     the end of Sq/Sk, and every tile with segment ids, evaluate the
+//     per-element mask; interior tiles skip it, and tiles with no live pair
+//     for a warpgroup skip the products. The grid starts the heaviest tiles
+//     first: under causal the last query tiles (forward) and the first key
+//     tiles (dK/dV).
+//   * d in {64, 128}. The tensor maps are encoded on the host per launch
+//     (`cuTensorMapEncodeTiled`, reached through `cudaGetDriverEntryPoint`,
+//     so the library needs no -lcuda) and passed as __grid_constant__.
+//
+// Why fp32 stays on the CUDA cores: wgmma takes fp32 operands only as TF32
+// (10 mantissa bits, about 3 decimal digits), which would miss the fp32
+// tolerance of 1e-4 of a row's largest value. So fp32 tensors take the
+// first design: tiles in shared memory as fp32 with a padded row stride,
+// fmaf micro-tiles per thread, the TPU grid's sequential key axis a loop
+// inside the block, dead tiles never loaded. dQ keeps that design in both
+// dtypes for now; it reads the bf16 forward's lse like any other.
 
+#include <cuda.h>          // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -150,7 +198,7 @@ constexpr int dkv_smem_floats() {
 }
 
 // ---------------------------------------------------------------------------
-// forward: out and lse
+// fp32 forward on the CUDA cores: out and lse
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
@@ -409,8 +457,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// dK, dV: one block per (key tile, batch x KV head), looping over the group
-// members and their live query tiles
+// fp32 dK, dV on the CUDA cores: one block per (key tile, batch x KV head),
+// looping over the group members and their live query tiles
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
@@ -546,40 +594,756 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
   }
 }
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+// ---------------------------------------------------------------------------
+// Hopper helpers: mbarriers, TMA, wgmma descriptors and products
+// ---------------------------------------------------------------------------
+constexpr int kWg = 128;               // threads of a warpgroup
+constexpr int kAtom = 64;              // bf16 columns of one 128-byte swizzle atom
+constexpr int kAtomRow = 128;          // bytes of an atom's row
+constexpr int kConsumers = 2;          // consumer warpgroups per block
+constexpr int kHopperThreads = (kConsumers + 1) * kWg;
+constexpr int kStages = 2;             // TMA ring depth
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+
+// Arrive once and add `bytes` to the transactions the phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One TMA tile: box (64 columns of d, 1 head, rows, 1 batch) at (c0, head,
+// pos, b) of the [d, heads, S, B] map, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int head,
+                                         int pos, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(bar)), "r"(c0), "r"(head), "r"(pos), "r"(b) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at `p`
+// (inside an atom whose base is 1024-byte aligned). K-major: sbo = 1024
+// (the next 8 rows), lbo unused. MN-major: lbo = the next 64-column atom,
+// sbo = 1024 (the next 8 rows along K).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+  d |= 1ull << 62;                     // 128-byte swizzle
+  return d;
+}
+
+// Descriptor of k-step kk (16 columns of d) of a K-major [rows][d] tile
+// stored as d/64 atoms of `rows` 128-byte rows.
+__device__ __forceinline__ uint64_t kmajor_desc(const uint8_t* tile, int rows,
+                                                int kk) {
+  return smem_desc(tile + (kk / 4) * rows * kAtomRow + (kk % 4) * 32, 16, 1024);
+}
+
+// Descriptor of k-step kk (16 rows) of a [rows][d] tile read MN-major
+// (N = d).
+__device__ __forceinline__ uint64_t mnmajor_desc(const uint8_t* tile, int rows,
+                                                 int kk) {
+  return smem_desc(tile + kk * 16 * kAtomRow, rows * kAtomRow, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accesses of an accumulator across the
+// asynchronous products that write it.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The accumulator of a 64-column product as the A operands of the four
+// k-steps of the next product (bf16, round to nearest even).
+__device__ __forceinline__ void to_a_operands(const float (&s)[32],
+                                              uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64]: A in registers (the accumulator
+// fragment of an m64nXk16 product, as bf16 pairs), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128]: A in registers (the accumulator
+// fragment of an m64nXk16 product, as bf16 pairs), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// P.V / dS^T.Q / P^T.dO: 64 x D += (64 x 16 in registers) . (16 x D).
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 64) wgmma_rs_n64(d, a, db, 1);
+  else wgmma_rs_n128(d, a, db, 1);
+}
+
+// Accumulator fragment of an m64nNk16 product for thread t of a warpgroup:
+// register 4j + 2i + c holds row 16 (t / 32) + (t % 32) / 4 + 8i and column
+// 8j + 2 (t % 4) + c.
+__device__ __forceinline__ int frag_row(int t, int i) {
+  return 16 * (t / 32) + (t % 32) / 4 + 8 * i;
+}
+__device__ __forceinline__ int frag_col(int t, int j, int c) {
+  return 8 * j + 2 * (t % 4) + c;
+}
+
+template <int R>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float minus_inf() { return __int_as_float(0xff800000); }
+constexpr int kFwdBlockRows = kConsumers * 64;   // forward: 128 query rows a block
+constexpr int kTileKeys = 64;                    // forward: keys a tile; dK/dV: keys a block
+constexpr int kTileRows = 64;                    // dK/dV: query rows a tile
+
+// ---------------------------------------------------------------------------
+// bf16 forward on the tensor cores: out and lse
+// ---------------------------------------------------------------------------
+template <int D>
+struct FwdSmem {
+  static constexpr int kQ = kFwdBlockRows * D * 2;   // D/64 atoms of [128][64]
+  static constexpr int kKV = kTileKeys * D * 2;      // one K or V tile
+  static constexpr int kBytes = 1024 + kQ + 2 * kStages * kKV + 64;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap, Params p) {
+  using S = FwdSmem<D>;
+  constexpr int kAtoms = D / kAtom;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* ks = qs + S::kQ;                      // stage s at + s * S::kKV
+  uint8_t* vs = ks + kStages * S::kKV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * S::kKV);
+  uint64_t* kv_full = q_full + 1;                // [kStages]
+  uint64_t* kv_empty = kv_full + kStages;        // [kStages]
+
+  // heaviest first: under causal the last query tile of every head leads
+  const int heads = p.B * p.H;
+  const int n_qt = (p.Sq + kFwdBlockRows - 1) / kFwdBlockRows;
+  const int rank = blockIdx.x / heads, bh = blockIdx.x % heads;
+  const int qt = p.causal ? n_qt - 1 - rank : rank;
+  const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.Hkv);
+  const int q0 = qt * kFwdBlockRows;
+  int tile_lo, tile_hi;
+  key_tiles(p, q0, min(q0 + kFwdBlockRows, p.Sq) - 1, kTileKeys, &tile_lo, &tile_hi);
+  const int n_tiles = tile_hi - tile_lo + 1;
+
+  const int wg = threadIdx.x / kWg, t = threadIdx.x % kWg;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], kConsumers * kWg);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: one thread keeps the K/V ring full
+    reg_dealloc<kProducerRegs>();
+    if (t == 0) {
+      mbar_expect_tx(q_full, S::kQ);
+      for (int a = 0; a < kAtoms; ++a)
+        tma_load(qs + a * kFwdBlockRows * kAtomRow, &qmap, q_full, a * kAtom, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        const int k0 = (tile_lo + i) * kTileKeys;
+        if (i >= kStages) mbar_wait(&kv_empty[s], (i / kStages - 1) & 1);
+        mbar_expect_tx(&kv_full[s], 2 * S::kKV);
+        for (int a = 0; a < kAtoms; ++a) {
+          const int off = s * S::kKV + a * kTileKeys * kAtomRow;
+          tma_load(ks + off, &kmap, &kv_full[s], a * kAtom, kvh, k0, b);
+          tma_load(vs + off, &vmap, &kv_full[s], a * kAtom, kvh, k0, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows [row0, row0 + 64)
+    reg_alloc<kConsumerRegs>();
+    const int row0 = q0 + wg * 64;
+    const int row_a = row0 + frag_row(t, 0);     // the thread's rows: row_a, row_a + 8
+    const uint8_t* qw = qs + wg * 64 * kAtomRow;
+    float o[D / 2];
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) o[r] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const int k0 = (tile_lo + i) * kTileKeys;
+      mbar_wait(&kv_full[s], (i / kStages) & 1);
+      const bool dead = row0 >= p.Sq ||                 // no live pair in these rows
+                        (p.causal && k0 > row0 + 63 - p.shift) ||
+                        (p.window > 0 && k0 + kTileKeys - 1 <= row0 - p.window);
+      if (!dead) {
+        const uint8_t* kt = ks + s * S::kKV;
+        const uint8_t* vt = vs + s * S::kKV;
+        float sc[32];
+#pragma unroll
+        for (int r = 0; r < 32; ++r) sc[r] = 0.f;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(sc, kmajor_desc(qw, kFwdBlockRows, kk),
+                       kmajor_desc(kt, kTileKeys, kk), 1);
+        wg_commit();
+        wg_wait_all();
+        reg_fence(sc);
+
+        // only edge tiles evaluate the mask per element
+        const bool masked = p.qseg != nullptr || k0 + kTileKeys > p.Sk ||
+                            (p.causal && k0 + kTileKeys - 1 > row0 - p.shift) ||
+                            (p.window > 0 && k0 <= row0 + 63 - p.window);
+        float alpha[2];
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          float mx = minus_inf();
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int r = 4 * j + 2 * ii + c;
+              float x = sc[r] * p.scale;
+              if (masked && !is_live(p, b, row_a + 8 * ii, k0 + frag_col(t, j, c)))
+                x = minus_inf();                         // exp() of it is 0
+              sc[r] = x;
+              mx = fmaxf(mx, x);
+            }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[ii], mx);
+          alpha[ii] = expf(m[ii] - m_new);
+          m[ii] = m_new;
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int r = 4 * j + 2 * ii + c;
+              sc[r] = expf(sc[r] - m_new);
+              sum += sc[r];
+            }
+          // l sums the unrounded p of this thread's columns; the four
+          // threads of a row add theirs at the end
+          l[ii] = l[ii] * alpha[ii] + sum;
+        }
+#pragma unroll
+        for (int r = 0; r < D / 2; ++r) o[r] *= alpha[(r / 2) % 2];
+        uint32_t pa[4][4];                               // p rounded to v's dtype
+        to_a_operands(sc, pa);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kTileKeys / 16; ++kk)
+          wgmma_rs<D>(o, pa[kk], mnmajor_desc(vt, kTileKeys, kk));
+        wg_commit();
+        wg_wait_all();
+        reg_fence(o);
+      }
+      mbar_arrive(&kv_empty[s]);
+    }
+
+    bf16* out = static_cast<bf16*>(p.out);
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      float lsum = l[ii];
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+      const float lf = fmaxf(lsum, 1e-30f);
+      const int qpos = row_a + 8 * ii;
+      if (qpos >= p.Sq) continue;
+      bf16* dst = out + ((size_t)(b * p.Sq + qpos) * p.H + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int r = 4 * j + 2 * ii;
+        *reinterpret_cast<__nv_bfloat162*>(dst + frag_col(t, j, 0)) =
+            __floats2bfloat162_rn(o[r] / lf, o[r + 1] / lf);
+      }
+      if (t % 4 == 0) p.lse_out[(size_t)bh * p.Sq + qpos] = m[ii] + logf(lf);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dK, dV on the tensor cores: one block per (64-key tile, batch x KV
+// head); warpgroup w takes query heads w, w + 2, .. of the group
+// ---------------------------------------------------------------------------
+template <int D>
+struct DkvSmem {
+  static constexpr int kTile = 64 * D * 2;               // one [64][D] bf16 tile
+  static constexpr int kRing = kStages * 2 * kTile;      // a warpgroup's (Q, dO) stages
+  static constexpr int kRowFloats = kConsumers * kStages * 2 * kTileRows;  // lse, delta
+  static constexpr int kBytes = 1024 + 2 * kTile + kConsumers * kRing +
+                                kRowFloats * 4 + 128;
+  static_assert(kRing >= 2 * kTileKeys * D * 4, "the fold reuses a warpgroup's ring");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap domap, Params p) {
+  using S = DkvSmem<D>;
+  constexpr int kAtoms = D / kAtom;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + S::kTile;
+  uint8_t* ring = vs + S::kTile;                 // warpgroup w, stage s: Q, then dO
+  float* rows_s = reinterpret_cast<float*>(ring + kConsumers * S::kRing);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(rows_s + S::kRowFloats);
+  uint64_t* full = kv_full + 1;                  // [w * kStages + s]
+  uint64_t* empty = full + kConsumers * kStages; // [w * kStages + s]
+
+  // key tile 0, the heaviest under causal, of every KV head leads
+  const int kv_heads = p.B * p.Hkv;
+  const int kt = blockIdx.x / kv_heads, bkv = blockIdx.x % kv_heads;
+  const int b = bkv / p.Hkv, kvh = bkv % p.Hkv;
+  const int rep = p.H / p.Hkv;
+  const int k0 = kt * kTileKeys, k1 = min(k0 + kTileKeys, p.Sk) - 1;
+  int q_lo = 0, q_hi = p.Sq - 1;                 // live query range of these keys
+  if (p.causal) q_lo = k0 + p.shift;
+  if (p.window > 0) q_hi = min(q_hi, k1 + p.window - 1);
+  const int qt_lo = q_lo / kTileRows;
+  const int n_qt = q_lo <= q_hi ? q_hi / kTileRows - qt_lo + 1 : 0;
+
+  const int wg = threadIdx.x / kWg, t = threadIdx.x % kWg;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int i = 0; i < kConsumers * kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kWg);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: lane 0 of warp w keeps consumer warpgroup w's ring full;
+    // warp 0 also loads the block's K and V
+    reg_dealloc<kProducerRegs>();
+    const int w = t / 32;
+    if (w < kConsumers && t % 32 == 0) {
+      if (w == 0) {
+        mbar_expect_tx(kv_full, 2 * S::kTile);
+        for (int a = 0; a < kAtoms; ++a) {
+          tma_load(ks + a * kTileKeys * kAtomRow, &kmap, kv_full, a * kAtom, kvh, k0, b);
+          tma_load(vs + a * kTileKeys * kAtomRow, &vmap, kv_full, a * kAtom, kvh, k0, b);
+        }
+      }
+      const int steps = (rep - w + kConsumers - 1) / kConsumers * n_qt;
+      uint8_t* my_ring = ring + w * S::kRing;
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % kStages;
+        const int h = kvh * rep + w + kConsumers * (i / n_qt);
+        const int q0 = (qt_lo + i % n_qt) * kTileRows;
+        uint64_t* bar = &full[w * kStages + s];
+        if (i >= kStages) mbar_wait(&empty[w * kStages + s], (i / kStages - 1) & 1);
+        mbar_expect_tx(bar, 2 * S::kTile);
+        uint8_t* stage = my_ring + s * 2 * S::kTile;
+        for (int a = 0; a < kAtoms; ++a) {
+          const int off = a * kTileRows * kAtomRow;
+          tma_load(stage + off, &qmap, bar, a * kAtom, h, q0, b);
+          tma_load(stage + S::kTile + off, &domap, bar, a * kAtom, h, q0, b);
+        }
+      }
+    }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int key_a = k0 + frag_row(t, 0);       // the thread's keys: key_a, key_a + 8
+    const int steps = (rep - wg + kConsumers - 1) / kConsumers * n_qt;
+    const uint8_t* my_ring = ring + wg * S::kRing;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) dk[r] = dv[r] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % kStages;
+      const int h = kvh * rep + wg + kConsumers * (i / n_qt);
+      const int q0 = (qt_lo + i % n_qt) * kTileRows;
+      const uint8_t* q_t = my_ring + s * 2 * S::kTile;
+      const uint8_t* do_t = q_t + S::kTile;
+      float* lse_t = rows_s + (wg * kStages + s) * 2 * kTileRows;
+      float* delta_t = lse_t + kTileRows;
+      {
+        // stage the tile's lse and delta; read back by accumulator column
+        const int r = t % kTileRows, qpos = q0 + r;
+        const float* src = t < kTileRows ? p.lse : p.delta;
+        (t < kTileRows ? lse_t : delta_t)[r] =
+            qpos < p.Sq ? src[(size_t)(b * p.H + h) * p.Sq + qpos] : 0.f;
+      }
+      mbar_wait(&full[wg * kStages + s], (i / kStages) & 1);
+
+      // S^T = K.Q^T and dP^T = V.dO^T, 64 keys x 64 queries
+      float st[32], dpt[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) st[r] = dpt[r] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(st, kmajor_desc(ks, kTileKeys, kk), kmajor_desc(q_t, kTileRows, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dpt, kmajor_desc(vs, kTileKeys, kk), kmajor_desc(do_t, kTileRows, kk), 1);
+      wg_commit();
+      named_bar_sync(1 + wg, kWg);               // lse and delta staged
+      wg_wait_all();
+      reg_fence(st);
+      reg_fence(dpt);
+
+      const bool masked = p.qseg != nullptr || q0 + kTileRows > p.Sq ||
+                          k0 + kTileKeys > p.Sk ||
+                          (p.causal && q0 < k0 + kTileKeys - 1 + p.shift) ||
+                          (p.window > 0 && k0 <= q0 + kTileRows - 1 - p.window);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int r = 4 * j + 2 * ii + c, col = frag_col(t, j, c);
+            float pr = 0.f, ds = 0.f;
+            if (!masked || is_live(p, b, q0 + col, key_a + 8 * ii)) {
+              pr = expf(st[r] * p.scale - lse_t[col]);
+              ds = pr * (dpt[r] - delta_t[col]) * p.scale;
+            }
+            st[r] = pr;
+            dpt[r] = ds;
+          }
+      uint32_t pa[4][4], dsa[4][4];              // p to dO's dtype, dS to q's
+      to_a_operands(st, pa);
+      to_a_operands(dpt, dsa);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTileRows / 16; ++kk)
+        wgmma_rs<D>(dv, pa[kk], mnmajor_desc(do_t, kTileRows, kk));
+#pragma unroll
+      for (int kk = 0; kk < kTileRows / 16; ++kk)
+        wgmma_rs<D>(dk, dsa[kk], mnmajor_desc(q_t, kTileRows, kk));
+      wg_commit();
+      wg_wait_all();
+      reg_fence(dk);
+      reg_fence(dv);
+      mbar_arrive(&empty[wg * kStages + s]);
+    }
+
+    // fold: warpgroup 1 hands its sums to warpgroup 0 through its drained
+    // ring (the same fragment position in both), which adds them in that
+    // order and writes
+    float* fold = reinterpret_cast<float*>(ring + S::kRing);
+    if (wg == 1) {
+#pragma unroll
+      for (int r = 0; r < D / 2; ++r) {
+        fold[r * kWg + t] = dk[r];
+        fold[(D / 2 + r) * kWg + t] = dv[r];
+      }
+    }
+    named_bar_sync(1 + kConsumers, kConsumers * kWg);
+    if (wg == 0) {
+      bf16* dk_out = static_cast<bf16*>(p.dk);
+      bf16* dv_out = static_cast<bf16*>(p.dv);
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int kpos = key_a + 8 * ii;
+        if (kpos >= p.Sk) continue;
+        const size_t off = ((size_t)(b * p.Sk + kpos) * p.Hkv + kvh) * D;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int r = 4 * j + 2 * ii;
+          const float* fk = fold + r * kWg + t;
+          const float* fv = fold + (D / 2 + r) * kWg + t;
+          *reinterpret_cast<__nv_bfloat162*>(dk_out + off + frag_col(t, j, 0)) =
+              __floats2bfloat162_rn(dk[r] + fk[0], dk[r + 1] + fk[kWg]);
+          *reinterpret_cast<__nv_bfloat162*>(dv_out + off + frag_col(t, j, 0)) =
+              __floats2bfloat162_rn(dv[r] + fv[0], dv[r + 1] + fv[kWg]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+enum Which { kFwd = 0, kDq = 1, kDkv = 2, kFwdWgmma = 3, kDkvWgmma = 4 };
 
 template <int D>
 int smem_bytes(int which) {
   if (which == kFwd) return fwd_smem_floats<D>() * (int)sizeof(float);
   if (which == kDq) return dq_smem_floats<D>() * (int)sizeof(float);
   if (which == kDkv) return dkv_smem_floats<D>() * (int)sizeof(float);
+  if (which == kFwdWgmma) return FwdSmem<D>::kBytes;
+  if (which == kDkvWgmma) return DkvSmem<D>::kBytes;
   return -1;
 }
 
-template <typename T, int D>
-cudaError_t launch(int which, const Params& p, cudaStream_t stream) {
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against the driver.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// The [D, heads, S, B] view of a contiguous bf16 tensor [B, S, heads, D],
+// loading boxes of (64, 1, rows, 1) in 128-byte swizzle; positions past S
+// (and past B) load as zeros.
+bool tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+                int D, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kAtom, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool* configured) {
+  if (*configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *configured = true;
+  return err;
+}
+
+template <int D>
+cudaError_t launch_fwd_wgmma(const Params& p, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  if (!tensor_map(&qm, p.q, p.B, p.Sq, p.H, D, kFwdBlockRows) ||
+      !tensor_map(&km, p.k, p.B, p.Sk, p.Hkv, D, kTileKeys) ||
+      !tensor_map(&vm, p.v, p.B, p.Sk, p.Hkv, D, kTileKeys))
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  const cudaError_t err =
+      allow_smem(flash_fwd_kernel_wgmma<D>, FwdSmem<D>::kBytes, &configured);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (p.Sq + kFwdBlockRows - 1) / kFwdBlockRows;
+  flash_fwd_kernel_wgmma<D><<<n_qt * p.B * p.H, kHopperThreads, FwdSmem<D>::kBytes,
+                              stream>>>(qm, km, vm, p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const Params& p, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, dom;
+  if (!tensor_map(&qm, p.q, p.B, p.Sq, p.H, D, kTileRows) ||
+      !tensor_map(&km, p.k, p.B, p.Sk, p.Hkv, D, kTileKeys) ||
+      !tensor_map(&vm, p.v, p.B, p.Sk, p.Hkv, D, kTileKeys) ||
+      !tensor_map(&dom, p.dout, p.B, p.Sq, p.H, D, kTileRows))
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  const cudaError_t err =
+      allow_smem(flash_dkv_kernel_wgmma<D>, DkvSmem<D>::kBytes, &configured);
+  if (err != cudaSuccess) return err;
+  const int n_kt = (p.Sk + kTileKeys - 1) / kTileKeys;
+  flash_dkv_kernel_wgmma<D><<<n_kt * p.B * p.Hkv, kHopperThreads, DkvSmem<D>::kBytes,
+                              stream>>>(qm, km, vm, dom, p);
+  return cudaGetLastError();
+}
+
+// The CUDA-core kernels: fp32 forward and dK/dV, and dQ in both dtypes.
+template <typename T, int D, int W>
+cudaError_t launch_cuda_cores(const Params& p, cudaStream_t stream) {
   void (*kernel)(Params) = nullptr;
   dim3 grid;
-  if (which == kFwd) {
+  if constexpr (W == kFwd) {
     kernel = flash_fwd_kernel<T, D>;
     grid = dim3((p.Sq + kFwdRows - 1) / kFwdRows, p.B * p.H);
-  } else if (which == kDq) {
+  } else if constexpr (W == kDq) {
     kernel = flash_dq_kernel<T, D>;
     grid = dim3((p.Sq + kFwdRows - 1) / kFwdRows, p.B * p.H);
   } else {
     kernel = flash_dkv_kernel<T, D>;
     grid = dim3((p.Sk + kDkvKeys - 1) / kDkvKeys, p.B * p.Hkv);
   }
-  const int smem = smem_bytes<D>(which);
-  static bool configured[3] = {false, false, false};   // per instantiation
-  if (!configured[which]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    configured[which] = true;
-  }
+  const int smem = smem_bytes<D>(W);
+  static bool configured = false;
+  const cudaError_t err = allow_smem(kernel, smem, &configured);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The choice by dtype: bf16 forward and dK/dV on the tensor cores, fp32
+// (which wgmma would take only as TF32) and every dQ on the CUDA cores.
+template <typename T, int D>
+cudaError_t launch(int which, const Params& p, cudaStream_t stream) {
+  if (which == kDq) return launch_cuda_cores<T, D, kDq>(p, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return which == kFwd ? launch_fwd_wgmma<D>(p, stream)
+                         : launch_dkv_wgmma<D>(p, stream);
+  } else {
+    return which == kFwd ? launch_cuda_cores<T, D, kFwd>(p, stream)
+                         : launch_cuda_cores<T, D, kDkv>(p, stream);
+  }
 }
 
 template <typename T>
@@ -620,8 +1384,9 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 
 }  // namespace
 
-// Dynamic shared memory (bytes) of kernel `which` (0 forward, 1 dQ, 2 dK/dV)
-// at `head_dim`; -1 for an instantiation not compiled.
+// Dynamic shared memory (bytes) of kernel `which` at `head_dim`: 0 the fp32
+// forward, 1 dQ, 2 the fp32 dK/dV, 3 the bf16 forward, 4 the bf16 dK/dV;
+// -1 for an instantiation not compiled.
 extern "C" int dstt_flash_smem_bytes(int which, int head_dim) {
   if (head_dim == 64) return smem_bytes<64>(which);
   if (head_dim == 128) return smem_bytes<128>(which);

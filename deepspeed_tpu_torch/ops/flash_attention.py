@@ -8,7 +8,9 @@ the port and is not ported) and of
 ``_flash_kernel``, ``_dq_kernel`` and ``_dkv_kernel``, become the
 hand-written CUDA kernels of ``csrc/flash_attention.cu`` (design notes
 there), launched by ``flash_fwd`` and ``flash_bwd`` and counted as
-``flash_fwd``, ``flash_dq`` and ``flash_dkv``.
+``flash_fwd``, ``flash_dq`` and ``flash_dkv``. The library picks by dtype:
+bf16 forward and dK/dV run on the tensor cores (``wgmma`` fed by TMA),
+fp32 and every dQ on the CUDA cores.
 
 ``flash_fwd_plain`` and ``flash_bwd_plain`` compute what the kernels
 compute, with the same masks and the same rounding points (the causal mask
@@ -36,6 +38,9 @@ from deepspeed_tpu_torch.ops import build
 NEG_INF = -1e30
 KERNEL = "flash_attention"
 LAUNCH_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
+# the entries of dstt_flash_smem_bytes: the CUDA-core kernels, then the
+# bf16 tensor-core forward and dK/dV
+SMEM_ENTRIES = LAUNCH_NAMES + ("flash_fwd_wgmma", "flash_dkv_wgmma")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _lib: Optional[ctypes.CDLL] = None
@@ -168,7 +173,7 @@ def dynamic_smem_bytes(head_dim: int) -> dict:
     built library reports it."""
     lib = _library()
     return {name: lib.dstt_flash_smem_bytes(i, head_dim)
-            for i, name in enumerate(LAUNCH_NAMES)}
+            for i, name in enumerate(SMEM_ENTRIES)}
 
 
 def _check(cond: bool, msg: str) -> None:

@@ -239,14 +239,17 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
 
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card():
-    """The three CUDA kernels against the plain mirrors on the card, in the
+    """The CUDA kernels against the plain mirrors on the card, in the
     cases and at the tolerances of ``chip_smoke.py`` (``run_flash_cases``:
     the training shape, an unaligned GQA shape, a float32 non-causal
-    Sq != Sk case, window, [B,S] segment ids, causal_shift=1; each row of
-    a bf16 output within 4 bf16 ulps of that row's largest |plain| value,
-    of a float32 output within 1e-4 of it, lse within 1e-4), each with its
-    mutants (one drops a key tile from the late rows only), which must land
-    outside the tolerance. Then what the kernels do not take raises."""
+    Sq != Sk case, window, [B,S] segment ids, causal_shift=1, and for the
+    bf16 tensor-core kernels d=64 non-causal with Sq != Sk, a window of
+    100, Sq = Sk = 257; each row of a bf16 output within 4 bf16 ulps of that
+    row's largest |plain| value, of a float32 output within 1e-4 of it, lse
+    within 1e-4), each with its mutants (one drops a key tile from the late
+    rows only), which must land outside the tolerance, and a second
+    backward that repeats dK and dV bit for bit. Then what the kernels do
+    not take raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels; no CPU mode)")
     import chip_smoke

@@ -6,7 +6,8 @@ tensors) is held against ``fused_bias_act(..., interpret=True)`` and
 ``fused_bias_act_dropout(..., interpret=True)`` on the same inputs made from
 a numpy seed, at the tolerances of ``tests/test_fused_bias_act.py``
 (forward rtol 1e-5 / atol 1e-6, gradients 1e-4 / 1e-5), every activation,
-uneven rows. The dropout mask is the port's own Philox4x32-10 (the TPU's
+uneven rows; in bf16 (x and dO, a bf16 or fp32 bias) out and dx bit for
+bit and db within 1e-6 of its largest value (fp32) or one ulp (bf16). The dropout mask is the port's own Philox4x32-10 (the TPU's
 PRNG is not reproducible elsewhere), so the dropout tests hold the
 reference's contract: the forward's and the backward's masks identical,
 the keep rate, seed determinism, kept values equal to JAX's
@@ -74,6 +75,39 @@ def test_grads_match_jax_uneven_rows(act):
     np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jdb), rtol=1e-4,
                                atol=1e-5)
     assert jnp.asarray(jdb).shape == tb.grad.shape
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("bias_dtype", ["bfloat16", "float32"])
+def test_bf16_grads_match_jax(act, bias_dtype):
+    """bf16 x and dO (path F runs in bf16) with a bf16 or an fp32 (master)
+    bias, against JAX's vjp of the Pallas kernel in interpret mode: out and
+    dx bit for bit (the same fp32 operations, rounded once to bf16); db in
+    the bias's dtype, within 1e-6 of its largest |JAX| value in fp32 (two
+    fp32 sums over the rows in other orders) and within one bf16 ulp of each
+    JAX value in bf16."""
+    jax, jfba = _jax()
+    import jax.numpy as jnp
+    x, b, g = _arrays((13, 24), 1)
+    jb = jnp.asarray(b, getattr(jnp, bias_dtype))
+    out, vjp = jax.vjp(lambda x_, b_: jfba.fused_bias_act(x_, b_, act, 8, True),
+                       jnp.asarray(x, jnp.bfloat16), jb)
+    jdx, jdb = vjp(jnp.asarray(g, jnp.bfloat16))
+    tx = torch.from_numpy(x).bfloat16().requires_grad_(True)
+    tb = torch.from_numpy(b).to(getattr(torch, bias_dtype)).requires_grad_(True)
+    got = fused_bias_act(tx, tb, act)
+    got.backward(torch.from_numpy(g).bfloat16())
+    f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))  # noqa: E731
+    assert got.dtype == tx.grad.dtype == torch.bfloat16
+    assert tb.grad.dtype == tb.dtype
+    np.testing.assert_array_equal(got.detach().float().numpy(), f32(out))
+    np.testing.assert_array_equal(tx.grad.float().numpy(), f32(jdx))
+    want_db = f32(jdb)
+    if bias_dtype == "float32":
+        tol = 1e-6 * np.abs(want_db).max()
+    else:
+        tol = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want_db), 1e-30))) - 7)
+    assert (np.abs(tb.grad.float().numpy() - want_db) <= tol).all()
 
 
 @pytest.mark.parametrize("act", ACTS)

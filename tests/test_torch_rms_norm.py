@@ -5,7 +5,9 @@ analytic backward in eager torch) is held against ``pallas_rms_norm(...,
 interpret=True)`` and ``rms_norm_reference`` on the same inputs made from a
 numpy seed: forward and both gradients within 1e-5 (as
 ``tests/test_pallas_kernels.py`` holds the Pallas kernel to its reference),
-bf16 outputs within one bf16 ulp.
+bf16 outputs within one bf16 ulp; with a bf16 x and dO (fp32 or bf16
+scale) out and dx bit for bit and dscale within 1e-6 of its largest value
+(fp32) or one ulp (bf16).
 
 The CUDA kernel runs only on the card: ``test_kernel_matches_plain_on_card``
 is marked ``gpu`` and skips where there is none. On the card:
@@ -86,6 +88,38 @@ def test_bf16_matches_jax_within_one_ulp():
                    torch.from_numpy(scale).bfloat16()).float().numpy()
     ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
     assert (np.abs(got - want) <= ulp).all()
+
+
+@pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
+def test_bf16_grads_match_jax(scale_dtype):
+    """bf16 x and dO (path R runs in bf16) with an fp32 or a bf16 scale,
+    against JAX's vjp of the Pallas kernel in interpret mode: out and dx bit
+    for bit (the same fp32 arithmetic, rounded once to bf16); dscale in the
+    scale's dtype, within 1e-6 of its largest |JAX| value in fp32 (two fp32
+    sums over the rows in other orders) and within one bf16 ulp of each JAX
+    value in bf16."""
+    jax, jrms = _jax()
+    import jax.numpy as jnp
+    x, scale, g = _arrays((37, 256), 5)
+    js = jnp.asarray(scale, getattr(jnp, scale_dtype))
+    out, vjp = jax.vjp(lambda x_, s_: jrms.pallas_rms_norm(x_, s_, 1e-5, 16, True),
+                       jnp.asarray(x, jnp.bfloat16), js)
+    jdx, jds = vjp(jnp.asarray(g, jnp.bfloat16))
+    tx = torch.from_numpy(x).bfloat16().requires_grad_(True)
+    ts = torch.from_numpy(scale).to(getattr(torch, scale_dtype)).requires_grad_(True)
+    got = rms_norm(tx, ts)
+    got.backward(torch.from_numpy(g).bfloat16())
+    f32 = lambda a: np.asarray(jnp.asarray(a).astype(jnp.float32))  # noqa: E731
+    assert got.dtype == tx.grad.dtype == torch.bfloat16
+    assert ts.grad.dtype == ts.dtype
+    np.testing.assert_array_equal(got.detach().float().numpy(), f32(out))
+    np.testing.assert_array_equal(tx.grad.float().numpy(), f32(jdx))
+    want_ds = f32(jds)
+    if scale_dtype == "float32":
+        tol = 1e-6 * np.abs(want_ds).max()
+    else:
+        tol = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want_ds), 1e-30))) - 7)
+    assert (np.abs(ts.grad.float().numpy() - want_ds) <= tol).all()
 
 
 def test_analytic_backward_matches_autograd_of_reference():

@@ -8,7 +8,8 @@ interpret=True)``, ``block_sparse_attention`` and
 ``sparse_attention_reference`` on inputs made from a numpy seed: float32
 forward within 2e-5 and gradients within 1e-4 (as
 ``tests/test_sparse_attention.py`` holds the JAX paths to their oracle),
-bfloat16 rows within 4 bf16 ulps of each row's largest value.
+bfloat16 rows (forward and dq/dk/dv) within 4 bf16 ulps of each row's
+largest value.
 
 The CUDA kernel runs only on the card: ``test_kernel_matches_plain_on_card``
 is marked ``gpu`` and skips where there is none. On the card:
@@ -190,6 +191,38 @@ def test_grads_match_jax(causal):
     for got, want in zip((tq.grad, tk.grad, tv.grad), jgrads):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=BWD_TOL,
                                    rtol=BWD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_grads_within_4_ulps_of_jax(causal):
+    """bf16 dq/dk/dv (the paths S1/S2 run in bf16) against JAX's vjp of the
+    Pallas kernel on bf16 inputs: each row within 4 bf16 ulps of its
+    largest |JAX| value, as the bf16 forward (both sides sum in fp32 in
+    other orders and round to bf16)."""
+    jax, jsa = _jax()
+    import jax.numpy as jnp
+    q, k, v, w = _qkv(s=64, seed=2)
+    lay = _bigbird_layout()
+
+    def loss(q_, k_, v_):
+        return jnp.sum(jnp.asarray(w, jnp.bfloat16) *
+                       jsa.pallas_block_sparse_attention(
+                           q_, k_, v_, lay, 16, causal, True)
+                       ).astype(jnp.float32)
+
+    jgrads = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16().requires_grad_(True)
+                  for a in (q, k, v))
+    (torch.from_numpy(w).bfloat16() * sparse_attention(tq, tk, tv, lay, 16,
+                                                       causal)
+     ).float().sum().backward()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        assert got.dtype == torch.bfloat16
+        want = np.asarray(want.astype(jnp.float32))
+        top = np.abs(want).max(-1, keepdims=True)
+        tol = 4 * 2.0 ** (np.floor(np.log2(np.maximum(top, 1e-30))) - 7)
+        assert (np.abs(got.float().numpy() - want) <= tol).all()
 
 
 def test_backward_in_query_chunks_matches_whole(monkeypatch):
