@@ -22,12 +22,13 @@
 // about -1e30, and contribute exactly 0 to every gradient (p is 0 there,
 // never exp() of a masked score).
 //
-// Five kernels; the launcher (`run`) picks by dtype, and a failure raises:
+// Six kernels; the launcher (`run`) picks by dtype, and a failure raises:
 //   bf16 forward  flash_fwd_kernel_wgmma   tensor cores (wgmma) fed by TMA
+//   bf16 dQ       flash_dq_kernel_wgmma    tensor cores (wgmma) fed by TMA
 //   bf16 dK/dV    flash_dkv_kernel_wgmma   tensor cores (wgmma) fed by TMA
 //   fp32 forward  flash_fwd_kernel         fp32 CUDA cores
+//   fp32 dQ       flash_dq_kernel          fp32 CUDA cores
 //   fp32 dK/dV    flash_dkv_kernel         fp32 CUDA cores
-//   dQ (both)     flash_dq_kernel          fp32 CUDA cores
 //
 // What bounds them: at the training shape (B=1, S=2048, H=32, Hkv=8, d=128,
 // causal) the work is arithmetic (34 GFLOP forward, 52 dQ, 69 dK/dV, against
@@ -58,6 +59,14 @@
 //     in registers (the row max and sum reduce over the 4 threads that share
 //     a row); O += P.V is wgmma with P from registers. The row sum l is
 //     summed per thread and reduced once at the end.
+//   * dQ: the forward's block (128 query rows, 64 per consumer warpgroup)
+//     and its ring of 64-key tiles, now of (K, V); the producer also loads
+//     the block's dO beside Q, once. S = Q.K^T and dP = dO.V^T from shared
+//     memory (Q and dO the A operands, K and V K-major B); lse and delta
+//     belong to the accumulator's rows, so each thread loads its two rows'
+//     values into registers once; dS is rounded in registers and is the A
+//     operand of dQ += dS.K, with K read MN-major from the stage that fed
+//     S. Each block owns its rows: no atomics, and dQ repeats bit for bit.
 //   * dK/dV: 64 keys per block; the two consumer warpgroups take the same
 //     keys and alternate over the `rep` query heads of the KV head (heads
 //     0, 2, .. and 1, 3, ..). Per 64-row query tile: S^T = K.Q^T and dP^T =
@@ -85,8 +94,7 @@
 // tolerance of 1e-4 of a row's largest value. So fp32 tensors take the
 // first design: tiles in shared memory as fp32 with a padded row stride,
 // fmaf micro-tiles per thread, the TPU grid's sequential key axis a loop
-// inside the block, dead tiles never loaded. dQ keeps that design in both
-// dtypes for now; it reads the bf16 forward's lse like any other.
+// inside the block, dead tiles never loaded.
 
 #include <cuda.h>          // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
@@ -340,7 +348,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// dQ: dq = sum over live key tiles of round(dS) . K
+// fp32 dQ on the CUDA cores: dq = sum over live key tiles of round(dS) . K
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
@@ -834,6 +842,91 @@ constexpr int kTileKeys = 64;                    // forward: keys a tile; dK/dV:
 constexpr int kTileRows = 64;                    // dK/dV: query rows a tile
 
 // ---------------------------------------------------------------------------
+// pieces shared by the forward and dQ kernels: 128 query rows a block over a
+// ring of 64-key (K, V) tiles
+// ---------------------------------------------------------------------------
+// The block's query tile, heaviest first (under causal the last query tile
+// of every head leads), and the key tiles it visits.
+struct QTile {
+  int b, h, kvh, bh, q0, tile_lo, n_tiles;
+};
+
+__device__ __forceinline__ QTile q_tile(const Params& p) {
+  const int heads = p.B * p.H;
+  const int n_qt = (p.Sq + kFwdBlockRows - 1) / kFwdBlockRows;
+  const int rank = blockIdx.x / heads, bh = blockIdx.x % heads;
+  const int qt = p.causal ? n_qt - 1 - rank : rank;
+  QTile r;
+  r.bh = bh;
+  r.b = bh / p.H;
+  r.h = bh % p.H;
+  r.kvh = r.h / (p.H / p.Hkv);
+  r.q0 = qt * kFwdBlockRows;
+  int tile_hi;
+  key_tiles(p, r.q0, min(r.q0 + kFwdBlockRows, p.Sq) - 1, kTileKeys, &r.tile_lo, &tile_hi);
+  r.n_tiles = tile_hi - r.tile_lo + 1;
+  return r;
+}
+
+// No live pair between the 64 query rows from row0 and the key tile at k0.
+__device__ __forceinline__ bool tile_dead(const Params& p, int row0, int k0) {
+  return row0 >= p.Sq || (p.causal && k0 > row0 + 63 - p.shift) ||
+         (p.window > 0 && k0 + kTileKeys - 1 <= row0 - p.window);
+}
+
+// Some pair of that tile is masked: only such edge tiles evaluate the mask
+// per element.
+__device__ __forceinline__ bool tile_masked(const Params& p, int row0, int k0) {
+  return p.qseg != nullptr || k0 + kTileKeys > p.Sk ||
+         (p.causal && k0 + kTileKeys - 1 > row0 - p.shift) ||
+         (p.window > 0 && k0 <= row0 + 63 - p.window);
+}
+
+// One thread sets up the barriers: once_full for the once-loaded tiles, and
+// full / empty per ring stage (empty is released by every consumer thread).
+__device__ __forceinline__ void init_ring(uint64_t* once_full, uint64_t* kv_full,
+                                          uint64_t* kv_empty) {
+  if (threadIdx.x == 0) {
+    mbar_init(once_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], kConsumers * kWg);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer (one thread): the block's N once-read [128][D] query-side
+// tiles (Q; Q and dO) from maps[n] into once[n], then the (K, V) ring of
+// 64-key tiles kept full.
+template <int D, int N>
+__device__ __forceinline__ void produce(const CUtensorMap* const (&maps)[N],
+                                        uint8_t* const (&once)[N], uint64_t* once_full,
+                                        const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                        uint8_t* ks, uint8_t* vs, uint64_t* kv_full,
+                                        uint64_t* kv_empty, const QTile& qt) {
+  constexpr int kAtoms = D / kAtom;
+  constexpr int kQ = kFwdBlockRows * D * 2, kKV = kTileKeys * D * 2;
+  mbar_expect_tx(once_full, N * kQ);
+  for (int a = 0; a < kAtoms; ++a)
+    for (int n = 0; n < N; ++n)
+      tma_load(once[n] + a * kFwdBlockRows * kAtomRow, maps[n], once_full, a * kAtom,
+               qt.h, qt.q0, qt.b);
+  for (int i = 0; i < qt.n_tiles; ++i) {
+    const int s = i % kStages;
+    const int k0 = (qt.tile_lo + i) * kTileKeys;
+    if (i >= kStages) mbar_wait(&kv_empty[s], (i / kStages - 1) & 1);
+    mbar_expect_tx(&kv_full[s], 2 * kKV);
+    for (int a = 0; a < kAtoms; ++a) {
+      const int off = s * kKV + a * kTileKeys * kAtomRow;
+      tma_load(ks + off, kmap, &kv_full[s], a * kAtom, qt.kvh, k0, qt.b);
+      tma_load(vs + off, vmap, &kv_full[s], a * kAtom, qt.kvh, k0, qt.b);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bf16 forward on the tensor cores: out and lse
 // ---------------------------------------------------------------------------
 template <int D>
@@ -849,7 +942,6 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap, Params p) {
   using S = FwdSmem<D>;
-  constexpr int kAtoms = D / kAtom;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = align1024(smem_raw);
   uint8_t* ks = qs + S::kQ;                      // stage s at + s * S::kKV
@@ -858,46 +950,20 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   uint64_t* kv_full = q_full + 1;                // [kStages]
   uint64_t* kv_empty = kv_full + kStages;        // [kStages]
 
-  // heaviest first: under causal the last query tile of every head leads
-  const int heads = p.B * p.H;
-  const int n_qt = (p.Sq + kFwdBlockRows - 1) / kFwdBlockRows;
-  const int rank = blockIdx.x / heads, bh = blockIdx.x % heads;
-  const int qt = p.causal ? n_qt - 1 - rank : rank;
-  const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.Hkv);
-  const int q0 = qt * kFwdBlockRows;
-  int tile_lo, tile_hi;
-  key_tiles(p, q0, min(q0 + kFwdBlockRows, p.Sq) - 1, kTileKeys, &tile_lo, &tile_hi);
-  const int n_tiles = tile_hi - tile_lo + 1;
+  const QTile qt = q_tile(p);
+  const int b = qt.b, h = qt.h, bh = qt.bh, q0 = qt.q0;
+  const int tile_lo = qt.tile_lo, n_tiles = qt.n_tiles;
 
   const int wg = threadIdx.x / kWg, t = threadIdx.x % kWg;
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&kv_full[s], 1);
-      mbar_init(&kv_empty[s], kConsumers * kWg);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_ring(q_full, kv_full, kv_empty);
 
   if (wg == kConsumers) {
-    // producer: one thread keeps the K/V ring full
+    // producer: one thread loads Q once and keeps the K/V ring full
     reg_dealloc<kProducerRegs>();
     if (t == 0) {
-      mbar_expect_tx(q_full, S::kQ);
-      for (int a = 0; a < kAtoms; ++a)
-        tma_load(qs + a * kFwdBlockRows * kAtomRow, &qmap, q_full, a * kAtom, h, q0, b);
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % kStages;
-        const int k0 = (tile_lo + i) * kTileKeys;
-        if (i >= kStages) mbar_wait(&kv_empty[s], (i / kStages - 1) & 1);
-        mbar_expect_tx(&kv_full[s], 2 * S::kKV);
-        for (int a = 0; a < kAtoms; ++a) {
-          const int off = s * S::kKV + a * kTileKeys * kAtomRow;
-          tma_load(ks + off, &kmap, &kv_full[s], a * kAtom, kvh, k0, b);
-          tma_load(vs + off, &vmap, &kv_full[s], a * kAtom, kvh, k0, b);
-        }
-      }
+      const CUtensorMap* maps[1] = {&qmap};
+      uint8_t* const once[1] = {qs};
+      produce<D>(maps, once, q_full, &kmap, &vmap, ks, vs, kv_full, kv_empty, qt);
     }
   } else {
     // consumers: warpgroup wg owns query rows [row0, row0 + 64)
@@ -915,10 +981,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       const int s = i % kStages;
       const int k0 = (tile_lo + i) * kTileKeys;
       mbar_wait(&kv_full[s], (i / kStages) & 1);
-      const bool dead = row0 >= p.Sq ||                 // no live pair in these rows
-                        (p.causal && k0 > row0 + 63 - p.shift) ||
-                        (p.window > 0 && k0 + kTileKeys - 1 <= row0 - p.window);
-      if (!dead) {
+      if (!tile_dead(p, row0, k0)) {
         const uint8_t* kt = ks + s * S::kKV;
         const uint8_t* vt = vs + s * S::kKV;
         float sc[32];
@@ -933,10 +996,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         wg_wait_all();
         reg_fence(sc);
 
-        // only edge tiles evaluate the mask per element
-        const bool masked = p.qseg != nullptr || k0 + kTileKeys > p.Sk ||
-                            (p.causal && k0 + kTileKeys - 1 > row0 - p.shift) ||
-                            (p.window > 0 && k0 <= row0 + 63 - p.window);
+        const bool masked = tile_masked(p, row0, k0);
         float alpha[2];
 #pragma unroll
         for (int ii = 0; ii < 2; ++ii) {
@@ -1206,9 +1266,141 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 dQ on the tensor cores: the forward's block of 128 query rows (64 per
+// consumer warpgroup) over a ring of (K, V) 64-key tiles
+// ---------------------------------------------------------------------------
+template <int D>
+struct DqSmem {
+  static constexpr int kQ = kFwdBlockRows * D * 2;   // Q or dO: D/64 atoms of [128][64]
+  static constexpr int kKV = kTileKeys * D * 2;      // one K or V tile
+  static constexpr int kBytes = 1024 + 2 * kQ + 2 * kStages * kKV + 64;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_dq_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap domap, Params p) {
+  using S = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* dos = qs + S::kQ;
+  uint8_t* ks = dos + S::kQ;                     // stage s at + s * S::kKV
+  uint8_t* vs = ks + kStages * S::kKV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * S::kKV);
+  uint64_t* kv_full = q_full + 1;                // [kStages]
+  uint64_t* kv_empty = kv_full + kStages;        // [kStages]
+
+  const QTile qt = q_tile(p);
+  const int b = qt.b, h = qt.h, bh = qt.bh, q0 = qt.q0;
+  const int tile_lo = qt.tile_lo, n_tiles = qt.n_tiles;
+
+  const int wg = threadIdx.x / kWg, t = threadIdx.x % kWg;
+  init_ring(q_full, kv_full, kv_empty);
+
+  if (wg == kConsumers) {
+    // producer: one thread loads Q and dO once and keeps the K/V ring full
+    reg_dealloc<kProducerRegs>();
+    if (t == 0) {
+      const CUtensorMap* maps[2] = {&qmap, &domap};
+      uint8_t* const once[2] = {qs, dos};
+      produce<D>(maps, once, q_full, &kmap, &vmap, ks, vs, kv_full, kv_empty, qt);
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows [row0, row0 + 64)
+    reg_alloc<kConsumerRegs>();
+    const int row0 = q0 + wg * 64;
+    const int row_a = row0 + frag_row(t, 0);     // the thread's rows: row_a, row_a + 8
+    const uint8_t* qw = qs + wg * 64 * kAtomRow;
+    const uint8_t* dow = dos + wg * 64 * kAtomRow;
+    float lse[2], delta[2];                      // per accumulator row
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int qpos = row_a + 8 * ii;
+      const bool in = qpos < p.Sq;
+      lse[ii] = in ? p.lse[(size_t)bh * p.Sq + qpos] : 0.f;
+      delta[ii] = in ? p.delta[(size_t)bh * p.Sq + qpos] : 0.f;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) dq[r] = 0.f;
+    mbar_wait(q_full, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const int k0 = (tile_lo + i) * kTileKeys;
+      mbar_wait(&kv_full[s], (i / kStages) & 1);
+      if (!tile_dead(p, row0, k0)) {
+        const uint8_t* kt = ks + s * S::kKV;
+        const uint8_t* vt = vs + s * S::kKV;
+        // S = Q.K^T and dP = dO.V^T, 64 queries x 64 keys
+        float sc[32], dp[32];
+#pragma unroll
+        for (int r = 0; r < 32; ++r) sc[r] = dp[r] = 0.f;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(sc, kmajor_desc(qw, kFwdBlockRows, kk),
+                       kmajor_desc(kt, kTileKeys, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(dp, kmajor_desc(dow, kFwdBlockRows, kk),
+                       kmajor_desc(vt, kTileKeys, kk), 1);
+        wg_commit();
+        wg_wait_all();
+        reg_fence(sc);
+        reg_fence(dp);
+
+        const bool masked = tile_masked(p, row0, k0);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int r = 4 * j + 2 * ii + c;
+              float ds = 0.f;
+              if (!masked || is_live(p, b, row_a + 8 * ii, k0 + frag_col(t, j, c))) {
+                const float pr = expf(sc[r] * p.scale - lse[ii]);
+                ds = pr * (dp[r] - delta[ii]) * p.scale;
+              }
+              sc[r] = ds;
+            }
+        uint32_t dsa[4][4];                      // dS rounded to k's dtype
+        to_a_operands(sc, dsa);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kTileKeys / 16; ++kk)
+          wgmma_rs<D>(dq, dsa[kk], mnmajor_desc(kt, kTileKeys, kk));
+        wg_commit();
+        wg_wait_all();
+        reg_fence(dq);
+      }
+      mbar_arrive(&kv_empty[s]);
+    }
+
+    bf16* dq_out = static_cast<bf16*>(p.out);
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int qpos = row_a + 8 * ii;
+      if (qpos >= p.Sq) continue;
+      bf16* dst = dq_out + ((size_t)(b * p.Sq + qpos) * p.H + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int r = 4 * j + 2 * ii;
+        *reinterpret_cast<__nv_bfloat162*>(dst + frag_col(t, j, 0)) =
+            __floats2bfloat162_rn(dq[r], dq[r + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-enum Which { kFwd = 0, kDq = 1, kDkv = 2, kFwdWgmma = 3, kDkvWgmma = 4 };
+enum Which { kFwd = 0, kDq = 1, kDkv = 2, kFwdWgmma = 3, kDkvWgmma = 4,
+             kDqWgmma = 5 };
 
 template <int D>
 int smem_bytes(int which) {
@@ -1217,6 +1409,7 @@ int smem_bytes(int which) {
   if (which == kDkv) return dkv_smem_floats<D>() * (int)sizeof(float);
   if (which == kFwdWgmma) return FwdSmem<D>::kBytes;
   if (which == kDkvWgmma) return DkvSmem<D>::kBytes;
+  if (which == kDqWgmma) return DqSmem<D>::kBytes;
   return -1;
 }
 
@@ -1292,6 +1485,24 @@ cudaError_t launch_fwd_wgmma(const Params& p, cudaStream_t stream) {
 }
 
 template <int D>
+cudaError_t launch_dq_wgmma(const Params& p, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, dom;
+  if (!tensor_map(&qm, p.q, p.B, p.Sq, p.H, D, kFwdBlockRows) ||
+      !tensor_map(&km, p.k, p.B, p.Sk, p.Hkv, D, kTileKeys) ||
+      !tensor_map(&vm, p.v, p.B, p.Sk, p.Hkv, D, kTileKeys) ||
+      !tensor_map(&dom, p.dout, p.B, p.Sq, p.H, D, kFwdBlockRows))
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  const cudaError_t err =
+      allow_smem(flash_dq_kernel_wgmma<D>, DqSmem<D>::kBytes, &configured);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (p.Sq + kFwdBlockRows - 1) / kFwdBlockRows;
+  flash_dq_kernel_wgmma<D><<<n_qt * p.B * p.H, kHopperThreads, DqSmem<D>::kBytes,
+                             stream>>>(qm, km, vm, dom, p);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dkv_wgmma(const Params& p, cudaStream_t stream) {
   CUtensorMap qm, km, vm, dom;
   if (!tensor_map(&qm, p.q, p.B, p.Sq, p.H, D, kTileRows) ||
@@ -1309,7 +1520,7 @@ cudaError_t launch_dkv_wgmma(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The CUDA-core kernels: fp32 forward and dK/dV, and dQ in both dtypes.
+// The CUDA-core kernels, for fp32.
 template <typename T, int D, int W>
 cudaError_t launch_cuda_cores(const Params& p, cudaStream_t stream) {
   void (*kernel)(Params) = nullptr;
@@ -1332,17 +1543,18 @@ cudaError_t launch_cuda_cores(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The choice by dtype: bf16 forward and dK/dV on the tensor cores, fp32
-// (which wgmma would take only as TF32) and every dQ on the CUDA cores.
+// The choice by dtype: bf16 on the tensor cores, fp32 (which wgmma would
+// take only as TF32) on the CUDA cores.
 template <typename T, int D>
 cudaError_t launch(int which, const Params& p, cudaStream_t stream) {
-  if (which == kDq) return launch_cuda_cores<T, D, kDq>(p, stream);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return which == kFwd ? launch_fwd_wgmma<D>(p, stream)
-                         : launch_dkv_wgmma<D>(p, stream);
+    if (which == kFwd) return launch_fwd_wgmma<D>(p, stream);
+    if (which == kDq) return launch_dq_wgmma<D>(p, stream);
+    return launch_dkv_wgmma<D>(p, stream);
   } else {
-    return which == kFwd ? launch_cuda_cores<T, D, kFwd>(p, stream)
-                         : launch_cuda_cores<T, D, kDkv>(p, stream);
+    if (which == kFwd) return launch_cuda_cores<T, D, kFwd>(p, stream);
+    if (which == kDq) return launch_cuda_cores<T, D, kDq>(p, stream);
+    return launch_cuda_cores<T, D, kDkv>(p, stream);
   }
 }
 
@@ -1385,8 +1597,8 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 }  // namespace
 
 // Dynamic shared memory (bytes) of kernel `which` at `head_dim`: 0 the fp32
-// forward, 1 dQ, 2 the fp32 dK/dV, 3 the bf16 forward, 4 the bf16 dK/dV;
-// -1 for an instantiation not compiled.
+// forward, 1 the fp32 dQ, 2 the fp32 dK/dV, 3 the bf16 forward, 4 the bf16
+// dK/dV, 5 the bf16 dQ; -1 for an instantiation not compiled.
 extern "C" int dstt_flash_smem_bytes(int which, int head_dim) {
   if (head_dim == 64) return smem_bytes<64>(which);
   if (head_dim == 128) return smem_bytes<128>(which);

@@ -9,8 +9,8 @@ the port and is not ported) and of
 hand-written CUDA kernels of ``csrc/flash_attention.cu`` (design notes
 there), launched by ``flash_fwd`` and ``flash_bwd`` and counted as
 ``flash_fwd``, ``flash_dq`` and ``flash_dkv``. The library picks by dtype:
-bf16 forward and dK/dV run on the tensor cores (``wgmma`` fed by TMA),
-fp32 and every dQ on the CUDA cores.
+bf16 runs all three on the tensor cores (``wgmma`` fed by TMA), fp32 on
+the CUDA cores.
 
 ``flash_fwd_plain`` and ``flash_bwd_plain`` compute what the kernels
 compute, with the same masks and the same rounding points (the causal mask
@@ -39,8 +39,9 @@ NEG_INF = -1e30
 KERNEL = "flash_attention"
 LAUNCH_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
 # the entries of dstt_flash_smem_bytes: the CUDA-core kernels, then the
-# bf16 tensor-core forward and dK/dV
-SMEM_ENTRIES = LAUNCH_NAMES + ("flash_fwd_wgmma", "flash_dkv_wgmma")
+# bf16 tensor-core forward, dK/dV and dQ
+SMEM_ENTRIES = LAUNCH_NAMES + ("flash_fwd_wgmma", "flash_dkv_wgmma",
+                               "flash_dq_wgmma")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _lib: Optional[ctypes.CDLL] = None

@@ -247,9 +247,9 @@ def test_kernels_match_plain_on_card():
     100, Sq = Sk = 257; each row of a bf16 output within 4 bf16 ulps of that
     row's largest |plain| value, of a float32 output within 1e-4 of it, lse
     within 1e-4), each with its mutants (one drops a key tile from the late
-    rows only), which must land outside the tolerance, and a second
-    backward that repeats dK and dV bit for bit. Then what the kernels do
-    not take raises."""
+    rows only, one a key tile from dQ alone), which must land outside the
+    tolerance, and a second backward that repeats dQ, dK and dV bit for
+    bit. Then what the kernels do not take raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels; no CPU mode)")
     import chip_smoke
