@@ -1,0 +1,111 @@
+"""Kernel A/B on one card: the evoformer forward and the block-sparse
+forward of two trees of this repo, in the order A, B, B, A.
+
+Each run is a fresh process in the tree's own directory that builds that
+tree's kernels and times, by the profiler's device time (the tree's
+``chip_smoke._kernel_device_ms``, every kernel whose name holds the given
+stem) and by CUDA events over wrapper calls:
+
+- ``evo_fwd`` at E1 (``[1, 512, 384, 8, 32]``, mask and pair bias) and E4
+  (``[1, 5120, 384, 8, 8]``, mask and pair bias), bf16, OpenFold's widths;
+- ``sparse_attention`` at S1 (BigBird-base, block 64) and S2 (Fixed, block
+  16, causal), B=4, S=4096, 12 heads, D=64, bf16.
+
+It also lists the kernel entries each call launched, by exact name. Order
+A, B, B, A cancels a steady drift of the card.
+
+    python3 chip_kernel_ab.py --a build/parent --b . --out build/kernel_ab
+
+Writes each run's output to ``<out>/<label><i>.log`` and prints one summary
+line per run; exits non-zero if a run fails.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+RUN = """
+import json, re, sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+dev, smi = cs.phase_device()
+from deepspeed_tpu_torch.ops.evoformer import canonicalize, evo_fwd
+from deepspeed_tpu_torch.ops.sparse_attention import (SparseLayout,
+                                                      sparse_attention_cuda)
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def entries(fn):
+    names = {re.sub(r"\\(anonymous namespace\\)::", "", e.name)
+             for e in cs._device_events(fn, 1)}
+    return sorted({re.match(r"(?:void )?(\\w+)", n).group(1) for n in names})
+
+
+def timed(fn, stem):
+    return {"device_ms": cs._kernel_device_ms(fn, [stem])[stem],
+            "wrapper_ms": cs.time_ms(fn, iters=10), "entries": entries(fn)}
+
+
+gen = torch.Generator(device="cuda")
+gen.manual_seed(cs.SEED)
+out = {}
+for name in ("E1", "E4"):
+    _, n, l, h, d, pair, _ = cs.EVO_PATH_CASES[name]
+    (q, k, v, _), mask, pair_bias = cs._evo_path_inputs(gen, n, l, h, d, pair)
+    q5, k5, v5, b1, b2 = canonicalize(q, k, v, [mask, pair_bias])
+    b1, b2 = b1.contiguous(), b2.contiguous()
+    out[name] = timed(lambda: evo_fwd(q5, k5, v5, b1, b2), "evo_fwd_kernel")
+    del q, k, v, mask, pair_bias, q5, k5, v5, b1, b2
+    torch.cuda.empty_cache()
+for name, (_, b, s, h, d, _) in cs.SPARSE_PATHS.items():
+    cfg = cs._sparse_path_config(name)
+    lay = SparseLayout(cfg.make_layout(s))
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    out[name] = timed(lambda: sparse_attention_cuda(q, k, v, lay, cfg.block,
+                                                    name == "S2"),
+                      "sparse_attention_kernel")
+    del q, k, v
+print(json.dumps({"kernel_ab": out, "nvidia_smi": smi}), flush=True)
+"""
+
+
+def summary(lines):
+    for line in lines:
+        try:
+            row = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(row, dict) and "kernel_ab" in row:
+            return row
+    return {}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--a", required=True, help="tree run first and last")
+    ap.add_argument("--b", required=True, help="tree run second and third")
+    ap.add_argument("--out", default="build/kernel_ab")
+    ap.add_argument("--timeout", type=int, default=600)
+    opts = ap.parse_args()
+    os.makedirs(opts.out, exist_ok=True)
+    order = [("a", opts.a), ("b", opts.b), ("b", opts.b), ("a", opts.a)]
+    failed = False
+    for i, (label, tree) in enumerate(order):
+        run = subprocess.run([sys.executable, "-c", RUN], cwd=tree,
+                             capture_output=True, text=True,
+                             timeout=opts.timeout)
+        with open(os.path.join(opts.out, f"{label}{i}.log"), "w") as f:
+            f.write(run.stdout + run.stderr)
+        failed |= run.returncode != 0
+        print(json.dumps({"run": f"{label}{i}", "tree": tree,
+                          "rc": run.returncode,
+                          **summary(run.stdout.splitlines())}), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,9 +4,11 @@
 Run from the repository root: ``python3 chip_smoke.py``. It builds the CUDA
 kernels from ``deepspeed_tpu_torch/csrc`` with nvcc (and checks that the bf16
 flash forward, dQ and dK/dV entries hold tensor-core products and TMA loads
-in their SASS), holds each kernel against its plain PyTorch version on the
-card (the flash backward and the paged kernel also against a second call,
-bit for bit) and times both, then drives the port's paths:
+in their SASS, and the bf16 evoformer forward and block-sparse entries
+``mma.sync`` products and ``cp.async`` loads), holds each kernel against its
+plain PyTorch version on the card (the flash backward, the paged kernel and
+the bf16 evoformer forward and block-sparse kernel also against a second
+call, bit for bit) and times both, then drives the port's paths:
 
 - serving: 8 requests through ``InferenceEngineV2`` on Llama-3-8B at full
   width and depth (bf16, random weights from a seed), with a check that the
@@ -32,17 +34,21 @@ bit for bit) and times both, then drives the port's paths:
   and with the plain attention backend, and the same lr with qgZ
   (``zero_quantized_gradients``): exact int8 launches per step, a loss that
   falls every step, the step-1 gradient norm beside the probe's;
-- evoformer attention: the five kernels against their plain versions in 10
+- evoformer attention: the five kernels against their plain versions in 13
   cases (fp32 and bf16, head dims 8 to 128, every bias combination, Lq !=
-  Lk) with mutants, then ``DS4Sci_EvoformerAttention`` forward and backward
-  at OpenFold's widths (E1 MSA row attention with pair bias, E2 MSA column,
-  E3 triangle, E4 extra-MSA row) with exact launch counts, held against the
-  chunked plain versions, and the kernels timed at E1 beside SDPA;
+  Lk, groups of MSA rows with N not a multiple of the group) with mutants,
+  the forward's entry by profiler name per dtype, then
+  ``DS4Sci_EvoformerAttention`` forward and backward at OpenFold's widths
+  (E1 MSA row attention with pair bias, E2 MSA column, E3 triangle, E4
+  extra-MSA row) with exact launch counts, held against the chunked plain
+  versions, and the kernels timed at E1 (the forward at E4 too) beside
+  SDPA;
 - slice 5: the RMSNorm kernel (7 cases), the four fused bias + activation
   (+ dropout) kernels (8 cases, every activation, dropout masks bit for bit)
-  and the block-sparse attention kernel (9 cases, blocks 16 to 128, head
-  dims 32 to 128, causal and per-head layouts) against their plain versions
-  with mutants; then the paths: ``SparseSelfAttention`` forward and backward
+  and the block-sparse attention kernel (13 cases, blocks 16 to 128, head
+  dims 32 to 128, causal and per-head layouts, groups mixing empty and live
+  query blocks) against their plain versions with mutants and its entry by
+  profiler name per dtype; then the paths: ``SparseSelfAttention`` forward and backward
   at BigBird-base (S1) and the Fixed pattern (S2), 4096 tokens; ``rms_norm``
   at Llama-3-8B's width (R); ``fused_bias_act`` and
   ``fused_bias_act_dropout`` at BERT-base's FFN (F); exact launch counts,
@@ -164,17 +170,25 @@ def _demangle(names):
         return names
 
 
-# the tensor-core entries and the SASS instructions each must hold: HGMMA
-# (wgmma) and UTMALDG (a TMA tile load)
-SASS_ENTRIES = ("flash_fwd_kernel_wgmma", "flash_dq_kernel_wgmma",
-                "flash_dkv_kernel_wgmma")
-SASS_OPS = ("HGMMA", "UTMALDG")
+# the tensor-core entries of each library, the SASS instructions each must
+# hold and how many instances there are: HGMMA (wgmma) and UTMALDG (a TMA
+# tile load) in the flash library; HMMA (mma.sync) and LDGSTS (cp.async)
+# in the evoformer forward (5 head dims, with and without a pair bias) and
+# the block-sparse kernel (3 head dims x 4 blocks)
 FLASH_HEAD_DIMS = (64, 128)
+SASS_CHECKS = {
+    "flash_attention": (("flash_fwd_kernel_wgmma", "flash_dq_kernel_wgmma",
+                         "flash_dkv_kernel_wgmma"), ("HGMMA", "UTMALDG"),
+                        3 * len(FLASH_HEAD_DIMS)),
+    "evoformer": (("evo_fwd_kernel_mma",), ("HMMA", "LDGSTS"), 10),
+    "sparse_attention": (("sparse_attention_kernel_mma",), ("HMMA", "LDGSTS"), 12),
+}
 
 
-def _sass_counts(library):
-    """{demangled entry: {op: count}} of SASS_OPS in each SASS_ENTRIES
-    entry of ``library`` (``cuobjdump --dump-sass``, from nvcc's folder)."""
+def _sass_counts(library, entries, ops):
+    """{demangled entry: {op: count}} of ``ops`` in each entry of
+    ``library`` whose name holds one of ``entries`` (``cuobjdump
+    --dump-sass``, from nvcc's folder)."""
     import os
     from deepspeed_tpu_torch.ops import build
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
@@ -185,13 +199,12 @@ def _sass_counts(library):
     for line in res.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = m.group(1) if any(n in m.group(1) for n in SASS_ENTRIES) \
-                else None
+            cur = m.group(1) if any(n in m.group(1) for n in entries) else None
             if cur:
-                counts[cur] = dict.fromkeys(SASS_OPS, 0)
+                counts[cur] = dict.fromkeys(ops, 0)
             continue
         if cur:
-            for op in SASS_OPS:
+            for op in ops:
                 counts[cur][op] += op in line
     names = _demangle(list(counts))
     return {n: c for n, c in zip(names, counts.values())}
@@ -222,7 +235,8 @@ def phase_build(kernels):
                       "entries": [{"kernel": k, "registers": r, "spill_stores": s}
                                   for k, r, s in zip(_demangle(entries), regs,
                                                      spills)]}
-    sass = _sass_counts(results["flash_attention"].path)
+    sass = {lib: _sass_counts(results[lib].path, entries, ops)
+            for lib, (entries, ops, _) in SASS_CHECKS.items()}
     smem = {f"d{d}_rows{rows}_{name}": dynamic_smem_bytes(d, rows, dt)
             for d in (64, 128) for rows in (4, 8, 32)
             for name, dt in kv_dtypes.items()}
@@ -231,24 +245,38 @@ def phase_build(kernels):
           "flash_dynamic_smem_bytes": {
               f"d{d}": flash_attention.dynamic_smem_bytes(d)
               for d in FLASH_HEAD_DIMS},
-          "flash_sass": sass,
+          "flash_sass": sass["flash_attention"],
           "evo_dynamic_smem_bytes": {
               f"d{d}": evoformer.dynamic_smem_bytes(d)
               for d in evoformer.HEAD_DIMS},
           "sparse_dynamic_smem_bytes": {
               f"d{d}_block{blk}": sparse.dynamic_smem_bytes(d, blk)
               for d in sparse.HEAD_DIMS for blk in sparse.BLOCKS}})
-    wgmma_regs = {e["kernel"]: {"registers": e["registers"],
-                                "spill_stores": e["spill_stores"]}
-                  for e in info["flash_attention"]["entries"]
-                  if "_wgmma" in e["kernel"]}
-    emit({"phase": "build_wgmma", "ptxas": wgmma_regs, "sass": sass})
-    check(len(sass) == len(SASS_ENTRIES) * len(FLASH_HEAD_DIMS),
-          f"expected {len(SASS_ENTRIES)} tensor-core entries per head dim, "
-          f"found {list(sass)}")
-    for entry, ops in sass.items():
-        check(all(ops[op] > 0 for op in SASS_OPS),
-              f"{entry}: {ops} (no tensor-core product or no TMA load)")
+    def ptxas(lib, stem):
+        return {e["kernel"]: {"registers": e["registers"],
+                              "spill_stores": e["spill_stores"]}
+                for e in info[lib]["entries"] if stem in e["kernel"]}
+    emit({"phase": "build_wgmma", "ptxas": ptxas("flash_attention", "_wgmma"),
+          "sass": sass["flash_attention"]})
+    plans = {f"d{d}_{'pair' if pair else 'no_pair'}": evoformer.evo_fwd_plan(d, pair)
+             for d in evoformer.HEAD_DIMS for pair in (True, False)}
+    emit({"phase": "build_mma",
+          "ptxas": {**ptxas("evoformer", "_mma"),
+                    **ptxas("sparse_attention", "_mma")},
+          "sass": {lib: sass[lib] for lib in ("evoformer", "sparse_attention")},
+          "evo_fwd_plan": plans})
+    for lib, (entries, ops, count) in SASS_CHECKS.items():
+        check(len(sass[lib]) == count, f"{lib}: expected {count} tensor-core "
+              f"entries, found {list(sass[lib])}")
+        for entry, n in sass[lib].items():
+            check(all(n[op] > 0 for op in ops),
+                  f"{entry}: {n} (no tensor-core product or no async load)")
+    for d in evoformer.HEAD_DIMS:
+        lib_smem = evoformer.dynamic_smem_bytes(d)
+        for pair, key in ((True, "evo_fwd_mma_pair"), (False, "evo_fwd_mma")):
+            want = evoformer.evo_fwd_plan(d, pair)["smem_bytes"]
+            check(lib_smem[key] == want, f"evo_fwd_plan({d}, {pair}) says "
+                  f"{want} bytes of shared memory, the kernel {lib_smem[key]}")
     return info
 
 
@@ -1359,7 +1387,10 @@ EVO_MASKED = 0.1                   # share of keys OpenFold's mask removes
 # both dtypes, every bias combination, L never a multiple of the tiles,
 # Lq != Lk; the d8 bf16 case has 2,400 (b, n, h) rows (4,800 forward blocks,
 # more than the card holds at once) and a 150-row dbias2 loop, the d32 one
-# OpenFold's widths with a shorter N
+# OpenFold's widths with a shorter N. The last three are for the bf16
+# forward's groups of MSA rows: D = 8 with a pair bias over Lk = 130 (4-byte
+# bias copies, a partial key tile), a group whose last row is OpenFold's
+# fully masked one, N = 7 not a multiple of the group of 4
 EVO_CASES = [
     ("d8_fp32_both", (2, 3, 100, 100, 4, 8, torch.float32, True, True)),
     ("d16_fp32_mask_lq_ne_lk", (2, 2, 70, 130, 4, 16, torch.float32, True, False)),
@@ -1371,6 +1402,9 @@ EVO_CASES = [
     ("d32_bf16_openfold", (2, 8, 384, 384, 8, 32, torch.bfloat16, True, True)),
     ("d64_bf16_mask_lq_ne_lk", (1, 3, 100, 200, 4, 64, torch.bfloat16, True, False)),
     ("d128_bf16_both", (2, 2, 130, 130, 4, 128, torch.bfloat16, True, True)),
+    ("d8_bf16_pair_lk130", (2, 6, 100, 130, 4, 8, torch.bfloat16, False, True)),
+    ("d32_bf16_masked_row_n7", (1, 7, 130, 130, 4, 32, torch.bfloat16, True, True)),
+    ("d16_bf16_both_n9", (2, 9, 64, 200, 2, 16, torch.bfloat16, True, True)),
 ]
 
 
@@ -1453,10 +1487,21 @@ def _evo_db2_wrong_batch(args, b1, b2, res, want):
     return want[:6] + [db2]
 
 
-def _evo_mutants(b, with_b1, with_b2):
+def _evo_pair_of_next_head(args, b1, b2, res, want):
+    """The forward scores head h with the pair panel of head (h + 1) mod H
+    (a wrong panel index in a block that walks several MSA rows)."""
+    from deepspeed_tpu_torch.ops.evoformer import evo_fwd_plain
+    q, k, v, _ = args
+    out, lse = evo_fwd_plain(q, k, v, b1, torch.roll(b2, -1, 1).contiguous())
+    return [out, lse] + want[2:]
+
+
+def _evo_mutants(b, h, with_b1, with_b2):
     """{name: (mutant, outputs it must miss)} that apply to a case."""
     mutants = {"last_key_tile_dropped": (_evo_last_key_tile_dropped,
                                          ("out", "dk", "dv"))}
+    if with_b2 and h >= 2:
+        mutants["pair_of_next_head"] = (_evo_pair_of_next_head, ("out", "lse"))
     if with_b1:
         mutants["bias1_dropped_in_bwd"] = (_evo_b1_dropped_in_bwd, ANY)
     if with_b1 or with_b2:
@@ -1468,18 +1513,36 @@ def _evo_mutants(b, with_b1, with_b2):
     return mutants
 
 
+def _entries(fn, stem):
+    """The exact entry names (``evo_fwd_kernel``, not a prefix of
+    ``evo_fwd_kernel_mma``) of the CUDA kernels one call of ``fn``
+    launches whose names hold ``stem``, from the profiler."""
+    names = set()
+    for e in _device_events(fn, 1):
+        m = re.match(r"(?:void\s+)?(?:\(anonymous namespace\)::)?(\w+)", e.name)
+        if m and stem in m.group(1):
+            names.add(m.group(1))
+    return sorted(names)
+
+
+# the forward's entry by dtype: bf16 on the tensor cores, fp32 on CUDA cores
+EVO_FWD_ENTRY = {torch.bfloat16: "evo_fwd_kernel_mma", torch.float32: "evo_fwd_kernel"}
+
+
 def run_evo_cases(gen):
     """Every EVO_CASES case: the five kernels (each bias kernel where its
     bias is present) against the plain versions, each output within its
     tolerance and finite, each kernel launched exactly once, and each
-    mutant that applies outside the tolerance on the outputs it names.
-    Returns the rows; raises PhaseError on any failure. The ``gpu`` test
-    runs this too."""
+    mutant that applies outside the tolerance on the outputs it names; the
+    forward's entry by profiler name (bf16 ``evo_fwd_kernel_mma`` alone,
+    fp32 ``evo_fwd_kernel`` alone) and, in bf16, a second forward that
+    repeats out and lse bit for bit. Returns the rows; raises PhaseError on
+    any failure. The ``gpu`` test runs this too."""
     from deepspeed_tpu_torch.ops import build
     from deepspeed_tpu_torch.ops.evoformer import evo_bwd, evo_fwd
     rows = []
     for name, shape in EVO_CASES:
-        b, _, _, _, _, _, dtype, with_b1, with_b2 = shape
+        b, _, _, _, h, _, dtype, with_b1, with_b2 = shape
         args, b1, b2 = _evo_inputs(gen, *shape)
         q, k, v, do = args
         before = build.launch_counts()
@@ -1492,6 +1555,15 @@ def run_evo_cases(gen):
         launched = {n: after.get(n, 0) - before.get(n, 0) for n in want_n}
         check(launched == want_n, f"evo {name}: launches {launched}, "
               f"expected {want_n}")
+        entries = _entries(lambda: evo_fwd(q, k, v, b1, b2), "evo_")
+        check(entries == [EVO_FWD_ENTRY[dtype]],
+              f"evo {name}: the forward launched {entries}")
+        repeat = None
+        if dtype == torch.bfloat16:
+            again = evo_fwd(q, k, v, b1, b2)
+            repeat = torch.equal(again[0], out) and torch.equal(again[1], lse)
+            check(repeat, f"evo {name}: a second forward gave other bits")
+            del again
         got = [out, lse, *grads]
         res = (out, lse)
         want = _evo_plain_all(args, b1, b2, res)
@@ -1508,8 +1580,9 @@ def run_evo_cases(gen):
                "shape": dict(zip(("b", "n", "lq", "lk", "h", "d"), shape[:6]),
                              dtype=str(dtype), bias1=with_b1, bias2=with_b2),
                "max_abs_err": errs, "err_over_tol": ratios, "finite": finite,
-               "launches": launched, "mutants": {}}
-        mutants = _evo_mutants(b, with_b1, with_b2)
+               "launches": launched, "fwd_entries": entries,
+               "fwd_repeats_bit_for_bit": repeat, "mutants": {}}
+        mutants = _evo_mutants(b, h, with_b1, with_b2)
         for m_name, (mutant, _) in mutants.items():
             m_want = mutant(args, b1, b2, res, want)
             row["mutants"][m_name] = {
@@ -1689,7 +1762,8 @@ def _sdpa_yardstick(q5, k5, v5, b1, b2):
     """One ``F.scaled_dot_product_attention`` over the same problem (rows
     [B*N, H, L, D], the summed bias materialized as a bf16 ``attn_mask``),
     forward and backward (q, k, v and the mask), on the first backend that
-    takes it; a yardstick only, the port never calls it."""
+    takes it, each by the device time of every kernel it launches; a
+    yardstick only, the port never calls it."""
     import torch.nn.functional as F
     try:
         from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1710,14 +1784,14 @@ def _sdpa_yardstick(q5, k5, v5, b1, b2):
                           ("cudnn", SDPBackend.CUDNN_ATTENTION)):
         try:
             with sdpa_kernel([backend]):
-                fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, attn_mask=mask), iters=5, warmup=1)
+                fwd_ms = _call_device_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask), iters=5)
                 leaves = [x.detach().requires_grad_() for x in (qs, ks, vs, mask)]
                 o = F.scaled_dot_product_attention(*leaves[:3],
                                                    attn_mask=leaves[3])
                 g = torch.ones_like(o)
-                bwd_ms = time_ms(lambda: torch.autograd.grad(
-                    o, leaves, g, retain_graph=True), iters=5, warmup=1)
+                bwd_ms = _call_device_ms(lambda: torch.autograd.grad(
+                    o, leaves, g, retain_graph=True), iters=5)
                 del o, leaves, g
             return {"backend": name, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
                     "fwd_plus_bwd_ms": fwd_ms + bwd_ms, "errors": errors}
@@ -1729,24 +1803,38 @@ def _sdpa_yardstick(q5, k5, v5, b1, b2):
 
 
 def phase_evo_timing(dev, smi_line):
-    """At E1: each kernel's time (the forward with CUDA events, the four
-    backward kernels by name in one profiled backward), the plain versions'
-    (whole forward, whole backward) and each kernel's bound; at E1 and E4
-    the SDPA yardstick. Returns the kernels line's numbers."""
+    """At E1: each kernel's time by the profiler's device time (the forward
+    alone, the four backward kernels by name in one profiled backward; the
+    forward's wrapper call by CUDA events beside it), the plain versions'
+    (whole forward, whole backward) and each kernel's bound; at E4 the
+    forward's device time, wrapper time and bound; at E1 and E4 the SDPA
+    yardstick. Returns the kernels line's numbers."""
     from deepspeed_tpu_torch.ops.evoformer import (canonicalize, evo_bwd,
                                                    evo_bwd_plain, evo_fwd,
-                                                   evo_fwd_plain)
+                                                   evo_fwd_plain, evo_fwd_plan)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 8)
-    timing, sdpa = {}, {}
+    timing, sdpa, fwd = {}, {}, {}
     for name in ("E1", "E4"):
         _, n, l, h, d, pair, _ = EVO_PATH_CASES[name]
         (q, k, v, do), mask, pair_bias = _evo_path_inputs(gen, n, l, h, d, pair)
         q5, k5, v5, b1, b2 = canonicalize(q, k, v, [mask, pair_bias])
         b1, b2 = b1.contiguous(), b2.contiguous()
+        call = lambda: evo_fwd(q5, k5, v5, b1, b2)  # noqa: E731
+        mm, nbytes = _evo_work(1, n, l, l, h, d, 2)
+        bound_ms, bound_by = _bound(2 * mm, nbytes["evo_fwd"])
+        plan = evo_fwd_plan(d, pair)
+        fwd[name] = {
+            "ms": _kernel_device_ms(call, ["evo_fwd_kernel"])["evo_fwd_kernel"],
+            "wrapper_ms": time_ms(call, iters=10), "bound_ms": bound_ms,
+            "bound_by": bound_by, "plan": plan,
+            # L2 reads of the tiling: K/V once per 64-row query tile, the
+            # pair panel once per group of rows and query tile
+            "l2_read_bytes": {
+                "kv": 2 * -(-l // 64) * n * l * h * d * 2,
+                "pair_panel": -(-n // plan["group"]) * h * l * l * 4 if pair else 0}}
         if name == "E1":
-            fwd_ms = time_ms(lambda: evo_fwd(q5, k5, v5, b1, b2), iters=10)
-            out, lse = evo_fwd(q5, k5, v5, b1, b2)
+            out, lse = call()
             per = _kernel_device_ms(
                 lambda: evo_bwd(q5, k5, v5, b1, b2, out, lse, do),
                 [f"{kn}_kernel" for kn in EVO_KERNELS[1:]], iters=5)
@@ -1754,18 +1842,19 @@ def phase_evo_timing(dev, smi_line):
                                 iters=2, warmup=1)
             plain_bwd = time_ms(lambda: evo_bwd_plain(
                 q5, k5, v5, b1, b2, out, lse, do), iters=2, warmup=1)
-            mm, nbytes = _evo_work(1, n, l, l, h, d, 2)
             flops = {"evo_fwd": 2 * mm, "evo_dq": 3 * mm, "evo_dkv": 4 * mm,
                      "evo_dbias2": 2 * mm, "evo_dbias1": 2 * mm}
             for kn in EVO_KERNELS:
                 bound_ms, bound_by = _bound(flops[kn], nbytes[kn])
                 timing[kn] = {
-                    "ms": fwd_ms if kn == "evo_fwd" else per[f"{kn}_kernel"],
+                    "ms": fwd[name]["ms"] if kn == "evo_fwd" else per[f"{kn}_kernel"],
                     "plain_ms": plain_fwd if kn == "evo_fwd" else plain_bwd,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "flops": flops[kn], "bytes": nbytes[kn]}
+            timing["evo_fwd"]["wrapper_ms"] = fwd[name]["wrapper_ms"]
             del out, lse
         sdpa[name] = _sdpa_yardstick(q5, k5, v5, b1, b2)
+        fwd[name]["sdpa_fwd_ms"] = sdpa[name].get("fwd_ms")
         del q, k, v, do, mask, pair_bias, q5, k5, v5, b1, b2
         gc.collect()
         torch.cuda.empty_cache()
@@ -1778,10 +1867,11 @@ def phase_evo_timing(dev, smi_line):
           "bf16, mask + pair bias, both bias gradients",
           **{kn: {**t, "share_of_bound": t["bound_ms"] / t["ms"]}
              for kn, t in timing.items()},
-          "sdpa": sdpa,
-          "notes": "plain_ms of the four backward kernels is the whole "
-                   "plain backward; library_ms of them is one SDPA backward "
-                   "(q, k, v, mask) at E1",
+          "evo_fwd_by_path": fwd, "sdpa": sdpa,
+          "notes": "ms: profiler device time; plain_ms of the four backward "
+                   "kernels is the whole plain backward; library_ms of them "
+                   "is one SDPA backward (q, k, v, mask) at E1, by device "
+                   "time",
           "card": dev["kind"], "nvidia_smi": smi_line})
     return {kn: {key: t[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")}
@@ -2025,7 +2115,10 @@ def _sparse_case_layouts():
     """name -> (layout [H, nb, nb], block, causal, B, S, H, D, dtype,
     layouts differ per head): every block and head dim, both dtypes, causal
     on and off, per-head random layouts, and a layout with query blocks that
-    have no live key block."""
+    have no live key block. The last four are for the bf16 kernel's groups
+    of query blocks: a group that mixes empty and live query blocks, per-head
+    Fixed groups with the causal diagonal inside them, block 128 at D = 64,
+    and block 128 with ``half_max`` inputs (``_sparse_inputs``)."""
     from deepspeed_tpu_torch.ops.sparse_attention import (
         BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
         FixedSparsityConfig, LocalSlidingWindowSparsityConfig,
@@ -2070,7 +2163,64 @@ def _sparse_case_layouts():
     add("b32_d128_f32_empty_rows", BigBirdSparsityConfig(
         2, block=32, different_layout_per_head=True), 256, 2, 128, f32, False,
         per_head=True, edit=empty_rows)
+    add("b16_d64_bf16_empty_rows", BigBirdSparsityConfig(
+        2, block=16, different_layout_per_head=True), 256, 2, 64, bf16, False,
+        per_head=True, edit=empty_rows)
+    add("b16_d32_bf16_fixed_per_head_causal", FixedSparsityConfig(
+        4, block=16, different_layout_per_head=True, num_local_blocks=4,
+        num_global_blocks=1, num_different_global_patterns=4,
+        attention="unidirectional"), 512, 2, 32, bf16, True, per_head=True)
+    add("b128_d64_bf16_bigbird", BigBirdSparsityConfig(
+        2, block=128, num_random_blocks=1), 1024, 2, 64, bf16, False)
+    add("b128_d64_bf16_half_max", BSLongformerSparsityConfig(
+        2, block=128, global_block_indices=[0]), 1024, 2, 64, bf16, False)
     return cases
+
+
+def _sparse_inputs(gen, name, b, s, h, d, dtype):
+    """Seeded q, k, v [B, S, H, D] on the card. For ``half_max`` cases batch
+    entry 0 is built so that its exact output is 0 and a running max that
+    moves per 64-key half of a 128-key block shows: q is the unit vector
+    e0, the first 64 keys of every block score -1 and take v = 1, the last
+    64 score 0 and take v = -round_bf16(exp(-1)); with one max over the
+    block each block adds 64 p v = 0 exactly, with a max per half the first
+    half's p = 1 is scaled by the unrounded exp(-1) and the sums miss 0."""
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    if "half_max" in name:
+        first = (torch.arange(s, device="cuda") % 128) < 64
+        q[0] = 0
+        q[0, ..., 0] = 1
+        k[0] = 0
+        k[0, first, :, 0] = -math.sqrt(d)          # score -1 after 1/sqrt(D)
+        v[0] = torch.where(first[:, None, None], 1.0,
+                           -torch.tensor(math.exp(-1.0)).to(dtype).item()).to(dtype)
+    return q, k, v
+
+
+def _group_or(layout, block):
+    """Every query block of a bf16 kernel group takes the union of the
+    group's live key blocks (the group CSR's bit masks ignored)."""
+    from deepspeed_tpu_torch.ops.sparse_attention.attention import group_size
+    g = group_size(block)
+    h, nb, _ = layout.shape
+    ng = -(-nb // g)
+    lay = np.zeros((h, ng * g, nb), layout.dtype)
+    lay[:, :nb] = layout
+    lay = lay.reshape(h, ng, g, nb)
+    lay[:] = lay.max(2, keepdims=True)
+    return lay.reshape(h, ng * g, nb)[:, :nb].copy()
+
+
+def _half_max(layout):
+    """The layout at block 64 with each 128-key block split in two, so the
+    running max moves per 64-key half."""
+    return np.kron(np.asarray(layout), np.ones((1, 2, 2), layout.dtype))
+
+
+# the kernel's entry by dtype: bf16 on the tensor cores, fp32 on CUDA cores
+SPARSE_ENTRY = {torch.bfloat16: "sparse_attention_kernel_mma",
+                torch.float32: "sparse_attention_kernel"}
 
 
 def run_sparse_cases(gen):
@@ -2079,20 +2229,27 @@ def run_sparse_cases(gen):
     of its largest |plain|, and the mutants outside: the last live key block
     of every (head, query block) dropped, head 0's layout for every head
     (layouts that differ per head), token-level causal dropped (causal
-    cases). Returns the rows; raises PhaseError on any failure. The ``gpu``
-    test runs this too."""
+    cases), in bf16 at blocks 16 and 32 every query block of a group taking
+    the group's union (where that adds a block), and at block 128 the max
+    per 64-key half (``half_max`` cases); the entry by profiler name (bf16
+    ``sparse_attention_kernel_mma`` alone, fp32 ``sparse_attention_kernel``
+    alone) and, in bf16, a second call that repeats the output bit for bit.
+    Returns the rows; raises PhaseError on any failure. The ``gpu`` test
+    runs this too."""
     from deepspeed_tpu_torch.ops import build
     from deepspeed_tpu_torch.ops.sparse_attention import (
         block_sparse_attention, sparse_attention_cuda)
     rows = []
     for name, (lay, block, causal, b, s, h, d, dtype, per_head) in \
             _sparse_case_layouts().items():
-        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
-                   for _ in range(3))
+        q, k, v = _sparse_inputs(gen, name, b, s, h, d, dtype)
         before = build.launch_counts()
         got = sparse_attention_cuda(q, k, v, lay, block, causal)
         torch.cuda.synchronize()
         launched = _launched(before, ("sparse_attention",))
+        call = lambda: sparse_attention_cuda(q, k, v, lay, block, causal)  # noqa: E731
+        entries = _entries(call, "sparse_attention")
+        repeat = torch.equal(call(), got) if dtype == torch.bfloat16 else None
         want = block_sparse_attention(q, k, v, lay, block, causal)
         tol = _row_tol(want)
         ratio = _err_ratio(got, want, tol)
@@ -2104,6 +2261,15 @@ def run_sparse_cases(gen):
         if causal:
             mutants["causal_dropped"] = block_sparse_attention(
                 q, k, v, lay, block, False)
+        union = _group_or(lay, block)
+        # blocks above the diagonal add nothing to a causal row
+        tri = np.tril(np.ones(lay.shape[1:], lay.dtype)) if causal else 1
+        if dtype == torch.bfloat16 and not np.array_equal(union * tri, lay * tri):
+            mutants["group_union_everywhere"] = block_sparse_attention(
+                q, k, v, union, block, causal)
+        if "half_max" in name:
+            mutants["max_per_64_key_half"] = block_sparse_attention(
+                q, k, v, _half_max(lay), 64, causal)
         m_ratios = {m: _json_ratio(_err_ratio(o, want, tol))
                     for m, o in mutants.items()}
         finite = bool(torch.isfinite(got).all())
@@ -2114,10 +2280,14 @@ def run_sparse_cases(gen):
                "live_blocks": int(lay.sum()), "all_blocks": int(lay.size),
                "rows_without_live_key": dead_rows,
                "max_abs_err": _max_err(got, want, "out"), "err_over_tol": ratio,
-               "finite": finite, "launches": launched, "mutants": m_ratios}
+               "finite": finite, "launches": launched, "entries": entries,
+               "repeats_bit_for_bit": repeat, "mutants": m_ratios}
         emit(row)
         check(launched == {"sparse_attention": 1},
               f"sparse {name}: launches {launched}")
+        check(entries == [SPARSE_ENTRY[dtype]],
+              f"sparse {name}: the call launched {entries}")
+        check(repeat is not False, f"sparse {name}: a second call gave other bits")
         check(finite and ratio <= 1.0,
               f"sparse {name}: error {ratio} times its row tolerance")
         for m, r in m_ratios.items():
@@ -2429,13 +2599,22 @@ def phase_slice5_timing(dev, smi_line):
         pairs = int(dense.sum()) * b                 # live (row, key) pairs
         qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         try:
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=dense[None]), iters=5, warmup=1)
+            lib_ms = _call_device_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=dense[None]), iters=5)
         except RuntimeError:
             lib_ms = None
+        call = lambda: sparse_attention_cuda(q, k, v, lay, cfg.block, causal)  # noqa: E731
+        cols = lay.csr("cuda")[1]
+        gcols = lay.group_csr("cuda", cfg.block)[1]
         sparse[name] = {
-            "ms": time_ms(lambda: sparse_attention_cuda(q, k, v, lay, cfg.block,
-                                                        causal), iters=20),
+            "ms": _kernel_device_ms(call, ["sparse_attention_kernel"],
+                                    iters=20)["sparse_attention_kernel"],
+            "wrapper_ms": time_ms(call, iters=20),
+            # key blocks loaded from L2: one per (row, live block) before,
+            # one per (group, union entry) now, K and V of B heads each
+            "l2_read_bytes": {
+                "per_query_block": int(cols.numel()) * b * 2 * cfg.block * dh * 2,
+                "per_group": int(gcols.numel()) * b * 2 * cfg.block * dh * 2},
             "plain_ms": time_ms(lambda: block_sparse_attention(
                 q, k, v, lay, cfg.block, causal), iters=2, warmup=1),
             "library_ms": lib_ms,
@@ -2454,10 +2633,11 @@ def phase_slice5_timing(dev, smi_line):
                      "sparse_attention": "S1 (S2 beside it)"},
           **timing, "sparse_attention_S2": sparse["S2"],
           "notes": "bytes: each input read once, each output written once; "
-                   "sparse flops 4 * live (row, key) pairs * D; library of "
+                   "sparse flops 4 * live (row, key) pairs * D; sparse ms by "
+                   "profiler device time, wrapper_ms by events; library of "
                    "sparse_attention: SDPA with the dense boolean layout "
-                   "mask (and the causal triangle for S2); of rms_norm: "
-                   "F.rms_norm",
+                   "mask (and the causal triangle for S2), device time; of "
+                   "rms_norm: F.rms_norm",
           "card": dev["kind"], "nvidia_smi": smi_line})
     return {kn: {key: t[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")}

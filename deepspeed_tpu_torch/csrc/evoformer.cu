@@ -24,10 +24,10 @@
 //
 // What bounds it: at OpenFold's widths (L = 384, D = 32, H = 8) the forward
 // does 77 GFLOP against 0.41 GB of operands, so at the tensor cores' bf16
-// rate it would be bound by bytes (0.12 ms); at D = 8 (the extra-MSA stack)
-// even more so. This first version is simple and correct, not fast: it
-// multiplies on the fp32 CUDA cores from shared memory, so arithmetic bounds
-// it in practice.
+// rate it is bound by bytes (0.12 ms); at D = 8 (the extra-MSA stack) even
+// more so. The fp32 kernels and the four backward kernels are the first,
+// simple design: they multiply on the fp32 CUDA cores from shared memory,
+// so arithmetic bounds them in practice.
 //   * The TPU grid's sequential axes, which carried sums in VMEM from one
 //     grid step to the next, are loops inside a block: forward, dQ and
 //     dbias2 walk 64-key tiles for a 32-row query tile; dK/dV walks 32-row
@@ -41,12 +41,44 @@
 //   * The bias2 value of a (query, key) pair is read straight from the
 //     panel (coalesced along keys); dbias2 reads its tile's once for all N
 //     rows.
-// Not done yet (later work): mma.sync / wgmma on the tensor cores, TMA or
-// cp.async pipelining, and fusing the bias reductions into the dK/dV pass.
+// The bf16 forward, evo_fwd_kernel_mma, runs on the tensor cores
+// (`mma.sync` m16n8k16 from `ldmatrix`, fed by a `cp.async` ring; helpers in
+// warp_mma.cuh). `launch` picks it for bf16; fp32 keeps evo_fwd_kernel,
+// since the tensor cores take fp32 only as TF32:
+//   * A warp owns 16 query rows of one MSA row; 4 warps (a warp group) own
+//     a 64-row query tile of it, so each row's K/V is read from L2
+//     ceil(Lq / 64) times.
+//   * With a pair bias, a block is G = 2 warp groups (1 at D = 128;
+//     `evo_fwd_plan` in ops/evoformer.py mirrors it) on G MSA rows n of one
+//     (b, h, query tile), which share one copy of each [64, 64] pair-bias
+//     tile in shared memory: the panel is read from L2 N/G times, not N
+//     times. Each row's accumulator lives in its own warps' registers, so G
+//     costs threads, not registers; a [64, Lk] resident panel (96 KB at Lk
+//     = 384) would have left one 4-warp block an SM. G = 2 keeps two
+//     256-thread blocks on an SM at D <= 32 (128 registers a thread, 89 KB),
+//     so one block's fill overlaps the other's work: at E1 and E4 it beat
+//     G = 4 (one 512-thread block an SM) and G = 1 on the card, though G
+//     = 4 reads the panel half as often.
+//   * The ring's unit is one 64-key tile of the G rows: K, V, the bias1
+//     segments and the pair-bias tile of the next tile are in flight (2
+//     stages) while one computes; the G rows' Q tiles stay resident. Rows
+//     are read in their [B*N, L, H, D] layout (16-byte chunks of one head's
+//     row), zero-filled past L; the fp32 biases in 16-byte chunks where Lk
+//     % 4 == 0, else 4-byte ones.
+//   * D = 8: Q and K are zero-padded to 16 columns in shared memory for the
+//     k16 depth of Q.K^T; P.V uses one n8 tile.
+//   * The score accumulator of two adjacent n8 tiles, rounded to bf16 pairs
+//     in registers, is the A fragment of P.V (the reference's rounding
+//     point); l sums the unrounded p; out and lse are written once per row,
+//     no atomics, so the forward repeats bit for bit.
+// Not done yet (later work): the tensor cores for the four backward
+// kernels, and fusing the bias reductions into the dK/dV pass.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -665,12 +697,271 @@ __global__ void __launch_bounds__(kThreads) evo_dbias1_kernel(Params p) {
   }
 }
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2, kDb2 = 3, kDb1 = 4 };
+// ---------------------------------------------------------------------------
+// bf16 forward on the tensor cores: one block per (64-row query tile, group
+// of G MSA rows of one (b, h)); warp group wg (4 warps) owns MSA row n0 + wg
+// ---------------------------------------------------------------------------
+constexpr int kMmaRows = 64;           // query rows of a tile: 4 warps x 16
+constexpr int kMmaKeys = 64;           // keys of a tile (the online softmax's step)
+constexpr int kBiasStride = kMmaKeys + 8;   // fp32 pair-bias tile row stride
+
+template <int D, bool PAIR>
+struct FwdMma {
+  static constexpr int DK = D < 16 ? 16 : D;           // Q.K^T depth (D = 8 padded)
+  static constexpr int RS = DK + 8;                    // bf16 tile row stride, elements
+  static constexpr int G = PAIR && D < 128 ? 2 : 1;   // MSA rows a block walks
+  static constexpr int kStages = 2;
+  static constexpr int kTile = kMmaRows * RS * 2;      // bytes of a [64][RS] bf16 tile
+  static constexpr int kBias2 = PAIR ? kMmaRows * kBiasStride * 4 : 0;
+  static constexpr int kStage = 2 * G * kTile + kBias2 + G * kMmaKeys * 4;
+  static constexpr int kSmem = G * kTile + kStages * kStage;
+};
+
+// Issue the copies of an fp32 [ROWS][64] tile, row r from src + r * ld
+// (rows at or past `valid_rows` and columns at or past `cols` are zeros),
+// into dst with row stride `stride` floats: 16-byte copies when every row
+// start is 16-byte aligned (ld % 4 == 0), else 4-byte ones.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void issue_f32_tile(float* dst, int stride, const float* src,
+                                               size_t ld, int valid_rows, int cols) {
+  if (ld % 4 == 0) {
+    constexpr int N = ROWS * (kMmaKeys / 4);
+#pragma unroll
+    for (int i = 0; i < (N + THREADS - 1) / THREADS; ++i) {
+      const int e = threadIdx.x + i * THREADS;
+      if (N % THREADS != 0 && e >= N) break;
+      const int r = e / (kMmaKeys / 4), c = (e % (kMmaKeys / 4)) * 4;
+      const bool valid = r < valid_rows && c < cols;
+      warp_mma::cp_async_16(dst + r * stride + c, valid ? src + r * ld + c : src, valid);
+    }
+  } else {
+    constexpr int N = ROWS * kMmaKeys;
+#pragma unroll
+    for (int i = 0; i < (N + THREADS - 1) / THREADS; ++i) {
+      const int e = threadIdx.x + i * THREADS;
+      if (N % THREADS != 0 && e >= N) break;
+      const int r = e / kMmaKeys, c = e % kMmaKeys;
+      const bool valid = r < valid_rows && c < cols;
+      warp_mma::cp_async_4(dst + r * stride + c, valid ? src + r * ld + c : src, valid);
+    }
+  }
+}
+
+template <int D, bool PAIR>
+__global__ void __launch_bounds__(kThreads * FwdMma<D, PAIR>::G)
+evo_fwd_kernel_mma(Params p) {
+  using F = FwdMma<D, PAIR>;
+  using namespace warp_mma;
+  using bf16 = __nv_bfloat16;
+  constexpr int G = F::G, RS = F::RS, KS = F::DK / 16, NT = D / 8, ST = F::kStages;
+  constexpr int THREADS = kThreads * G;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wg = warp / 4, row0 = (warp % 4) * 16;     // MSA row n0 + wg, rows row0..+15
+  const int grp = lane / 4, tig = lane % 4;
+  const int nqt = cdiv(p.Lq, kMmaRows), ngr = cdiv(p.N, G), nkt = cdiv(p.Lk, kMmaKeys);
+  // blocks of one (b, h) and one group of rows are adjacent (their K/V
+  // tiles meet in L2), then the groups of one (b, h) (its pair panel)
+  const int qt = (int)(blockIdx.x % nqt);
+  const int rest = (int)(blockIdx.x / nqt);
+  const int n0 = (rest % ngr) * G, bh2 = rest / ngr;
+  const int b = bh2 / p.H, h = bh2 % p.H;
+  const int rows = min(G, p.N - n0), q0 = qt * kMmaRows;
+  const bool live = wg < rows;                         // warp-uniform
+  const size_t bn0 = (size_t)b * p.N + n0, bn = bn0 + wg;
+  const bf16* q = static_cast<const bf16*>(p.q);
+  const bf16* k = static_cast<const bf16*>(p.k);
+  const bf16* v = static_cast<const bf16*>(p.v);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);        // [G][64][RS]
+  unsigned char* ring = smem_raw + G * F::kTile;       // [ST] stages
+  // a stage: K [G][64][RS], V [G][64][RS] bf16; bias2 [64][kBiasStride]
+  // fp32 (PAIR); bias1 [G][64] fp32
+  auto k_of = [&](int s, int r) { return reinterpret_cast<bf16*>(ring + s * F::kStage + r * F::kTile); };
+  auto v_of = [&](int s, int r) { return k_of(s, G + r); };
+  auto b2_of = [&](int s) { return reinterpret_cast<float*>(ring + s * F::kStage + 2 * G * F::kTile); };
+  auto b1_of = [&](int s, int r) {
+    return reinterpret_cast<float*>(ring + s * F::kStage + 2 * G * F::kTile + F::kBias2) + r * kMmaKeys;
+  };
+
+  if constexpr (D < 16) {              // the zero pad of Q and K (never copied)
+    for (int r = threadIdx.x; r < (1 + ST) * G * kMmaRows; r += THREADS) {
+      const int t = r / kMmaRows, rr = r % kMmaRows;
+      bf16* tile = t < G ? qs + t * (F::kTile / 2) : k_of((t - G) / G, (t - G) % G);
+      *reinterpret_cast<uint4*>(tile + rr * RS + 8) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  const size_t ld = (size_t)p.H * D;                   // elements between rows
+  // G [64][D] tiles of x [B*N, L, H, D] from position pos0 (rows of MSA
+  // rows at or past `rows` all zeros), tile r at dst + r * F::kTile bytes;
+  // `tile0` spreads consecutive calls' chunks over the threads
+  auto issue_rows = [&](bf16* dst, const bf16* x, int pos0, int L, int tile0) {
+#pragma unroll
+    for (int r = 0; r < G; ++r)
+      cp_async_tile<kMmaRows, D, RS, THREADS>(
+          dst + r * (F::kTile / 2), r < rows ? x + ((bn0 + r) * L + pos0) * ld + h * D : x,
+          ld, r < rows ? L - pos0 : 0, (tile0 + r) * kMmaRows * (D / 8));
+  };
+  issue_rows(qs, q, q0, p.Lq, 0);
+  auto issue = [&](int kt) {           // key tile kt of the G rows into stage kt % ST
+    const int s = kt % ST, k0 = kt * kMmaKeys;
+    issue_rows(k_of(s, 0), k, k0, p.Lk, 0);
+    issue_rows(v_of(s, 0), v, k0, p.Lk, G);
+    if (PAIR)
+      issue_f32_tile<kMmaRows, THREADS>(b2_of(s), kBiasStride,
+                                        p.b2 + ((size_t)bh2 * p.Lq + q0) * p.Lk + k0, p.Lk,
+                                        p.Lq - q0, p.Lk - k0);
+    if (p.b1 != nullptr)
+      issue_f32_tile<G, THREADS>(b1_of(s, 0), kMmaKeys, p.b1 + bn0 * p.Lk + k0, p.Lk, rows,
+                                 p.Lk - k0);
+  };
+  for (int s = 0; s < ST - 1; ++s) {   // Q travels with key tile 0
+    if (s < nkt) issue(s);
+    cp_async_commit();
+  }
+
+  float acc[NT][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const float ninf = __int_as_float(0xff800000);
+  const bf16* qw = qs + wg * (F::kTile / 2);
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<ST - 2>();                           // tile kt has landed (this thread's part)
+    __syncthreads();                                   // ... everyone's; tile kt - 1 is done
+    if (kt + ST - 1 < nkt) issue(kt + ST - 1);         // into the stage tile kt - 1 used
+    cp_async_commit();
+    if (!live) continue;
+    const int s_idx = kt % ST, k0 = kt * kMmaKeys;
+    const bf16* ks = k_of(s_idx, wg);
+    const bf16* vs = v_of(s_idx, wg);
+
+    // S = Q K^T: 16 rows x 64 keys a warp
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, qw + a_offset(lane, RS, row0, 16 * kk));
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t bb[4];
+        ldsm_x4(bb, ks + b_nk_offset(lane, RS, 16 * jp, 16 * kk));
+        mma_m16n8k16_bf16(s[2 * jp], a, bb[0], bb[1]);
+        mma_m16n8k16_bf16(s[2 * jp + 1], a, bb[2], bb[3]);
+      }
+    }
+    // dot * scale, + bias1, + bias2, each rounded; dead keys -inf
+    const float* b1s = b1_of(s_idx, wg);
+    const float* b2s = PAIR ? b2_of(s_idx) : nullptr;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c0 = 8 * j + 2 * tig;
+        float2 b1v = make_float2(0.f, 0.f), b2v = make_float2(0.f, 0.f);
+        if (p.b1 != nullptr) b1v = *reinterpret_cast<const float2*>(b1s + c0);
+        if (PAIR) b2v = *reinterpret_cast<const float2*>(b2s + (row0 + grp + 8 * hr) * kBiasStride + c0);
+        float x0 = __fmul_rn(s[j][2 * hr], p.scale), x1 = __fmul_rn(s[j][2 * hr + 1], p.scale);
+        if (p.b1 != nullptr) {
+          x0 = __fadd_rn(x0, b1v.x);
+          x1 = __fadd_rn(x1, b1v.y);
+        }
+        if (PAIR) {
+          x0 = __fadd_rn(x0, b2v.x);
+          x1 = __fadd_rn(x1, b2v.y);
+        }
+        s[j][2 * hr] = x0;
+        s[j][2 * hr + 1] = x1;
+      }
+    }
+    if (k0 + kMmaKeys > p.Lk) {                        // the last tile's dead keys
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + c_col(lane, e) >= p.Lk) s[j][e] = ninf;
+    }
+    // online softmax of rows grp (hr 0) and grp + 8 (hr 1)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = ninf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      const float m_new = fmaxf(m[hr], quad_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float pv = expf(s[j][2 * hr + c] - m_new);
+          s[j][2 * hr + c] = pv;
+          sum += pv;
+        }
+      const float alpha = expf(m[hr] - m_new);
+      l[hr] = __fadd_rn(__fmul_rn(l[hr], alpha), quad_sum(sum));
+      m[hr] = m_new;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        acc[j][2 * hr] *= alpha;
+        acc[j][2 * hr + 1] *= alpha;
+      }
+    }
+    // acc += round(P) V
+#pragma unroll
+    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
+      uint32_t a[4];
+      a_from_c(a, s[2 * kk], s[2 * kk + 1]);
+      if constexpr (D < 16) {
+        uint32_t bb[2];
+        ldsm_x2_t(bb, vs + b_kn_offset(lane, RS, 16 * kk, 0));
+        mma_m16n8k16_bf16(acc[0], a, bb[0], bb[1]);
+      } else {
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bb[4];
+          ldsm_x4_t(bb, vs + b_kn_offset(lane, RS, 16 * kk, 16 * dp));
+          mma_m16n8k16_bf16(acc[2 * dp], a, bb[0], bb[1]);
+          mma_m16n8k16_bf16(acc[2 * dp + 1], a, bb[2], bb[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();                                  // nothing in flight at exit
+  if (!live) return;
+
+  bf16* out = static_cast<bf16*>(p.out0);
+  float* lse = static_cast<float*>(p.out1);
+  const size_t g = bn * p.H + h;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qpos = q0 + row0 + grp + 8 * hr;
+    if (qpos >= p.Lq) continue;
+    const float lv = fmaxf(l[hr], 1e-30f);
+    bf16* dst = out + ((bn * p.Lq + qpos) * p.H + h) * D + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack_bf16(acc[j][2 * hr] / lv, acc[j][2 * hr + 1] / lv);
+    if (tig == 0) lse[g * p.Lq + qpos] = m[hr] + logf(lv);
+  }
+}
+
+// kFwdMma / kFwdMmaNoPair: the bf16 forward's bytes with / without a pair
+// bias (for `dstt_evo_smem_bytes` alone; launches say kFwd).
+enum Which { kFwd = 0, kDq = 1, kDkv = 2, kDb2 = 3, kDb1 = 4, kFwdMma = 5, kFwdMmaNoPair = 6 };
 
 template <int D>
 int smem_bytes(int which) {
   switch (which) {
     case kFwd: return fwd_smem_floats<D>() * (int)sizeof(float);
+    case kFwdMma: return FwdMma<D, true>::kSmem;
+    case kFwdMmaNoPair: return FwdMma<D, false>::kSmem;
     case kDq: return dq_smem_floats<D>() * (int)sizeof(float);
     case kDkv: return dkv_smem_floats<D>() * (int)sizeof(float);
     case kDb2:
@@ -679,14 +970,36 @@ int smem_bytes(int which) {
   return -1;
 }
 
+template <int D, bool PAIR>
+cudaError_t launch_fwd_mma(const Params& p, cudaStream_t stream) {
+  using F = FwdMma<D, PAIR>;
+  const long long blocks =
+      (long long)p.B * p.H * cdiv(p.N, F::G) * cdiv(p.Lq, kMmaRows);
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  static bool configured = false;                      // per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        evo_fwd_kernel_mma<D, PAIR>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  evo_fwd_kernel_mma<D, PAIR><<<(unsigned)blocks, kThreads * F::G, F::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(int which, const Params& p, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {                     // bf16 forward: the tensor cores
+    if (which == kFwd)
+      return p.b2 != nullptr ? launch_fwd_mma<D, true>(p, stream)
+                             : launch_fwd_mma<D, false>(p, stream);
+  }
   void (*kernel)(Params) = nullptr;
   const long long rows = (long long)p.B * p.N * p.H;
   long long blocks = 0;
   switch (which) {
-    case kFwd:
-      kernel = evo_fwd_kernel<T, D>;
+    case kFwd:                                         // fp32 (bf16 returned above)
+      if constexpr (sizeof(T) == 4) kernel = evo_fwd_kernel<T, D>;
       blocks = rows * cdiv(p.Lq, kRows);
       break;
     case kDq:
@@ -738,7 +1051,9 @@ cudaError_t pick_dim(int which, const Params& p, int head_dim, cudaStream_t stre
 }  // namespace
 
 // Dynamic shared memory (bytes) of kernel `which` (0 forward, 1 dQ, 2 dK/dV,
-// 3 dbias2, 4 dbias1) at `head_dim`; -1 for an instantiation not compiled.
+// 3 dbias2, 4 dbias1 for fp32 and, but for the forward, bf16; 5 the bf16
+// forward with a pair bias, 6 without) at `head_dim`; -1 for an
+// instantiation not compiled.
 extern "C" int dstt_evo_smem_bytes(int which, int head_dim) {
   switch (head_dim) {
     case 8: return smem_bytes<8>(which);

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, which the kernel's wrapper loads
 with ``ctypes``. Builds happen on first use (never at import), one ``nvcc``
 per source, all started together, into ``build/deepspeed_tpu_torch/`` at
-the repository root. A library is named by a hash of its source and flags,
-so an edited source is rebuilt and an unchanged one is reused.
+the repository root. A library is named by a hash of its source, the
+headers beside it and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.
 
 Every wrapper calls ``count_launch(name)`` right after it launched its
 kernel, and nowhere else: ``launch_counts()`` then shows which kernels a
@@ -56,10 +57,13 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of the source, every header of
+    ``CSRC`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, BuildResult]:

@@ -6,7 +6,9 @@ Port of ``deepspeed_tpu/ops/pallas/evoformer.py``. Its five TPU kernels,
 ``_evo_dbias2_kernel`` and ``_evo_dbias1_kernel``, become the hand-written
 CUDA kernels of ``csrc/evoformer.cu`` (design notes there), launched by
 ``evo_fwd`` and ``evo_bwd`` and counted as ``evo_fwd``, ``evo_dq``,
-``evo_dkv``, ``evo_dbias2`` and ``evo_dbias1``.
+``evo_dkv``, ``evo_dbias2`` and ``evo_dbias1``. A bf16 forward launches
+``evo_fwd_kernel_mma`` (the tensor cores, tiled as ``evo_fwd_plan`` says);
+fp32, and every backward kernel, the CUDA-core kernels.
 
 Function: ``softmax(q k^T / sqrt(D) + bias1 + bias2) v`` on q/k/v
 ``[B, N, L, H, D]``, with ``bias1 [B, N, Lk]`` a per-key bias of each row
@@ -39,6 +41,7 @@ KERNEL = "evoformer"
 LAUNCH_NAMES = ("evo_fwd", "evo_dq", "evo_dkv", "evo_dbias2", "evo_dbias1")
 HEAD_DIMS = (8, 16, 32, 64, 128)
 KEY_TILE = 64              # keys of the forward kernel's tile
+MMA_ROWS = 64              # query rows of a block of the bf16 forward
 NEG_INF = -1e30            # the reference's NEG_INF: the running max's start
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # score elements one plain chunk may hold (1 GiB of fp32)
@@ -230,12 +233,40 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def evo_fwd_plan(head_dim: int, has_bias2: bool) -> dict:
+    """The bf16 forward kernel's tiling (``FwdMma`` in csrc/evoformer.cu):
+    ``group`` G, the MSA rows one block walks together, one warp group of
+    4 warps each, sharing each pair-bias tile (2, so that two blocks fit an
+    SM at D <= 32; 1 at D = 128, whose accumulators fill the registers,
+    and without a pair bias, when nothing else is shared across rows);
+    ``threads``; ``stages`` of the ring; ``smem_bytes``: the G resident Q
+    tiles ([64][max(D, 16) + 8] bf16) and per stage G K and V tiles, the
+    fp32 [64][72] pair-bias tile and G fp32 bias1 segments of 64 keys.
+    Every tile is 64 keys wide, so nothing here depends on the key
+    length."""
+    d = head_dim
+    if d not in HEAD_DIMS:
+        raise ValueError(f"evoformer attention kernel: head dim {d} (one of "
+                         f"{HEAD_DIMS})")
+    group = 2 if has_bias2 and d < 128 else 1
+    stages = 2
+    tile = MMA_ROWS * (max(d, 16) + 8) * 2
+    bias2 = MMA_ROWS * (KEY_TILE + 8) * 4 if has_bias2 else 0
+    stage = 2 * group * tile + bias2 + group * KEY_TILE * 4
+    return {"group": group, "threads": 128 * group, "stages": stages,
+            "rows": MMA_ROWS, "smem_bytes": group * tile + stages * stage}
+
+
 def dynamic_smem_bytes(head_dim: int) -> dict:
     """Dynamic shared memory (bytes) of each kernel at ``head_dim``, as the
-    built library reports it."""
+    built library reports it: the CUDA-core kernels by launch name (the
+    forward's is fp32's), the bf16 forward with and without a pair bias."""
     lib = _library()
-    return {name: lib.dstt_evo_smem_bytes(i, head_dim)
-            for i, name in enumerate(LAUNCH_NAMES)}
+    out = {name: lib.dstt_evo_smem_bytes(i, head_dim)
+           for i, name in enumerate(LAUNCH_NAMES)}
+    out["evo_fwd_mma_pair"] = lib.dstt_evo_smem_bytes(5, head_dim)
+    out["evo_fwd_mma"] = lib.dstt_evo_smem_bytes(6, head_dim)
+    return out
 
 
 def _check(cond: bool, msg: str) -> None:

@@ -21,7 +21,9 @@ v's dtype against the running max of each block, ``acc / max(l, 1e-30)``
 (a row with no live key gives 0). CPU tensors run it; CUDA tensors launch
 the kernel (block 16, 32, 64 or 128; D 32, 64 or 128; fp32 or bf16) or
 raise. Nothing catches a build or launch failure to run the plain version
-instead.
+instead. bf16 runs on the tensor cores, 64 query rows a block of threads,
+over the group CSR (``SparseLayout.group_csr``); fp32 on the CUDA cores over
+the per-query-block CSR.
 """
 
 import ctypes
@@ -38,6 +40,7 @@ KERNEL = "sparse_attention"
 NEG_INF = -1e30
 BLOCKS = (16, 32, 64, 128)
 HEAD_DIMS = (32, 64, 128)
+MMA_ROWS = 64              # query rows of a block of the bf16 kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # score elements (B * H * rows * S) of one query chunk of the backward's
 # recompute: about 2 GB of saved fp32 tensors at the smoke's shapes
@@ -45,9 +48,16 @@ BWD_CHUNK_ELEMS = 1 << 27
 _lib: Optional[ctypes.CDLL] = None
 
 
+def group_size(block: int) -> int:
+    """Query blocks of one group of the bf16 kernel: its 64 rows hold
+    64 // block of them (one at block 64 and 128)."""
+    return max(1, MMA_ROWS // block)
+
+
 class SparseLayout:
     """A layout [H, nb, nb] with its CSR list of live key blocks per (head,
-    query block) in ascending order, built once per device on first use."""
+    query block) in ascending order, and the group CSR of the bf16 kernel,
+    each built once per device (and group size) on first use."""
 
     def __init__(self, layout):
         lay = layout.layout if isinstance(layout, SparseLayout) else layout
@@ -57,6 +67,7 @@ class SparseLayout:
         if self.layout.ndim != 3 or self.layout.shape[1] != self.layout.shape[2]:
             raise ValueError(f"layout must be [H, nb, nb], got {self.layout.shape}")
         self._csr: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._group_csr: Dict[Tuple[str, int], Tuple[torch.Tensor, ...]] = {}
         self._masks: Dict[str, torch.Tensor] = {}
 
     def csr(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -71,6 +82,39 @@ class SparseLayout:
                 torch.as_tensor(row_ptr.astype(np.int32), device=device),
                 torch.as_tensor(cols.astype(np.int32), device=device))
         return self._csr[key]
+
+    def group_csr(self, device, block: int) -> Tuple[torch.Tensor, ...]:
+        """The bf16 kernel's lists on device, all int32: (grp_ptr [H * ng +
+        1], cols, masks, order). For each (head, group of g = group_size(
+        block) consecutive query blocks; ng = ceil(nb / g)) the ascending
+        union of the group's live key blocks; bit i of an entry's mask says
+        that the group's query block i takes it (at g = 1 it is ``csr``
+        with every mask 1). ``order`` [H * nx] lists the kernel's blocks of
+        MMA_ROWS query rows (h * nx + x, nx = ceil(S / MMA_ROWS)) by the
+        length of their group's list, longest first (stable)."""
+        key = (str(torch.device(device)), block)
+        if key not in self._group_csr:
+            h, nb, _ = self.layout.shape
+            g = group_size(block)
+            ng = -(-nb // g)
+            lay = np.zeros((h, ng * g, nb), bool)
+            lay[:, :nb] = self.layout != 0
+            lay = lay.reshape(h, ng, g, nb)
+            bits = (lay.astype(np.int64)
+                    << np.arange(g)[None, None, :, None]).sum(2)
+            rows, cols = np.nonzero(bits.reshape(h * ng, nb))
+            counts = np.bincount(rows, minlength=h * ng)
+            ptr = np.zeros(h * ng + 1, np.int64)
+            np.cumsum(counts, out=ptr[1:])
+            masks = bits.reshape(h * ng, nb)[rows, cols]
+            nx = -(-nb * block // MMA_ROWS)
+            x = np.arange(nx)
+            work = counts.reshape(h, ng)[:, x * MMA_ROWS // (block * g)]
+            order = np.argsort(-work.reshape(-1), kind="stable")
+            self._group_csr[key] = tuple(
+                torch.as_tensor(a.astype(np.int32), device=device)
+                for a in (ptr, cols, masks, order))
+        return self._group_csr[key]
 
     def mask(self, device) -> torch.Tensor:
         """The layout as a bool tensor on device."""
@@ -184,18 +228,19 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load(KERNEL)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dstt_sparse_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                              i, ctypes.c_float, i, p]
+        lib.dstt_sparse_attention.argtypes = [p] * 10 + [i] * 6 + [
+            ctypes.c_float, i, p]
         lib.dstt_sparse_attention.restype = ctypes.c_int
-        lib.dstt_sparse_smem_bytes.argtypes = [i, i]
+        lib.dstt_sparse_smem_bytes.argtypes = [i, i, i]
         lib.dstt_sparse_smem_bytes.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def dynamic_smem_bytes(head_dim: int, block: int) -> int:
+def dynamic_smem_bytes(head_dim: int, block: int,
+                       dtype: torch.dtype = torch.bfloat16) -> int:
     """Dynamic shared memory of one launch (builds the library)."""
-    return _library().dstt_sparse_smem_bytes(head_dim, block)
+    return _library().dstt_sparse_smem_bytes(head_dim, block, _DTYPES[dtype])
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -218,15 +263,18 @@ def sparse_attention_cuda(q, k, v, layout, block: int,
     _check(d in HEAD_DIMS, f"head dim {d} (one of {HEAD_DIMS})")
     _check(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)),
            "q, k and v must be contiguous and 16-byte aligned")
-    row_ptr, cols = lay.csr(q.device)
+    if q.dtype == torch.bfloat16:        # the tensor-core kernel: group CSR
+        lists = (None, None, *lay.group_csr(q.device, block))
+    else:
+        lists = (*lay.csr(q.device), None, None, None, None)
     out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dstt_sparse_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            row_ptr.data_ptr(), cols.data_ptr(), b, s, h, d, block,
-            int(causal), _scale(d), _DTYPES[q.dtype], stream)
+            *(None if x is None else x.data_ptr() for x in lists), b, s, h,
+            d, block, int(causal), _scale(d), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"sparse_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -412,17 +412,58 @@ def test_cpu_dispatch_runs_plain_and_counts_nothing():
         evo_fwd(q5.to("meta"), k5.to("meta"), v5.to("meta"))
 
 
+# OpenFold's E1-E4 calls (B, N, L, H, D, pair bias), as chip_smoke.py drives
+# them: MSA row with pair bias, MSA column, triangle, extra-MSA row
+PATH_SHAPES = {"E1": (1, 512, 384, 8, 32, True), "E2": (1, 384, 512, 8, 32, False),
+               "E3": (1, 384, 384, 4, 32, True), "E4": (1, 5120, 384, 8, 8, True)}
+SMEM_LIMIT = 232448        # shared memory a block may use on the H100 (227 KB)
+
+
+@pytest.mark.parametrize("d", te.HEAD_DIMS)
+def test_fwd_plan_fits_and_shares_the_pair_panel(d):
+    """The bf16 forward's tiling at every head dim: within the card's 227
+    KB of shared memory; with a pair bias G = 2 rows share each bias tile
+    (two blocks fit an SM at D <= 32) but at D = 128, whose accumulators fill the
+    registers, one warp group of 128 threads a row, and
+    without one G = 1 (nothing else is shared across rows). The smem sum is
+    the plan's own arithmetic, the kernel's FwdMma; the card test holds it
+    against the library's report."""
+    pair, plain = te.evo_fwd_plan(d, True), te.evo_fwd_plan(d, False)
+    for plan in (pair, plain):
+        assert 0 < plan["smem_bytes"] <= SMEM_LIMIT
+        assert plan["threads"] == 128 * plan["group"] <= 1024
+        assert plan["rows"] == 64 and plan["stages"] >= 2
+    assert pair["group"] == (2 if d < 128 else 1)
+    if d <= 32:                          # two blocks an SM at OpenFold's widths
+        assert 2 * pair["smem_bytes"] <= 228 * 1024
+    assert plain["group"] == 1
+    tile = 64 * (max(d, 16) + 8) * 2
+    assert plain["smem_bytes"] == tile + 2 * (2 * tile + 64 * 4)
+    for name, (b, n, l, h, dd, has_pair) in PATH_SHAPES.items():
+        if dd == d:
+            g = te.evo_fwd_plan(d, has_pair)["group"]
+            # the pair panel's L2 reads: once per group of rows and query tile
+            panel_reads = b * h * -(-n // g) * -(-l // 64) * 64 * l * 4
+            if has_pair:
+                assert panel_reads <= b * n * h * l * l * 4 // 2, name
+    with pytest.raises(ValueError, match="head dim"):
+        te.evo_fwd_plan(24, True)
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card():
     """The five CUDA kernels against their plain versions on the card, in
     the cases and at the tolerances of ``chip_smoke.py``
     (``run_evo_cases``: fp32 and bf16, head dims 8 to 128, every bias
-    combination, L not a multiple of the tiles, Lq != Lk; rows of out, dq,
-    dk, dv within 4 bf16 ulps of the row's largest |plain| value (fp32 1e-4
-    of it), lse within 1e-4, db1/db2 within a share of each panel's largest
-    |plain| value), each with the mutants that apply, which must land
-    outside. Then a head dim outside the instances raises, as does a
-    non-contiguous operand."""
+    combination, L not a multiple of the tiles, Lq != Lk, groups of MSA
+    rows with N not a multiple of the group; rows of out, dq, dk, dv within
+    4 bf16 ulps of the row's largest |plain| value (fp32 1e-4 of it), lse
+    within 1e-4, db1/db2 within a share of each panel's largest |plain|
+    value), each with the mutants that apply, which must land outside; the
+    forward's entry by profiler name (bf16 ``evo_fwd_kernel_mma``, fp32
+    ``evo_fwd_kernel``) and a bf16 second forward bit for bit. The bf16
+    forward's shared memory is ``evo_fwd_plan``'s. Then a head dim outside
+    the instances raises, as does a non-contiguous operand."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels; no CPU mode)")
     import chip_smoke
@@ -430,6 +471,10 @@ def test_kernels_match_plain_on_card():
     gen.manual_seed(0)
     rows = chip_smoke.run_evo_cases(gen)
     assert len(rows) == len(chip_smoke.EVO_CASES)
+    for d in te.HEAD_DIMS:
+        smem = te.dynamic_smem_bytes(d)
+        assert smem["evo_fwd_mma_pair"] == te.evo_fwd_plan(d, True)["smem_bytes"]
+        assert smem["evo_fwd_mma"] == te.evo_fwd_plan(d, False)["smem_bytes"]
     x = torch.randn(1, 2, 16, 2, 24, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         evo_fwd(x, x, x)

@@ -264,6 +264,56 @@ def test_csr_lists_live_blocks_in_ascending_order():
         assert np.array_equal(got, want) and (np.diff(got) > 0).all()
 
 
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_group_csr_takes_each_live_pair_once(name, block):
+    """The bf16 kernel's group CSR on every config's layout (33 query
+    blocks, so the last group of 2 or 4 is partial): per (head, group) the
+    key blocks ascend; each live (query block, key block) pair is one
+    entry's bit, exactly once; no dead pair and no query block past the
+    layout has its bit set; the kernel's blocks of 64 rows are ordered by
+    the length of their list, longest first; at block >= 64 (groups of
+    one) it is the CSR with every mask 1."""
+    import deepspeed_tpu_torch.ops.sparse_attention as tsa
+    cls, kw, _ = CONFIGS[name]
+    lay = getattr(tsa, cls)(**dict(kw, block=block)).make_layout(33 * block)
+    g = attention.group_size(block)
+    assert g == max(1, 64 // block)
+    sl = SparseLayout(lay)
+    ptr, cols, masks, order = sl.group_csr("cpu", block)
+    assert sl.group_csr("cpu", block)[0] is ptr        # cached
+    h, nb, _ = lay.shape
+    ng = -(-nb // g)
+    assert {t.dtype for t in (ptr, cols, masks, order)} == {torch.int32}
+    assert ptr.shape == (h * ng + 1,) and int(ptr[-1]) == cols.numel()
+    taken = np.zeros(lay.shape, np.int64)
+    for hh in range(h):
+        for gi in range(ng):
+            r = hh * ng + gi
+            c = cols[ptr[r]:ptr[r + 1]].numpy()
+            m = masks[ptr[r]:ptr[r + 1]].numpy()
+            assert (np.diff(c) > 0).all() and (m > 0).all() and (m < 1 << g).all()
+            for i in range(g):
+                bit = (m >> i) & 1
+                qb = gi * g + i
+                if qb >= nb:
+                    assert not bit.any()
+                    continue
+                assert (bit == (lay[hh, qb, c] != 0)).all()
+                taken[hh, qb, c] += bit
+    assert np.array_equal(taken, (lay != 0).astype(np.int64))
+    # the kernel's blocks of 64 rows, each once, longest list first
+    nx = -(-33 * block // 64)
+    assert sorted(order.tolist()) == list(range(h * nx))
+    lens = np.diff(ptr.numpy()).reshape(h, ng)
+    work = [lens[o // nx, (o % nx) * 64 // (block * g)] for o in order.tolist()]
+    assert all(a >= b for a, b in zip(work, work[1:]))
+    if block >= 64:
+        row_ptr, csr_cols = sl.csr("cpu")
+        assert torch.equal(ptr, row_ptr) and torch.equal(cols, csr_cols)
+        assert bool((masks == 1).all())
+
+
 def test_sparse_self_attention_picks_causal_and_caches_layouts():
     jax, jsa = _jax()
     uni = LocalSlidingWindowSparsityConfig(num_heads=4, block=16)
@@ -314,11 +364,14 @@ def test_kernel_matches_plain_on_card():
     the cases and at the tolerances of ``chip_smoke.py``
     (``run_sparse_cases``: blocks 16 to 128, head dims 32 to 128, fp32 and
     bf16, causal on and off, layouts that differ per head, query blocks
-    with no live key block; bf16 rows within 4 bf16 ulps of each row's
-    largest |plain|, fp32 within 1e-4 of it), with the mutants outside
-    (the last live block dropped, head 0's layout everywhere, causal
-    dropped). Then a block, head dim or dtype outside the instances
-    raises."""
+    with no live key block, groups that mix empty and live query blocks;
+    bf16 rows within 4 bf16 ulps of each row's largest |plain|, fp32 within
+    1e-4 of it), with the mutants outside (the last live block dropped,
+    head 0's layout everywhere, causal dropped, a group's union taken by
+    every query block, the max per 64-key half at block 128); the entry by
+    profiler name (bf16 ``sparse_attention_kernel_mma``, fp32
+    ``sparse_attention_kernel``) and a bf16 second call bit for bit. Then
+    a block, head dim or dtype outside the instances raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels; no CPU mode)")
     import chip_smoke
