@@ -1,18 +1,24 @@
-"""Kernel A/B on one card: the evoformer forward and the block-sparse
-forward of two trees of this repo, in the order A, B, B, A.
+"""Kernel A/B on one card: the evoformer forward, dK/dV and dbias2 and
+the block-sparse forward of two trees of this repo, in the order A, B, B,
+A.
 
 Each run is a fresh process in the tree's own directory that builds that
 tree's kernels and times, by the profiler's device time (the tree's
-``chip_smoke._kernel_device_ms``, every kernel whose name holds the given
-stem) and by CUDA events over wrapper calls:
+``chip_smoke._device_events``) and by CUDA events over wrapper calls:
 
 - ``evo_fwd`` at E1 (``[1, 512, 384, 8, 32]``, mask and pair bias) and E4
-  (``[1, 5120, 384, 8, 8]``, mask and pair bias), bf16, OpenFold's widths;
+  (``[1, 5120, 384, 8, 8]``, mask and pair bias), bf16, OpenFold's widths
+  (every kernel whose name holds ``evo_fwd_kernel``);
+- the backward at E1 and E4 (the pair bias's gradient, not the mask's),
+  each entry by its exact name; ``evo_dkv`` sums the entries whose names
+  hold it, ``evo_dbias2`` its kernel and combine;
 - ``sparse_attention`` at S1 (BigBird-base, block 64) and S2 (Fixed, block
   16, causal), B=4, S=4096, 12 heads, D=64, bf16.
 
 It also lists the kernel entries each call launched, by exact name. Order
-A, B, B, A cancels a steady drift of the card.
+A, B, B, A cancels a steady drift of the card. Two builds of one change
+(another tiling, say) compare the same way: ``--a`` and ``--b`` are any two
+trees.
 
     python3 chip_kernel_ab.py --a build/parent --b . --out build/kernel_ab
 
@@ -32,7 +38,7 @@ import torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 dev, smi = cs.phase_device()
-from deepspeed_tpu_torch.ops.evoformer import canonicalize, evo_fwd
+from deepspeed_tpu_torch.ops.evoformer import canonicalize, evo_bwd, evo_fwd
 from deepspeed_tpu_torch.ops.sparse_attention import (SparseLayout,
                                                       sparse_attention_cuda)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -49,16 +55,31 @@ def timed(fn, stem):
             "wrapper_ms": cs.time_ms(fn, iters=10), "entries": entries(fn)}
 
 
+def entry_ms(fn, iters):
+    out = {}
+    for e in cs._device_events(fn, iters):
+        m = re.match(r"(?:void\\s+)?(?:\\(anonymous namespace\\)::)?(\\w+)", e.name)
+        out[m.group(1)] = out.get(m.group(1), 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    return out
+
+
 gen = torch.Generator(device="cuda")
 gen.manual_seed(cs.SEED)
 out = {}
 for name in ("E1", "E4"):
     _, n, l, h, d, pair, _ = cs.EVO_PATH_CASES[name]
-    (q, k, v, _), mask, pair_bias = cs._evo_path_inputs(gen, n, l, h, d, pair)
+    (q, k, v, do), mask, pair_bias = cs._evo_path_inputs(gen, n, l, h, d, pair)
     q5, k5, v5, b1, b2 = canonicalize(q, k, v, [mask, pair_bias])
     b1, b2 = b1.contiguous(), b2.contiguous()
     out[name] = timed(lambda: evo_fwd(q5, k5, v5, b1, b2), "evo_fwd_kernel")
-    del q, k, v, mask, pair_bias, q5, k5, v5, b1, b2
+    o, lse = evo_fwd(q5, k5, v5, b1, b2)
+    bwd = lambda: evo_bwd(q5, k5, v5, b1, b2, o, lse, do, need_db1=False)
+    per = entry_ms(bwd, 5 if name == "E1" else 3)
+    out[name + "_bwd"] = {
+        "entries_ms": per, "wrapper_ms": cs.time_ms(bwd, iters=5),
+        **{kn: sum(t for e, t in per.items() if kn in e)
+           for kn in ("evo_dq", "evo_dkv", "evo_dbias2")}}
+    del q, k, v, do, mask, pair_bias, q5, k5, v5, b1, b2, o, lse
     torch.cuda.empty_cache()
 for name, (_, b, s, h, d, _) in cs.SPARSE_PATHS.items():
     cfg = cs._sparse_path_config(name)

@@ -173,14 +173,16 @@ def _demangle(names):
 # the tensor-core entries of each library, the SASS instructions each must
 # hold and how many instances there are: HGMMA (wgmma) and UTMALDG (a TMA
 # tile load) in the flash library; HMMA (mma.sync) and LDGSTS (cp.async)
-# in the evoformer forward (5 head dims, with and without a pair bias) and
-# the block-sparse kernel (3 head dims x 4 blocks)
+# in the evoformer forward and dK/dV (5 head dims, with and without a pair
+# bias each), its dbias2 (5 head dims) and the block-sparse kernel (3 head
+# dims x 4 blocks)
 FLASH_HEAD_DIMS = (64, 128)
 SASS_CHECKS = {
     "flash_attention": (("flash_fwd_kernel_wgmma", "flash_dq_kernel_wgmma",
                          "flash_dkv_kernel_wgmma"), ("HGMMA", "UTMALDG"),
                         3 * len(FLASH_HEAD_DIMS)),
-    "evoformer": (("evo_fwd_kernel_mma",), ("HMMA", "LDGSTS"), 10),
+    "evoformer": (("evo_fwd_kernel_mma", "evo_dkv_kernel_mma",
+                   "evo_dbias2_kernel_mma"), ("HMMA", "LDGSTS"), 25),
     "sparse_attention": (("sparse_attention_kernel_mma",), ("HMMA", "LDGSTS"), 12),
 }
 
@@ -260,11 +262,16 @@ def phase_build(kernels):
           "sass": sass["flash_attention"]})
     plans = {f"d{d}_{'pair' if pair else 'no_pair'}": evoformer.evo_fwd_plan(d, pair)
              for d in evoformer.HEAD_DIMS for pair in (True, False)}
+    bwd_plans = {f"d{d}_{'pair' if pair else 'no_pair'}": evoformer.evo_bwd_plan(d, pair)
+                 for d in evoformer.HEAD_DIMS for pair in (True, False)}
     emit({"phase": "build_mma",
           "ptxas": {**ptxas("evoformer", "_mma"),
                     **ptxas("sparse_attention", "_mma")},
           "sass": {lib: sass[lib] for lib in ("evoformer", "sparse_attention")},
-          "evo_fwd_plan": plans})
+          "evo_fwd_plan": plans, "evo_bwd_plan": bwd_plans,
+          "evo_dbias2_blocks_per_sm": {
+              f"d{d}": evoformer.dbias2_blocks_per_sm(torch.device("cuda"), d)
+              for d in evoformer.HEAD_DIMS}})
     for lib, (entries, ops, count) in SASS_CHECKS.items():
         check(len(sass[lib]) == count, f"{lib}: expected {count} tensor-core "
               f"entries, found {list(sass[lib])}")
@@ -277,6 +284,13 @@ def phase_build(kernels):
             want = evoformer.evo_fwd_plan(d, pair)["smem_bytes"]
             check(lib_smem[key] == want, f"evo_fwd_plan({d}, {pair}) says "
                   f"{want} bytes of shared memory, the kernel {lib_smem[key]}")
+        for pair, kernel, key in ((True, "dkv", "evo_dkv_mma_pair"),
+                                  (False, "dkv", "evo_dkv_mma"),
+                                  (True, "dbias2", "evo_dbias2_mma")):
+            want = evoformer.evo_bwd_plan(d, pair)[kernel]["smem_bytes"]
+            check(lib_smem[key] == want, f"evo_bwd_plan({d}, {pair}) says "
+                  f"{want} bytes of shared memory for {kernel}, the kernel "
+                  f"{lib_smem[key]}")
     return info
 
 
@@ -903,20 +917,23 @@ def _bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-PROFILE_TRIES = 3
+PROFILE_TRIES = 8
+PROFILE_RETRY_PAUSE_S = 0.2
 
 
 def _device_events(fn, iters):
     """The CUDA kernel events of ``iters`` calls of ``fn`` (torch.profiler,
     after a warm-up call). A profiling window that delivers no CUDA event
-    at all (seen once in a long run of short windows on the H100) is taken
-    again, up to PROFILE_TRIES windows; the callers raise if all are
-    empty."""
+    at all (seen in long runs of short windows on the H100, up to three in
+    a row) is taken again after a short pause, up to PROFILE_TRIES
+    windows; the callers raise if all are empty."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     cuda = torch.autograd.DeviceType.CUDA
-    for _ in range(PROFILE_TRIES):
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            time.sleep(PROFILE_RETRY_PAUSE_S)
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
@@ -1387,10 +1404,13 @@ EVO_MASKED = 0.1                   # share of keys OpenFold's mask removes
 # both dtypes, every bias combination, L never a multiple of the tiles,
 # Lq != Lk; the d8 bf16 case has 2,400 (b, n, h) rows (4,800 forward blocks,
 # more than the card holds at once) and a 150-row dbias2 loop, the d32 one
-# OpenFold's widths with a shorter N. The last three are for the bf16
-# forward's groups of MSA rows: D = 8 with a pair bias over Lk = 130 (4-byte
-# bias copies, a partial key tile), a group whose last row is OpenFold's
-# fully masked one, N = 7 not a multiple of the group of 4
+# OpenFold's widths with a shorter N. Then three for the bf16 forward's
+# groups of MSA rows: D = 8 with a pair bias over Lk = 130 (4-byte bias
+# copies, a partial key tile), a group whose last row is OpenFold's fully
+# masked one, N = 7 not a multiple of the group of 4. The last two are for
+# the bf16 backward: N = 37 over at least three dbias2 splits, the last
+# one short; Lq = 65, whose last 64-row query tile has one live row (4-byte
+# lse/delta copies)
 EVO_CASES = [
     ("d8_fp32_both", (2, 3, 100, 100, 4, 8, torch.float32, True, True)),
     ("d16_fp32_mask_lq_ne_lk", (2, 2, 70, 130, 4, 16, torch.float32, True, False)),
@@ -1405,6 +1425,8 @@ EVO_CASES = [
     ("d8_bf16_pair_lk130", (2, 6, 100, 130, 4, 8, torch.bfloat16, False, True)),
     ("d32_bf16_masked_row_n7", (1, 7, 130, 130, 4, 32, torch.bfloat16, True, True)),
     ("d16_bf16_both_n9", (2, 9, 64, 200, 2, 16, torch.bfloat16, True, True)),
+    ("d32_bf16_both_n37_splits", (2, 37, 130, 130, 2, 32, torch.bfloat16, True, True)),
+    ("d8_bf16_pair_lq65", (2, 3, 65, 100, 2, 8, torch.bfloat16, False, True)),
 ]
 
 
@@ -1496,10 +1518,59 @@ def _evo_pair_of_next_head(args, b1, b2, res, want):
     return [out, lse] + want[2:]
 
 
-def _evo_mutants(b, h, with_b1, with_b2):
+def _evo_last_query_tile_dropped(args, b1, b2, res, want):
+    """The backward skips the last 64-row query tile (dO zeroed there, so
+    its rows add nothing to dk, dv or db2)."""
+    from deepspeed_tpu_torch.ops.evoformer import MMA_ROWS, evo_bwd_plain
+    q, k, v, do = args
+    lq = q.shape[2]
+    do = do.clone()
+    do[:, :, (lq - 1) // MMA_ROWS * MMA_ROWS:] = 0
+    grads = evo_bwd_plain(q, k, v, b1, b2, *res, do)
+    return want[:2] + list(grads[:3]) + [want[5], grads[4]]
+
+
+def _evo_pair_transposed_in_bwd(args, b1, b2, res, want):
+    """The backward's recompute reads the pair panel transposed (a slip of
+    the S^T side's indexing; Lq = Lk only)."""
+    from deepspeed_tpu_torch.ops.evoformer import evo_bwd_plain
+    q, k, v, do = args
+    grads = evo_bwd_plain(q, k, v, b1, b2.transpose(-1, -2).contiguous(),
+                          *res, do)
+    return want[:2] + list(grads)
+
+
+def _evo_db2_split_dropped(args, b1, b2, res, want):
+    """db2 leaves out the rows of the last split the wrapper launches at
+    this shape (``dbias2_split_for``)."""
+    from deepspeed_tpu_torch.ops.evoformer import (dbias2_split_for,
+                                                   evo_bwd_plain)
+    q, k, v, do = args
+    b, n, lq, h, d = q.shape
+    splits, per = dbias2_split_for(q.device, b, h, n, lq, k.shape[2], d,
+                                   q.dtype)
+    m = (splits - 1) * per
+    if m == 0:
+        return want[:6] + [torch.zeros_like(want[6])]
+    rows = lambda x: None if x is None else x[:, :m].contiguous()  # noqa: E731
+    db2 = evo_bwd_plain(rows(q), rows(k), rows(v), rows(b1), b2,
+                        rows(res[0]), rows(res[1]), rows(do),
+                        need_db1=False)[4]
+    return want[:6] + [db2]
+
+
+def _evo_mutants(b, h, lq, lk, with_b1, with_b2):
     """{name: (mutant, outputs it must miss)} that apply to a case."""
     mutants = {"last_key_tile_dropped": (_evo_last_key_tile_dropped,
-                                         ("out", "dk", "dv"))}
+                                         ("out", "dk", "dv")),
+               "last_query_tile_dropped": (
+                   _evo_last_query_tile_dropped,
+                   ("dk", "dv") + (("db2",) if with_b2 else ()))}
+    if with_b2 and lq == lk:
+        mutants["pair_transposed_in_bwd"] = (_evo_pair_transposed_in_bwd,
+                                             ("dk",))
+    if with_b2:
+        mutants["db2_split_dropped"] = (_evo_db2_split_dropped, ("db2",))
     if with_b2 and h >= 2:
         mutants["pair_of_next_head"] = (_evo_pair_of_next_head, ("out", "lse"))
     if with_b1:
@@ -1527,6 +1598,30 @@ def _entries(fn, stem):
 
 # the forward's entry by dtype: bf16 on the tensor cores, fp32 on CUDA cores
 EVO_FWD_ENTRY = {torch.bfloat16: "evo_fwd_kernel_mma", torch.float32: "evo_fwd_kernel"}
+# the backward's entries by dtype (dQ and dbias1 on the CUDA cores in both)
+EVO_BWD_ENTRY = {
+    torch.bfloat16: {"evo_dq": "evo_dq_kernel", "evo_dkv": "evo_dkv_kernel_mma",
+                     "evo_dbias2": "evo_dbias2_kernel_mma",
+                     "evo_dbias1": "evo_dbias1_kernel"},
+    torch.float32: {"evo_dq": "evo_dq_kernel", "evo_dkv": "evo_dkv_kernel",
+                    "evo_dbias2": "evo_dbias2_kernel",
+                    "evo_dbias1": "evo_dbias1_kernel"}}
+DB2_COMBINE = "evo_dbias2_combine_kernel"
+
+
+def _evo_bwd_entries(dtype, with_b1, with_b2, splits):
+    """The exact entries one backward launches: dQ, dK/dV, dbias2 (and its
+    combine for more than one split) with a pair bias, dbias1 with a
+    mask."""
+    want = dict(EVO_BWD_ENTRY[dtype])
+    if not with_b1:
+        del want["evo_dbias1"]
+    if not with_b2:
+        del want["evo_dbias2"]
+    names = set(want.values())
+    if with_b2 and splits > 1:
+        names.add(DB2_COMBINE)
+    return sorted(names)
 
 
 def run_evo_cases(gen):
@@ -1534,15 +1629,19 @@ def run_evo_cases(gen):
     bias is present) against the plain versions, each output within its
     tolerance and finite, each kernel launched exactly once, and each
     mutant that applies outside the tolerance on the outputs it names; the
-    forward's entry by profiler name (bf16 ``evo_fwd_kernel_mma`` alone,
-    fp32 ``evo_fwd_kernel`` alone) and, in bf16, a second forward that
-    repeats out and lse bit for bit. Returns the rows; raises PhaseError on
-    any failure. The ``gpu`` test runs this too."""
+    forward's and the backward's entries by exact profiler name (bf16
+    ``evo_fwd_kernel_mma``, ``evo_dkv_kernel_mma`` and
+    ``evo_dbias2_kernel_mma`` plus its combine where the case takes more
+    than one split; fp32 the CUDA-core kernels alone) and, in bf16, a second
+    forward that repeats out and lse and a second backward that repeats
+    every gradient bit for bit. Returns the rows; raises PhaseError on any
+    failure. The ``gpu`` test runs this too."""
     from deepspeed_tpu_torch.ops import build
-    from deepspeed_tpu_torch.ops.evoformer import evo_bwd, evo_fwd
+    from deepspeed_tpu_torch.ops.evoformer import (dbias2_split_for, evo_bwd,
+                                                   evo_fwd)
     rows = []
     for name, shape in EVO_CASES:
-        b, _, _, _, h, _, dtype, with_b1, with_b2 = shape
+        b, n, lq, lk, h, d, dtype, with_b1, with_b2 = shape
         args, b1, b2 = _evo_inputs(gen, *shape)
         q, k, v, do = args
         before = build.launch_counts()
@@ -1558,11 +1657,21 @@ def run_evo_cases(gen):
         entries = _entries(lambda: evo_fwd(q, k, v, b1, b2), "evo_")
         check(entries == [EVO_FWD_ENTRY[dtype]],
               f"evo {name}: the forward launched {entries}")
-        repeat = None
+        splits = dbias2_split_for(q.device, b, h, n, lq, lk, d, dtype)[0]
+        bwd_entries = _entries(
+            lambda: evo_bwd(q, k, v, b1, b2, out, lse, do), "evo_")
+        want_bwd = _evo_bwd_entries(dtype, with_b1, with_b2, splits)
+        check(bwd_entries == want_bwd, f"evo {name}: the backward launched "
+              f"{bwd_entries}, expected {want_bwd}")
+        repeat = bwd_repeat = None
         if dtype == torch.bfloat16:
             again = evo_fwd(q, k, v, b1, b2)
             repeat = torch.equal(again[0], out) and torch.equal(again[1], lse)
             check(repeat, f"evo {name}: a second forward gave other bits")
+            again = evo_bwd(q, k, v, b1, b2, out, lse, do)
+            bwd_repeat = all(torch.equal(x, y) for x, y in zip(again, grads)
+                             if x is not None)
+            check(bwd_repeat, f"evo {name}: a second backward gave other bits")
             del again
         got = [out, lse, *grads]
         res = (out, lse)
@@ -1581,8 +1690,10 @@ def run_evo_cases(gen):
                              dtype=str(dtype), bias1=with_b1, bias2=with_b2),
                "max_abs_err": errs, "err_over_tol": ratios, "finite": finite,
                "launches": launched, "fwd_entries": entries,
-               "fwd_repeats_bit_for_bit": repeat, "mutants": {}}
-        mutants = _evo_mutants(b, h, with_b1, with_b2)
+               "bwd_entries": bwd_entries, "dbias2_splits": splits,
+               "fwd_repeats_bit_for_bit": repeat,
+               "bwd_repeats_bit_for_bit": bwd_repeat, "mutants": {}}
+        mutants = _evo_mutants(b, h, lq, lk, with_b1, with_b2)
         for m_name, (mutant, _) in mutants.items():
             m_want = mutant(args, b1, b2, res, want)
             row["mutants"][m_name] = {
@@ -1802,28 +1913,62 @@ def _sdpa_yardstick(q5, k5, v5, b1, b2):
     return {"backend": "none", "errors": errors}
 
 
+def _entry_ms(fn, iters):
+    """{exact entry name: mean device ms per call} of every CUDA kernel one
+    call of ``fn`` launches (profiler)."""
+    out = {}
+    for e in _device_events(fn, iters):
+        m = re.match(r"(?:void\s+)?(?:\(anonymous namespace\)::)?(\w+)", e.name)
+        if m:
+            out[m.group(1)] = (out.get(m.group(1), 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / iters)
+    return out
+
+
+DB2_SPLIT_SWEEP = (1, 2, 4, 8, 16)
+
+
+def _evo_l2_reads(n, l, h, d, group, pair):
+    """L2 read bytes of the bf16 dK/dV and dbias2 tilings at B = 1, Lq =
+    Lk = l, beside those of the CUDA-core kernels they replace (dK/dV: 32
+    keys a block and one MSA row; dbias2: 32 query rows x 64 keys)."""
+    row = n * l * h * d * 2                        # one of q, k, v, dO
+    t64, t32 = -(-l // 64), -(-l // 32)
+    panel = h * l * l * 4 if pair else 0
+    return {
+        "evo_dkv": {"qdo": 2 * t64 * row, "qdo_before": 2 * t32 * row,
+                    "pair_panel": -(-n // group) * panel,
+                    "pair_panel_before": n * panel},
+        "evo_dbias2": {"qdo_kv": 2 * t64 * row + 2 * t64 * row,
+                       "qdo_kv_before": 2 * t64 * row + 2 * t32 * row}}
+
+
 def phase_evo_timing(dev, smi_line):
-    """At E1: each kernel's time by the profiler's device time (the forward
-    alone, the four backward kernels by name in one profiled backward; the
-    forward's wrapper call by CUDA events beside it), the plain versions'
-    (whole forward, whole backward) and each kernel's bound; at E4 the
-    forward's device time, wrapper time and bound; at E1 and E4 the SDPA
-    yardstick. Returns the kernels line's numbers."""
-    from deepspeed_tpu_torch.ops.evoformer import (canonicalize, evo_bwd,
-                                                   evo_bwd_plain, evo_fwd,
-                                                   evo_fwd_plain, evo_fwd_plan)
+    """At E1 and E4: each kernel's time by the profiler's device time, by
+    exact entry name (the forward alone, beside its wrapper call by CUDA
+    events; the backward kernels in one profiled backward: dQ, dK/dV and
+    dbias2 with its combine, and at E1 dbias1, whose mask takes a gradient
+    there alone), each against its bound from ``_evo_work``; the bf16
+    tilings' L2 reads beside the CUDA-core kernels'; dbias2 at forced split
+    counts beside the wrapper's plan; at E1 the plain versions (whole
+    forward, whole backward); at both the SDPA yardstick. Returns the
+    kernels line's numbers (E1)."""
+    from deepspeed_tpu_torch.ops import evoformer as te
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 8)
-    timing, sdpa, fwd = {}, {}, {}
+    timing, sdpa, fwd, bwd = {}, {}, {}, {}
+    flops_of = {"evo_fwd": 2, "evo_dq": 3, "evo_dkv": 4, "evo_dbias2": 2,
+                "evo_dbias1": 2}                   # [Lq, Lk, D] products
     for name in ("E1", "E4"):
-        _, n, l, h, d, pair, _ = EVO_PATH_CASES[name]
+        _, n, l, h, d, pair, mask_grad = EVO_PATH_CASES[name]
         (q, k, v, do), mask, pair_bias = _evo_path_inputs(gen, n, l, h, d, pair)
-        q5, k5, v5, b1, b2 = canonicalize(q, k, v, [mask, pair_bias])
+        q5, k5, v5, b1, b2 = te.canonicalize(q, k, v, [mask, pair_bias])
         b1, b2 = b1.contiguous(), b2.contiguous()
-        call = lambda: evo_fwd(q5, k5, v5, b1, b2)  # noqa: E731
+        call = lambda: te.evo_fwd(q5, k5, v5, b1, b2)  # noqa: E731
         mm, nbytes = _evo_work(1, n, l, l, h, d, 2)
         bound_ms, bound_by = _bound(2 * mm, nbytes["evo_fwd"])
-        plan = evo_fwd_plan(d, pair)
+        plan = te.evo_fwd_plan(d, pair)
+        bplan = te.evo_bwd_plan(d, pair)
         fwd[name] = {
             "ms": _kernel_device_ms(call, ["evo_fwd_kernel"])["evo_fwd_kernel"],
             "wrapper_ms": time_ms(call, iters=10), "bound_ms": bound_ms,
@@ -1833,28 +1978,65 @@ def phase_evo_timing(dev, smi_line):
             "l2_read_bytes": {
                 "kv": 2 * -(-l // 64) * n * l * h * d * 2,
                 "pair_panel": -(-n // plan["group"]) * h * l * l * 4 if pair else 0}}
+        out, lse = call()
+        bwd_call = lambda: te.evo_bwd(q5, k5, v5, b1, b2, out, lse, do,  # noqa: E731
+                                      need_db1=mask_grad)
+        entries = _entry_ms(bwd_call, iters=5 if name == "E1" else 3)
+        splits, per = te.dbias2_split_for(q5.device, 1, h, n, l, l, d,
+                                          torch.bfloat16)
+        want = _evo_bwd_entries(torch.bfloat16, mask_grad, pair, splits)
+        got = sorted(e for e in entries if e.startswith("evo_"))   # not delta's
+        check(got == want, f"evo_timing {name}: the backward launched "
+              f"{got}, expected {want}")
+        names = EVO_BWD_ENTRY[torch.bfloat16]
+        kernels = ["evo_dq", "evo_dkv", "evo_dbias2"] + (
+            ["evo_dbias1"] if mask_grad else [])
+        per_kernel = {kn: entries[names[kn]] for kn in kernels}
+        per_kernel["evo_dbias2"] += entries.get(DB2_COMBINE, 0.0)
+        # dbias2 at forced split counts, the plan's beside (CUDA events over
+        # the launches alone: the kernel and its combine)
+        ints = (1, n, l, l, h, d)
+        delta = te._bwd_delta(out, do)
+        db2 = torch.empty(1, h, l, l, device="cuda")
+        sweep = {}
+        for sp in sorted(set(DB2_SPLIT_SWEEP) | {splits}):
+            if -(-n // -(-n // sp)) != sp:         # a count that leaves a split empty
+                continue
+            sweep[str(sp)] = time_ms(lambda: te._launch_dbias2(
+                ints, q5, k5, v5, b1, b2, do, lse, delta, db2, splits=sp),
+                iters=3, warmup=1)
+        bwd[name] = {
+            "entries_ms": entries,
+            **{kn: {"ms": per_kernel[kn],
+                    "bound_ms": _bound(flops_of[kn] * mm, nbytes[kn])[0],
+                    "bound_by": _bound(flops_of[kn] * mm, nbytes[kn])[1],
+                    "share_of_bound": _bound(flops_of[kn] * mm,
+                                             nbytes[kn])[0] / per_kernel[kn]}
+               for kn in kernels},
+            "dkv_plan": bplan["dkv"], "dbias2_plan": bplan["dbias2"],
+            "dbias2_splits": {"plan": splits, "rows_per_split": per,
+                              "blocks_per_sm": te.dbias2_blocks_per_sm(
+                                  q5.device, d),
+                              "forced_ms": sweep},
+            "l2_read_bytes": _evo_l2_reads(n, l, h, d, bplan["dkv"]["group"],
+                                           pair)}
         if name == "E1":
-            out, lse = call()
-            per = _kernel_device_ms(
-                lambda: evo_bwd(q5, k5, v5, b1, b2, out, lse, do),
-                [f"{kn}_kernel" for kn in EVO_KERNELS[1:]], iters=5)
-            plain_fwd = time_ms(lambda: evo_fwd_plain(q5, k5, v5, b1, b2),
+            plain_fwd = time_ms(lambda: te.evo_fwd_plain(q5, k5, v5, b1, b2),
                                 iters=2, warmup=1)
-            plain_bwd = time_ms(lambda: evo_bwd_plain(
+            plain_bwd = time_ms(lambda: te.evo_bwd_plain(
                 q5, k5, v5, b1, b2, out, lse, do), iters=2, warmup=1)
-            flops = {"evo_fwd": 2 * mm, "evo_dq": 3 * mm, "evo_dkv": 4 * mm,
-                     "evo_dbias2": 2 * mm, "evo_dbias1": 2 * mm}
             for kn in EVO_KERNELS:
-                bound_ms, bound_by = _bound(flops[kn], nbytes[kn])
+                bound_ms, bound_by = _bound(flops_of[kn] * mm, nbytes[kn])
                 timing[kn] = {
-                    "ms": fwd[name]["ms"] if kn == "evo_fwd" else per[f"{kn}_kernel"],
+                    "ms": fwd[name]["ms"] if kn == "evo_fwd" else per_kernel[kn],
                     "plain_ms": plain_fwd if kn == "evo_fwd" else plain_bwd,
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "flops": flops[kn], "bytes": nbytes[kn]}
+                    "flops": flops_of[kn] * mm, "bytes": nbytes[kn]}
             timing["evo_fwd"]["wrapper_ms"] = fwd[name]["wrapper_ms"]
-            del out, lse
+        del out, lse, delta, db2
         sdpa[name] = _sdpa_yardstick(q5, k5, v5, b1, b2)
         fwd[name]["sdpa_fwd_ms"] = sdpa[name].get("fwd_ms")
+        bwd[name]["sdpa_bwd_ms"] = sdpa[name].get("bwd_ms")
         del q, k, v, do, mask, pair_bias, q5, k5, v5, b1, b2
         gc.collect()
         torch.cuda.empty_cache()
@@ -1864,11 +2046,14 @@ def phase_evo_timing(dev, smi_line):
                                     e1["fwd_ms"] if kn == "evo_fwd" else
                                     e1["bwd_ms"])
     emit({"phase": "evo_timing", "shape": "E1: B=1 N=512 L=384 H=8 D=32 "
-          "bf16, mask + pair bias, both bias gradients",
+          "bf16, mask + pair bias, both bias gradients; E4: B=1 N=5120 "
+          "L=384 H=8 D=8 bf16, mask + pair bias, the pair bias's gradient",
           **{kn: {**t, "share_of_bound": t["bound_ms"] / t["ms"]}
              for kn, t in timing.items()},
-          "evo_fwd_by_path": fwd, "sdpa": sdpa,
-          "notes": "ms: profiler device time; plain_ms of the four backward "
+          "evo_fwd_by_path": fwd, "evo_bwd_by_path": bwd, "sdpa": sdpa,
+          "notes": "ms: profiler device time by exact entry name (dbias2: "
+                   "kernel + combine; its forced split counts by CUDA "
+                   "events); plain_ms of the four backward "
                    "kernels is the whole plain backward; library_ms of them "
                    "is one SDPA backward (q, k, v, mask) at E1, by device "
                    "time",

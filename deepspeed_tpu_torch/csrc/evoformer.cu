@@ -3,11 +3,13 @@
 // bias-gradient reductions.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/pallas/evoformer.py:
-//   evo_fwd_kernel    <- `_evo_fwd_kernel`    (wrapper `_evo_fwd_impl`)
-//   evo_dq_kernel     <- `_evo_dq_kernel`     (wrapper `_evo_bwd_impl`)
-//   evo_dkv_kernel    <- `_evo_dkv_kernel`    (wrapper `_evo_bwd_impl`)
-//   evo_dbias2_kernel <- `_evo_dbias2_kernel` (wrapper `_evo_bwd_impl`)
-//   evo_dbias1_kernel <- `_evo_dbias1_kernel` (wrapper `_evo_bwd_impl`)
+//   evo_fwd_kernel, evo_fwd_kernel_mma (bf16)  <- `_evo_fwd_kernel`
+//   evo_dq_kernel                              <- `_evo_dq_kernel`
+//   evo_dkv_kernel, evo_dkv_kernel_mma (bf16)  <- `_evo_dkv_kernel`
+//   evo_dbias2_kernel, evo_dbias2_kernel_mma and
+//     evo_dbias2_combine_kernel (bf16)         <- `_evo_dbias2_kernel`
+//   evo_dbias1_kernel                          <- `_evo_dbias1_kernel`
+// (wrappers `_evo_fwd_impl`, `_evo_bwd_impl`)
 //
 // Function: q [B,N,Lq,H,D], k/v [B,N,Lk,H,D] (row g = (b*N + n)*H + h),
 // bias1 [B,N,Lk] (per key of each row, OpenFold's mask) and bias2
@@ -25,12 +27,16 @@
 // What bounds it: at OpenFold's widths (L = 384, D = 32, H = 8) the forward
 // does 77 GFLOP against 0.41 GB of operands, so at the tensor cores' bf16
 // rate it is bound by bytes (0.12 ms); at D = 8 (the extra-MSA stack) even
-// more so. The fp32 kernels and the four backward kernels are the first,
-// simple design: they multiply on the fp32 CUDA cores from shared memory,
-// so arithmetic bounds them in practice.
+// more so. The fp32 kernels, and dQ and dbias1 in both dtypes, are the
+// first, simple design: they multiply on the fp32 CUDA cores from shared
+// memory, so arithmetic bounds them in practice. The bf16 forward, dK/dV
+// and dbias2 multiply on the tensor cores; what sets their time is the
+// work per score on the CUDA cores (the scale, two rounded bias adds, the
+// exact expf, and in the backward dP - delta, two products, the sums).
 //   * The TPU grid's sequential axes, which carried sums in VMEM from one
-//     grid step to the next, are loops inside a block: forward, dQ and
-//     dbias2 walk 64-key tiles for a 32-row query tile; dK/dV walks 32-row
+//     grid step to the next, are loops inside a block. In the CUDA-core
+//     kernels forward, dQ and dbias2 walk 64-key tiles for a 32-row query
+//     tile; dK/dV walks 32-row
 //     query tiles for a 32-key tile; dbias2 walks the N rows of its (b, h)
 //     panel tile in order, dbias1 the heads and query tiles of its (b, n)
 //     key tile in order, so both reductions are deterministic, with no
@@ -71,12 +77,50 @@
 //     in registers, is the A fragment of P.V (the reference's rounding
 //     point); l sums the unrounded p; out and lse are written once per row,
 //     no atomics, so the forward repeats bit for bit.
-// Not done yet (later work): the tensor cores for the four backward
-// kernels, and fusing the bias reductions into the dK/dV pass.
+// The bf16 dK/dV, evo_dkv_kernel_mma, is the forward with keys and queries
+// swapped (`launch` picks it for bf16; fp32 keeps evo_dkv_kernel):
+//   * A warp owns 16 keys of one MSA row, a warp group a 64-key tile of it;
+//     with a pair bias a block is G = 2 warp groups on 2 MSA rows (1 at D =
+//     128; `evo_bwd_plan` mirrors it). K and V stay in shared memory (their
+//     A fragments in registers at D <= 64) while a 2-stage ring brings each
+//     64-row query tile: Q and dO of the G rows, their lse and delta, and
+//     one fp32 [64 queries][68] pair-bias tile the G rows share, so the
+//     panel is read from L2 N/G times. It is read transposed, per query
+//     column of the S^T fragment; the 68-float row stride puts the 8 keys x
+//     4 query pairs of one read on 32 distinct banks.
+//   * S^T = K.Q^T and dP^T = V.dO^T run 16 queries at a time; p (0 for dead
+//     queries) and dS * scale, rounded to bf16 in registers by a_from_c,
+//     are the A fragments of dV += P^T.dO and dK += dS^T.Q, which read dO
+//     and Q transposed with `ldmatrix .trans`. Rows of dead keys are never
+//     written. dK and dV are written once per key row: no atomics, they
+//     repeat bit for bit.
+//   * Built for two resident blocks an SM at D <= 32 (at most 128
+//     registers a thread): the work per score needs the warps more than the
+//     registers. G = 1 and G = 4 were slower on the card (PERF.md).
+// The bf16 dbias2, evo_dbias2_kernel_mma (fp32 keeps evo_dbias2_kernel):
+//   * A block of 4 warps x 16 query rows owns one 64 x 64 tile of a (b, h)
+//     panel; its pair-bias values and fp32 sums stay in registers in
+//     C-fragment layout while it walks the MSA rows of one split of N in
+//     order, a 3-stage ring (2 at D >= 64) bringing row n + 1's Q, dO, K
+//     and V tiles, bias1, lse and delta while row n computes S = Q.K^T and
+//     dP = dO.V^T on `mma.sync`. Dead queries and keys are never written,
+//     so they need no mask. Built for three resident blocks an SM at D <=
+//     32.
+//   * N is split as far as it shortens the grid's waves of resident blocks
+//     (`dbias2_splits` in ops/evoformer.py, from the shapes and the card
+//     alone); the splits' partials go to a workspace that
+//     evo_dbias2_combine_kernel sums in split order, so db2 repeats bit for
+//     bit, with no atomics.
+// Not done yet (later work): the tensor cores for dQ and dbias1. The bias
+// reductions stay out of the dK/dV pass: db2 sums over the N rows that
+// dK/dV spreads over its blocks, so fusing them needs an [N/G, B, H, Lq, Lk]
+// workspace of partials (1.2 GB at OpenFold's MSA row attention).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "warp_mma.cuh"
 
@@ -952,9 +996,446 @@ evo_fwd_kernel_mma(Params p) {
   }
 }
 
+// Issue the copies of G rows of 64 fp32 per-query values (lse or delta):
+// row r from x[((bn0 + r) * H + h) * Lq + q0], zeros for rows at or past
+// `rows` and queries at or past Lq; 16-byte copies when Lq % 4 == 0 (every
+// row start is then aligned), else 4-byte ones. Thread `first` takes the
+// first chunk, so that two calls spread over the block.
+template <int G, int THREADS>
+__device__ __forceinline__ void issue_stats(float* dst, const float* x, const Params& p,
+                                            size_t bn0, int h, int rows, int q0, int first) {
+  const int tid = (threadIdx.x + THREADS - first) % THREADS;
+  if (p.Lq % 4 == 0) {
+    constexpr int N = G * kMmaRows / 4;
+    static_assert(N <= THREADS, "one chunk a thread");
+    if (tid < N) {
+      const int r = tid / (kMmaRows / 4), c = (tid % (kMmaRows / 4)) * 4;
+      const bool valid = r < rows && q0 + c < p.Lq;
+      warp_mma::cp_async_16(dst + r * kMmaRows + c,
+                            valid ? x + ((bn0 + r) * p.H + h) * p.Lq + q0 + c : x, valid);
+    }
+  } else {
+    constexpr int N = G * kMmaRows;
+    static_assert(N <= THREADS, "one value a thread");
+    if (tid < N) {
+      const int r = tid / kMmaRows, c = tid % kMmaRows;
+      const bool valid = r < rows && q0 + c < p.Lq;
+      warp_mma::cp_async_4(dst + r * kMmaRows + c,
+                           valid ? x + ((bn0 + r) * p.H + h) * p.Lq + q0 + c : x, valid);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dK/dV on the tensor cores: one block per (64-key tile, group of G MSA
+// rows of one (b, h)); warp group wg (4 warps x 16 keys) owns the key tile
+// of MSA row n0 + wg and walks the 64-row query tiles
+// ---------------------------------------------------------------------------
+// Row stride (floats) of the pair-bias tile the backward reads transposed:
+// the 8 keys x 4 query pairs of one read fall on 32 distinct banks.
+constexpr int kBiasStrideT = kMmaKeys + 4;
+
+// MSA rows a dK/dV block walks with a pair bias (`evo_bwd_plan` mirrors
+// it), and the resident blocks an SM is built for at D <= 32 (the
+// registers a thread may take follow from it)
+constexpr int kDkvGroup = 2;
+constexpr int kDkvMinBlocks = 2;
+constexpr int kDb2MinBlocks = 3;
+
+template <int D, bool PAIR>
+struct DkvMma {
+  static constexpr int DK = D < 16 ? 16 : D;           // K.Q^T depth (D = 8 padded)
+  static constexpr int RS = DK + 8;                    // bf16 tile row stride, elements
+  static constexpr int G = PAIR && D < 128 ? kDkvGroup : 1;   // MSA rows a block walks
+  static constexpr int kStages = 2;
+  static constexpr int kTile = kMmaRows * RS * 2;      // bytes of a [64][RS] bf16 tile
+  static constexpr int kBias2 = PAIR ? kMmaRows * kBiasStrideT * 4 : 0;
+  // a stage: Q [G][64][RS], dO [G][64][RS]; the pair tile; lse [G][64], delta [G][64]
+  static constexpr int kStage = 2 * G * kTile + kBias2 + 2 * G * kMmaRows * 4;
+  static constexpr int kSmem = 2 * G * kTile + kStages * kStage;   // + resident K, V
+  static constexpr bool kFragsInRegs = D <= 64;        // K and V A fragments held
+};
+
+template <int D, bool PAIR>
+__global__ void __launch_bounds__(kThreads * DkvMma<D, PAIR>::G, D <= 32 ? kDkvMinBlocks : 1)
+evo_dkv_kernel_mma(Params p) {
+  using F = DkvMma<D, PAIR>;
+  using namespace warp_mma;
+  using bf16 = __nv_bfloat16;
+  constexpr int G = F::G, RS = F::RS, KS = F::DK / 16, NT = D / 8, ST = F::kStages;
+  constexpr int THREADS = kThreads * G;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wg = warp / 4, row0 = (warp % 4) * 16;     // MSA row n0 + wg, keys row0..+15
+  const int grp = lane / 4, tig = lane % 4;
+  const int nkt = cdiv(p.Lk, kMmaKeys), ngr = cdiv(p.N, G), nqt = cdiv(p.Lq, kMmaRows);
+  // blocks of one (b, h) and one group of rows are adjacent (their Q/dO
+  // tiles meet in L2), then the groups of one (b, h) (its pair panel)
+  const int kt = (int)(blockIdx.x % nkt);
+  const int rest = (int)(blockIdx.x / nkt);
+  const int n0 = (rest % ngr) * G, bh2 = rest / ngr;
+  const int b = bh2 / p.H, h = bh2 % p.H;
+  const int rows = min(G, p.N - n0), k0 = kt * kMmaKeys;
+  const bool live = wg < rows;                         // warp-uniform
+  const size_t bn0 = (size_t)b * p.N + n0, bn = bn0 + wg;
+  const bf16* q = static_cast<const bf16*>(p.q);
+  const bf16* k = static_cast<const bf16*>(p.k);
+  const bf16* v = static_cast<const bf16*>(p.v);
+  const bf16* dout = static_cast<const bf16*>(p.dout);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);        // [G][64][RS], resident
+  bf16* vs = ks + G * (F::kTile / 2);                  // [G][64][RS], resident
+  unsigned char* ring = smem_raw + 2 * G * F::kTile;   // [ST] stages
+  auto q_of = [&](int s, int r) { return reinterpret_cast<bf16*>(ring + s * F::kStage + r * F::kTile); };
+  auto do_of = [&](int s, int r) { return q_of(s, G + r); };
+  auto b2_of = [&](int s) { return reinterpret_cast<float*>(ring + s * F::kStage + 2 * G * F::kTile); };
+  auto lse_of = [&](int s, int r) {
+    return reinterpret_cast<float*>(ring + s * F::kStage + 2 * G * F::kTile + F::kBias2) + r * kMmaRows;
+  };
+  auto delta_of = [&](int s, int r) { return lse_of(s, G + r); };
+
+  if constexpr (D < 16) {              // the zero pad of K, V, Q and dO (never copied)
+    for (int r = threadIdx.x; r < (2 + 2 * ST) * G * kMmaRows; r += THREADS) {
+      const int t = r / kMmaRows, rr = r % kMmaRows;
+      bf16* tile = t < 2 * G ? ks + t * (F::kTile / 2)
+                             : q_of((t - 2 * G) / (2 * G), (t - 2 * G) % (2 * G));
+      *reinterpret_cast<uint4*>(tile + rr * RS + 8) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  const size_t ld = (size_t)p.H * D;                   // elements between rows
+  // G [64][D] tiles of x [B*N, L, H, D] from position pos0, as the forward's
+  auto issue_rows = [&](bf16* dst, const bf16* x, int pos0, int L, int tile0) {
+#pragma unroll
+    for (int r = 0; r < G; ++r)
+      cp_async_tile<kMmaRows, D, RS, THREADS>(
+          dst + r * (F::kTile / 2), r < rows ? x + ((bn0 + r) * L + pos0) * ld + h * D : x,
+          ld, r < rows ? L - pos0 : 0, (tile0 + r) * kMmaRows * (D / 8));
+  };
+  issue_rows(ks, k, k0, p.Lk, 0);                      // K and V travel with query tile 0
+  issue_rows(vs, v, k0, p.Lk, G);
+  auto issue = [&](int qt) {           // query tile qt of the G rows into stage qt % ST
+    const int s = qt % ST, q0 = qt * kMmaRows;
+    issue_rows(q_of(s, 0), q, q0, p.Lq, 2 * G);
+    issue_rows(do_of(s, 0), dout, q0, p.Lq, 3 * G);
+    if (PAIR)                          // [64 queries][64 keys]
+      issue_f32_tile<kMmaRows, THREADS>(b2_of(s), kBiasStrideT,
+                                        p.b2 + ((size_t)bh2 * p.Lq + q0) * p.Lk + k0, p.Lk,
+                                        p.Lq - q0, p.Lk - k0);
+    issue_stats<G, THREADS>(lse_of(s, 0), p.lse, p, bn0, h, rows, q0, 0);
+    issue_stats<G, THREADS>(delta_of(s, 0), p.delta, p, bn0, h, rows, q0, THREADS / 2);
+  };
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < nqt) issue(s);
+    cp_async_commit();
+  }
+
+  // bias1 of this thread's two keys (rows grp, grp + 8 of its 16)
+  float b1v[2] = {0.f, 0.f};
+  if (p.b1 != nullptr && live) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int kpos = k0 + row0 + grp + 8 * hr;
+      if (kpos < p.Lk) b1v[hr] = p.b1[bn * p.Lk + kpos];
+    }
+  }
+  float dk[NT][4], dv[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  uint32_t kf[F::kFragsInRegs ? KS : 1][4], vf[F::kFragsInRegs ? KS : 1][4];
+  const bf16* kw = ks + wg * (F::kTile / 2);
+  const bf16* vw = vs + wg * (F::kTile / 2);
+
+  for (int qt = 0; qt < nqt; ++qt) {
+    cp_async_wait<ST - 2>();                           // tile qt has landed (this thread's part)
+    __syncthreads();                                   // ... everyone's; tile qt - 1 is done
+    if (qt + ST - 1 < nqt) issue(qt + ST - 1);         // into the stage tile qt - 1 used
+    cp_async_commit();
+    if (!live) continue;
+    if constexpr (F::kFragsInRegs) {
+      if (qt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          ldsm_x4(kf[kk], kw + a_offset(lane, RS, row0, 16 * kk));
+          ldsm_x4(vf[kk], vw + a_offset(lane, RS, row0, 16 * kk));
+        }
+      }
+    }
+    const int s_idx = qt % ST, q0 = qt * kMmaRows;
+    const bf16* qw = q_of(s_idx, wg);
+    const bf16* dow = do_of(s_idx, wg);
+    const float* b2s = PAIR ? b2_of(s_idx) : nullptr;
+    const float* lse_s = lse_of(s_idx, wg);
+    const float* delta_s = delta_of(s_idx, wg);
+    const bool tail = q0 + kMmaRows > p.Lq;
+
+#pragma unroll
+    for (int c = 0; c < kMmaRows / 16; ++c) {        // 16 queries a step
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 16 queries a warp
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ak[4], av[4], bb[4];
+        if constexpr (F::kFragsInRegs) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ak[i] = kf[kk][i];
+            av[i] = vf[kk][i];
+          }
+        } else {
+          ldsm_x4(ak, kw + a_offset(lane, RS, row0, 16 * kk));
+          ldsm_x4(av, vw + a_offset(lane, RS, row0, 16 * kk));
+        }
+        ldsm_x4(bb, qw + b_nk_offset(lane, RS, 16 * c, 16 * kk));
+        mma_m16n8k16_bf16(st[0], ak, bb[0], bb[1]);
+        mma_m16n8k16_bf16(st[1], ak, bb[2], bb[3]);
+        ldsm_x4(bb, dow + b_nk_offset(lane, RS, 16 * c, 16 * kk));
+        mma_m16n8k16_bf16(dpt[0], av, bb[0], bb[1]);
+        mma_m16n8k16_bf16(dpt[1], av, bb[2], bb[3]);
+      }
+      // score = dot * scale, + bias1, + bias2 (each rounded); p = exp(score
+      // - lse), 0 for dead queries; dS = p (dP - delta). st becomes p and
+      // dpt dS * scale, both rounded to bf16 below (the A fragments).
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qc = 16 * c + 8 * j + 2 * tig;       // query column of elements 0 / 2
+        const float2 lse2 = *reinterpret_cast<const float2*>(lse_s + qc);
+        const float2 del2 = *reinterpret_cast<const float2*>(delta_s + qc);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int kr = row0 + grp + 8 * hr;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float x = __fmul_rn(st[j][2 * hr + e], p.scale);
+            if (p.b1 != nullptr) x = __fadd_rn(x, b1v[hr]);
+            if (PAIR) x = __fadd_rn(x, b2s[(qc + e) * kBiasStrideT + kr]);
+            float pr = expf(x - (e ? lse2.y : lse2.x));
+            if (tail && q0 + qc + e >= p.Lq) pr = 0.f;
+            const float ds = pr * (dpt[j][2 * hr + e] - (e ? del2.y : del2.x));
+            st[j][2 * hr + e] = pr;
+            dpt[j][2 * hr + e] = ds * p.scale;
+          }
+        }
+      }
+      uint32_t ap[4], ads[4];
+      a_from_c(ap, st[0], st[1]);                      // p.astype(dO.dtype)
+      a_from_c(ads, dpt[0], dpt[1]);                   // (dS * scale).astype(q.dtype)
+      // dV += P^T dO, dK += dS^T Q over these 16 queries
+      if constexpr (D < 16) {
+        uint32_t bb[2];
+        ldsm_x2_t(bb, dow + b_kn_offset(lane, RS, 16 * c, 0));
+        mma_m16n8k16_bf16(dv[0], ap, bb[0], bb[1]);
+        ldsm_x2_t(bb, qw + b_kn_offset(lane, RS, 16 * c, 0));
+        mma_m16n8k16_bf16(dk[0], ads, bb[0], bb[1]);
+      } else {
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bb[4];
+          ldsm_x4_t(bb, dow + b_kn_offset(lane, RS, 16 * c, 16 * dp));
+          mma_m16n8k16_bf16(dv[2 * dp], ap, bb[0], bb[1]);
+          mma_m16n8k16_bf16(dv[2 * dp + 1], ap, bb[2], bb[3]);
+          ldsm_x4_t(bb, qw + b_kn_offset(lane, RS, 16 * c, 16 * dp));
+          mma_m16n8k16_bf16(dk[2 * dp], ads, bb[0], bb[1]);
+          mma_m16n8k16_bf16(dk[2 * dp + 1], ads, bb[2], bb[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();                                  // nothing in flight at exit
+  if (!live) return;
+
+  bf16* dk_out = static_cast<bf16*>(p.out0);
+  bf16* dv_out = static_cast<bf16*>(p.out1);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int kpos = k0 + row0 + grp + 8 * hr;
+    if (kpos >= p.Lk) continue;
+    const size_t off = ((bn * p.Lk + kpos) * p.H + h) * D + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      *reinterpret_cast<uint32_t*>(dk_out + off + 8 * j) = pack_bf16(dk[j][2 * hr], dk[j][2 * hr + 1]);
+      *reinterpret_cast<uint32_t*>(dv_out + off + 8 * j) = pack_bf16(dv[j][2 * hr], dv[j][2 * hr + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dbias2 on the tensor cores: one block per (64 x 64 panel tile, split
+// s of the N rows, panel (b, h)), 4 warps x 16 query rows, summing dS over
+// the split's rows in order into `dst` (db2, or split s of the workspace)
+// ---------------------------------------------------------------------------
+template <int D>
+struct Db2Mma {
+  static constexpr int DK = D < 16 ? 16 : D;
+  static constexpr int RS = DK + 8;
+  static constexpr int kStages = D <= 32 ? 3 : 2;
+  static constexpr int kTile = kMmaRows * RS * 2;
+  // a stage: Q, dO [64 queries][RS], K, V [64 keys][RS] bf16; bias1 [64
+  // keys], lse, delta [64 queries] fp32
+  static constexpr int kStage = 4 * kTile + 3 * kMmaRows * 4;
+  static constexpr int kSmem = kStages * kStage;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 32 ? kDb2MinBlocks : 1)
+evo_dbias2_kernel_mma(Params p, int splits, int per, float* dst) {
+  using F = Db2Mma<D>;
+  using namespace warp_mma;
+  using bf16 = __nv_bfloat16;
+  constexpr int RS = F::RS, KS = F::DK / 16, ST = F::kStages;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int row0 = warp * 16, grp = lane / 4, tig = lane % 4;
+  const int nqt = cdiv(p.Lq, kMmaRows), nkt = cdiv(p.Lk, kMmaKeys);
+  // the tiles of one (panel, split) are adjacent: they walk the same rows
+  const int tile = (int)(blockIdx.x % (nqt * nkt));
+  const int rest = (int)(blockIdx.x / (nqt * nkt));
+  const int split = rest % splits, bh2 = rest / splits;
+  const int q0 = (tile / nkt) * kMmaRows, k0 = (tile % nkt) * kMmaKeys;
+  const int b = bh2 / p.H, h = bh2 % p.H;
+  const int n_begin = split * per, steps = min(p.N, n_begin + per) - n_begin;
+  const bf16* q = static_cast<const bf16*>(p.q);
+  const bf16* k = static_cast<const bf16*>(p.k);
+  const bf16* v = static_cast<const bf16*>(p.v);
+  const bf16* dout = static_cast<const bf16*>(p.dout);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto tile_of = [&](int s, int t) {   // t: 0 Q, 1 dO, 2 K, 3 V
+    return reinterpret_cast<bf16*>(smem_raw + s * F::kStage + t * F::kTile);
+  };
+  auto vec_of = [&](int s, int t) {    // t: 0 bias1, 1 lse, 2 delta
+    return reinterpret_cast<float*>(smem_raw + s * F::kStage + 4 * F::kTile) + t * kMmaRows;
+  };
+  if constexpr (D < 16) {              // the zero pad of every tile (never copied)
+    for (int r = threadIdx.x; r < ST * 4 * kMmaRows; r += kThreads)
+      *reinterpret_cast<uint4*>(tile_of(r / (4 * kMmaRows), (r / kMmaRows) % 4) +
+                                (r % kMmaRows) * RS + 8) = make_uint4(0, 0, 0, 0);
+  }
+  const size_t ld = (size_t)p.H * D;
+  auto issue = [&](int i) {            // MSA row n_begin + i into stage i % ST
+    const int s = i % ST;
+    const size_t bn = (size_t)b * p.N + n_begin + i;
+    cp_async_tile<kMmaRows, D, RS, kThreads>(tile_of(s, 0), q + (bn * p.Lq + q0) * ld + h * D,
+                                             ld, p.Lq - q0, 0);
+    cp_async_tile<kMmaRows, D, RS, kThreads>(tile_of(s, 1), dout + (bn * p.Lq + q0) * ld + h * D,
+                                             ld, p.Lq - q0, kMmaRows * (D / 8));
+    cp_async_tile<kMmaRows, D, RS, kThreads>(tile_of(s, 2), k + (bn * p.Lk + k0) * ld + h * D,
+                                             ld, p.Lk - k0, 2 * kMmaRows * (D / 8));
+    cp_async_tile<kMmaRows, D, RS, kThreads>(tile_of(s, 3), v + (bn * p.Lk + k0) * ld + h * D,
+                                             ld, p.Lk - k0, 3 * kMmaRows * (D / 8));
+    if (p.b1 != nullptr)
+      issue_f32_tile<1, kThreads>(vec_of(s, 0), kMmaKeys, p.b1 + bn * p.Lk + k0, p.Lk, 1,
+                                  p.Lk - k0);
+    issue_stats<1, kThreads>(vec_of(s, 1), p.lse, p, bn, h, 1, q0, 0);
+    issue_stats<1, kThreads>(vec_of(s, 2), p.delta, p, bn, h, 1, q0, kThreads / 2);
+  };
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+
+  // this thread's pair-bias values and sums, in C-fragment layout: tile j,
+  // element e is (query row0 + grp + 8 (e / 2), key 8 j + 2 tig + e % 2)
+  float b2v[8][4], acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qpos = q0 + row0 + c_row(lane, e), kpos = k0 + 8 * j + c_col(lane, e);
+      b2v[j][e] = qpos < p.Lq && kpos < p.Lk ? p.b2[((size_t)bh2 * p.Lq + qpos) * p.Lk + kpos] : 0.f;
+      acc[j][e] = 0.f;
+    }
+
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<ST - 2>();                           // row i has landed (this thread's part)
+    __syncthreads();                                   // ... everyone's; row i - 1 is done
+    if (i + ST - 1 < steps) issue(i + ST - 1);
+    cp_async_commit();
+    const int s_idx = i % ST;
+    const bf16* qs = tile_of(s_idx, 0);
+    const bf16* dos = tile_of(s_idx, 1);
+    const bf16* ks = tile_of(s_idx, 2);
+    const bf16* vs = tile_of(s_idx, 3);
+    const float* b1s = vec_of(s_idx, 0);
+    const float* lse_s = vec_of(s_idx, 1);
+    const float* delta_s = vec_of(s_idx, 2);
+    // S = Q K^T and dP = dO V^T: 16 queries x 64 keys a warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t aq[4], ado[4];
+      ldsm_x4(aq, qs + a_offset(lane, RS, row0, 16 * kk));
+      ldsm_x4(ado, dos + a_offset(lane, RS, row0, 16 * kk));
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t bb[4];
+        ldsm_x4(bb, ks + b_nk_offset(lane, RS, 16 * jp, 16 * kk));
+        mma_m16n8k16_bf16(s[2 * jp], aq, bb[0], bb[1]);
+        mma_m16n8k16_bf16(s[2 * jp + 1], aq, bb[2], bb[3]);
+        ldsm_x4(bb, vs + b_nk_offset(lane, RS, 16 * jp, 16 * kk));
+        mma_m16n8k16_bf16(dp[2 * jp], ado, bb[0], bb[1]);
+        mma_m16n8k16_bf16(dp[2 * jp + 1], ado, bb[2], bb[3]);
+      }
+    }
+    // acc += p (dP - delta), p = exp(dot * scale + bias1 + bias2 - lse);
+    // dead queries and keys are never written, so they need no mask
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float lse = lse_s[row0 + grp + 8 * hr], delta = delta_s[row0 + grp + 8 * hr];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float2 b1v = make_float2(0.f, 0.f);
+        if (p.b1 != nullptr) b1v = *reinterpret_cast<const float2*>(b1s + 8 * j + 2 * tig);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = __fmul_rn(s[j][2 * hr + e], p.scale);
+          if (p.b1 != nullptr) x = __fadd_rn(x, e ? b1v.y : b1v.x);
+          x = __fadd_rn(x, b2v[j][2 * hr + e]);
+          const float pr = expf(x - lse);
+          acc[j][2 * hr + e] += pr * (dp[j][2 * hr + e] - delta);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();                                  // nothing in flight at exit
+
+  float* out = dst + (size_t)split * p.B * p.H * p.Lq * p.Lk;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qpos = q0 + row0 + c_row(lane, e), kpos = k0 + 8 * j + c_col(lane, e);
+      if (qpos < p.Lq && kpos < p.Lk) out[((size_t)bh2 * p.Lq + qpos) * p.Lk + kpos] = acc[j][e];
+    }
+}
+
+// db2 = the splits' partials summed in split order (deterministic).
+__global__ void __launch_bounds__(256)
+evo_dbias2_combine_kernel(const float* __restrict__ ws, float* __restrict__ db2, size_t n,
+                          int splits) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float sum = ws[i];
+    for (int s = 1; s < splits; ++s) sum += ws[(size_t)s * n + i];
+    db2[i] = sum;
+  }
+}
+
 // kFwdMma / kFwdMmaNoPair: the bf16 forward's bytes with / without a pair
-// bias (for `dstt_evo_smem_bytes` alone; launches say kFwd).
-enum Which { kFwd = 0, kDq = 1, kDkv = 2, kDb2 = 3, kDb1 = 4, kFwdMma = 5, kFwdMmaNoPair = 6 };
+// bias; kDkvMma / kDkvMmaNoPair the bf16 dK/dV's; kDb2Mma the bf16
+// dbias2's (for `dstt_evo_smem_bytes` alone; launches say kFwd, kDkv, kDb2).
+enum Which {
+  kFwd = 0, kDq = 1, kDkv = 2, kDb2 = 3, kDb1 = 4, kFwdMma = 5, kFwdMmaNoPair = 6,
+  kDkvMma = 7, kDkvMmaNoPair = 8, kDb2Mma = 9
+};
 
 template <int D>
 int smem_bytes(int which) {
@@ -962,6 +1443,9 @@ int smem_bytes(int which) {
     case kFwd: return fwd_smem_floats<D>() * (int)sizeof(float);
     case kFwdMma: return FwdMma<D, true>::kSmem;
     case kFwdMmaNoPair: return FwdMma<D, false>::kSmem;
+    case kDkvMma: return DkvMma<D, true>::kSmem;
+    case kDkvMmaNoPair: return DkvMma<D, false>::kSmem;
+    case kDb2Mma: return Db2Mma<D>::kSmem;
     case kDq: return dq_smem_floats<D>() * (int)sizeof(float);
     case kDkv: return dkv_smem_floats<D>() * (int)sizeof(float);
     case kDb2:
@@ -987,12 +1471,82 @@ cudaError_t launch_fwd_mma(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D, bool PAIR>
+cudaError_t launch_dkv_mma(const Params& p, cudaStream_t stream) {
+  using F = DkvMma<D, PAIR>;
+  const long long blocks =
+      (long long)p.B * p.H * cdiv(p.N, F::G) * cdiv(p.Lk, kMmaKeys);
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  static bool configured = false;                      // per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        evo_dkv_kernel_mma<D, PAIR>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  evo_dkv_kernel_mma<D, PAIR><<<(unsigned)blocks, kThreads * F::G, F::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t configure_db2_mma() {
+  static bool configured = false;                      // per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        evo_dbias2_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Db2Mma<D>::kSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  return cudaSuccess;
+}
+
+// The bf16 dbias2 over `splits` splits of the N rows (each of cdiv(N,
+// splits) rows, none empty): one split writes db2 (p.out0) itself; more
+// write their partials to ws [splits][B*H*Lq*Lk] and the combine sums them.
+template <int D>
+cudaError_t launch_db2_mma(const Params& p, float* ws, int splits, cudaStream_t stream) {
+  if (p.b2 == nullptr || splits < 1 || splits > p.N || (splits > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
+  const int per = cdiv(p.N, splits);
+  if (cdiv(p.N, per) != splits) return cudaErrorInvalidValue;   // an empty split
+  const long long blocks =
+      (long long)p.B * p.H * splits * cdiv(p.Lq, kMmaRows) * cdiv(p.Lk, kMmaKeys);
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  cudaError_t err = configure_db2_mma<D>();
+  if (err != cudaSuccess) return err;
+  float* db2 = static_cast<float*>(p.out0);
+  evo_dbias2_kernel_mma<D><<<(unsigned)blocks, kThreads, Db2Mma<D>::kSmem, stream>>>(
+      p, splits, per, splits > 1 ? ws : db2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t n = (size_t)p.B * p.H * p.Lq * p.Lk;
+  const unsigned grid = (unsigned)std::min<size_t>((n + 255) / 256, 4096);
+  evo_dbias2_combine_kernel<<<grid, 256, 0, stream>>>(ws, db2, n, splits);
+  return cudaGetLastError();
+}
+
+// Resident bf16 dbias2 blocks on one SM (occupancy calculator), or minus a
+// CUDA error code.
+template <int D>
+int db2_blocks_per_sm() {
+  cudaError_t err = configure_db2_mma<D>();
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, evo_dbias2_kernel_mma<D>, kThreads,
+                                                        Db2Mma<D>::kSmem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 template <typename T, int D>
 cudaError_t launch(int which, const Params& p, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {                     // bf16 forward: the tensor cores
+  if constexpr (sizeof(T) == 2) {                     // bf16: the tensor cores, but for dQ, dbias1
     if (which == kFwd)
       return p.b2 != nullptr ? launch_fwd_mma<D, true>(p, stream)
                              : launch_fwd_mma<D, false>(p, stream);
+    if (which == kDkv)
+      return p.b2 != nullptr ? launch_dkv_mma<D, true>(p, stream)
+                             : launch_dkv_mma<D, false>(p, stream);
+    if (which == kDb2) return launch_db2_mma<D>(p, nullptr, 1, stream);
   }
   void (*kernel)(Params) = nullptr;
   const long long rows = (long long)p.B * p.N * p.H;
@@ -1006,13 +1560,13 @@ cudaError_t launch(int which, const Params& p, cudaStream_t stream) {
       kernel = evo_dq_kernel<T, D>;
       blocks = rows * cdiv(p.Lq, kRows);
       break;
-    case kDkv:
-      kernel = evo_dkv_kernel<T, D>;
+    case kDkv:                                         // fp32 (bf16 returned above)
+      if constexpr (sizeof(T) == 4) kernel = evo_dkv_kernel<T, D>;
       blocks = rows * cdiv(p.Lk, kDkvKeys);
       break;
-    case kDb2:
+    case kDb2:                                         // fp32 (bf16 returned above)
       if (p.b2 == nullptr) return cudaErrorInvalidValue;
-      kernel = evo_dbias2_kernel<T, D>;
+      if constexpr (sizeof(T) == 4) kernel = evo_dbias2_kernel<T, D>;
       blocks = (long long)p.B * p.H * cdiv(p.Lq, kRows) * cdiv(p.Lk, kKeys);
       break;
     case kDb1:
@@ -1048,12 +1602,31 @@ cudaError_t pick_dim(int which, const Params& p, int head_dim, cudaStream_t stre
   return cudaErrorInvalidValue;
 }
 
+Params make_params(const void* q, const void* k, const void* v, const void* dout,
+                   const void* b1, const void* b2, const void* lse, const void* delta,
+                   void* out0, void* out1, int B, int N, int Lq, int Lk, int H, float scale) {
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.b1 = static_cast<const float*>(b1);
+  p.b2 = static_cast<const float*>(b2);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.out0 = out0;
+  p.out1 = out1;
+  p.B = B; p.N = N; p.Lq = Lq; p.Lk = Lk; p.H = H;
+  p.scale = scale;
+  return p;
+}
+
 }  // namespace
 
 // Dynamic shared memory (bytes) of kernel `which` (0 forward, 1 dQ, 2 dK/dV,
-// 3 dbias2, 4 dbias1 for fp32 and, but for the forward, bf16; 5 the bf16
-// forward with a pair bias, 6 without) at `head_dim`; -1 for an
-// instantiation not compiled.
+// 3 dbias2, 4 dbias1 for fp32, and 1 and 4 for bf16; 5 the bf16 forward with
+// a pair bias, 6 without; 7 the bf16 dK/dV with a pair bias, 8 without; 9
+// the bf16 dbias2) at `head_dim`; -1 for an instantiation not compiled.
 extern "C" int dstt_evo_smem_bytes(int which, int head_dim) {
   switch (head_dim) {
     case 8: return smem_bytes<8>(which);
@@ -1078,21 +1651,52 @@ extern "C" int dstt_evo_launch(int which, const void* q, const void* k, const vo
                                int B, int N, int Lq, int Lk, int H, int head_dim,
                                float scale, int dtype, void* stream) {
   if (B <= 0 || N <= 0 || Lq <= 0 || Lk <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  Params p{};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.dout = dout;
-  p.b1 = static_cast<const float*>(b1);
-  p.b2 = static_cast<const float*>(b2);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.out0 = out0;
-  p.out1 = out1;
-  p.B = B; p.N = N; p.Lq = Lq; p.Lk = Lk; p.H = H;
-  p.scale = scale;
+  const Params p = make_params(q, k, v, dout, b1, b2, lse, delta, out0, out1, B, N, Lq, Lk, H,
+                               scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)pick_dim<float>(which, p, head_dim, s);
   if (dtype == 1) return (int)pick_dim<__nv_bfloat16>(which, p, head_dim, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Params as dstt_evo_launch's, for a bias2 gradient: db2 fp32 [B,H,Lq,Lk];
+// bf16 sums N in `splits` splits of cdiv(N, splits) rows each (none empty),
+// their partials in ws, fp32 [splits, B, H, Lq, Lk] (null for one split),
+// then combines them in split order; fp32 takes one split. Returns
+// cudaGetLastError() after the launches (0 on success).
+extern "C" int dstt_evo_dbias2(const void* q, const void* k, const void* v, const void* dout,
+                               const void* b1, const void* b2, const void* lse,
+                               const void* delta, void* db2, void* ws, int B, int N, int Lq,
+                               int Lk, int H, int head_dim, float scale, int dtype, int splits,
+                               void* stream) {
+  if (B <= 0 || N <= 0 || Lq <= 0 || Lk <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const Params p = make_params(q, k, v, dout, b1, b2, lse, delta, db2, nullptr, B, N, Lq, Lk, H,
+                               scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return splits == 1 ? (int)pick_dim<float>(kDb2, p, head_dim, s) : (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  float* w = static_cast<float*>(ws);
+  switch (head_dim) {
+    case 8: return (int)launch_db2_mma<8>(p, w, splits, s);
+    case 16: return (int)launch_db2_mma<16>(p, w, splits, s);
+    case 32: return (int)launch_db2_mma<32>(p, w, splits, s);
+    case 64: return (int)launch_db2_mma<64>(p, w, splits, s);
+    case 128: return (int)launch_db2_mma<128>(p, w, splits, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Resident bf16 dbias2 blocks on one SM of the current device at
+// `head_dim` (occupancy calculator), or minus a CUDA error code (-1 for a
+// head dim not compiled).
+extern "C" int dstt_evo_dbias2_blocks_per_sm(int head_dim) {
+  switch (head_dim) {
+    case 8: return db2_blocks_per_sm<8>();
+    case 16: return db2_blocks_per_sm<16>();
+    case 32: return db2_blocks_per_sm<32>();
+    case 64: return db2_blocks_per_sm<64>();
+    case 128: return db2_blocks_per_sm<128>();
+  }
+  return -1;
 }

@@ -6,9 +6,13 @@ Port of ``deepspeed_tpu/ops/pallas/evoformer.py``. Its five TPU kernels,
 ``_evo_dbias2_kernel`` and ``_evo_dbias1_kernel``, become the hand-written
 CUDA kernels of ``csrc/evoformer.cu`` (design notes there), launched by
 ``evo_fwd`` and ``evo_bwd`` and counted as ``evo_fwd``, ``evo_dq``,
-``evo_dkv``, ``evo_dbias2`` and ``evo_dbias1``. A bf16 forward launches
-``evo_fwd_kernel_mma`` (the tensor cores, tiled as ``evo_fwd_plan`` says);
-fp32, and every backward kernel, the CUDA-core kernels.
+``evo_dkv``, ``evo_dbias2`` and ``evo_dbias1``. In bf16 the forward, dK/dV
+and dbias2 run on the tensor cores (``evo_fwd_kernel_mma``,
+``evo_dkv_kernel_mma`` and ``evo_dbias2_kernel_mma``, tiled as
+``evo_fwd_plan`` and ``evo_bwd_plan`` say; dbias2 splits the N rows as
+``dbias2_splits`` says and sums the splits' partials in order with
+``evo_dbias2_combine_kernel``); dQ, dbias1 and every fp32 kernel on the
+CUDA cores.
 
 Function: ``softmax(q k^T / sqrt(D) + bias1 + bias2) v`` on q/k/v
 ``[B, N, L, H, D]``, with ``bias1 [B, N, Lk]`` a per-key bias of each row
@@ -30,8 +34,9 @@ failure to run a plain version instead.
 """
 
 import ctypes
+import functools
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -41,7 +46,8 @@ KERNEL = "evoformer"
 LAUNCH_NAMES = ("evo_fwd", "evo_dq", "evo_dkv", "evo_dbias2", "evo_dbias1")
 HEAD_DIMS = (8, 16, 32, 64, 128)
 KEY_TILE = 64              # keys of the forward kernel's tile
-MMA_ROWS = 64              # query rows of a block of the bf16 forward
+MMA_ROWS = 64              # query rows (keys for dK/dV) of a bf16 tensor-core tile
+DKV_GROUP = 2              # MSA rows a bf16 dK/dV block walks with a pair bias
 NEG_INF = -1e30            # the reference's NEG_INF: the running max's start
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # score elements one plain chunk may hold (1 GiB of fp32)
@@ -229,6 +235,12 @@ def _library() -> ctypes.CDLL:
         lib.dstt_evo_launch.restype = ctypes.c_int
         lib.dstt_evo_smem_bytes.argtypes = [i, i]
         lib.dstt_evo_smem_bytes.restype = ctypes.c_int
+        # q k v dO b1 b2 lse delta db2 ws, B N Lq Lk H D, scale, dtype,
+        # splits, stream
+        lib.dstt_evo_dbias2.argtypes = [p] * 10 + [i] * 6 + [f, i, i, p]
+        lib.dstt_evo_dbias2.restype = ctypes.c_int
+        lib.dstt_evo_dbias2_blocks_per_sm.argtypes = [i]
+        lib.dstt_evo_dbias2_blocks_per_sm.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -257,15 +269,105 @@ def evo_fwd_plan(head_dim: int, has_bias2: bool) -> dict:
             "rows": MMA_ROWS, "smem_bytes": group * tile + stages * stage}
 
 
+def evo_bwd_plan(head_dim: int, has_bias2: bool) -> dict:
+    """The bf16 backward's tensor-core tilings (``DkvMma`` and ``Db2Mma``
+    in csrc/evoformer.cu): ``dkv``, one block per 64-key tile of ``group``
+    MSA rows, a warp group of 4 warps x 16 keys each (with a pair bias
+    DKV_GROUP rows sharing each fp32 [64 queries][68] pair-bias tile, read
+    transposed; 1 at D = 128, whose accumulators fill the registers, and
+    without one), K and V resident, a ring of ``stages`` query tiles (G Q
+    and dO tiles, the pair tile, G rows of lse and delta); ``dbias2`` (None
+    without a pair bias), one block of 4 warps x 16 queries per 64 x 64
+    panel tile and split, a ring of ``stages`` MSA rows (Q, dO, K, V tiles,
+    bias1, lse, delta). Tiles are [64][max(D, 16) + 8] bf16; nothing here
+    depends on the lengths."""
+    d = head_dim
+    if d not in HEAD_DIMS:
+        raise ValueError(f"evoformer attention kernel: head dim {d} (one of "
+                         f"{HEAD_DIMS})")
+    tile = MMA_ROWS * (max(d, 16) + 8) * 2
+    group = DKV_GROUP if has_bias2 and d < 128 else 1
+    bias2 = MMA_ROWS * (KEY_TILE + 4) * 4 if has_bias2 else 0
+    stage = 2 * group * tile + bias2 + 2 * group * MMA_ROWS * 4
+    dkv = {"group": group, "threads": 128 * group, "stages": 2,
+           "keys": MMA_ROWS, "smem_bytes": 2 * group * tile + 2 * stage}
+    dbias2 = None
+    if has_bias2:
+        stages = 3 if d <= 32 else 2
+        dbias2 = {"threads": 128, "stages": stages, "rows": MMA_ROWS,
+                  "keys": KEY_TILE,
+                  "smem_bytes": stages * (4 * tile + 3 * MMA_ROWS * 4)}
+    return {"dkv": dkv, "dbias2": dbias2}
+
+
+MAX_DB2_SPLITS = 16        # the dbias2 workspace holds at most 16 panels' partials
+DB2_SPLIT_SLACK = 0.05     # fewer splits win within 5% of the best modelled time
+
+
+@functools.lru_cache(maxsize=None)
+def dbias2_splits(batch: int, heads: int, n: int, l_q: int, l_k: int,
+                  sm_count: int, blocks_per_sm: int) -> Tuple[int, int]:
+    """(splits, rows_per_split): split s of the bf16 dbias2 sums the MSA
+    rows [s * rows_per_split, min(n, (s + 1) * rows_per_split)), none
+    empty. Every block of a split walks rows_per_split rows in turn, and
+    the ``batch * heads * splits`` panels of 64 x 64 tiles run in waves of
+    ``blocks_per_sm * sm_count`` resident blocks, so a call takes about
+    (waves x rows_per_split) row steps. Splits are taken only as far as
+    they shorten that: the fewest (up to MAX_DB2_SPLITS) within
+    DB2_SPLIT_SLACK of the best, so a grid that already fills its waves
+    keeps one. Depends on the shapes and the card alone, never on
+    values."""
+    blocks = batch * heads * -(-l_q // MMA_ROWS) * -(-l_k // KEY_TILE)
+    wave = sm_count * blocks_per_sm
+    plans = []
+    for want in range(1, min(n, MAX_DB2_SPLITS) + 1):
+        per = -(-n // want)
+        splits = -(-n // per)
+        plans.append((-(-blocks * splits // wave) * per, splits, per))
+    best = min(cost for cost, _, _ in plans)
+    return next((splits, per) for cost, splits, per in plans
+                if cost <= best * (1 + DB2_SPLIT_SLACK))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def dbias2_blocks_per_sm(device: torch.device, head_dim: int) -> int:
+    """bf16 dbias2 blocks at ``head_dim`` that fit on one SM of ``device``
+    at once, by the CUDA occupancy calculator."""
+    with torch.cuda.device(device):
+        n = _library().dstt_evo_dbias2_blocks_per_sm(head_dim)
+    if n <= 0:
+        raise RuntimeError(f"evoformer dbias2 kernel: no resident block at "
+                           f"head dim {head_dim} (code {n})")
+    return n
+
+
+def dbias2_split_for(device, b, h, n, l_q, l_k, head_dim, dtype
+                     ) -> Tuple[int, int]:
+    """(splits, rows_per_split) the wrapper launches dbias2 with on
+    ``device``: bf16 as ``dbias2_splits`` says for that card; fp32 one."""
+    if dtype != torch.bfloat16:
+        return 1, n
+    return dbias2_splits(b, h, n, l_q, l_k, _sm_count(device),
+                         dbias2_blocks_per_sm(device, head_dim))
+
+
 def dynamic_smem_bytes(head_dim: int) -> dict:
     """Dynamic shared memory (bytes) of each kernel at ``head_dim``, as the
     built library reports it: the CUDA-core kernels by launch name (the
-    forward's is fp32's), the bf16 forward with and without a pair bias."""
+    forward's, dK/dV's and dbias2's are fp32's), the bf16 forward and dK/dV
+    with and without a pair bias, the bf16 dbias2."""
     lib = _library()
     out = {name: lib.dstt_evo_smem_bytes(i, head_dim)
            for i, name in enumerate(LAUNCH_NAMES)}
-    out["evo_fwd_mma_pair"] = lib.dstt_evo_smem_bytes(5, head_dim)
-    out["evo_fwd_mma"] = lib.dstt_evo_smem_bytes(6, head_dim)
+    for i, name in enumerate(("evo_fwd_mma_pair", "evo_fwd_mma",
+                              "evo_dkv_mma_pair", "evo_dkv_mma",
+                              "evo_dbias2_mma"), start=5):
+        out[name] = lib.dstt_evo_smem_bytes(i, head_dim)
     return out
 
 
@@ -320,6 +422,40 @@ def _launch(name, ints, q, k, v, b1, b2, do=None, lse=None, delta=None,
     build.count_launch(name)
 
 
+# the dbias2 splits' fp32 workspace of each (device, stream), grown on
+# demand: launches on one stream run in order, so one buffer serves them
+_workspaces = {}
+
+
+def _workspace(device: torch.device, stream: int, numel: int) -> torch.Tensor:
+    ws = _workspaces.get((device, stream))
+    if ws is None or ws.numel() < numel:
+        ws = torch.empty(numel, dtype=torch.float32, device=device)
+        _workspaces[(device, stream)] = ws
+    return ws
+
+
+def _launch_dbias2(ints, q, k, v, b1, b2, do, lse, delta, db2, splits=None):
+    """The dbias2 kernel into ``db2``, over ``splits`` splits of the N rows
+    (bf16 only; default: as ``dbias2_split_for`` says)."""
+    b, n, l_q, l_k, h, d = ints
+    if splits is None:
+        splits = dbias2_split_for(q.device, b, h, n, l_q, l_k, d, q.dtype)[0]
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        ws = (_workspace(q.device, stream, splits * b * h * l_q * l_k)
+              if splits > 1 else None)
+        err = lib.dstt_evo_dbias2(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(b1), _ptr(b2),
+            _ptr(lse), _ptr(delta), _ptr(db2), _ptr(ws), *ints,
+            1.0 / math.sqrt(d), _DTYPES[q.dtype], splits, stream)
+    if err != 0:
+        raise RuntimeError(f"evo_dbias2 kernel launch failed ({splits} "
+                           f"splits): CUDA error {err}")
+    build.count_launch("evo_dbias2")
+
+
 def _evo_fwd_cuda(q, k, v, b1, b2):
     ints = _cuda_check(q, k, v, b1, b2)
     b, n, l_q, _, h, _ = ints
@@ -346,7 +482,7 @@ def _evo_bwd_cuda(q, k, v, b1, b2, out, lse, do, need_db1, need_db2):
     db1 = db2 = None
     if b2 is not None and need_db2:
         db2 = torch.empty(b, h, l_q, l_k, dtype=torch.float32, device=q.device)
-        _launch("evo_dbias2", *args, out0=db2)
+        _launch_dbias2(*args, db2)
     if b1 is not None and need_db1:
         db1 = torch.empty(b, n, l_k, dtype=torch.float32, device=q.device)
         _launch("evo_dbias1", *args, out0=db1)

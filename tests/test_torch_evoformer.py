@@ -450,6 +450,94 @@ def test_fwd_plan_fits_and_shares_the_pair_panel(d):
         te.evo_fwd_plan(24, True)
 
 
+@pytest.mark.parametrize("pair", [True, False])
+@pytest.mark.parametrize("d", te.HEAD_DIMS)
+def test_bwd_plan_fits_and_shares_the_pair_panel(d, pair):
+    """The bf16 backward's tilings at every head dim, with and without a
+    pair bias: dK/dV and dbias2 within the card's 227 KB of shared memory;
+    with a pair bias dK/dV walks DKV_GROUP MSA rows a block (one warp group
+    of 4 warps x 16 keys each) that share each [64, 68] fp32 pair-bias tile
+    (1 at D = 128, whose accumulators fill the registers), so the panel is
+    read from L2 at most half as often as by one row a block; without one
+    G = 1 and no dbias2. The smem sums are the plan's own arithmetic, the
+    kernels' DkvMma and Db2Mma; the card test holds them against the
+    library's report."""
+    plan = te.evo_bwd_plan(d, pair)
+    dkv, db2 = plan["dkv"], plan["dbias2"]
+    tile = 64 * (max(d, 16) + 8) * 2
+    group = (te.DKV_GROUP if d < 128 else 1) if pair else 1
+    assert dkv["group"] == group and dkv["threads"] == 128 * group <= 1024
+    assert dkv["keys"] == 64 and dkv["stages"] == 2
+    pair_tile = 64 * 68 * 4 if pair else 0
+    assert dkv["smem_bytes"] == 2 * group * tile + 2 * (
+        2 * group * tile + pair_tile + 2 * group * 64 * 4)
+    assert 0 < dkv["smem_bytes"] <= SMEM_LIMIT
+    if pair:
+        assert te.DKV_GROUP >= 2
+        assert db2["threads"] == 128 and db2["rows"] == db2["keys"] == 64
+        assert db2["stages"] == (3 if d <= 32 else 2)
+        assert db2["smem_bytes"] == db2["stages"] * (4 * tile + 3 * 64 * 4)
+        assert 0 < db2["smem_bytes"] <= SMEM_LIMIT
+        if d <= 32:                      # two dbias2 blocks an SM or more
+            assert 2 * db2["smem_bytes"] <= 228 * 1024
+    else:
+        assert db2 is None
+    for name, (b, n, l, h, dd, has_pair) in PATH_SHAPES.items():
+        if dd == d and has_pair == pair and pair:
+            g = te.evo_bwd_plan(d, True)["dkv"]["group"]
+            # the pair panel's L2 reads: once per group of rows and key tile
+            panel_reads = b * h * -(-n // g) * l * l * 4
+            assert panel_reads <= b * n * h * l * l * 4 // 2, name
+    with pytest.raises(ValueError, match="head dim"):
+        te.evo_bwd_plan(24, pair)
+
+
+# (B, H, N, Lq, Lk): OpenFold's E1, E3 and E4, the card-side split case,
+# a grid of many waves, one MSA row
+SPLIT_SHAPES = [(1, 8, 512, 384, 384), (1, 4, 384, 384, 384),
+                (1, 8, 5120, 384, 384), (2, 2, 37, 130, 130),
+                (4, 64, 64, 1024, 1024), (1, 1, 1, 64, 64), (2, 8, 150, 40, 72)]
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2, 3])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_dbias2_splits_cover_the_rows_once(shape, blocks_per_sm):
+    """``dbias2_splits`` cuts rows 0..N-1 into consecutive non-empty splits,
+    in order, with no gap or overlap, at most MAX_DB2_SPLITS of them; a grid
+    that fills whole waves of resident blocks keeps one split; the answer is
+    a pure function of the shapes and the card (the same on a fresh cache),
+    and no split count beats it by more than the slack under its own
+    model."""
+    b, h, n, lq, lk = shape
+    sms = 132
+    splits, per = te.dbias2_splits(b, h, n, lq, lk, sms, blocks_per_sm)
+    assert 1 <= splits <= min(n, te.MAX_DB2_SPLITS)
+    rows = [list(range(s * per, min(n, (s + 1) * per))) for s in range(splits)]
+    assert all(rows) and sum(rows, []) == list(range(n))
+    te.dbias2_splits.cache_clear()
+    assert te.dbias2_splits(b, h, n, lq, lk, sms, blocks_per_sm) == (splits, per)
+    blocks = b * h * -(-lq // 64) * -(-lk // 64)
+    wave = sms * blocks_per_sm
+
+    def cost(s):
+        p = -(-n // s)
+        return -(-blocks * -(-n // p) // wave) * p
+    assert cost(splits) <= (1 + te.DB2_SPLIT_SLACK) * min(
+        cost(s) for s in range(1, min(n, te.MAX_DB2_SPLITS) + 1))
+    if blocks % wave == 0 or n == 1:
+        assert (splits, per) == (1, n)
+
+
+def test_dbias2_splits_fill_the_card():
+    """OpenFold's E1 (288 panel tiles on 132 SMs of 2 resident blocks, a
+    second wave of 24) takes several splits, the smaller grid of the card
+    case at least three; a grid of exactly one wave keeps one."""
+    assert te.dbias2_splits(1, 8, 512, 384, 384, 132, 2)[0] >= 4
+    assert te.dbias2_splits(2, 2, 37, 130, 130, 132, 2)[0] >= 3
+    assert te.dbias2_splits(1, 33, 40, 128, 128, 132, 1) == (1, 40)
+    assert te.dbias2_splits(1, 66, 40, 128, 128, 132, 2) == (1, 40)
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card():
     """The five CUDA kernels against their plain versions on the card, in
@@ -460,10 +548,13 @@ def test_kernels_match_plain_on_card():
     4 bf16 ulps of the row's largest |plain| value (fp32 1e-4 of it), lse
     within 1e-4, db1/db2 within a share of each panel's largest |plain|
     value), each with the mutants that apply, which must land outside; the
-    forward's entry by profiler name (bf16 ``evo_fwd_kernel_mma``, fp32
-    ``evo_fwd_kernel``) and a bf16 second forward bit for bit. The bf16
-    forward's shared memory is ``evo_fwd_plan``'s. Then a head dim outside
-    the instances raises, as does a non-contiguous operand."""
+    forward's and the backward's entries by exact profiler name (bf16
+    ``evo_fwd_kernel_mma``, ``evo_dkv_kernel_mma``,
+    ``evo_dbias2_kernel_mma`` and its combine where dbias2 splits N; fp32
+    the CUDA-core kernels) and a bf16 second forward and backward bit for
+    bit. The bf16 forward's shared memory is ``evo_fwd_plan``'s, dK/dV's
+    and dbias2's ``evo_bwd_plan``'s. Then a head dim outside the instances
+    raises, as does a non-contiguous operand."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels; no CPU mode)")
     import chip_smoke
@@ -475,6 +566,10 @@ def test_kernels_match_plain_on_card():
         smem = te.dynamic_smem_bytes(d)
         assert smem["evo_fwd_mma_pair"] == te.evo_fwd_plan(d, True)["smem_bytes"]
         assert smem["evo_fwd_mma"] == te.evo_fwd_plan(d, False)["smem_bytes"]
+        pair, plain = te.evo_bwd_plan(d, True), te.evo_bwd_plan(d, False)
+        assert smem["evo_dkv_mma_pair"] == pair["dkv"]["smem_bytes"]
+        assert smem["evo_dkv_mma"] == plain["dkv"]["smem_bytes"]
+        assert smem["evo_dbias2_mma"] == pair["dbias2"]["smem_bytes"]
     x = torch.randn(1, 2, 16, 2, 24, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         evo_fwd(x, x, x)
