@@ -1,6 +1,6 @@
-"""Kernel A/B on one card: the evoformer forward, dK/dV and dbias2 and
-the block-sparse forward of two trees of this repo, in the order A, B, B,
-A.
+"""Kernel A/B on one card: the evoformer forward and backward kernels, the
+block-sparse forward and the fp8 dequantize of two trees of this repo, in
+the order A, B, B, A.
 
 Each run is a fresh process in the tree's own directory that builds that
 tree's kernels and times, by the profiler's device time (the tree's
@@ -10,10 +10,15 @@ tree's kernels and times, by the profiler's device time (the tree's
   (``[1, 5120, 384, 8, 8]``, mask and pair bias), bf16, OpenFold's widths
   (every kernel whose name holds ``evo_fwd_kernel``);
 - the backward at E1 and E4 (the pair bias's gradient, not the mask's),
-  each entry by its exact name; ``evo_dkv`` sums the entries whose names
-  hold it, ``evo_dbias2`` its kernel and combine;
+  each entry by its exact name; ``evo_dq`` and ``evo_dkv`` sum the entries
+  whose names hold them, ``evo_dbias2`` its kernel and combine;
 - ``sparse_attention`` at S1 (BigBird-base, block 64) and S2 (Fixed, block
-  16, causal), B=4, S=4096, 12 heads, D=64, bf16.
+  16, causal), B=4, S=4096, 12 heads, D=64, bf16;
+- ``dequantize_fp8`` (e4m3) at ``chip_smoke.QUANT_TIMING_SHAPES``: A1's
+  ``w_gate`` [917504, 64] to bf16 and the qgZ lm_head [4096, 128256] to
+  fp32, and one whole-store ``dequantize_model_params`` of A1's store
+  (Llama-3-8B, 32 layers, fp8 in groups of 64, seeded weights) to bf16:
+  the kernel's device time summed over the call's 226 launches.
 
 It also lists the kernel entries each call launched, by exact name. Order
 A, B, B, A cancels a steady drift of the card. Two builds of one change
@@ -90,6 +95,31 @@ for name, (_, b, s, h, d, _) in cs.SPARSE_PATHS.items():
                                                     name == "S2"),
                       "sparse_attention_kernel")
     del q, k, v
+torch.cuda.empty_cache()
+from deepspeed_tpu_torch.ops.fp_quant import dequantize_fp8, quantize_fp8
+for where, (n, d) in cs.QUANT_TIMING_SHAPES.items():
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    qc, sc = quantize_fp8(x)
+    dt = torch.bfloat16 if where.startswith("A1") else torch.float32
+    deq = lambda: dequantize_fp8(qc, sc, dt)
+    out["dequantize_fp8_" + where] = {
+        "device_ms": cs._kernel_device_ms(deq, ["dequantize_fp8"],
+                                          iters=20)["dequantize_fp8"],
+        "wrapper_ms": cs.time_ms(deq, iters=20), "entries": entries(deq)}
+    del x, qc, sc
+from deepspeed_tpu_torch.inference.zero_inference import (
+    dequantize_model_params, quantize_model_params)
+from deepspeed_tpu_torch.models.convert import init_llama_params
+from deepspeed_tpu_torch.models.llama import LLAMA3_8B
+params = init_llama_params(LLAMA3_8B, seed=cs.SEED, device="cuda")
+store = quantize_model_params(params, q_bits=8, group_size=64, fmt="fp")
+del params
+torch.cuda.empty_cache()
+deq = lambda: dequantize_model_params(store, torch.bfloat16)
+out["dequantize_fp8_A1_store"] = {
+    "device_ms": cs._kernel_device_ms(deq, ["dequantize_fp8"],
+                                      iters=3)["dequantize_fp8"],
+    "wrapper_ms": cs.time_ms(deq, iters=3, warmup=1)}
 print(json.dumps({"kernel_ab": out, "nvidia_smi": smi}), flush=True)
 """
 

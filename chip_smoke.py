@@ -4,8 +4,9 @@
 Run from the repository root: ``python3 chip_smoke.py``. It builds the CUDA
 kernels from ``deepspeed_tpu_torch/csrc`` with nvcc (and checks that the bf16
 flash forward, dQ and dK/dV entries hold tensor-core products and TMA loads
-in their SASS, and the bf16 evoformer forward and block-sparse entries
-``mma.sync`` products and ``cp.async`` loads), holds each kernel against its
+in their SASS, the bf16 evoformer forward, dQ, dK/dV and dbias2 and the
+block-sparse entries ``mma.sync`` products and ``cp.async`` loads, and the
+fp8 dequantize entries 128-bit loads and stores), holds each kernel against its
 plain PyTorch version on the card (the flash backward, the paged kernel and
 the bf16 evoformer forward and block-sparse kernel also against a second
 call, bit for bit) and times both, then drives the port's paths:
@@ -23,7 +24,8 @@ call, bit for bit) and times both, then drives the port's paths:
 - ZeRO-Inference: Llama-3-8B at full depth with fp8 e4m3 weights (A1),
   resident and streamed from pinned host memory, and the int8 store at 4
   layers (A2): exact quantize/dequantize launch counts, every weight within
-  its group's error bound, resident vs streamed logits, generation;
+  its group's error bound, resident vs streamed logits, generation, and
+  A1's whole-store dequantization timed;
 - training: ``deepspeed_tpu_torch.initialize`` -> ``train_batch`` on
   Llama-3-8B at full width cut to 4 layers (bf16, seq 2048, micro-batch 1,
   gas 2, AdamW, remat, the flash backend), with the flash backend held
@@ -34,10 +36,10 @@ call, bit for bit) and times both, then drives the port's paths:
   and with the plain attention backend, and the same lr with qgZ
   (``zero_quantized_gradients``): exact int8 launches per step, a loss that
   falls every step, the step-1 gradient norm beside the probe's;
-- evoformer attention: the five kernels against their plain versions in 13
+- evoformer attention: the five kernels against their plain versions in 15
   cases (fp32 and bf16, head dims 8 to 128, every bias combination, Lq !=
   Lk, groups of MSA rows with N not a multiple of the group) with mutants,
-  the forward's entry by profiler name per dtype, then
+  every entry by profiler name per dtype, then
   ``DS4Sci_EvoformerAttention`` forward and backward at OpenFold's widths
   (E1 MSA row attention with pair bias, E2 MSA column, E3 triangle, E4
   extra-MSA row) with exact launch counts, held against the chunked plain
@@ -170,20 +172,23 @@ def _demangle(names):
         return names
 
 
-# the tensor-core entries of each library, the SASS instructions each must
+# the redesigned entries of each library, the SASS instructions each must
 # hold and how many instances there are: HGMMA (wgmma) and UTMALDG (a TMA
 # tile load) in the flash library; HMMA (mma.sync) and LDGSTS (cp.async)
-# in the evoformer forward and dK/dV (5 head dims, with and without a pair
-# bias each), its dbias2 (5 head dims) and the block-sparse kernel (3 head
-# dims x 4 blocks)
+# in the evoformer forward, dQ and dK/dV (5 head dims, with and without a
+# pair bias each), its dbias2 (5 head dims) and the block-sparse kernel (3
+# head dims x 4 blocks); 128-bit global loads and stores in the fp8
+# dequantize (2 formats x 3 output dtypes)
 FLASH_HEAD_DIMS = (64, 128)
 SASS_CHECKS = {
     "flash_attention": (("flash_fwd_kernel_wgmma", "flash_dq_kernel_wgmma",
                          "flash_dkv_kernel_wgmma"), ("HGMMA", "UTMALDG"),
                         3 * len(FLASH_HEAD_DIMS)),
-    "evoformer": (("evo_fwd_kernel_mma", "evo_dkv_kernel_mma",
-                   "evo_dbias2_kernel_mma"), ("HMMA", "LDGSTS"), 25),
+    "evoformer": (("evo_fwd_kernel_mma", "evo_dq_kernel_mma",
+                   "evo_dkv_kernel_mma", "evo_dbias2_kernel_mma"),
+                  ("HMMA", "LDGSTS"), 35),
     "sparse_attention": (("sparse_attention_kernel_mma",), ("HMMA", "LDGSTS"), 12),
+    "quant": (("dequantize_fp8",), ("LDG.E.128", "STG.E.128"), 6),
 }
 
 
@@ -251,6 +256,7 @@ def phase_build(kernels):
           "evo_dynamic_smem_bytes": {
               f"d{d}": evoformer.dynamic_smem_bytes(d)
               for d in evoformer.HEAD_DIMS},
+          "quant_sass": sass["quant"],
           "sparse_dynamic_smem_bytes": {
               f"d{d}_block{blk}": sparse.dynamic_smem_bytes(d, blk)
               for d in sparse.HEAD_DIMS for blk in sparse.BLOCKS}})
@@ -277,14 +283,16 @@ def phase_build(kernels):
               f"entries, found {list(sass[lib])}")
         for entry, n in sass[lib].items():
             check(all(n[op] > 0 for op in ops),
-                  f"{entry}: {n} (no tensor-core product or no async load)")
+                  f"{entry}: {n} (an instruction of {ops} missing)")
     for d in evoformer.HEAD_DIMS:
         lib_smem = evoformer.dynamic_smem_bytes(d)
         for pair, key in ((True, "evo_fwd_mma_pair"), (False, "evo_fwd_mma")):
             want = evoformer.evo_fwd_plan(d, pair)["smem_bytes"]
             check(lib_smem[key] == want, f"evo_fwd_plan({d}, {pair}) says "
                   f"{want} bytes of shared memory, the kernel {lib_smem[key]}")
-        for pair, kernel, key in ((True, "dkv", "evo_dkv_mma_pair"),
+        for pair, kernel, key in ((True, "dq", "evo_dq_mma_pair"),
+                                  (False, "dq", "evo_dq_mma"),
+                                  (True, "dkv", "evo_dkv_mma_pair"),
                                   (False, "dkv", "evo_dkv_mma"),
                                   (True, "dbias2", "evo_dbias2_mma")):
             want = evoformer.evo_bwd_plan(d, pair)[kernel]["smem_bytes"]
@@ -1251,14 +1259,18 @@ def run_quant_cases(seed=SEED, device="cuda"):
     """Every quant_cases case on the card: the quantize kernel of its
     format against the plain version (codes and scales bit for bit), the
     dequantize kernel against the plain version on the plain codes (bit for
-    bit, to the case's dtype), each quantize fault of a special row the
-    case holds changing a code or a scale, and a dequantize reading the
-    next row's scale changing an output. Returns the rows; raises
+    bit, to the case's dtype, and again on a view one row in, whose codes
+    start d bytes past the tensor's: at d = 130 off every 16-byte
+    boundary, at d = 1000 on the fp8 kernel's chunks after a scalar head),
+    each quantize fault of a special row the case holds changing a code or
+    a scale, a dequantize reading the next row's scale changing an output
+    and, where d % 16 != 0, one dropping each row's last d % 16 values
+    (the fp8 kernel's scalar tail) changing one. Returns the rows; raises
     PhaseError on any failure. The ``gpu`` test runs this too; on
     ``device="cpu"`` the wrappers run the plain versions, which checks the
     cases and their mutants without the card."""
     from deepspeed_tpu_torch.ops.fp_quant import dequantize_fp8, quantize_fp8
-    from deepspeed_tpu_torch.ops.quant import (dequantize_int8,
+    from deepspeed_tpu_torch.ops.quant import (DEQ_CHUNK, dequantize_int8,
                                                dequantize_plain, quantize_int8)
     rows = []
     for name, xnp, fmt, dname, special in quant_cases(seed):
@@ -1290,6 +1302,15 @@ def run_quant_cases(seed=SEED, device="cuda"):
         if special:
             shifted = dequantize_plain(q_p, s_p.roll(1, 0), dtype)
             row["mutants"]["dequant_row_shift"] = _differs(shifted, d_p)
+        d = x.shape[-1]
+        if d % DEQ_CHUNK:
+            dropped = d_p.clone()
+            dropped[:, d - d % DEQ_CHUNK:] = 0
+            row["mutants"]["dequant_tail_dropped"] = _differs(dropped, d_p)
+        if x.shape[0] >= 2:
+            q_v, s_v = q_p[1:], s_p[1:]          # codes d bytes in
+            row["view_dequant_differ"] = _differs(
+                dequant(q_v, s_v, dtype), dequantize_plain(q_v, s_v, dtype))
         emit(row)
         check(row["codes_differ"] == row["scales_differ"] == 0,
               f"quantize {fmt} {dname} {name}: {row['codes_differ']} codes, "
@@ -1297,6 +1318,9 @@ def run_quant_cases(seed=SEED, device="cuda"):
         check(row["dequant_differ"] == 0,
               f"dequantize {fmt} {dname} {name}: {row['dequant_differ']} "
               "outputs differ from the plain version")
+        view_differ = row.get("view_dequant_differ", 0)
+        check(view_differ == 0, f"dequantize {fmt} {dname} {name} one row "
+              f"in: {view_differ} outputs differ from the plain version")
         for fault, n in row["mutants"].items():
             check(n > 0, f"{fmt} {dname} {name}: mutant {fault} gives the "
                   "plain version's bits, so the case cannot catch that fault")
@@ -1559,8 +1583,44 @@ def _evo_db2_split_dropped(args, b1, b2, res, want):
     return want[:6] + [db2]
 
 
-def _evo_mutants(b, h, lq, lk, with_b1, with_b2):
-    """{name: (mutant, outputs it must miss)} that apply to a case."""
+def _evo_dq_row_stats_of_group_neighbour(args, b1, b2, res, want):
+    """dQ of each MSA row past the first of a bf16 dQ block's group
+    (``evo_bwd_plan``'s ``dq`` group) takes the first row's lse and
+    delta."""
+    from deepspeed_tpu_torch.ops.evoformer import (_bwd_delta, evo_bwd_plain,
+                                                   evo_bwd_plan)
+    q, k, v, do = args
+    out, lse = res
+    n = q.shape[1]
+    group = evo_bwd_plan(q.shape[-1], b2 is not None)["dq"]["group"]
+    rows = torch.arange(n, device=q.device)
+    first = rows - rows % group
+    lse_m, delta_m = lse[:, first], _bwd_delta(out, do)[:, first]
+    dq = evo_bwd_plain(q, k, v, b1, b2, out, lse_m, do, need_db1=False,
+                       need_db2=False, delta=delta_m)[0]
+    return want[:2] + [dq] + want[3:]
+
+
+def _evo_dq_dead_keys_live(args, b1, b2, res, want):
+    """dQ scores the keys past Lk in the last 64-key tile from their
+    zero-filled K and V rows (and zero biases) and does not mask them."""
+    from deepspeed_tpu_torch.ops.evoformer import KEY_TILE, evo_bwd_plain
+    q, k, v, do = args
+    pad = -k.shape[2] % KEY_TILE
+    grow = lambda x, dim: torch.cat(   # noqa: E731
+        [x, x.new_zeros(*x.shape[:dim], pad, *x.shape[dim + 1:])], dim)
+    dq = evo_bwd_plain(q, grow(k, 2), grow(v, 2),
+                       None if b1 is None else grow(b1, 2),
+                       None if b2 is None else grow(b2, 3), *res, do,
+                       need_db1=False, need_db2=False)[0]
+    return want[:2] + [dq] + want[3:]
+
+
+def _evo_mutants(shape):
+    """{name: (mutant, outputs it must miss)} that apply to a case of
+    EVO_CASES' shape."""
+    from deepspeed_tpu_torch.ops.evoformer import KEY_TILE, evo_bwd_plan
+    b, n, lq, lk, h, d, dtype, with_b1, with_b2 = shape
     mutants = {"last_key_tile_dropped": (_evo_last_key_tile_dropped,
                                          ("out", "dk", "dv")),
                "last_query_tile_dropped": (
@@ -1581,6 +1641,14 @@ def _evo_mutants(b, h, lq, lk, with_b1, with_b2):
             tuple(n for n, on in (("db1", with_b1), ("db2", with_b2)) if on))
     if with_b2 and b >= 2:
         mutants["db2_wrong_batch"] = (_evo_db2_wrong_batch, ("db2",))
+    # the bf16 dQ's groups of MSA rows; its dead keys where the last key
+    # tile has some and a fully masked row (lse near -1e9) overflows them
+    if dtype == torch.bfloat16 and n >= 2 and \
+            evo_bwd_plan(d, with_b2)["dq"]["group"] >= 2:
+        mutants["dq_row_stats_of_group_neighbour"] = (
+            _evo_dq_row_stats_of_group_neighbour, ("dq",))
+    if with_b1 and lk % KEY_TILE:
+        mutants["dq_dead_keys_live"] = (_evo_dq_dead_keys_live, ("dq",))
     return mutants
 
 
@@ -1598,9 +1666,9 @@ def _entries(fn, stem):
 
 # the forward's entry by dtype: bf16 on the tensor cores, fp32 on CUDA cores
 EVO_FWD_ENTRY = {torch.bfloat16: "evo_fwd_kernel_mma", torch.float32: "evo_fwd_kernel"}
-# the backward's entries by dtype (dQ and dbias1 on the CUDA cores in both)
+# the backward's entries by dtype (dbias1 on the CUDA cores in both)
 EVO_BWD_ENTRY = {
-    torch.bfloat16: {"evo_dq": "evo_dq_kernel", "evo_dkv": "evo_dkv_kernel_mma",
+    torch.bfloat16: {"evo_dq": "evo_dq_kernel_mma", "evo_dkv": "evo_dkv_kernel_mma",
                      "evo_dbias2": "evo_dbias2_kernel_mma",
                      "evo_dbias1": "evo_dbias1_kernel"},
     torch.float32: {"evo_dq": "evo_dq_kernel", "evo_dkv": "evo_dkv_kernel",
@@ -1630,8 +1698,8 @@ def run_evo_cases(gen):
     tolerance and finite, each kernel launched exactly once, and each
     mutant that applies outside the tolerance on the outputs it names; the
     forward's and the backward's entries by exact profiler name (bf16
-    ``evo_fwd_kernel_mma``, ``evo_dkv_kernel_mma`` and
-    ``evo_dbias2_kernel_mma`` plus its combine where the case takes more
+    ``evo_fwd_kernel_mma``, ``evo_dq_kernel_mma``, ``evo_dkv_kernel_mma``
+    and ``evo_dbias2_kernel_mma`` plus its combine where the case takes more
     than one split; fp32 the CUDA-core kernels alone) and, in bf16, a second
     forward that repeats out and lse and a second backward that repeats
     every gradient bit for bit. Returns the rows; raises PhaseError on any
@@ -1693,7 +1761,7 @@ def run_evo_cases(gen):
                "bwd_entries": bwd_entries, "dbias2_splits": splits,
                "fwd_repeats_bit_for_bit": repeat,
                "bwd_repeats_bit_for_bit": bwd_repeat, "mutants": {}}
-        mutants = _evo_mutants(b, h, lq, lk, with_b1, with_b2)
+        mutants = _evo_mutants(shape)
         for m_name, (mutant, _) in mutants.items():
             m_want = mutant(args, b1, b2, res, want)
             row["mutants"][m_name] = {
@@ -1928,14 +1996,18 @@ def _entry_ms(fn, iters):
 DB2_SPLIT_SWEEP = (1, 2, 4, 8, 16)
 
 
-def _evo_l2_reads(n, l, h, d, group, pair):
-    """L2 read bytes of the bf16 dK/dV and dbias2 tilings at B = 1, Lq =
-    Lk = l, beside those of the CUDA-core kernels they replace (dK/dV: 32
-    keys a block and one MSA row; dbias2: 32 query rows x 64 keys)."""
+def _evo_l2_reads(n, l, h, d, group, pair, dq_group):
+    """L2 read bytes of the bf16 dQ, dK/dV and dbias2 tilings at B = 1, Lq
+    = Lk = l, beside those of the CUDA-core kernels they replace (dQ: 32
+    query rows a block and one MSA row; dK/dV: 32 keys a block and one MSA
+    row; dbias2: 32 query rows x 64 keys)."""
     row = n * l * h * d * 2                        # one of q, k, v, dO
     t64, t32 = -(-l // 64), -(-l // 32)
     panel = h * l * l * 4 if pair else 0
     return {
+        "evo_dq": {"kv": 2 * t64 * row, "kv_before": 2 * t32 * row,
+                   "pair_panel": -(-n // dq_group) * panel,
+                   "pair_panel_before": n * panel},
         "evo_dkv": {"qdo": 2 * t64 * row, "qdo_before": 2 * t32 * row,
                     "pair_panel": -(-n // group) * panel,
                     "pair_panel_before": n * panel},
@@ -2013,13 +2085,14 @@ def phase_evo_timing(dev, smi_line):
                     "share_of_bound": _bound(flops_of[kn] * mm,
                                              nbytes[kn])[0] / per_kernel[kn]}
                for kn in kernels},
-            "dkv_plan": bplan["dkv"], "dbias2_plan": bplan["dbias2"],
+            "dq_plan": bplan["dq"], "dkv_plan": bplan["dkv"],
+            "dbias2_plan": bplan["dbias2"],
             "dbias2_splits": {"plan": splits, "rows_per_split": per,
                               "blocks_per_sm": te.dbias2_blocks_per_sm(
                                   q5.device, d),
                               "forced_ms": sweep},
             "l2_read_bytes": _evo_l2_reads(n, l, h, d, bplan["dkv"]["group"],
-                                           pair)}
+                                           pair, bplan["dq"]["group"])}
         if name == "E1":
             plain_fwd = time_ms(lambda: te.evo_fwd_plain(q5, k5, v5, b1, b2),
                                 iters=2, warmup=1)
@@ -3083,13 +3156,14 @@ def _logits_agree(resident, streamed):
 
 
 def run_zero_inference(cfg, fmt, q_bits, n_prompts, new_tokens, stream_new,
-                       seed=SEED):
+                       seed=SEED, keep_store=False):
     """ZeRO-Inference on seeded ``cfg`` weights, resident and host-streamed,
     through ``ZeROInferenceEngine`` (bf16): quantize, check every weight
     against its group's bound, forward one ZI_PROMPT_LEN-token prompt in
     both modes, generate ``n_prompts`` x ``new_tokens`` resident and one x
     ``stream_new`` streamed. Returns the numbers and each step's launches
-    (the caller resets the counts before)."""
+    (the caller resets the counts before), and with ``keep_store`` the
+    resident store under ``"store"``."""
     from deepspeed_tpu_torch.inference.zero_inference import (
         ZeROInferenceEngine, _items, quantized_nbytes)
     from deepspeed_tpu_torch.models.convert import init_llama_params
@@ -3148,6 +3222,8 @@ def run_zero_inference(cfg, fmt, q_bits, n_prompts, new_tokens, stream_new,
         [a == b for a, b in zip(outs[0], out_s)]))
     st["tokens"] = {"resident": [len(o) for o in outs], "streamed": len(out_s)}
     st["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    if keep_store:
+        st["store"] = resident.qstore
     del resident, streamed
     gc.collect()
     torch.cuda.empty_cache()
@@ -3192,10 +3268,30 @@ def _zi_checks(st, cfg, quant_name, deq_name, quant_launches, label):
           f"{label}: generated {st['tokens']} tokens")
 
 
+def _store_dequant_timing(store, deq_name):
+    """One whole-store ``dequantize_model_params`` to bf16 (each quantized
+    leaf through its dequantize kernel): the kernels' device time summed
+    over the call, the call by CUDA events, against the bytes bound of the
+    codes and scales read and the outputs written once."""
+    from deepspeed_tpu_torch.inference.zero_inference import (
+        dequantize_model_params)
+    leaves = _quantized_leaves(store)
+    codes = sum(node.codes.numel() for _, node in leaves)
+    nbytes = sum(node.codes.numel() * (node.codes.element_size() + 2)
+                 + node.scale.numel() * 4 for _, node in leaves)
+    call = lambda: dequantize_model_params(store, torch.bfloat16)  # noqa: E731
+    return {"ms": _kernel_device_ms(call, [deq_name], iters=3)[deq_name],
+            "call_ms": time_ms(call, iters=3, warmup=1),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "leaves": len(leaves), "codes": codes, "bytes": nbytes}
+
+
 def phase_zero_inference(dev, smi_line):
     """A1: Llama-3-8B at full depth, fp8 e4m3 weights in groups of 64; A2:
     the default int8 store at full width, A2_LAYERS layers. Each is one main
-    path run of its kernels (counts reset before, read after)."""
+    path run of its kernels (counts reset before, read after). After A1's
+    run, one whole-store dequantization of its resident store is timed
+    (outside the path's counts)."""
     import dataclasses
     from deepspeed_tpu_torch.models.llama import LLAMA3_8B
     from deepspeed_tpu_torch.ops import build
@@ -3206,8 +3302,15 @@ def phase_zero_inference(dev, smi_line):
              "int", "dequantize_int8", 0)):
         build.reset_launch_counts()       # the main path's run starts here
         st = run_zero_inference(cfg, fmt, 8, ZI_PROMPTS if label == "A1"
-                                else 1, ZI_NEW, ZI_STREAM_NEW)
+                                else 1, ZI_NEW, ZI_STREAM_NEW,
+                                keep_store=label == "A1")
         st["path_launches"] = build.launch_counts()
+        store = st.pop("store", None)
+        if store is not None:
+            st["store_dequantize"] = _store_dequant_timing(store, deq)
+            del store
+            gc.collect()
+            torch.cuda.empty_cache()
         emit({"phase": "zero_inference", "config": label,
               "model": f"LLAMA3_8B, {cfg.num_layers} layers, bf16, "
               f"{'fp8 e4m3' if fmt == 'fp' else 'int8'} weights, groups of 64",

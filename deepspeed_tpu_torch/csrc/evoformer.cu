@@ -4,7 +4,7 @@
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/pallas/evoformer.py:
 //   evo_fwd_kernel, evo_fwd_kernel_mma (bf16)  <- `_evo_fwd_kernel`
-//   evo_dq_kernel                              <- `_evo_dq_kernel`
+//   evo_dq_kernel, evo_dq_kernel_mma (bf16)    <- `_evo_dq_kernel`
 //   evo_dkv_kernel, evo_dkv_kernel_mma (bf16)  <- `_evo_dkv_kernel`
 //   evo_dbias2_kernel, evo_dbias2_kernel_mma and
 //     evo_dbias2_combine_kernel (bf16)         <- `_evo_dbias2_kernel`
@@ -27,10 +27,10 @@
 // What bounds it: at OpenFold's widths (L = 384, D = 32, H = 8) the forward
 // does 77 GFLOP against 0.41 GB of operands, so at the tensor cores' bf16
 // rate it is bound by bytes (0.12 ms); at D = 8 (the extra-MSA stack) even
-// more so. The fp32 kernels, and dQ and dbias1 in both dtypes, are the
-// first, simple design: they multiply on the fp32 CUDA cores from shared
-// memory, so arithmetic bounds them in practice. The bf16 forward, dK/dV
-// and dbias2 multiply on the tensor cores; what sets their time is the
+// more so. The fp32 kernels, and dbias1 in both dtypes, are the first,
+// simple design: they multiply on the fp32 CUDA cores from shared memory,
+// so arithmetic bounds them in practice. The bf16 forward, dQ, dK/dV and
+// dbias2 multiply on the tensor cores; what sets their time is the
 // work per score on the CUDA cores (the scale, two rounded bias adds, the
 // exact expf, and in the backward dP - delta, two products, the sums).
 //   * The TPU grid's sequential axes, which carried sums in VMEM from one
@@ -97,6 +97,25 @@
 //   * Built for two resident blocks an SM at D <= 32 (at most 128
 //     registers a thread): the work per score needs the warps more than the
 //     registers. G = 1 and G = 4 were slower on the card (PERF.md).
+// The bf16 dQ, evo_dq_kernel_mma, is the forward with the dP product added
+// (`launch` picks it for bf16; fp32 keeps evo_dq_kernel):
+//   * A warp owns 16 query rows of one MSA row, a warp group a 64-row query
+//     tile of it; with a pair bias a block is G = 2 warp groups on 2 MSA
+//     rows (1 at D = 128 or without one; `evo_bwd_plan` mirrors it) that
+//     share each fp32 [64][72] pair-bias tile, so the panel is read from L2
+//     N/G times. Q and dO of the G rows stay resident; lse and delta sit in
+//     registers, one per accumulator row; a 2-stage ring brings K, V, the
+//     bias1 segments and the pair tile of each 64-key tile.
+//   * S = Q.K^T and dP = dO.V^T run on `mma.sync`; dS * scale, rounded to
+//     bf16 in registers by a_from_c, is the A fragment of dQ += dS.K, which
+//     reads K with `ldmatrix .trans` as the forward reads V for P.V.
+//   * Keys at or past Lk get p = 0 explicitly: their K rows are zero-filled,
+//     so exp(0 - lse) is not 0 and overflows where lse is -1e9 (a fully
+//     masked row). Dead query rows may hold any p, even inf or NaN: a row of
+//     the dS fragment reaches only its own dQ row, and those are never
+//     written. dQ is written once per row, no atomics: it repeats bit for
+//     bit.
+//   * Built for two resident blocks an SM at D <= 32, as dK/dV is.
 // The bf16 dbias2, evo_dbias2_kernel_mma (fp32 keeps evo_dbias2_kernel):
 //   * A block of 4 warps x 16 query rows owns one 64 x 64 tile of a (b, h)
 //     panel; its pair-bias values and fp32 sums stay in registers in
@@ -111,7 +130,7 @@
 //     alone); the splits' partials go to a workspace that
 //     evo_dbias2_combine_kernel sums in split order, so db2 repeats bit for
 //     bit, with no atomics.
-// Not done yet (later work): the tensor cores for dQ and dbias1. The bias
+// Not done yet (later work): the tensor cores for dbias1. The bias
 // reductions stay out of the dK/dV pass: db2 sums over the N rows that
 // dK/dV spreads over its blocks, so fusing them needs an [N/G, B, H, Lq, Lk]
 // workspace of partials (1.2 GB at OpenFold's MSA row attention).
@@ -1265,6 +1284,217 @@ evo_dkv_kernel_mma(Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 dQ on the tensor cores: one block per (64-row query tile, group of G
+// MSA rows of one (b, h)); warp group wg (4 warps x 16 query rows) owns the
+// query tile of MSA row n0 + wg and walks the 64-key tiles
+// ---------------------------------------------------------------------------
+// MSA rows a dQ block walks with a pair bias (`evo_bwd_plan` mirrors it),
+// and the resident blocks an SM it is built for at D <= 32
+constexpr int kDqGroup = 2;
+constexpr int kDqMinBlocks = 2;
+
+template <int D, bool PAIR>
+struct DqMma {
+  static constexpr int DK = D < 16 ? 16 : D;           // Q.K^T depth (D = 8 padded)
+  static constexpr int RS = DK + 8;                    // bf16 tile row stride, elements
+  static constexpr int G = PAIR && D < 128 ? kDqGroup : 1;   // MSA rows a block walks
+  static constexpr int kStages = 2;
+  static constexpr int kTile = kMmaRows * RS * 2;      // bytes of a [64][RS] bf16 tile
+  static constexpr int kBias2 = PAIR ? kMmaRows * kBiasStride * 4 : 0;
+  // a stage: K [G][64][RS], V [G][64][RS]; the pair tile; bias1 [G][64]
+  static constexpr int kStage = 2 * G * kTile + kBias2 + G * kMmaKeys * 4;
+  static constexpr int kSmem = 2 * G * kTile + kStages * kStage;   // + resident Q, dO
+};
+
+template <int D, bool PAIR>
+__global__ void __launch_bounds__(kThreads * DqMma<D, PAIR>::G, D <= 32 ? kDqMinBlocks : 1)
+evo_dq_kernel_mma(Params p) {
+  using F = DqMma<D, PAIR>;
+  using namespace warp_mma;
+  using bf16 = __nv_bfloat16;
+  constexpr int G = F::G, RS = F::RS, KS = F::DK / 16, NT = D / 8, ST = F::kStages;
+  constexpr int THREADS = kThreads * G;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wg = warp / 4, row0 = (warp % 4) * 16;     // MSA row n0 + wg, rows row0..+15
+  const int grp = lane / 4, tig = lane % 4;
+  const int nqt = cdiv(p.Lq, kMmaRows), ngr = cdiv(p.N, G), nkt = cdiv(p.Lk, kMmaKeys);
+  // the forward's block order: the query tiles of one group of rows, then
+  // the groups of one (b, h)
+  const int qt = (int)(blockIdx.x % nqt);
+  const int rest = (int)(blockIdx.x / nqt);
+  const int n0 = (rest % ngr) * G, bh2 = rest / ngr;
+  const int b = bh2 / p.H, h = bh2 % p.H;
+  const int rows = min(G, p.N - n0), q0 = qt * kMmaRows;
+  const bool live = wg < rows;                         // warp-uniform
+  const size_t bn0 = (size_t)b * p.N + n0, bn = bn0 + wg;
+  const bf16* q = static_cast<const bf16*>(p.q);
+  const bf16* k = static_cast<const bf16*>(p.k);
+  const bf16* v = static_cast<const bf16*>(p.v);
+  const bf16* dout = static_cast<const bf16*>(p.dout);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);        // [G][64][RS], resident
+  bf16* dos = qs + G * (F::kTile / 2);                 // [G][64][RS], resident
+  unsigned char* ring = smem_raw + 2 * G * F::kTile;   // [ST] stages
+  auto k_of = [&](int s, int r) { return reinterpret_cast<bf16*>(ring + s * F::kStage + r * F::kTile); };
+  auto v_of = [&](int s, int r) { return k_of(s, G + r); };
+  auto b2_of = [&](int s) { return reinterpret_cast<float*>(ring + s * F::kStage + 2 * G * F::kTile); };
+  auto b1_of = [&](int s, int r) {
+    return reinterpret_cast<float*>(ring + s * F::kStage + 2 * G * F::kTile + F::kBias2) + r * kMmaKeys;
+  };
+
+  if constexpr (D < 16) {              // the zero pad of Q, dO, K and V (never copied)
+    for (int r = threadIdx.x; r < (2 + 2 * ST) * G * kMmaRows; r += THREADS) {
+      const int t = r / kMmaRows, rr = r % kMmaRows;
+      bf16* tile = t < 2 * G ? qs + t * (F::kTile / 2)
+                             : k_of((t - 2 * G) / (2 * G), (t - 2 * G) % (2 * G));
+      *reinterpret_cast<uint4*>(tile + rr * RS + 8) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  const size_t ld = (size_t)p.H * D;                   // elements between rows
+  // G [64][D] tiles of x [B*N, L, H, D] from position pos0, as the forward's
+  auto issue_rows = [&](bf16* dst, const bf16* x, int pos0, int L, int tile0) {
+#pragma unroll
+    for (int r = 0; r < G; ++r)
+      cp_async_tile<kMmaRows, D, RS, THREADS>(
+          dst + r * (F::kTile / 2), r < rows ? x + ((bn0 + r) * L + pos0) * ld + h * D : x,
+          ld, r < rows ? L - pos0 : 0, (tile0 + r) * kMmaRows * (D / 8));
+  };
+  issue_rows(qs, q, q0, p.Lq, 0);                      // Q and dO travel with key tile 0
+  issue_rows(dos, dout, q0, p.Lq, G);
+  auto issue = [&](int kt) {           // key tile kt of the G rows into stage kt % ST
+    const int s = kt % ST, k0 = kt * kMmaKeys;
+    issue_rows(k_of(s, 0), k, k0, p.Lk, 2 * G);
+    issue_rows(v_of(s, 0), v, k0, p.Lk, 3 * G);
+    if (PAIR)                          // [64 queries][64 keys]
+      issue_f32_tile<kMmaRows, THREADS>(b2_of(s), kBiasStride,
+                                        p.b2 + ((size_t)bh2 * p.Lq + q0) * p.Lk + k0, p.Lk,
+                                        p.Lq - q0, p.Lk - k0);
+    if (p.b1 != nullptr)
+      issue_f32_tile<G, THREADS>(b1_of(s, 0), kMmaKeys, p.b1 + bn0 * p.Lk + k0, p.Lk, rows,
+                                 p.Lk - k0);
+  };
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < nkt) issue(s);
+    cp_async_commit();
+  }
+
+  // lse and delta of this thread's two rows (grp, grp + 8 of its 16); 0
+  // for dead queries
+  float lse[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  if (live) {
+    const size_t g = bn * p.H + h;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int qpos = q0 + row0 + grp + 8 * hr;
+      if (qpos < p.Lq) {
+        lse[hr] = p.lse[g * p.Lq + qpos];
+        delta[hr] = p.delta[g * p.Lq + qpos];
+      }
+    }
+  }
+  float dq[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+  const bf16* qw = qs + wg * (F::kTile / 2);
+  const bf16* dow = dos + wg * (F::kTile / 2);
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<ST - 2>();                           // tile kt has landed (this thread's part)
+    __syncthreads();                                   // ... everyone's; tile kt - 1 is done
+    if (kt + ST - 1 < nkt) issue(kt + ST - 1);         // into the stage tile kt - 1 used
+    cp_async_commit();
+    if (!live) continue;
+    const int s_idx = kt % ST, k0 = kt * kMmaKeys;
+    const bf16* ks = k_of(s_idx, wg);
+    const bf16* vs = v_of(s_idx, wg);
+
+    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys a warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t aq[4], ado[4];
+      ldsm_x4(aq, qw + a_offset(lane, RS, row0, 16 * kk));
+      ldsm_x4(ado, dow + a_offset(lane, RS, row0, 16 * kk));
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t bb[4];
+        ldsm_x4(bb, ks + b_nk_offset(lane, RS, 16 * jp, 16 * kk));
+        mma_m16n8k16_bf16(s[2 * jp], aq, bb[0], bb[1]);
+        mma_m16n8k16_bf16(s[2 * jp + 1], aq, bb[2], bb[3]);
+        ldsm_x4(bb, vs + b_nk_offset(lane, RS, 16 * jp, 16 * kk));
+        mma_m16n8k16_bf16(dp[2 * jp], ado, bb[0], bb[1]);
+        mma_m16n8k16_bf16(dp[2 * jp + 1], ado, bb[2], bb[3]);
+      }
+    }
+    // score = dot * scale, + bias1, + bias2 (each rounded); p = exp(score -
+    // lse), 0 for dead keys; s becomes dS * scale = p (dP - delta) * scale,
+    // rounded to bf16 below (the A fragment)
+    const float* b1s = b1_of(s_idx, wg);
+    const float* b2s = PAIR ? b2_of(s_idx) : nullptr;
+    const bool tail = k0 + kMmaKeys > p.Lk;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c0 = 8 * j + 2 * tig;
+        float2 b1v = make_float2(0.f, 0.f), b2v = make_float2(0.f, 0.f);
+        if (p.b1 != nullptr) b1v = *reinterpret_cast<const float2*>(b1s + c0);
+        if (PAIR) b2v = *reinterpret_cast<const float2*>(b2s + (row0 + grp + 8 * hr) * kBiasStride + c0);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = __fmul_rn(s[j][2 * hr + e], p.scale);
+          if (p.b1 != nullptr) x = __fadd_rn(x, e ? b1v.y : b1v.x);
+          if (PAIR) x = __fadd_rn(x, e ? b2v.y : b2v.x);
+          float pr = expf(x - lse[hr]);
+          if (tail && k0 + c0 + e >= p.Lk) pr = 0.f;
+          const float ds = pr * (dp[j][2 * hr + e] - delta[hr]);
+          s[j][2 * hr + e] = ds * p.scale;
+        }
+      }
+    }
+    // dQ += round(dS * scale) K over these 64 keys
+#pragma unroll
+    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
+      uint32_t a[4];
+      a_from_c(a, s[2 * kk], s[2 * kk + 1]);           // (dS * scale).astype(k.dtype)
+      if constexpr (D < 16) {
+        uint32_t bb[2];
+        ldsm_x2_t(bb, ks + b_kn_offset(lane, RS, 16 * kk, 0));
+        mma_m16n8k16_bf16(dq[0], a, bb[0], bb[1]);
+      } else {
+#pragma unroll
+        for (int dd = 0; dd < D / 16; ++dd) {
+          uint32_t bb[4];
+          ldsm_x4_t(bb, ks + b_kn_offset(lane, RS, 16 * kk, 16 * dd));
+          mma_m16n8k16_bf16(dq[2 * dd], a, bb[0], bb[1]);
+          mma_m16n8k16_bf16(dq[2 * dd + 1], a, bb[2], bb[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();                                  // nothing in flight at exit
+  if (!live) return;
+
+  bf16* dq_out = static_cast<bf16*>(p.out0);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qpos = q0 + row0 + grp + 8 * hr;
+    if (qpos >= p.Lq) continue;
+    bf16* dst = dq_out + ((bn * p.Lq + qpos) * p.H + h) * D + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(dq[j][2 * hr], dq[j][2 * hr + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bf16 dbias2 on the tensor cores: one block per (64 x 64 panel tile, split
 // s of the N rows, panel (b, h)), 4 warps x 16 query rows, summing dS over
 // the split's rows in order into `dst` (db2, or split s of the workspace)
@@ -1431,10 +1661,11 @@ evo_dbias2_combine_kernel(const float* __restrict__ ws, float* __restrict__ db2,
 
 // kFwdMma / kFwdMmaNoPair: the bf16 forward's bytes with / without a pair
 // bias; kDkvMma / kDkvMmaNoPair the bf16 dK/dV's; kDb2Mma the bf16
-// dbias2's (for `dstt_evo_smem_bytes` alone; launches say kFwd, kDkv, kDb2).
+// dbias2's; kDqMma / kDqMmaNoPair the bf16 dQ's (for `dstt_evo_smem_bytes`
+// alone; launches say kFwd, kDq, kDkv, kDb2).
 enum Which {
   kFwd = 0, kDq = 1, kDkv = 2, kDb2 = 3, kDb1 = 4, kFwdMma = 5, kFwdMmaNoPair = 6,
-  kDkvMma = 7, kDkvMmaNoPair = 8, kDb2Mma = 9
+  kDkvMma = 7, kDkvMmaNoPair = 8, kDb2Mma = 9, kDqMma = 10, kDqMmaNoPair = 11
 };
 
 template <int D>
@@ -1446,6 +1677,8 @@ int smem_bytes(int which) {
     case kDkvMma: return DkvMma<D, true>::kSmem;
     case kDkvMmaNoPair: return DkvMma<D, false>::kSmem;
     case kDb2Mma: return Db2Mma<D>::kSmem;
+    case kDqMma: return DqMma<D, true>::kSmem;
+    case kDqMmaNoPair: return DqMma<D, false>::kSmem;
     case kDq: return dq_smem_floats<D>() * (int)sizeof(float);
     case kDkv: return dkv_smem_floats<D>() * (int)sizeof(float);
     case kDb2:
@@ -1454,38 +1687,41 @@ int smem_bytes(int which) {
   return -1;
 }
 
-template <int D, bool PAIR>
-cudaError_t launch_fwd_mma(const Params& p, cudaStream_t stream) {
-  using F = FwdMma<D, PAIR>;
-  const long long blocks =
-      (long long)p.B * p.H * cdiv(p.N, F::G) * cdiv(p.Lq, kMmaRows);
+// Launch a tensor-core kernel tiled as F (FwdMma, DqMma or DkvMma: one
+// kernel each) over `tiles` tiles of each of the B*H*cdiv(N, G) groups of
+// MSA rows.
+template <typename F>
+cudaError_t launch_groups(void (*kernel)(Params), int tiles, const Params& p,
+                          cudaStream_t stream) {
+  const long long blocks = (long long)p.B * p.H * cdiv(p.N, F::G) * tiles;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   static bool configured = false;                      // per instantiation
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        evo_fwd_kernel_mma<D, PAIR>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  evo_fwd_kernel_mma<D, PAIR><<<(unsigned)blocks, kThreads * F::G, F::kSmem, stream>>>(p);
+  kernel<<<(unsigned)blocks, kThreads * F::G, F::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D, bool PAIR>
+cudaError_t launch_fwd_mma(const Params& p, cudaStream_t stream) {
+  return launch_groups<FwdMma<D, PAIR>>(evo_fwd_kernel_mma<D, PAIR>, cdiv(p.Lq, kMmaRows), p,
+                                        stream);
+}
+
+template <int D, bool PAIR>
+cudaError_t launch_dq_mma(const Params& p, cudaStream_t stream) {
+  return launch_groups<DqMma<D, PAIR>>(evo_dq_kernel_mma<D, PAIR>, cdiv(p.Lq, kMmaRows), p,
+                                       stream);
+}
+
+template <int D, bool PAIR>
 cudaError_t launch_dkv_mma(const Params& p, cudaStream_t stream) {
-  using F = DkvMma<D, PAIR>;
-  const long long blocks =
-      (long long)p.B * p.H * cdiv(p.N, F::G) * cdiv(p.Lk, kMmaKeys);
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  static bool configured = false;                      // per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        evo_dkv_kernel_mma<D, PAIR>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  evo_dkv_kernel_mma<D, PAIR><<<(unsigned)blocks, kThreads * F::G, F::kSmem, stream>>>(p);
-  return cudaGetLastError();
+  return launch_groups<DkvMma<D, PAIR>>(evo_dkv_kernel_mma<D, PAIR>, cdiv(p.Lk, kMmaKeys), p,
+                                        stream);
 }
 
 template <int D>
@@ -1539,10 +1775,13 @@ int db2_blocks_per_sm() {
 
 template <typename T, int D>
 cudaError_t launch(int which, const Params& p, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {                     // bf16: the tensor cores, but for dQ, dbias1
+  if constexpr (sizeof(T) == 2) {                     // bf16: the tensor cores, but for dbias1
     if (which == kFwd)
       return p.b2 != nullptr ? launch_fwd_mma<D, true>(p, stream)
                              : launch_fwd_mma<D, false>(p, stream);
+    if (which == kDq)
+      return p.b2 != nullptr ? launch_dq_mma<D, true>(p, stream)
+                             : launch_dq_mma<D, false>(p, stream);
     if (which == kDkv)
       return p.b2 != nullptr ? launch_dkv_mma<D, true>(p, stream)
                              : launch_dkv_mma<D, false>(p, stream);
@@ -1556,8 +1795,8 @@ cudaError_t launch(int which, const Params& p, cudaStream_t stream) {
       if constexpr (sizeof(T) == 4) kernel = evo_fwd_kernel<T, D>;
       blocks = rows * cdiv(p.Lq, kRows);
       break;
-    case kDq:
-      kernel = evo_dq_kernel<T, D>;
+    case kDq:                                          // fp32 (bf16 returned above)
+      if constexpr (sizeof(T) == 4) kernel = evo_dq_kernel<T, D>;
       blocks = rows * cdiv(p.Lq, kRows);
       break;
     case kDkv:                                         // fp32 (bf16 returned above)
@@ -1624,9 +1863,10 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 }  // namespace
 
 // Dynamic shared memory (bytes) of kernel `which` (0 forward, 1 dQ, 2 dK/dV,
-// 3 dbias2, 4 dbias1 for fp32, and 1 and 4 for bf16; 5 the bf16 forward with
-// a pair bias, 6 without; 7 the bf16 dK/dV with a pair bias, 8 without; 9
-// the bf16 dbias2) at `head_dim`; -1 for an instantiation not compiled.
+// 3 dbias2, 4 dbias1 for fp32, and 4 for bf16; 5 the bf16 forward with a
+// pair bias, 6 without; 7 the bf16 dK/dV with a pair bias, 8 without; 9 the
+// bf16 dbias2; 10 the bf16 dQ with a pair bias, 11 without) at `head_dim`;
+// -1 for an instantiation not compiled.
 extern "C" int dstt_evo_smem_bytes(int which, int head_dim) {
   switch (head_dim) {
     case 8: return smem_bytes<8>(which);

@@ -6,13 +6,13 @@ Port of ``deepspeed_tpu/ops/pallas/evoformer.py``. Its five TPU kernels,
 ``_evo_dbias2_kernel`` and ``_evo_dbias1_kernel``, become the hand-written
 CUDA kernels of ``csrc/evoformer.cu`` (design notes there), launched by
 ``evo_fwd`` and ``evo_bwd`` and counted as ``evo_fwd``, ``evo_dq``,
-``evo_dkv``, ``evo_dbias2`` and ``evo_dbias1``. In bf16 the forward, dK/dV
-and dbias2 run on the tensor cores (``evo_fwd_kernel_mma``,
-``evo_dkv_kernel_mma`` and ``evo_dbias2_kernel_mma``, tiled as
-``evo_fwd_plan`` and ``evo_bwd_plan`` say; dbias2 splits the N rows as
-``dbias2_splits`` says and sums the splits' partials in order with
-``evo_dbias2_combine_kernel``); dQ, dbias1 and every fp32 kernel on the
-CUDA cores.
+``evo_dkv``, ``evo_dbias2`` and ``evo_dbias1``. In bf16 the forward, dQ,
+dK/dV and dbias2 run on the tensor cores (``evo_fwd_kernel_mma``,
+``evo_dq_kernel_mma``, ``evo_dkv_kernel_mma`` and
+``evo_dbias2_kernel_mma``, tiled as ``evo_fwd_plan`` and ``evo_bwd_plan``
+say; dbias2 splits the N rows as ``dbias2_splits`` says and sums the
+splits' partials in order with ``evo_dbias2_combine_kernel``); dbias1 and
+every fp32 kernel on the CUDA cores.
 
 Function: ``softmax(q k^T / sqrt(D) + bias1 + bias2) v`` on q/k/v
 ``[B, N, L, H, D]``, with ``bias1 [B, N, Lk]`` a per-key bias of each row
@@ -48,6 +48,7 @@ HEAD_DIMS = (8, 16, 32, 64, 128)
 KEY_TILE = 64              # keys of the forward kernel's tile
 MMA_ROWS = 64              # query rows (keys for dK/dV) of a bf16 tensor-core tile
 DKV_GROUP = 2              # MSA rows a bf16 dK/dV block walks with a pair bias
+DQ_GROUP = 2               # MSA rows a bf16 dQ block walks with a pair bias
 NEG_INF = -1e30            # the reference's NEG_INF: the running max's start
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # score elements one plain chunk may hold (1 GiB of fp32)
@@ -183,15 +184,17 @@ def _bwd_delta(out, do):
 
 
 def evo_bwd_plain(q, k, v, b1, b2, out, lse, do, need_db1: bool = True,
-                  need_db2: bool = True):
+                  need_db2: bool = True, delta=None):
     """What the dq, dkv, dbias2 and dbias1 kernels compute: (dq, dk, dv in
     q's/k's/v's dtypes, db1 [B, N, Lk] fp32 or None, db2 [B, H, Lq, Lk] fp32
     or None); a bias gradient is None when that bias is absent or not
-    asked for."""
+    asked for. ``delta`` [B, N, H, Lq] defaults to rowsum(dO.O), what the
+    wrapper hands the kernels."""
     b, n, l_q, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     step = _chunk_rows(q, k)
-    delta = _bwd_delta(out, do)
+    if delta is None:
+        delta = _bwd_delta(out, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     want_db1 = b1 is not None and need_db1
     want_db2 = b2 is not None and need_db2
@@ -270,8 +273,13 @@ def evo_fwd_plan(head_dim: int, has_bias2: bool) -> dict:
 
 
 def evo_bwd_plan(head_dim: int, has_bias2: bool) -> dict:
-    """The bf16 backward's tensor-core tilings (``DkvMma`` and ``Db2Mma``
-    in csrc/evoformer.cu): ``dkv``, one block per 64-key tile of ``group``
+    """The bf16 backward's tensor-core tilings (``DqMma``, ``DkvMma`` and
+    ``Db2Mma`` in csrc/evoformer.cu): ``dq``, one block per 64-row query
+    tile of ``group`` MSA rows, a warp group of 4 warps x 16 queries each
+    (with a pair bias DQ_GROUP rows sharing each fp32 [64][72] pair-bias
+    tile; 1 at D = 128 and without one), Q and dO resident, a ring of
+    ``stages`` key tiles (G K and V tiles, the pair tile, G bias1
+    segments); ``dkv``, one block per 64-key tile of ``group``
     MSA rows, a warp group of 4 warps x 16 keys each (with a pair bias
     DKV_GROUP rows sharing each fp32 [64 queries][68] pair-bias tile, read
     transposed; 1 at D = 128, whose accumulators fill the registers, and
@@ -286,6 +294,11 @@ def evo_bwd_plan(head_dim: int, has_bias2: bool) -> dict:
         raise ValueError(f"evoformer attention kernel: head dim {d} (one of "
                          f"{HEAD_DIMS})")
     tile = MMA_ROWS * (max(d, 16) + 8) * 2
+    group = DQ_GROUP if has_bias2 and d < 128 else 1
+    bias2 = MMA_ROWS * (KEY_TILE + 8) * 4 if has_bias2 else 0
+    stage = 2 * group * tile + bias2 + group * KEY_TILE * 4
+    dq = {"group": group, "threads": 128 * group, "stages": 2,
+          "rows": MMA_ROWS, "smem_bytes": 2 * group * tile + 2 * stage}
     group = DKV_GROUP if has_bias2 and d < 128 else 1
     bias2 = MMA_ROWS * (KEY_TILE + 4) * 4 if has_bias2 else 0
     stage = 2 * group * tile + bias2 + 2 * group * MMA_ROWS * 4
@@ -297,7 +310,7 @@ def evo_bwd_plan(head_dim: int, has_bias2: bool) -> dict:
         dbias2 = {"threads": 128, "stages": stages, "rows": MMA_ROWS,
                   "keys": KEY_TILE,
                   "smem_bytes": stages * (4 * tile + 3 * MMA_ROWS * 4)}
-    return {"dkv": dkv, "dbias2": dbias2}
+    return {"dq": dq, "dkv": dkv, "dbias2": dbias2}
 
 
 MAX_DB2_SPLITS = 16        # the dbias2 workspace holds at most 16 panels' partials
@@ -359,14 +372,15 @@ def dbias2_split_for(device, b, h, n, l_q, l_k, head_dim, dtype
 def dynamic_smem_bytes(head_dim: int) -> dict:
     """Dynamic shared memory (bytes) of each kernel at ``head_dim``, as the
     built library reports it: the CUDA-core kernels by launch name (the
-    forward's, dK/dV's and dbias2's are fp32's), the bf16 forward and dK/dV
-    with and without a pair bias, the bf16 dbias2."""
+    forward's, dQ's, dK/dV's and dbias2's are fp32's), the bf16 forward,
+    dK/dV and dQ with and without a pair bias, the bf16 dbias2."""
     lib = _library()
     out = {name: lib.dstt_evo_smem_bytes(i, head_dim)
            for i, name in enumerate(LAUNCH_NAMES)}
     for i, name in enumerate(("evo_fwd_mma_pair", "evo_fwd_mma",
                               "evo_dkv_mma_pair", "evo_dkv_mma",
-                              "evo_dbias2_mma"), start=5):
+                              "evo_dbias2_mma", "evo_dq_mma_pair",
+                              "evo_dq_mma"), start=5):
         out[name] = lib.dstt_evo_smem_bytes(i, head_dim)
     return out
 

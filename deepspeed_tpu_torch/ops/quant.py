@@ -7,7 +7,10 @@ Port of ``deepspeed_tpu/ops/pallas/quant.py``. The TPU kernels
 ``csrc/quant.cu`` (design notes there), launched by ``quantize_int8`` and
 ``dequantize_int8`` and counted under those names. The same source holds
 the fp8 kernels that ``ops/fp_quant.py`` wraps; ``quantize_rows_cuda`` and
-``dequantize_rows_cuda`` launch either.
+``dequantize_rows_cuda`` launch either. ``dequant_plan`` and
+``dequant_chunks`` mirror how the fp8 dequantize kernel splits a call into
+16-code chunks and scalar codes, from the shape and the pointers'
+alignment.
 
 ``quantize_int8_plain`` and ``dequantize_int8_plain`` compute the
 reference's function with the reference's rounding points (the scale as
@@ -82,6 +85,47 @@ def dequantize_plain(q: torch.Tensor, scales: torch.Tensor,
 
 
 dequantize_int8_plain = dequantize_plain
+
+
+# ---------------------------------------------------------------------------
+# how the fp8 dequantize kernel splits a call (``deq_plan`` and
+# ``dequantize_fp8`` in csrc/quant.cu)
+# ---------------------------------------------------------------------------
+DEQ_CHUNK = 16             # codes one 16-byte load of the kernel brings
+
+
+def dequant_plan(n: int, d: int, q_offset: int, out_offset: int,
+                 out_itemsize: int) -> Tuple[int, int, int]:
+    """(head0, chunks, rest) of a call on codes [n, d] whose first code
+    lies ``q_offset`` bytes past a 16-byte boundary and whose first output
+    ``out_offset`` bytes past one. Row r's first 16-byte code boundary lies
+    ``(head0 - r * d) % 16`` codes in; ``chunks`` whole 16-code chunks
+    follow it in every row, and each row's other ``rest = d - 16 *
+    chunks`` codes take the scalar path. No chunks unless a code on a
+    16-byte boundary has its output on one too."""
+    if (out_offset - q_offset * out_itemsize) % 16:
+        return 0, 0, d
+    head0 = -q_offset % 16
+    hmax = max((head0 - r * d) % 16 for r in range(min(n, 16)))
+    if d < hmax + DEQ_CHUNK:
+        return head0, 0, d
+    chunks = (d - hmax) // DEQ_CHUNK
+    return head0, chunks, d - DEQ_CHUNK * chunks
+
+
+def dequant_chunks(n: int, d: int, q_offset: int, out_offset: int,
+                   out_itemsize: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The kernel's split of a call as flat code indices: (the first code
+    of each 16-code chunk, each code of the scalar path), as
+    ``dequant_plan`` says."""
+    head0, chunks, rest = dequant_plan(n, d, q_offset, out_offset,
+                                       out_itemsize)
+    rows = np.arange(n, dtype=np.int64)[:, None]
+    head = (head0 - rows * d) % 16 if chunks else np.zeros_like(rows)
+    starts = rows * d + head + DEQ_CHUNK * np.arange(chunks)
+    k = np.arange(rest)
+    scalars = rows * d + np.where(k < head, k, k + DEQ_CHUNK * chunks)
+    return starts.reshape(-1), scalars.reshape(-1)
 
 
 # ---------------------------------------------------------------------------

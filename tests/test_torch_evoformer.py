@@ -492,6 +492,36 @@ def test_bwd_plan_fits_and_shares_the_pair_panel(d, pair):
         te.evo_bwd_plan(24, pair)
 
 
+@pytest.mark.parametrize("pair", [True, False])
+@pytest.mark.parametrize("d", te.HEAD_DIMS)
+def test_bwd_dq_plan_fits_and_shares_the_pair_panel(d, pair):
+    """The bf16 dQ tiling at every head dim, with and without a pair bias:
+    within the card's 227 KB of shared memory, two blocks an SM at D <= 32;
+    with a pair bias DQ_GROUP MSA rows a block (one warp group of 4 warps x
+    16 queries each) share each [64, 72] fp32 pair-bias tile (1 at D = 128,
+    whose accumulators fill the registers), so the panel is read from L2 at
+    most half as often as by one row a block; without one G = 1. The smem
+    sum is the plan's own arithmetic, the kernel's DqMma; the card test
+    holds it against the library's report."""
+    dq = te.evo_bwd_plan(d, pair)["dq"]
+    tile = 64 * (max(d, 16) + 8) * 2
+    group = (te.DQ_GROUP if d < 128 else 1) if pair else 1
+    assert dq["group"] == group and dq["threads"] == 128 * group <= 1024
+    assert dq["rows"] == 64 and dq["stages"] == 2
+    pair_tile = 64 * 72 * 4 if pair else 0
+    assert dq["smem_bytes"] == 2 * group * tile + 2 * (
+        2 * group * tile + pair_tile + group * 64 * 4)
+    assert 0 < dq["smem_bytes"] <= SMEM_LIMIT
+    if d <= 32:                          # two dQ blocks an SM
+        assert 2 * dq["smem_bytes"] <= 228 * 1024
+    for name, (b, n, l, h, dd, has_pair) in PATH_SHAPES.items():
+        if dd == d and has_pair == pair and pair:
+            assert te.DQ_GROUP >= 2
+            # the pair panel's L2 reads: once per group of rows and query tile
+            panel_reads = b * h * -(-n // group) * l * l * 4
+            assert panel_reads <= b * n * h * l * l * 4 // 2, name
+
+
 # (B, H, N, Lq, Lk): OpenFold's E1, E3 and E4, the card-side split case,
 # a grid of many waves, one MSA row
 SPLIT_SHAPES = [(1, 8, 512, 384, 384), (1, 4, 384, 384, 384),
@@ -549,11 +579,11 @@ def test_kernels_match_plain_on_card():
     within 1e-4, db1/db2 within a share of each panel's largest |plain|
     value), each with the mutants that apply, which must land outside; the
     forward's and the backward's entries by exact profiler name (bf16
-    ``evo_fwd_kernel_mma``, ``evo_dkv_kernel_mma``,
+    ``evo_fwd_kernel_mma``, ``evo_dq_kernel_mma``, ``evo_dkv_kernel_mma``,
     ``evo_dbias2_kernel_mma`` and its combine where dbias2 splits N; fp32
     the CUDA-core kernels) and a bf16 second forward and backward bit for
-    bit. The bf16 forward's shared memory is ``evo_fwd_plan``'s, dK/dV's
-    and dbias2's ``evo_bwd_plan``'s. Then a head dim outside the instances
+    bit. The bf16 forward's shared memory is ``evo_fwd_plan``'s, dQ's,
+    dK/dV's and dbias2's ``evo_bwd_plan``'s. Then a head dim outside the instances
     raises, as does a non-contiguous operand."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels; no CPU mode)")
@@ -570,6 +600,8 @@ def test_kernels_match_plain_on_card():
         assert smem["evo_dkv_mma_pair"] == pair["dkv"]["smem_bytes"]
         assert smem["evo_dkv_mma"] == plain["dkv"]["smem_bytes"]
         assert smem["evo_dbias2_mma"] == pair["dbias2"]["smem_bytes"]
+        assert smem["evo_dq_mma_pair"] == pair["dq"]["smem_bytes"]
+        assert smem["evo_dq_mma"] == plain["dq"]["smem_bytes"]
     x = torch.randn(1, 2, 16, 2, 24, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         evo_fwd(x, x, x)

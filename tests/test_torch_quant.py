@@ -12,7 +12,10 @@ fp6 / fp12 software formats against the JAX package.
   bit-identical; for fp8 codes a one-ulp difference is counted and allowed
   only where it stays rare (XLA and torch convert to fp8 separately).
 - The smoke's quant cases run on the CPU: every special row exposes the
-  fault it was built for.
+  fault it was built for. An fp8 dequantize of a view one row in (d = 130)
+  matches the Pallas kernel bit for bit, and ``dequant_chunks``, the fp8
+  dequantize kernel's split into 16-code chunks and scalar codes, covers
+  every code of every smoke shape once at aligned and offset addresses.
 - ``ops.fp_formats``: packed bytes, decoded values and ``FPQuantizer`` at
   6, 8 and 12 bits equal to the JAX package's.
 
@@ -24,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import QUANT_SHAPES
 from deepspeed_tpu_torch.ops import fp_formats as tfp
 from deepspeed_tpu_torch.ops import fp_quant as tfq
 from deepspeed_tpu_torch.ops import quant as tq
@@ -176,6 +180,62 @@ def _round_trips(x):
     return out
 
 
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_fp8_dequantize_of_a_row_offset_view_matches_pallas(fmt):
+    """Codes and scales one row in (d = 130: the codes start 130 bytes
+    past the tensor's, off every 16-byte boundary, as the smoke's view case
+    hands the kernel) dequantize bit for bit as the Pallas kernel does, to
+    fp32 and bf16."""
+    _, jnp, _, jfq, _ = _jax()
+    x = _rows((9, 130), fmt, "fp32", seed=17)
+    jcodes, jscales = jfq.quantize_fp8(jnp.asarray(x), fmt=fmt, interpret=True)
+    codes, scales = tfq.quantize_fp8(torch.from_numpy(x), fmt)
+    tcodes = torch.from_numpy(_np_bits(jcodes).copy()).view(codes.dtype)
+    view, view_scales = tcodes[1:], scales[1:]
+    assert view.storage_offset() == 130
+    for out, jout in ((torch.float32, jnp.float32), (torch.bfloat16,
+                                                     jnp.bfloat16)):
+        _assert_same_bits(tfq.dequantize_fp8(view, view_scales, out),
+                          jfq.dequantize_fp8(jcodes[1:], jscales[1:],
+                                             dtype=jout, interpret=True),
+                          f"{fmt} dequantize of a row-offset view to {out}")
+
+
+def _cover_counts(n, d, q_offset, itemsize):
+    starts, scalars = tq.dequant_chunks(n, d, q_offset, 0, itemsize)
+    counts = np.bincount(scalars, minlength=n * d)
+    if starts.size:
+        counts += np.bincount((starts[:, None] + np.arange(tq.DEQ_CHUNK))
+                              .reshape(-1), minlength=n * d)
+    return starts, scalars, counts
+
+
+@pytest.mark.parametrize("shape", QUANT_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_dequant_chunks_cover_each_code_once(shape):
+    """The fp8 dequantize kernel's split of a call (``dequant_chunks``, as
+    ``deq_plan`` in csrc/quant.cu) covers every code of every smoke shape
+    exactly once, for codes at a 16-byte boundary and 1, 8 and 130 bytes
+    past one (a view one row in at d = 130), to 2- and 4-byte outputs;
+    every chunk lies inside one row and starts its codes and its outputs
+    on 16-byte boundaries; an aligned call of rows of a multiple of 16
+    codes (A1's groups of 64) takes no scalar path at all."""
+    n, d = shape
+    for q_offset in (0, 1, 8, 130):
+        for itemsize in (2, 4):
+            starts, scalars, counts = _cover_counts(n, d, q_offset, itemsize)
+            assert counts.min() == 1 and counts.max() == 1, \
+                (q_offset, itemsize)
+            assert np.all((q_offset + starts) % 16 == 0)
+            assert np.all(starts * itemsize % 16 == 0)
+            assert np.all(starts // d == (starts + tq.DEQ_CHUNK - 1) // d)
+            if q_offset == 0 and d % 16 == 0:
+                assert scalars.size == 0 and starts.size == n * d // 16
+            if q_offset in (1, 130):     # no code boundary puts an output on one
+                assert starts.size == 0
+            elif d >= 31:                # every row holds a whole chunk
+                assert starts.size >= n * ((d - 15) // 16)
+
+
 def test_nonfinite_rows_stay_nonfinite():
     """A NaN or inf in a row makes its scale non-finite and its whole round
     trip NaN, as in the reference (jnp.max keeps NaN), so a bad gradient
@@ -201,7 +261,12 @@ def test_quant_cases_expose_their_faults_on_cpu():
     assert len(rows) == len(chip_smoke.quant_cases())
     faults = {f for r in rows for f in r["mutants"]}
     assert faults == {f for f in chip_smoke.QUANT_ROWS.values() if f} | \
-        {"dequant_row_shift"}
+        {"dequant_row_shift", "dequant_tail_dropped"}
+    tails = {r["case"].split("x")[-1] for r in rows
+             if "dequant_tail_dropped" in r["mutants"]}
+    assert tails == {"130", "1000"}
+    assert all(r["view_dequant_differ"] == 0 for r in rows
+               if "view_dequant_differ" in r)
     recip = {(r["fmt"], r["dtype"]) for r in rows
              if "reciprocal" in r["special_rows"]}
     assert {(f, "fp32") for f in QMAX} <= recip
