@@ -172,24 +172,43 @@ def _demangle(names):
         return names
 
 
-# the redesigned entries of each library, the SASS instructions each must
-# hold and how many instances there are: HGMMA (wgmma) and UTMALDG (a TMA
-# tile load) in the flash library; HMMA (mma.sync) and LDGSTS (cp.async)
-# in the evoformer forward, dQ and dK/dV (5 head dims, with and without a
-# pair bias each), its dbias2 (5 head dims) and the block-sparse kernel (3
-# head dims x 4 blocks); 128-bit global loads and stores in the fp8
-# dequantize (2 formats x 3 output dtypes)
+# the redesigned entries of each library (label: library, entry stems,
+# the SASS instructions each must hold, how many instances there are):
+# HGMMA (wgmma) and UTMALDG (a TMA tile load) in the flash library; HMMA
+# (mma.sync) and LDGSTS (cp.async) in the evoformer forward, dQ and dK/dV
+# (5 head dims, with and without a pair bias each), its dbias2 and dbias1
+# (5 head dims each) and the block-sparse kernel (3 head dims x 4 blocks);
+# 128-bit global loads and stores in the fp8 dequantize (2 formats x 3
+# output dtypes); in the int8 quantize, 128-bit global loads in the warp
+# and block kernels and 128-bit `cp.async` copies in the cluster kernel (3
+# input dtypes x 3 warp, 6 block and 3 cluster instances; its stores write
+# a chunk's 4 or 8 codes, consecutive across the warp). Ops are regular
+# expressions searched in each SASS line.
 FLASH_HEAD_DIMS = (64, 128)
 SASS_CHECKS = {
-    "flash_attention": (("flash_fwd_kernel_wgmma", "flash_dq_kernel_wgmma",
+    "flash_attention": ("flash_attention",
+                        ("flash_fwd_kernel_wgmma", "flash_dq_kernel_wgmma",
                          "flash_dkv_kernel_wgmma"), ("HGMMA", "UTMALDG"),
                         3 * len(FLASH_HEAD_DIMS)),
-    "evoformer": (("evo_fwd_kernel_mma", "evo_dq_kernel_mma",
-                   "evo_dkv_kernel_mma", "evo_dbias2_kernel_mma"),
-                  ("HMMA", "LDGSTS"), 35),
-    "sparse_attention": (("sparse_attention_kernel_mma",), ("HMMA", "LDGSTS"), 12),
-    "quant": (("dequantize_fp8",), ("LDG.E.128", "STG.E.128"), 6),
+    "evoformer": ("evoformer",
+                  ("evo_fwd_kernel_mma", "evo_dq_kernel_mma",
+                   "evo_dkv_kernel_mma", "evo_dbias2_kernel_mma",
+                   "evo_dbias1_kernel_mma"), ("HMMA", "LDGSTS"), 40),
+    "sparse_attention": ("sparse_attention", ("sparse_attention_kernel_mma",),
+                         ("HMMA", "LDGSTS"), 12),
+    "quant": ("quant", ("dequantize_fp8",), ("LDG.E.128", "STG.E.128"), 6),
+    "quant_int8_regs": ("quant", ("quantize_int8_warp", "quantize_int8_block"),
+                        (r"LDG\.E\.128",), 27),
+    "quant_int8_cluster": ("quant", ("quantize_int8_cluster",),
+                           (r"LDGSTS\S*\.128",), 9),
 }
+# (n, d, first row, input dtype) the int8 quantize plan of ops/quant.py is
+# held against the library's at: qgZ's four widths, odd widths, views one
+# row in, bf16 input
+QUANT_PLAN_CHECKS = [(n, d, r, dt) for n, d in ((64, 128), (8, 4096),
+                                                 (4, 14336), (2, 128256),
+                                                 (16, 130), (8, 1000), (3, 5))
+                     for r in (0, 1) for dt in (torch.float32, torch.bfloat16)]
 
 
 def _sass_counts(library, entries, ops):
@@ -212,7 +231,7 @@ def _sass_counts(library, entries, ops):
             continue
         if cur:
             for op in ops:
-                counts[cur][op] += op in line
+                counts[cur][op] += re.search(op, line) is not None
     names = _demangle(list(counts))
     return {n: c for n, c in zip(names, counts.values())}
 
@@ -242,8 +261,8 @@ def phase_build(kernels):
                       "entries": [{"kernel": k, "registers": r, "spill_stores": s}
                                   for k, r, s in zip(_demangle(entries), regs,
                                                      spills)]}
-    sass = {lib: _sass_counts(results[lib].path, entries, ops)
-            for lib, (entries, ops, _) in SASS_CHECKS.items()}
+    sass = {label: _sass_counts(results[lib].path, entries, ops)
+            for label, (lib, entries, ops, _) in SASS_CHECKS.items()}
     smem = {f"d{d}_rows{rows}_{name}": dynamic_smem_bytes(d, rows, dt)
             for d in (64, 128) for rows in (4, 8, 32)
             for name, dt in kv_dtypes.items()}
@@ -257,6 +276,11 @@ def phase_build(kernels):
               f"d{d}": evoformer.dynamic_smem_bytes(d)
               for d in evoformer.HEAD_DIMS},
           "quant_sass": sass["quant"],
+          "quant_int8_sass": {**sass["quant_int8_regs"], **sass["quant_int8_cluster"]},
+          "quant_int8_ptxas": {
+              e["kernel"]: {"registers": e["registers"],
+                            "spill_stores": e["spill_stores"]}
+              for e in info["quant"]["entries"] if "quantize_int8" in e["kernel"]},
           "sparse_dynamic_smem_bytes": {
               f"d{d}_block{blk}": sparse.dynamic_smem_bytes(d, blk)
               for d in sparse.HEAD_DIMS for blk in sparse.BLOCKS}})
@@ -278,12 +302,13 @@ def phase_build(kernels):
           "evo_dbias2_blocks_per_sm": {
               f"d{d}": evoformer.dbias2_blocks_per_sm(torch.device("cuda"), d)
               for d in evoformer.HEAD_DIMS}})
-    for lib, (entries, ops, count) in SASS_CHECKS.items():
-        check(len(sass[lib]) == count, f"{lib}: expected {count} tensor-core "
-              f"entries, found {list(sass[lib])}")
-        for entry, n in sass[lib].items():
+    for label, (lib, entries, ops, count) in SASS_CHECKS.items():
+        check(len(sass[label]) == count, f"{label}: expected {count} "
+              f"redesigned entries, found {list(sass[label])}")
+        for entry, n in sass[label].items():
             check(all(n[op] > 0 for op in ops),
                   f"{entry}: {n} (an instruction of {ops} missing)")
+    _check_quant_plans()
     for d in evoformer.HEAD_DIMS:
         lib_smem = evoformer.dynamic_smem_bytes(d)
         for pair, key in ((True, "evo_fwd_mma_pair"), (False, "evo_fwd_mma")):
@@ -294,12 +319,29 @@ def phase_build(kernels):
                                   (False, "dq", "evo_dq_mma"),
                                   (True, "dkv", "evo_dkv_mma_pair"),
                                   (False, "dkv", "evo_dkv_mma"),
-                                  (True, "dbias2", "evo_dbias2_mma")):
+                                  (True, "dbias2", "evo_dbias2_mma"),
+                                  (True, "dbias1", "evo_dbias1_mma_pair"),
+                                  (False, "dbias1", "evo_dbias1_mma")):
             want = evoformer.evo_bwd_plan(d, pair)[kernel]["smem_bytes"]
             check(lib_smem[key] == want, f"evo_bwd_plan({d}, {pair}) says "
                   f"{want} bytes of shared memory for {kernel}, the kernel "
                   f"{lib_smem[key]}")
     return info
+
+
+def _check_quant_plans():
+    """ops/quant.py's ``quant_plan`` equals the library's at every
+    QUANT_PLAN_CHECKS case, on real tensors' addresses (a view one row in
+    where the first row is 1)."""
+    from deepspeed_tpu_torch.ops.quant import quant_plan, quant_plan_of_library
+    for n, d, first, dtype in QUANT_PLAN_CHECKS:
+        x = torch.empty(n + first, d, dtype=dtype, device="cuda")[first:]
+        q = torch.empty(n, d, dtype=torch.int8, device="cuda")
+        lib = quant_plan_of_library(x.data_ptr(), q.data_ptr(), n, d, dtype)
+        mine = quant_plan(n, d, x.data_ptr() % 16, q.data_ptr() % 16,
+                          x.element_size())
+        check(lib == mine, f"quant_plan({n}, {d}, row {first}, {dtype}): "
+              f"ops/quant.py says {mine}, the library {lib}")
 
 
 def _build_of(info, source, kernel):
@@ -1067,11 +1109,22 @@ QUANT_KERNELS = ("quantize_int8", "dequantize_int8", "quantize_fp8",
 # the path shapes timed: one w_gate of A1 in groups of 64, and the lm_head
 # gradient of the qgZ training step
 QUANT_TIMING_SHAPES = {"A1_w_gate": (917504, 64), "B_lm_head": (4096, 128256)}
+# qgZ's four row widths in the 4-layer Llama-3-8B recipe, each at its
+# largest leaf ([n, d] with rows its last axis: wq [4096, 32, 128], the
+# embedding [128256, 4096], w_gate [4096, 14336], the lm_head [4096,
+# 128256])
+QGZ_WIDTH_SHAPES = {128: (131072, 128), 4096: (128256, 4096),
+                    14336: (4096, 14336), 128256: (4096, 128256)}
 # each special row and the fault of the quantize kernel it exposes
 # (None: a parity row only; no fault of the kernel changes its bits)
 QUANT_ROWS = {"zero": "scale_floor_dropped", "ties": "round_half_away",
               "top": None, "last_max": "absmax_but_last",
               "reciprocal": "reciprocal_multiply"}
+# the int8 cases' further rows: a NaN in one spot (in one middle segment of
+# a row the cluster kernel splits), an inf (in the last segment there), and
+# on the cluster path a row whose only maximum opens the last segment
+QUANT_INT8_ROWS = {"nan": "nan_dropped", "inf": None,
+                   "segment_max": "absmax_one_segment_dropped"}
 
 
 def _fp8_dtype(fmt):
@@ -1196,11 +1249,47 @@ def quant_special_rows(d, fmt, dtype, rng):
     return rows
 
 
+def _int8_segments(d, dtype):
+    """[(first, end)) columns of each segment of an aligned row of width
+    d that the int8 quantize kernel's CTAs hold (one segment off the
+    cluster path), from ops/quant.py's ``quant_plan``."""
+    from deepspeed_tpu_torch.ops.quant import quant_plan
+    pl = quant_plan(1, d, 0, 0, torch.tensor([], dtype=dtype).element_size())
+    vec, seg, chunks = pl["vec"], max(pl["seg"], 1), pl["chunks"]
+    return [(c * seg * vec, min(chunks, (c + 1) * seg) * vec)
+            for c in range(pl["cluster"])]
+
+
+def quant_int8_rows(d, dtype, rng):
+    """{name: row [d] fp32} of QUANT_INT8_ROWS for width d: seeded normal
+    rows (times 3) with a NaN inside the second segment (the row's middle
+    off the cluster path), with an inf (sign at random) inside the last,
+    and on the cluster path one whose only maximum is the last segment's
+    first element."""
+    segs = _int8_segments(d, dtype)
+    rows = {}
+    row = _through(rng.normal(size=d) * 3.0, dtype)
+    first, end = segs[min(1, len(segs) - 1)]
+    row[rng.integers(first, end) if len(segs) > 1 else d // 2] = np.nan
+    rows["nan"] = row
+    row = _through(rng.normal(size=d) * 3.0, dtype)
+    first, end = segs[-1]
+    row[rng.integers(first, end) if len(segs) > 1 else d - 1 - d // 3] = \
+        np.inf * rng.choice([-1, 1])
+    rows["inf"] = row
+    if len(segs) > 1:
+        row = _through(rng.normal(size=d) * 3.0, dtype)
+        row[segs[-1][0]] = _through(1.5 * np.abs(row).max(), dtype)[0]
+        rows["segment_max"] = row
+    return rows
+
+
 def quant_cases(seed=SEED):
     """Every case: (name, x [N, D] fp32 numpy, fmt, dtype name, special row
     names it holds). Each QUANT_SHAPES shape of seeded normal rows (times
-    3), its leading rows replaced by the special rows where N allows; where
-    it does not, one more case of the special rows alone at that width."""
+    3), its leading rows replaced by the special rows (for int8 also
+    QUANT_INT8_ROWS') where N allows; where it does not, one more case of
+    the special rows alone at that width."""
     rng = np.random.default_rng(seed)
     cases = []
     for fmt in QUANT_QMAX:
@@ -1208,6 +1297,8 @@ def quant_cases(seed=SEED):
             for n, d in QUANT_SHAPES:
                 x = _through(rng.normal(size=(n, d)) * 3.0, dtype)
                 special = quant_special_rows(d, fmt, dtype, rng)
+                if fmt == "int8":
+                    special.update(quant_int8_rows(d, dtype, rng))
                 rows = list(special)
                 if n >= len(rows):
                     x[:len(rows)] = np.stack([special[r] for r in rows])
@@ -1229,12 +1320,22 @@ def _quant_plain(x, fmt):
 
 def _quant_mutant(x, fmt, fault):
     """The plain quantize with one fault a kernel could have (codes,
-    scales)."""
+    scales): the absmax without the last element, without the last cluster
+    segment's chunks (`absmax_one_segment_dropped`) or by a max that drops
+    NaN (as fmaxf does), no 1e-12 floor, a product with the reciprocal
+    scale, ties rounded away from 0."""
     from deepspeed_tpu_torch.ops.quant import reciprocal
     qmax = QUANT_QMAX[fmt]
     x2d = x.float()
-    cols = x2d[:, :-1] if fault == "absmax_but_last" else x2d
-    scale = cols.abs().amax(dim=-1, keepdim=True) * reciprocal(qmax)
+    mag = x2d.abs()
+    if fault == "absmax_but_last":
+        mag = mag[:, :-1]
+    elif fault == "absmax_one_segment_dropped":
+        first, end = _int8_segments(x.shape[-1], x.dtype)[-1]
+        mag = torch.cat([mag[:, :first], mag[:, end:]], dim=1)
+    elif fault == "nan_dropped":
+        mag = torch.nan_to_num(mag, nan=0.0)
+    scale = mag.amax(dim=-1, keepdim=True) * reciprocal(qmax)
     if fault != "scale_floor_dropped":
         scale = torch.clamp_min(scale, 1e-12)
     v = x2d * (1.0 / scale) if fault == "reciprocal_multiply" else x2d / scale
@@ -1252,7 +1353,12 @@ def _bits(t):
 
 
 def _differs(a, b) -> int:
-    return int((_bits(a) != _bits(b)).sum())
+    """Elements whose bits differ; two NaNs count as equal (a NaN's
+    payload is not part of the function)."""
+    diff = _bits(a) != _bits(b)
+    if a.dtype in (torch.float32, torch.bfloat16, torch.float16):
+        diff &= ~(torch.isnan(a) & torch.isnan(b))
+    return int(diff.sum())
 
 
 def run_quant_cases(seed=SEED, device="cuda"):
@@ -1294,7 +1400,7 @@ def run_quant_cases(seed=SEED, device="cuda"):
                    (d_k.float() - d_p.float()).abs().max().item()),
                "special_rows": special, "mutants": {}}
         for r in special:
-            fault = QUANT_ROWS[r]
+            fault = {**QUANT_ROWS, **QUANT_INT8_ROWS}[r]
             if fault is None:
                 continue
             m_q, m_s = _quant_mutant(x, fmt, fault)
@@ -1311,6 +1417,9 @@ def run_quant_cases(seed=SEED, device="cuda"):
             q_v, s_v = q_p[1:], s_p[1:]          # codes d bytes in
             row["view_dequant_differ"] = _differs(
                 dequant(q_v, s_v, dtype), dequantize_plain(q_v, s_v, dtype))
+            x_v = x[1:]                          # inputs d elements in
+            (qk_v, sk_v), (qp_v, sp_v) = quant(x_v), _quant_plain(x_v, fmt)
+            row["view_quant_differ"] = _differs(qk_v, qp_v) + _differs(sk_v, sp_v)
         emit(row)
         check(row["codes_differ"] == row["scales_differ"] == 0,
               f"quantize {fmt} {dname} {name}: {row['codes_differ']} codes, "
@@ -1321,6 +1430,10 @@ def run_quant_cases(seed=SEED, device="cuda"):
         view_differ = row.get("view_dequant_differ", 0)
         check(view_differ == 0, f"dequantize {fmt} {dname} {name} one row "
               f"in: {view_differ} outputs differ from the plain version")
+        view_differ = row.get("view_quant_differ", 0)
+        check(view_differ == 0, f"quantize {fmt} {dname} {name} one row "
+              f"in: {view_differ} codes or scales differ from the plain "
+              "version")
         for fault, n in row["mutants"].items():
             check(n > 0, f"{fmt} {dname} {name}: mutant {fault} gives the "
                   "plain version's bits, so the case cannot catch that fault")
@@ -1346,6 +1459,69 @@ def phase_quant_parity():
 
 def _quant_bound(nbytes):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def qgz_leaf_shapes(cfg, layers):
+    """[n, d] of each gradient qgZ quantizes in one micro-batch of a Llama
+    model of ``cfg`` cut to ``layers`` layers (rows are a leaf's last axis,
+    leaves of at least 2048 elements): the embedding, per layer wq, wk, wv,
+    wo, w_gate, w_up, w_down and the two norm scales, the final norm scale,
+    the lm_head."""
+    h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    hd = cfg.head_dim or h // cfg.num_heads
+    layer = [(h * cfg.num_heads, hd), (h * cfg.num_kv_heads, hd),
+             (h * cfg.num_kv_heads, hd), (cfg.num_heads * hd, h), (h, f),
+             (h, f), (f, h), (1, h), (1, h)]
+    return [(v, h)] + layer * layers + [(1, h), (h, v)]
+
+
+def _qgz_width_timing(gen):
+    """``quantize_int8`` at each of qgZ's row widths (QGZ_WIDTH_SHAPES,
+    fp32): its codes and scales bit for bit against the plain version's,
+    the device time of its entries by exact name (profiler) beside its
+    bytes bound and its CUDA-event time; then the device time of one qgZ
+    step's 78 launches (TRAIN_GAS micro-batches of the recipe's
+    ``qgz_leaf_shapes``, seeded fp32 leaves) beside their bytes bound."""
+    from deepspeed_tpu_torch.models.llama import LLAMA3_8B
+    from deepspeed_tpu_torch.ops.quant import quantize_int8, quantize_int8_plain
+    rows = {}
+    for d, (n, _) in QGZ_WIDTH_SHAPES.items():
+        x = torch.randn(n, d, generator=gen, device="cuda")
+        q, s = quantize_int8(x)
+        q_p, s_p = quantize_int8_plain(x)
+        n_diff = _differs(q, q_p) + _differs(s, s_p)
+        del q, s, q_p, s_p
+        check(n_diff == 0, f"quantize_int8 at qgZ width {d} [{n}, {d}]: "
+              f"{n_diff} codes or scales differ from the plain version")
+        call = lambda: quantize_int8(x)    # noqa: E731
+        entries = {k: v for k, v in _entry_ms(call, iters=10).items()
+                   if "quantize_int8" in k}
+        ms = sum(entries.values())
+        nbytes = x.numel() * 5 + n * 4
+        bound_ms = _quant_bound(nbytes)[0]
+        rows[str(d)] = {"shape": [n, d], "ms": ms, "entries_ms": entries,
+                        "events_ms": time_ms(call, iters=10),
+                        "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+                        "bytes": nbytes}
+        del x
+        torch.cuda.empty_cache()
+    shapes = qgz_leaf_shapes(LLAMA3_8B, TRAIN_LAYERS)
+    check(len(shapes) == QGZ_LEAVES, f"{len(shapes)} qgZ leaves, expected "
+          f"{QGZ_LEAVES}")
+    leaves = [torch.randn(n, d, generator=gen, device="cuda") for n, d in shapes]
+
+    def step():
+        for _ in range(TRAIN_GAS):
+            for x in leaves:
+                quantize_int8(x)
+    step_ms = sum(v for k, v in _entry_ms(step, iters=3).items()
+                  if "quantize_int8" in k)
+    nbytes = TRAIN_GAS * sum(x.numel() * 5 + x.shape[0] * 4 for x in leaves)
+    del leaves
+    torch.cuda.empty_cache()
+    return {"widths": rows, "step_launches": TRAIN_GAS * len(shapes),
+            "step_ms": step_ms, "step_bound_ms": _quant_bound(nbytes)[0],
+            "step_share_of_bound": _quant_bound(nbytes)[0] / step_ms}
 
 
 def phase_quant_timing(dev, smi_line):
@@ -1396,9 +1572,11 @@ def phase_quant_timing(dev, smi_line):
                 out.setdefault(name, {})[where] = row
         del x, codes
         torch.cuda.empty_cache()
+    widths = _qgz_width_timing(gen)
     emit({"phase": "quant_timing", "shapes": {k: list(v) for k, v in
                                               QUANT_TIMING_SHAPES.items()},
           "input": "fp32; dequantize to bf16 at A1_w_gate, fp32 at B_lm_head",
+          "quantize_int8_qgz_widths": widths,
           "elements_differing_from_plain": parity,
           "kernels": {k: {w: {**r, "share_of_bound": r["bound_ms"] / r["ms"]}
                           for w, r in v.items()} for k, v in out.items()},
@@ -1616,6 +1794,49 @@ def _evo_dq_dead_keys_live(args, b1, b2, res, want):
     return want[:2] + [dq] + want[3:]
 
 
+def _evo_db1_row_stats_of_group_neighbour(args, b1, b2, res, want):
+    """db1 of each MSA row past the first of a bf16 dbias1 block's group
+    (``evo_bwd_plan``'s ``dbias1`` group) is summed on the first row's lse
+    and delta."""
+    from deepspeed_tpu_torch.ops.evoformer import (_bwd_delta, evo_bwd_plain,
+                                                   evo_bwd_plan)
+    q, k, v, do = args
+    out, lse = res
+    n = q.shape[1]
+    group = evo_bwd_plan(q.shape[-1], b2 is not None)["dbias1"]["group"]
+    rows = torch.arange(n, device=q.device)
+    first = rows - rows % group
+    db1 = evo_bwd_plain(q, k, v, b1, b2, out, lse[:, first], do,
+                        need_db2=False, delta=_bwd_delta(out, do)[:, first])[3]
+    return want[:5] + [db1, want[6]]
+
+
+def _evo_db1_dead_keys_live(args, b1, b2, res, want):
+    """db1 writes the dead keys of the last 64-key tile (scored from their
+    zero-filled K and V rows and zero biases, not masked) past the end of
+    each (b, n) row, over the first keys of the rows after it: no store
+    guard at Lk. In OpenFold's fully masked row exp(0 - lse) is infinite
+    there."""
+    from deepspeed_tpu_torch.ops.evoformer import KEY_TILE, evo_bwd_plain
+    q, k, v, do = args
+    lk = k.shape[2]
+    pad = -lk % KEY_TILE
+    grow = lambda x, dim: torch.cat(   # noqa: E731
+        [x, x.new_zeros(*x.shape[:dim], pad, *x.shape[dim + 1:])], dim)
+    db1_pad = evo_bwd_plain(q, grow(k, 2), grow(v, 2), grow(b1, 2),
+                            None if b2 is None else grow(b2, 3), *res, do,
+                            need_db2=False)[3]
+    rows = db1_pad.shape[0] * db1_pad.shape[1]
+    flat = want[5].reshape(-1).clone()
+    dead = db1_pad.reshape(rows, lk + pad)[:, lk:]
+    for r in range(rows):              # in row order: a later row's write wins
+        at = (r + 1) * lk
+        m = min(pad, flat.numel() - at)
+        if m > 0:
+            flat[at:at + m] = dead[r, :m]
+    return want[:5] + [flat.reshape(want[5].shape), want[6]]
+
+
 def _evo_mutants(shape):
     """{name: (mutant, outputs it must miss)} that apply to a case of
     EVO_CASES' shape."""
@@ -1649,6 +1870,13 @@ def _evo_mutants(shape):
             _evo_dq_row_stats_of_group_neighbour, ("dq",))
     if with_b1 and lk % KEY_TILE:
         mutants["dq_dead_keys_live"] = (_evo_dq_dead_keys_live, ("dq",))
+    # the bf16 dbias1's groups of MSA rows, and its store guard at Lk
+    if dtype == torch.bfloat16 and with_b1 and n >= 2 and \
+            evo_bwd_plan(d, with_b2)["dbias1"]["group"] >= 2:
+        mutants["db1_row_of_group_neighbour"] = (
+            _evo_db1_row_stats_of_group_neighbour, ("db1",))
+    if dtype == torch.bfloat16 and with_b1 and lk % KEY_TILE and b * n >= 2:
+        mutants["db1_dead_keys_live"] = (_evo_db1_dead_keys_live, ("db1",))
     return mutants
 
 
@@ -1666,11 +1894,11 @@ def _entries(fn, stem):
 
 # the forward's entry by dtype: bf16 on the tensor cores, fp32 on CUDA cores
 EVO_FWD_ENTRY = {torch.bfloat16: "evo_fwd_kernel_mma", torch.float32: "evo_fwd_kernel"}
-# the backward's entries by dtype (dbias1 on the CUDA cores in both)
+# the backward's entries by dtype
 EVO_BWD_ENTRY = {
     torch.bfloat16: {"evo_dq": "evo_dq_kernel_mma", "evo_dkv": "evo_dkv_kernel_mma",
                      "evo_dbias2": "evo_dbias2_kernel_mma",
-                     "evo_dbias1": "evo_dbias1_kernel"},
+                     "evo_dbias1": "evo_dbias1_kernel_mma"},
     torch.float32: {"evo_dq": "evo_dq_kernel", "evo_dkv": "evo_dkv_kernel",
                     "evo_dbias2": "evo_dbias2_kernel",
                     "evo_dbias1": "evo_dbias1_kernel"}}

@@ -8,7 +8,8 @@
 //   evo_dkv_kernel, evo_dkv_kernel_mma (bf16)  <- `_evo_dkv_kernel`
 //   evo_dbias2_kernel, evo_dbias2_kernel_mma and
 //     evo_dbias2_combine_kernel (bf16)         <- `_evo_dbias2_kernel`
-//   evo_dbias1_kernel                          <- `_evo_dbias1_kernel`
+//   evo_dbias1_kernel, evo_dbias1_kernel_mma
+//     (bf16)                                   <- `_evo_dbias1_kernel`
 // (wrappers `_evo_fwd_impl`, `_evo_bwd_impl`)
 //
 // Function: q [B,N,Lq,H,D], k/v [B,N,Lk,H,D] (row g = (b*N + n)*H + h),
@@ -27,10 +28,10 @@
 // What bounds it: at OpenFold's widths (L = 384, D = 32, H = 8) the forward
 // does 77 GFLOP against 0.41 GB of operands, so at the tensor cores' bf16
 // rate it is bound by bytes (0.12 ms); at D = 8 (the extra-MSA stack) even
-// more so. The fp32 kernels, and dbias1 in both dtypes, are the first,
-// simple design: they multiply on the fp32 CUDA cores from shared memory,
-// so arithmetic bounds them in practice. The bf16 forward, dQ, dK/dV and
-// dbias2 multiply on the tensor cores; what sets their time is the
+// more so. The fp32 kernels are the first, simple design: they multiply on
+// the fp32 CUDA cores from shared memory, so arithmetic bounds them in
+// practice. The bf16 forward, dQ, dK/dV, dbias2 and dbias1 multiply on the
+// tensor cores; what sets their time is the
 // work per score on the CUDA cores (the scale, two rounded bias adds, the
 // exact expf, and in the backward dP - delta, two products, the sums).
 //   * The TPU grid's sequential axes, which carried sums in VMEM from one
@@ -130,10 +131,33 @@
 //     alone); the splits' partials go to a workspace that
 //     evo_dbias2_combine_kernel sums in split order, so db2 repeats bit for
 //     bit, with no atomics.
-// Not done yet (later work): the tensor cores for dbias1. The bias
-// reductions stay out of the dK/dV pass: db2 sums over the N rows that
-// dK/dV spreads over its blocks, so fusing them needs an [N/G, B, H, Lq, Lk]
-// workspace of partials (1.2 GB at OpenFold's MSA row attention).
+// The bf16 dbias1, evo_dbias1_kernel_mma (fp32 keeps evo_dbias1_kernel), is
+// dK/dV's tiling without its two products: the sum over queries becomes a
+// sum along the rows of S^T, which each key's owner keeps in registers.
+//   * A warp owns 16 keys of one MSA row, a warp group a 64-key tile of it;
+//     a block is G warp groups on G MSA rows of one b (`evo_bwd_plan`
+//     mirrors it), which share each fp32 [64 queries][68] pair-bias tile.
+//     G = 1, built for three resident blocks an SM at D <= 32, beat G = 2
+//     (two blocks an SM, 128 registers and 32 bytes of spills) on the card.
+//     The block walks the heads and, in each, the 64-row query tiles: a
+//     2-stage `cp.async` ring brings each step's Q and dO of the G rows,
+//     their lse and delta and the pair tile; a head's first step brings its
+//     K and V tiles too, which every warp copies into registers as the A
+//     fragments of S^T = K.Q^T and dP^T = V.dO^T (a barrier then frees the
+//     one K/V slot for the next head).
+//   * p = exp(dot * scale + bias1 + bias2 - lse), each add rounded on its
+//     own, is 0 for dead queries; the raw dS = p (dP - delta) of each key
+//     is summed in registers over heads, query tiles and the thread's query
+//     columns in order, then over the 4 lanes of a key row by shuffles, and
+//     written once: no atomics and no cross-warp reduction, so db1 repeats
+//     bit for bit. Dead keys' sums are never written.
+//   * Without a pair bias the kernel skips the pair tile (one instance per
+//     head dim, the pair bias's presence read at run time).
+// Not done yet (later work): the bias reductions stay out of the dK/dV and
+// dQ passes: db2 sums over the N rows that dK/dV spreads over its blocks,
+// so fusing them needs an [N/G, B, H, Lq, Lk] workspace of partials (1.2 GB
+// at OpenFold's MSA row attention), and db1 in dQ an [B, N, H, Lq/64, Lk]
+// one of column partials (37.7 MB there) and a combine.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1659,13 +1683,226 @@ evo_dbias2_combine_kernel(const float* __restrict__ ws, float* __restrict__ db2,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dbias1 on the tensor cores: one block per (64-key tile, group of G MSA
+// rows of one b); warp group wg (4 warps x 16 keys) owns the key tile of MSA
+// row n0 + wg and walks the heads and, in each, the 64-row query tiles
+// ---------------------------------------------------------------------------
+// MSA rows a dbias1 block walks (`evo_bwd_plan` mirrors it), and the
+// resident blocks an SM it is built for at D <= 32: one row a block, three
+// blocks an SM, beat two rows sharing each pair tile, two blocks an SM, by
+// 10% at E1 (PERF.md)
+constexpr int kDb1Group = 1;
+constexpr int kDb1MinBlocks = 3;
+
+template <int D>
+struct Db1Mma {
+  static constexpr int DK = D < 16 ? 16 : D;           // K.Q^T depth (D = 8 padded)
+  static constexpr int RS = DK + 8;                    // bf16 tile row stride, elements
+  static constexpr int G = D < 128 ? kDb1Group : 1;    // MSA rows a block walks
+  static constexpr int kStages = 2;
+  static constexpr int kTile = kMmaRows * RS * 2;      // bytes of a [64][RS] bf16 tile
+  static constexpr int kBias2 = kMmaRows * kBiasStrideT * 4;
+  // a stage: Q [G][64][RS], dO [G][64][RS]; the pair tile (with a pair
+  // bias); lse [G][64], delta [G][64]
+  __host__ __device__ static constexpr int stage(bool pair) {
+    return 2 * G * kTile + (pair ? kBias2 : 0) + 2 * G * kMmaRows * 4;
+  }
+  __host__ __device__ static constexpr int smem(bool pair) {   // + K, V of one head
+    return 2 * G * kTile + kStages * stage(pair);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads * Db1Mma<D>::G, D <= 32 ? kDb1MinBlocks : 1)
+evo_dbias1_kernel_mma(Params p) {
+  using F = Db1Mma<D>;
+  using namespace warp_mma;
+  using bf16 = __nv_bfloat16;
+  constexpr int G = F::G, RS = F::RS, KS = F::DK / 16, ST = F::kStages;
+  constexpr int THREADS = kThreads * G;
+  const bool pair = p.b2 != nullptr;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wg = warp / 4, row0 = (warp % 4) * 16;     // MSA row n0 + wg, keys row0..+15
+  const int grp = lane / 4, tig = lane % 4;
+  const int nkt = cdiv(p.Lk, kMmaKeys), ngr = cdiv(p.N, G), nqt = cdiv(p.Lq, kMmaRows);
+  // the key tiles of one group of rows are adjacent (their Q/dO tiles meet
+  // in L2), then the groups of one b
+  const int kt = (int)(blockIdx.x % nkt);
+  const int rest = (int)(blockIdx.x / nkt);
+  const int n0 = (rest % ngr) * G, b = rest / ngr;
+  const int rows = min(G, p.N - n0), k0 = kt * kMmaKeys;
+  const bool live = wg < rows;                         // warp-uniform
+  const size_t bn0 = (size_t)b * p.N + n0, bn = bn0 + wg;
+  const bf16* q = static_cast<const bf16*>(p.q);
+  const bf16* k = static_cast<const bf16*>(p.k);
+  const bf16* v = static_cast<const bf16*>(p.v);
+  const bf16* dout = static_cast<const bf16*>(p.dout);
+  const int stage_bytes = F::stage(pair);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);        // [G][64][RS], one head's
+  bf16* vs = ks + G * (F::kTile / 2);                  // [G][64][RS]
+  unsigned char* ring = smem_raw + 2 * G * F::kTile;   // [ST] stages
+  auto q_of = [&](int s, int r) {
+    return reinterpret_cast<bf16*>(ring + s * stage_bytes + r * F::kTile);
+  };
+  auto do_of = [&](int s, int r) { return q_of(s, G + r); };
+  auto b2_of = [&](int s) {
+    return reinterpret_cast<float*>(ring + s * stage_bytes + 2 * G * F::kTile);
+  };
+  auto lse_of = [&](int s, int r) {
+    return reinterpret_cast<float*>(ring + s * stage_bytes + 2 * G * F::kTile +
+                                    (pair ? F::kBias2 : 0)) + r * kMmaRows;
+  };
+  auto delta_of = [&](int s, int r) { return lse_of(s, G + r); };
+
+  if constexpr (D < 16) {              // the zero pad of K, V, Q and dO (never copied)
+    for (int r = threadIdx.x; r < (2 + 2 * ST) * G * kMmaRows; r += THREADS) {
+      const int t = r / kMmaRows, rr = r % kMmaRows;
+      bf16* tile = t < 2 * G ? ks + t * (F::kTile / 2)
+                             : q_of((t - 2 * G) / (2 * G), (t - 2 * G) % (2 * G));
+      *reinterpret_cast<uint4*>(tile + rr * RS + 8) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  const size_t ld = (size_t)p.H * D;                   // elements between rows
+  // G [64][D] tiles of head h of x [B*N, L, H, D] from position pos0, as the
+  // forward's
+  auto issue_rows = [&](bf16* dst, const bf16* x, int pos0, int L, int h, int tile0) {
+#pragma unroll
+    for (int r = 0; r < G; ++r)
+      cp_async_tile<kMmaRows, D, RS, THREADS>(
+          dst + r * (F::kTile / 2), r < rows ? x + ((bn0 + r) * L + pos0) * ld + h * D : x,
+          ld, r < rows ? L - pos0 : 0, (tile0 + r) * kMmaRows * (D / 8));
+  };
+  // step u is (head u / nqt, query tile u % nqt) of the G rows, into stage
+  // u % ST; a head's first step brings its K and V too, into the one K/V
+  // slot, which every warp has copied into registers by then (below)
+  const int steps = p.H * nqt;
+  auto issue = [&](int u) {
+    const int s = u % ST, h = u / nqt, q0 = (u % nqt) * kMmaRows;
+    if (u % nqt == 0) {
+      issue_rows(ks, k, k0, p.Lk, h, 0);
+      issue_rows(vs, v, k0, p.Lk, h, G);
+    }
+    issue_rows(q_of(s, 0), q, q0, p.Lq, h, 2 * G);
+    issue_rows(do_of(s, 0), dout, q0, p.Lq, h, 3 * G);
+    if (pair)                          // [64 queries][64 keys] of panel (b, h)
+      issue_f32_tile<kMmaRows, THREADS>(b2_of(s), kBiasStrideT,
+                                        p.b2 + (((size_t)b * p.H + h) * p.Lq + q0) * p.Lk + k0,
+                                        p.Lk, p.Lq - q0, p.Lk - k0);
+    issue_stats<G, THREADS>(lse_of(s, 0), p.lse, p, bn0, h, rows, q0, 0);
+    issue_stats<G, THREADS>(delta_of(s, 0), p.delta, p, bn0, h, rows, q0, THREADS / 2);
+  };
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+
+  // bias1 of this thread's two keys (rows grp, grp + 8 of its 16); 0 for
+  // dead keys, whose sums are never written
+  float b1v[2] = {0.f, 0.f};
+  if (live) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int kpos = k0 + row0 + grp + 8 * hr;
+      if (kpos < p.Lk) b1v[hr] = p.b1[bn * p.Lk + kpos];
+    }
+  }
+  // the raw dS of keys grp and grp + 8, summed over heads, query tiles and
+  // this thread's query columns, in that order
+  float acc[2] = {0.f, 0.f};
+  uint32_t kf[KS][4], vf[KS][4];                       // this warp's K and V A fragments
+  const bf16* kw = ks + wg * (F::kTile / 2);
+  const bf16* vw = vs + wg * (F::kTile / 2);
+
+  for (int u = 0; u < steps; ++u) {
+    cp_async_wait<ST - 2>();                           // step u has landed (this thread's part)
+    __syncthreads();                                   // ... everyone's; step u - 1 is done
+    const int q0 = (u % nqt) * kMmaRows;
+    if (u % nqt == 0) {                                // a new head: K and V into registers
+      if (live) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          ldsm_x4(kf[kk], kw + a_offset(lane, RS, row0, 16 * kk));
+          ldsm_x4(vf[kk], vw + a_offset(lane, RS, row0, 16 * kk));
+        }
+      }
+      __syncthreads();                                 // the slot is free for the next head
+    }
+    if (u + ST - 1 < steps) issue(u + ST - 1);         // into the stage step u - 1 used
+    cp_async_commit();
+    if (!live) continue;
+    const int s_idx = u % ST;
+    const bf16* qw = q_of(s_idx, wg);
+    const bf16* dow = do_of(s_idx, wg);
+    const float* b2s = b2_of(s_idx);
+    const float* lse_s = lse_of(s_idx, wg);
+    const float* delta_s = delta_of(s_idx, wg);
+    const bool tail = q0 + kMmaRows > p.Lq;
+
+#pragma unroll
+    for (int c = 0; c < kMmaRows / 16; ++c) {        // 16 queries a step
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 16 queries a warp
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t bb[4];
+        ldsm_x4(bb, qw + b_nk_offset(lane, RS, 16 * c, 16 * kk));
+        mma_m16n8k16_bf16(st[0], kf[kk], bb[0], bb[1]);
+        mma_m16n8k16_bf16(st[1], kf[kk], bb[2], bb[3]);
+        ldsm_x4(bb, dow + b_nk_offset(lane, RS, 16 * c, 16 * kk));
+        mma_m16n8k16_bf16(dpt[0], vf[kk], bb[0], bb[1]);
+        mma_m16n8k16_bf16(dpt[1], vf[kk], bb[2], bb[3]);
+      }
+      // score = dot * scale, + bias1, + bias2 (each rounded); p = exp(score
+      // - lse), 0 for dead queries; the raw dS = p (dP - delta), summed per key
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qc = 16 * c + 8 * j + 2 * tig;       // query column of elements 0 / 2
+        const float2 lse2 = *reinterpret_cast<const float2*>(lse_s + qc);
+        const float2 del2 = *reinterpret_cast<const float2*>(delta_s + qc);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int kr = row0 + grp + 8 * hr;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float x = __fmul_rn(st[j][2 * hr + e], p.scale);
+            x = __fadd_rn(x, b1v[hr]);
+            if (pair) x = __fadd_rn(x, b2s[(qc + e) * kBiasStrideT + kr]);
+            float pr = expf(x - (e ? lse2.y : lse2.x));
+            if (tail && q0 + qc + e >= p.Lq) pr = 0.f;
+            acc[hr] += pr * (dpt[j][2 * hr + e] - (e ? del2.y : del2.x));
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();                                  // nothing in flight at exit
+  if (!live) return;
+
+  float* db1 = static_cast<float*>(p.out0);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const float sum = quad_sum(acc[hr]);               // the 4 lanes of a key, fixed order
+    const int kpos = k0 + row0 + grp + 8 * hr;
+    if (tig == 0 && kpos < p.Lk) db1[bn * p.Lk + kpos] = sum;
+  }
+}
+
 // kFwdMma / kFwdMmaNoPair: the bf16 forward's bytes with / without a pair
 // bias; kDkvMma / kDkvMmaNoPair the bf16 dK/dV's; kDb2Mma the bf16
-// dbias2's; kDqMma / kDqMmaNoPair the bf16 dQ's (for `dstt_evo_smem_bytes`
-// alone; launches say kFwd, kDq, kDkv, kDb2).
+// dbias2's; kDqMma / kDqMmaNoPair the bf16 dQ's; kDb1Mma / kDb1MmaNoPair
+// the bf16 dbias1's (for `dstt_evo_smem_bytes` alone; launches say kFwd,
+// kDq, kDkv, kDb2, kDb1).
 enum Which {
   kFwd = 0, kDq = 1, kDkv = 2, kDb2 = 3, kDb1 = 4, kFwdMma = 5, kFwdMmaNoPair = 6,
-  kDkvMma = 7, kDkvMmaNoPair = 8, kDb2Mma = 9, kDqMma = 10, kDqMmaNoPair = 11
+  kDkvMma = 7, kDkvMmaNoPair = 8, kDb2Mma = 9, kDqMma = 10, kDqMmaNoPair = 11,
+  kDb1Mma = 12, kDb1MmaNoPair = 13
 };
 
 template <int D>
@@ -1679,6 +1916,8 @@ int smem_bytes(int which) {
     case kDb2Mma: return Db2Mma<D>::kSmem;
     case kDqMma: return DqMma<D, true>::kSmem;
     case kDqMmaNoPair: return DqMma<D, false>::kSmem;
+    case kDb1Mma: return Db1Mma<D>::smem(true);
+    case kDb1MmaNoPair: return Db1Mma<D>::smem(false);
     case kDq: return dq_smem_floats<D>() * (int)sizeof(float);
     case kDkv: return dkv_smem_floats<D>() * (int)sizeof(float);
     case kDb2:
@@ -1722,6 +1961,25 @@ template <int D, bool PAIR>
 cudaError_t launch_dkv_mma(const Params& p, cudaStream_t stream) {
   return launch_groups<DkvMma<D, PAIR>>(evo_dkv_kernel_mma<D, PAIR>, cdiv(p.Lk, kMmaKeys), p,
                                         stream);
+}
+
+// The bf16 dbias1 (a mask takes a gradient) into db1 (p.out0).
+template <int D>
+cudaError_t launch_db1_mma(const Params& p, cudaStream_t stream) {
+  using F = Db1Mma<D>;
+  if (p.b1 == nullptr) return cudaErrorInvalidValue;
+  const long long blocks = (long long)p.B * cdiv(p.N, F::G) * cdiv(p.Lk, kMmaKeys);
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  static bool configured = false;                      // per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        evo_dbias1_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::smem(true));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  evo_dbias1_kernel_mma<D><<<(unsigned)blocks, kThreads * F::G, F::smem(p.b2 != nullptr),
+                             stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -1775,7 +2033,8 @@ int db2_blocks_per_sm() {
 
 template <typename T, int D>
 cudaError_t launch(int which, const Params& p, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {                     // bf16: the tensor cores, but for dbias1
+  if constexpr (sizeof(T) == 2) {                     // bf16: the tensor cores
+    if (which == kDb1) return launch_db1_mma<D>(p, stream);
     if (which == kFwd)
       return p.b2 != nullptr ? launch_fwd_mma<D, true>(p, stream)
                              : launch_fwd_mma<D, false>(p, stream);
@@ -1808,9 +2067,9 @@ cudaError_t launch(int which, const Params& p, cudaStream_t stream) {
       if constexpr (sizeof(T) == 4) kernel = evo_dbias2_kernel<T, D>;
       blocks = (long long)p.B * p.H * cdiv(p.Lq, kRows) * cdiv(p.Lk, kKeys);
       break;
-    case kDb1:
+    case kDb1:                                         // fp32 (bf16 returned above)
       if (p.b1 == nullptr) return cudaErrorInvalidValue;
-      kernel = evo_dbias1_kernel<T, D>;
+      if constexpr (sizeof(T) == 4) kernel = evo_dbias1_kernel<T, D>;
       blocks = (long long)p.B * p.N * cdiv(p.Lk, kKeys);
       break;
     default:
@@ -1863,10 +2122,11 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 }  // namespace
 
 // Dynamic shared memory (bytes) of kernel `which` (0 forward, 1 dQ, 2 dK/dV,
-// 3 dbias2, 4 dbias1 for fp32, and 4 for bf16; 5 the bf16 forward with a
-// pair bias, 6 without; 7 the bf16 dK/dV with a pair bias, 8 without; 9 the
-// bf16 dbias2; 10 the bf16 dQ with a pair bias, 11 without) at `head_dim`;
-// -1 for an instantiation not compiled.
+// 3 dbias2, 4 dbias1 for fp32; 5 the bf16 forward with a pair bias, 6
+// without; 7 the bf16 dK/dV with a pair bias, 8 without; 9 the bf16 dbias2;
+// 10 the bf16 dQ with a pair bias, 11 without; 12 the bf16 dbias1 with a
+// pair bias, 13 without) at `head_dim`; -1 for an instantiation not
+// compiled.
 extern "C" int dstt_evo_smem_bytes(int which, int head_dim) {
   switch (head_dim) {
     case 8: return smem_bytes<8>(which);

@@ -7,12 +7,12 @@ Port of ``deepspeed_tpu/ops/pallas/evoformer.py``. Its five TPU kernels,
 CUDA kernels of ``csrc/evoformer.cu`` (design notes there), launched by
 ``evo_fwd`` and ``evo_bwd`` and counted as ``evo_fwd``, ``evo_dq``,
 ``evo_dkv``, ``evo_dbias2`` and ``evo_dbias1``. In bf16 the forward, dQ,
-dK/dV and dbias2 run on the tensor cores (``evo_fwd_kernel_mma``,
-``evo_dq_kernel_mma``, ``evo_dkv_kernel_mma`` and
-``evo_dbias2_kernel_mma``, tiled as ``evo_fwd_plan`` and ``evo_bwd_plan``
-say; dbias2 splits the N rows as ``dbias2_splits`` says and sums the
-splits' partials in order with ``evo_dbias2_combine_kernel``); dbias1 and
-every fp32 kernel on the CUDA cores.
+dK/dV, dbias2 and dbias1 run on the tensor cores (``evo_fwd_kernel_mma``,
+``evo_dq_kernel_mma``, ``evo_dkv_kernel_mma``, ``evo_dbias2_kernel_mma``
+and ``evo_dbias1_kernel_mma``, tiled as ``evo_fwd_plan`` and
+``evo_bwd_plan`` say; dbias2 splits the N rows as ``dbias2_splits`` says
+and sums the splits' partials in order with
+``evo_dbias2_combine_kernel``); every fp32 kernel on the CUDA cores.
 
 Function: ``softmax(q k^T / sqrt(D) + bias1 + bias2) v`` on q/k/v
 ``[B, N, L, H, D]``, with ``bias1 [B, N, Lk]`` a per-key bias of each row
@@ -49,6 +49,7 @@ KEY_TILE = 64              # keys of the forward kernel's tile
 MMA_ROWS = 64              # query rows (keys for dK/dV) of a bf16 tensor-core tile
 DKV_GROUP = 2              # MSA rows a bf16 dK/dV block walks with a pair bias
 DQ_GROUP = 2               # MSA rows a bf16 dQ block walks with a pair bias
+DB1_GROUP = 1              # MSA rows a bf16 dbias1 block walks (D < 128)
 NEG_INF = -1e30            # the reference's NEG_INF: the running max's start
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # score elements one plain chunk may hold (1 GiB of fp32)
@@ -273,8 +274,8 @@ def evo_fwd_plan(head_dim: int, has_bias2: bool) -> dict:
 
 
 def evo_bwd_plan(head_dim: int, has_bias2: bool) -> dict:
-    """The bf16 backward's tensor-core tilings (``DqMma``, ``DkvMma`` and
-    ``Db2Mma`` in csrc/evoformer.cu): ``dq``, one block per 64-row query
+    """The bf16 backward's tensor-core tilings (``DqMma``, ``DkvMma``,
+    ``Db2Mma`` and ``Db1Mma`` in csrc/evoformer.cu): ``dq``, one block per 64-row query
     tile of ``group`` MSA rows, a warp group of 4 warps x 16 queries each
     (with a pair bias DQ_GROUP rows sharing each fp32 [64][72] pair-bias
     tile; 1 at D = 128 and without one), Q and dO resident, a ring of
@@ -287,8 +288,15 @@ def evo_bwd_plan(head_dim: int, has_bias2: bool) -> dict:
     and dO tiles, the pair tile, G rows of lse and delta); ``dbias2`` (None
     without a pair bias), one block of 4 warps x 16 queries per 64 x 64
     panel tile and split, a ring of ``stages`` MSA rows (Q, dO, K, V tiles,
-    bias1, lse, delta). Tiles are [64][max(D, 16) + 8] bf16; nothing here
-    depends on the lengths."""
+    bias1, lse, delta); ``dbias1``, one block per 64-key tile of ``group``
+    MSA rows of one batch entry (DB1_GROUP, with or without a pair bias:
+    the mask has no head axis; 1, three blocks an SM at D <= 32, beat 2 on
+    the card), a warp group of 4 warps x 16 keys each, one head's K and V
+    tiles, a ring of ``stages`` (head, query tile) steps (G Q and dO tiles,
+    the fp32 [64 queries][68] pair tile the G rows share where there is a
+    pair bias, G rows of lse and delta).
+    Tiles are [64][max(D, 16) + 8] bf16; nothing here depends on the
+    lengths."""
     d = head_dim
     if d not in HEAD_DIMS:
         raise ValueError(f"evoformer attention kernel: head dim {d} (one of "
@@ -310,7 +318,11 @@ def evo_bwd_plan(head_dim: int, has_bias2: bool) -> dict:
         dbias2 = {"threads": 128, "stages": stages, "rows": MMA_ROWS,
                   "keys": KEY_TILE,
                   "smem_bytes": stages * (4 * tile + 3 * MMA_ROWS * 4)}
-    return {"dq": dq, "dkv": dkv, "dbias2": dbias2}
+    group = DB1_GROUP if d < 128 else 1                # bias2: dK/dV's [64][68] tile
+    stage = 2 * group * tile + bias2 + 2 * group * MMA_ROWS * 4
+    dbias1 = {"group": group, "threads": 128 * group, "stages": 2,
+              "keys": MMA_ROWS, "smem_bytes": 2 * group * tile + 2 * stage}
+    return {"dq": dq, "dkv": dkv, "dbias2": dbias2, "dbias1": dbias1}
 
 
 MAX_DB2_SPLITS = 16        # the dbias2 workspace holds at most 16 panels' partials
@@ -372,15 +384,17 @@ def dbias2_split_for(device, b, h, n, l_q, l_k, head_dim, dtype
 def dynamic_smem_bytes(head_dim: int) -> dict:
     """Dynamic shared memory (bytes) of each kernel at ``head_dim``, as the
     built library reports it: the CUDA-core kernels by launch name (the
-    forward's, dQ's, dK/dV's and dbias2's are fp32's), the bf16 forward,
-    dK/dV and dQ with and without a pair bias, the bf16 dbias2."""
+    forward's, dQ's, dK/dV's, dbias2's and dbias1's are fp32's), the bf16
+    forward, dK/dV, dQ and dbias1 with and without a pair bias, the bf16
+    dbias2."""
     lib = _library()
     out = {name: lib.dstt_evo_smem_bytes(i, head_dim)
            for i, name in enumerate(LAUNCH_NAMES)}
     for i, name in enumerate(("evo_fwd_mma_pair", "evo_fwd_mma",
                               "evo_dkv_mma_pair", "evo_dkv_mma",
                               "evo_dbias2_mma", "evo_dq_mma_pair",
-                              "evo_dq_mma"), start=5):
+                              "evo_dq_mma", "evo_dbias1_mma_pair",
+                              "evo_dbias1_mma"), start=5):
         out[name] = lib.dstt_evo_smem_bytes(i, head_dim)
     return out
 

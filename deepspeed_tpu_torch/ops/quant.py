@@ -12,6 +12,11 @@ the fp8 kernels that ``ops/fp_quant.py`` wraps; ``quantize_rows_cuda`` and
 16-code chunks and scalar codes, from the shape and the pointers'
 alignment.
 
+``quant_plan`` and ``quant_elements`` mirror how the int8 quantize kernel
+splits a call into 16-byte chunks and scalar elements and which instance
+(a warp, a block or a thread-block cluster per row) runs it, from the
+shape and the pointers' alignment (``quant_plan`` in csrc/quant.cu).
+
 ``quantize_int8_plain`` and ``dequantize_int8_plain`` compute the
 reference's function with the reference's rounding points (the scale as
 ``absmax`` times the fp32 reciprocal of 127, which is what XLA makes of
@@ -129,6 +134,82 @@ def dequant_chunks(n: int, d: int, q_offset: int, out_offset: int,
 
 
 # ---------------------------------------------------------------------------
+# how the int8 quantize kernel splits a call (``quant_plan`` and
+# ``quantize_int8_{warp,block,cluster}`` in csrc/quant.cu)
+# ---------------------------------------------------------------------------
+QUANT_CLUSTER = 16         # CTAs of the cluster that holds one wide row
+# the plan's fields, in the order ``dstt_quant_plan`` writes them
+QUANT_PLAN_FIELDS = ("head0", "dmod", "vec", "chunks", "rest", "wide", "path",
+                     "threads", "per", "rows", "cluster", "seg")
+
+
+def quant_plan(n: int, d: int, x_offset: int, q_offset: int,
+               itemsize: int) -> dict:
+    """The int8 quantize kernel's plan of x [n, d] (elements of
+    ``itemsize`` bytes, the first ``x_offset`` bytes past a 16-byte
+    boundary; codes ``q_offset`` bytes past one). A chunk is the ``vec`` =
+    16 / itemsize elements of one 16-byte load; row r's first chunk starts
+    ``(head0 - r * d) % vec`` elements in, ``chunks`` whole chunks follow
+    in every row and its other ``rest`` elements take the scalar path;
+    ``wide``: a chunk's codes go out in one store. ``path`` (0 warp, 1
+    block, 2 cluster, -1 none fits), ``threads`` and ``per`` (chunks a lane
+    or thread holds) name the instance, ``rows`` the rows a warp takes;
+    ``cluster`` CTAs hold one row in segments of ``seg`` chunks. Fields as
+    ``QUANT_PLAN_FIELDS``."""
+    vec = 16 // itemsize
+    pl = dict(head0=0, dmod=d % vec, vec=vec, chunks=0, rest=d, wide=0,
+              path=0, threads=32, per=1, rows=1, cluster=1, seg=0)
+    if x_offset % itemsize == 0:
+        pl["head0"] = (-x_offset % 16) // itemsize
+        hmax = max((pl["head0"] - r * d) % vec for r in range(min(n, vec)))
+        if d >= hmax + vec:
+            pl["chunks"] = (d - hmax) // vec
+            pl["rest"] = d - vec * pl["chunks"]
+        pl["wide"] = int((q_offset - x_offset // itemsize) % vec == 0)
+    c = pl["chunks"]
+    pl["seg"] = c
+    if c <= 128:
+        pl["per"] = 1 if c <= 32 else 2 if c <= 64 else 4
+        pl["rows"] = 4 // pl["per"]
+    elif c <= 4096:
+        pl["path"] = 1
+        if c <= 1024:
+            pl["threads"] = 256
+            pl["per"] = 1 if c <= 256 else 2 if c <= 512 else 4
+        else:
+            pl["threads"] = 512
+            pl["per"] = 4 if c <= 2048 else 7 if c <= 3584 else 8
+    else:
+        pl["path"], pl["cluster"] = 2, QUANT_CLUSTER
+        seg = pl["seg"] = -(-c // QUANT_CLUSTER)
+        pl["threads"] = 512
+        pl["per"] = 2 if seg <= 1024 else 4 if seg <= 2048 else 8
+        if seg > 4096:
+            pl["path"] = -1
+    if pl["rest"] > 32:
+        pl["path"] = -1
+    return pl
+
+
+def quant_elements(n: int, d: int, x_offset: int, q_offset: int,
+                   itemsize: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The kernel's split of a call as flat element indices: (the first
+    element of each chunk, the CTA of its row's cluster that holds it (0
+    off the cluster path), each element of the scalar path), as
+    ``quant_plan`` says."""
+    pl = quant_plan(n, d, x_offset, q_offset, itemsize)
+    vec, chunks, rest = pl["vec"], pl["chunks"], pl["rest"]
+    rows = np.arange(n, dtype=np.int64)[:, None]
+    head = (pl["head0"] - rows * d) % vec if chunks else np.zeros_like(rows)
+    cols = np.arange(chunks)
+    starts = rows * d + head + vec * cols
+    ctas = np.broadcast_to(cols // max(pl["seg"], 1), starts.shape)
+    k = np.arange(rest)
+    scalars = rows * d + np.where(k < head, k, k + vec * chunks)
+    return starts.reshape(-1), ctas.reshape(-1), scalars.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 def _library() -> ctypes.CDLL:
@@ -140,6 +221,8 @@ def _library() -> ctypes.CDLL:
         lib.dstt_dequantize_rows.argtypes = [p, p, p, ll, i, i, i, p]
         lib.dstt_quantize_rows.restype = ctypes.c_int
         lib.dstt_dequantize_rows.restype = ctypes.c_int
+        lib.dstt_quant_plan.argtypes = [p, p, ll, i, i, p]
+        lib.dstt_quant_plan.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -177,6 +260,17 @@ def quantize_rows_cuda(x: torch.Tensor, code: int, name: str
     _raise_on(err, name)
     build.count_launch(name)
     return q, s
+
+
+def quant_plan_of_library(x_ptr: int, q_ptr: int, n: int, d: int,
+                          dtype: torch.dtype) -> dict:
+    """The built library's int8 quantize plan for x [n, d] of ``dtype`` at
+    address ``x_ptr`` with codes at ``q_ptr`` (what ``quant_plan``
+    mirrors); reads no memory."""
+    out = (ctypes.c_int * len(QUANT_PLAN_FIELDS))()
+    err = _library().dstt_quant_plan(x_ptr, q_ptr, n, d, _DTYPES[dtype], out)
+    _raise_on(err, "quant_plan")
+    return dict(zip(QUANT_PLAN_FIELDS, out))
 
 
 def dequantize_rows_cuda(q: torch.Tensor, scales: torch.Tensor, code: int,

@@ -522,6 +522,40 @@ def test_bwd_dq_plan_fits_and_shares_the_pair_panel(d, pair):
             assert panel_reads <= b * n * h * l * l * 4 // 2, name
 
 
+@pytest.mark.parametrize("pair", [True, False])
+@pytest.mark.parametrize("d", te.HEAD_DIMS)
+def test_bwd_dbias1_plan_fits_and_shares_the_pair_panel(d, pair):
+    """The bf16 dbias1 tiling at every head dim, with and without a pair
+    bias: within the card's 227 KB of shared memory, three blocks an SM at
+    D <= 32; DB1_GROUP MSA rows a block (one warp group of 4 warps x 16
+    keys each; 1 at D = 128) whether or not there is a pair bias (the mask
+    has no head axis, so a block of rows is one batch entry's either way),
+    and with one the block's G rows share each [64, 68] fp32 pair-bias
+    tile, so the panel is read from L2 once per group of rows and key tile
+    (G = 1, measured faster than 2 on the card, reads it once per row);
+    without one no pair tile is held. The smem sum is the plan's own
+    arithmetic, the kernel's Db1Mma; the card test holds it against the
+    library's report."""
+    db1 = te.evo_bwd_plan(d, pair)["dbias1"]
+    tile = 64 * (max(d, 16) + 8) * 2
+    group = te.DB1_GROUP if d < 128 else 1
+    assert db1["group"] == group and db1["threads"] == 128 * group <= 1024
+    assert db1["keys"] == 64 and db1["stages"] == 2
+    pair_tile = 64 * 68 * 4 if pair else 0
+    assert db1["smem_bytes"] == 2 * group * tile + 2 * (
+        2 * group * tile + pair_tile + 2 * group * 64 * 4)
+    assert 0 < db1["smem_bytes"] <= SMEM_LIMIT
+    if d <= 32:                          # three dbias1 blocks an SM
+        assert 3 * db1["smem_bytes"] <= 228 * 1024
+    if not pair:
+        assert db1["smem_bytes"] < te.evo_bwd_plan(d, True)["dbias1"]["smem_bytes"]
+    for name, (b, n, l, h, dd, has_pair) in PATH_SHAPES.items():
+        if dd == d and has_pair == pair and pair:
+            # the pair panel's L2 reads: once per group of rows and key tile
+            panel_reads = b * h * -(-n // group) * l * l * 4
+            assert panel_reads == b * n * h * l * l * 4 // group, name
+
+
 # (B, H, N, Lq, Lk): OpenFold's E1, E3 and E4, the card-side split case,
 # a grid of many waves, one MSA row
 SPLIT_SHAPES = [(1, 8, 512, 384, 384), (1, 4, 384, 384, 384),
@@ -580,11 +614,12 @@ def test_kernels_match_plain_on_card():
     value), each with the mutants that apply, which must land outside; the
     forward's and the backward's entries by exact profiler name (bf16
     ``evo_fwd_kernel_mma``, ``evo_dq_kernel_mma``, ``evo_dkv_kernel_mma``,
-    ``evo_dbias2_kernel_mma`` and its combine where dbias2 splits N; fp32
-    the CUDA-core kernels) and a bf16 second forward and backward bit for
-    bit. The bf16 forward's shared memory is ``evo_fwd_plan``'s, dQ's,
-    dK/dV's and dbias2's ``evo_bwd_plan``'s. Then a head dim outside the instances
-    raises, as does a non-contiguous operand."""
+    ``evo_dbias2_kernel_mma`` and its combine where dbias2 splits N,
+    ``evo_dbias1_kernel_mma``; fp32 the CUDA-core kernels) and a bf16
+    second forward and backward bit for bit. The bf16 forward's shared
+    memory is ``evo_fwd_plan``'s, dQ's, dK/dV's, dbias2's and dbias1's
+    ``evo_bwd_plan``'s. Then a head dim outside the instances raises, as
+    does a non-contiguous operand."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels; no CPU mode)")
     import chip_smoke
@@ -602,6 +637,10 @@ def test_kernels_match_plain_on_card():
         assert smem["evo_dbias2_mma"] == pair["dbias2"]["smem_bytes"]
         assert smem["evo_dq_mma_pair"] == pair["dq"]["smem_bytes"]
         assert smem["evo_dq_mma"] == plain["dq"]["smem_bytes"]
+        assert smem["evo_dbias1_mma_pair"] == pair["dbias1"]["smem_bytes"]
+        assert smem["evo_dbias1_mma"] == plain["dbias1"]["smem_bytes"]
+    assert chip_smoke.EVO_BWD_ENTRY[torch.bfloat16]["evo_dbias1"] == \
+        "evo_dbias1_kernel_mma"
     x = torch.randn(1, 2, 16, 2, 24, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         evo_fwd(x, x, x)

@@ -16,6 +16,11 @@ fp6 / fp12 software formats against the JAX package.
   matches the Pallas kernel bit for bit, and ``dequant_chunks``, the fp8
   dequantize kernel's split into 16-code chunks and scalar codes, covers
   every code of every smoke shape once at aligned and offset addresses.
+  ``quant_elements``, the int8 quantize kernel's split (16-byte chunks, a
+  scalar head and tail, a row's segments across a thread-block cluster),
+  covers every element of qgZ's widths and odd ones once, on tensors and
+  on views one row in, and ``quant_plan`` sends each width to the
+  instance its design names.
 - ``ops.fp_formats``: packed bytes, decoded values and ``FPQuantizer`` at
   6, 8 and 12 bits equal to the JAX package's.
 
@@ -37,6 +42,9 @@ DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 # [N, D]: unaligned D, N not a multiple of the Pallas block_rows (256), a
 # qgZ row width and a single row
 SHAPES = [(300, 64), (257, 130), (5, 4099), (3, 14336), (1, 128)]
+# the int8 quantize's also: the lm_head's width, which the kernel holds
+# across a thread-block cluster
+INT8_SHAPES = SHAPES + [(2, 128256)]
 # fp8 codes one ulp apart between XLA's and torch's conversions: allowed
 # on at most this share of the elements
 FP8_ULP_SHARE = 1e-3
@@ -102,7 +110,7 @@ def _fp8_ulps(got, want):
 
 
 @pytest.mark.parametrize("dname", list(DTYPES))
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", INT8_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_int8_matches_pallas(shape, dname):
     _, jnp, jq, _, _ = _jax()
     x = _rows(shape, "int8", dname, seed=shape[0] * 7 + shape[1])
@@ -236,6 +244,105 @@ def test_dequant_chunks_cover_each_code_once(shape):
                 assert starts.size >= n * ((d - 15) // 16)
 
 
+@pytest.mark.parametrize("view", ["aligned", "one_row_in"])
+@pytest.mark.parametrize("d", [128, 130, 1000, 4096, 14336, 128256])
+def test_quant_plan_covers_each_element_once(d, view):
+    """The int8 quantize kernel's split of a call (``quant_elements``, as
+    ``quant_plan`` in csrc/quant.cu) covers every element of x [n, d]
+    exactly once, for fp32 and bf16 inputs, on a tensor and on a view one
+    row in (whose first element lies d elements past a 16-byte boundary:
+    at d = 130 off every one): every chunk lies inside one row and starts
+    on a 16-byte boundary of x; a chunk's codes go out in one store only
+    where they lie on a boundary of its width; no lane or thread holds more
+    than one scalar element and none more chunks than its instance has
+    room for; a row on the cluster path is split into consecutive segments
+    of at most ``seg`` chunks, one a CTA."""
+    n = 5
+    for itemsize in (4, 2):
+        x_offset = d * itemsize % 16 if view == "one_row_in" else 0
+        pl = tq.quant_plan(n, d, x_offset, 0, itemsize)
+        assert pl["path"] in (0, 1, 2)
+        vec = pl["vec"]
+        starts, ctas, scalars = tq.quant_elements(n, d, x_offset, 0, itemsize)
+        counts = np.bincount(scalars, minlength=n * d)
+        counts += np.bincount((starts[:, None] + np.arange(vec)).reshape(-1),
+                              minlength=n * d)
+        assert counts.min() == 1 and counts.max() == 1, itemsize
+        assert np.all((x_offset + starts * itemsize) % 16 == 0)
+        assert np.all(starts // d == (starts + vec - 1) // d)
+        assert pl["wide"] == int(x_offset == 0)
+        lanes = 32 if pl["path"] == 0 else pl["threads"]
+        assert pl["rest"] <= min(32, lanes)
+        assert pl["seg"] <= lanes * pl["per"]
+        if pl["path"] == 2:
+            assert pl["cluster"] == tq.QUANT_CLUSTER
+            per_row = ctas.reshape(n, -1)
+            assert np.all(np.diff(per_row, axis=1) >= 0)
+            assert np.all(np.bincount(per_row[0]) <= pl["seg"])
+            assert set(per_row[0]) == set(range(pl["cluster"]))
+        else:
+            assert pl["cluster"] == 1 and np.all(ctas == 0)
+        if x_offset == 0 and d % vec == 0:
+            assert scalars.size == 0 and starts.size == n * d // vec
+
+
+def test_quant_plan_picks_the_path_by_width():
+    """qgZ's rows (fp32, aligned) go to the instance the design names:
+    rows of 128 one warp each, a chunk a lane, 4 rows a warp; rows of 4096
+    one block of 256 threads x 4 chunks; rows of 14336 one block of 512 x
+    7; the lm_head's rows of 128256 a cluster of QUANT_CLUSTER CTAs of 512
+    threads, each holding its segment in a ring of the smallest instance
+    with room for it (2004 chunks a segment in fp32, 4 a thread). Every width to the widest a cluster holds gets an
+    instance with room for its chunks, and a wider row gets none (the
+    wrapper then raises)."""
+    want = {128: (0, 32, 1, 4, 1), 4096: (1, 256, 4, 1, 1),
+            14336: (1, 512, 7, 1, 1)}
+    for d, (path, threads, per, rows, cluster) in want.items():
+        pl = tq.quant_plan(4096, d, 0, 0, 4)
+        assert (pl["path"], pl["threads"], pl["per"], pl["rows"],
+                pl["cluster"]) == (path, threads, per, rows, cluster), d
+        assert pl["rest"] == 0 and pl["wide"] == 1
+    for itemsize in (4, 2):
+        pl = tq.quant_plan(4096, 128256, 0, 0, itemsize)
+        chunks = 128256 * itemsize // 16
+        assert (pl["path"], pl["threads"], pl["cluster"]) == \
+            (2, 512, tq.QUANT_CLUSTER)
+        assert pl["seg"] == -(-chunks // tq.QUANT_CLUSTER)
+        assert pl["seg"] <= 512 * pl["per"] < 2 * pl["seg"] + 512
+    widest = tq.QUANT_CLUSTER * 4096 * 4
+    for d in list(range(1, 600, 7)) + [1024, 4097, 16384, 16388, 65536,
+                                       widest]:
+        pl = tq.quant_plan(3, d, 0, 0, 4)
+        assert pl["path"] >= 0, d
+        lanes = 32 if pl["path"] == 0 else pl["threads"]
+        assert pl["cluster"] * pl["seg"] >= pl["chunks"] and \
+            pl["seg"] <= lanes * pl["per"], d
+        assert pl["rows"] * pl["per"] == 4 if pl["path"] == 0 else pl["rows"] == 1
+    assert tq.quant_plan(3, widest + 4, 0, 0, 4)["path"] == -1
+
+
+def test_qgz_leaf_shapes_match_the_training_model():
+    """The smoke's ``qgz_leaf_shapes`` (what its quant timing quantizes as
+    one qgZ micro-batch) are the [n, d] rows of every parameter of at least
+    MIN_QUANT_SIZE elements of the 4-layer Llama-3-8B training model, in
+    order: 39 leaves over the four row widths."""
+    import dataclasses
+    import chip_smoke
+    from deepspeed_tpu_torch.models.llama import LLAMA3_8B, LlamaForCausalLM
+    from deepspeed_tpu_torch.runtime.zero.qgz import MIN_QUANT_SIZE
+    cfg = dataclasses.replace(LLAMA3_8B, num_layers=chip_smoke.TRAIN_LAYERS)
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg, device="cpu")
+    want = [(p.numel() // p.shape[-1], p.shape[-1])
+            for p in model.parameters() if p.numel() >= MIN_QUANT_SIZE]
+    got = chip_smoke.qgz_leaf_shapes(LLAMA3_8B, chip_smoke.TRAIN_LAYERS)
+    assert sorted(got) == sorted(want)
+    assert len(got) == chip_smoke.QGZ_LEAVES == 39
+    assert {d for _, d in got} == set(chip_smoke.QGZ_WIDTH_SHAPES)
+    for d, (n, _) in chip_smoke.QGZ_WIDTH_SHAPES.items():
+        assert n == max(m for m, e in got if e == d)
+
+
 def test_nonfinite_rows_stay_nonfinite():
     """A NaN or inf in a row makes its scale non-finite and its whole round
     trip NaN, as in the reference (jnp.max keeps NaN), so a bad gradient
@@ -261,7 +368,19 @@ def test_quant_cases_expose_their_faults_on_cpu():
     assert len(rows) == len(chip_smoke.quant_cases())
     faults = {f for r in rows for f in r["mutants"]}
     assert faults == {f for f in chip_smoke.QUANT_ROWS.values() if f} | \
+        {f for f in chip_smoke.QUANT_INT8_ROWS.values() if f} | \
         {"dequant_row_shift", "dequant_tail_dropped"}
+    # int8: a NaN and an inf row at every width; the cluster's widest rows
+    # also hold the row whose maximum opens the last segment
+    for d in {d for _, d in chip_smoke.QUANT_SHAPES}:
+        held = {r for row in rows if row["fmt"] == "int8"
+                and row["case"].endswith(f"x{d}") for r in row["special_rows"]}
+        assert {"nan", "inf"} <= held, d
+        assert ("segment_max" in held) == (d == 128256), d
+    seg = {r["case"] for r in rows if "absmax_one_segment_dropped" in r["mutants"]}
+    assert seg == {"special_8x128256"}
+    assert all(r["view_quant_differ"] == 0 for r in rows
+               if "view_quant_differ" in r)
     tails = {r["case"].split("x")[-1] for r in rows
              if "dequant_tail_dropped" in r["mutants"]}
     assert tails == {"130", "1000"}
