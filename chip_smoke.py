@@ -6,7 +6,8 @@ kernels from ``deepspeed_tpu_torch/csrc`` with nvcc (and checks that the bf16
 flash forward, dQ and dK/dV entries hold tensor-core products and TMA loads
 in their SASS, the bf16 evoformer forward, dQ, dK/dV and dbias2 and the
 block-sparse entries ``mma.sync`` products and ``cp.async`` loads, and the
-fp8 dequantize entries 128-bit loads and stores), holds each kernel against its
+fp8 dequantize and the bf16 8-column dropout entries 128-bit loads and
+stores, the latter with no spills), holds each kernel against its
 plain PyTorch version on the card (the flash backward, the paged kernel and
 the bf16 evoformer forward and block-sparse kernel also against a second
 call, bit for bit) and times both, then drives the port's paths:
@@ -46,7 +47,8 @@ call, bit for bit) and times both, then drives the port's paths:
   versions, and the kernels timed at E1 (the forward at E4 too) beside
   SDPA;
 - slice 5: the RMSNorm kernel (7 cases), the four fused bias + activation
-  (+ dropout) kernels (8 cases, every activation, dropout masks bit for bit)
+  (+ dropout) kernels (13 cases, every activation, both column paths,
+  dropout masks bit for bit, a second backward bit for bit)
   and the block-sparse attention kernel (13 cases, blocks 16 to 128, head
   dims 32 to 128, causal and per-head layouts, groups mixing empty and live
   query blocks) against their plain versions with mutants and its entry by
@@ -55,7 +57,8 @@ call, bit for bit) and times both, then drives the port's paths:
   at Llama-3-8B's width (R); ``fused_bias_act`` and
   ``fused_bias_act_dropout`` at BERT-base's FFN (F); exact launch counts,
   every output and gradient held against the plain versions, and the six
-  kernels timed beside their bounds, plain versions and library calls.
+  kernels timed by the profiler's device time beside their bounds, plain
+  versions and library calls.
 
 Each phase prints one JSON line; the card's name and power limit
 (``nvidia-smi``) and the ``kernels`` line come before the last line,
@@ -66,6 +69,7 @@ package. Imports nothing of JAX.
 
 import functools
 import gc
+import itertools
 import json
 import math
 import re
@@ -182,8 +186,10 @@ def _demangle(names):
 # output dtypes); in the int8 quantize, 128-bit global loads in the warp
 # and block kernels and 128-bit `cp.async` copies in the cluster kernel (3
 # input dtypes x 3 warp, 6 block and 3 cluster instances; its stores write
-# a chunk's 4 or 8 codes, consecutive across the warp). Ops are regular
-# expressions searched in each SASS line.
+# a chunk's 4 or 8 codes, consecutive across the warp); 128-bit global
+# loads and stores in the bf16 8-column entries of the four bias_act
+# kernels (4 activations each), none of whose 80 entries may spill.
+# Ops are regular expressions searched in each SASS line.
 FLASH_HEAD_DIMS = (64, 128)
 SASS_CHECKS = {
     "flash_attention": ("flash_attention",
@@ -201,7 +207,18 @@ SASS_CHECKS = {
                         (r"LDG\.E\.128",), 27),
     "quant_int8_cluster": ("quant", ("quantize_int8_cluster",),
                            (r"LDGSTS\S*\.128",), 9),
+    "fused_bias_act": ("fused_bias_act",
+                       tuple(f"{k}_kernelI13__nv_bfloat16Li8ELb1E"
+                             for k in ("bias_act", "bias_act_bwd", "bias_act_dropout",
+                                       "bias_act_dropout_bwd")),
+                       (r"LDG\.E\.128", r"STG\.E\.128"), 16),
 }
+# (n, d) the bias_act launch plan of ops/fused_bias_act.py is held against
+# the library's at, for each kind, activation, dtype and operand address
+# offset (0, 2, 4, 8 bytes): BERT-base's FFN, widths a multiple of 4 but
+# not 8, odd, narrow and Llama-3-8B's, one row
+BIAS_ACT_PLAN_SHAPES = ((8192, 3072), (1000, 3076), (1003, 1001), (140001, 6),
+                        (513, 4096), (1, 3072), (7, 2048), (5, 24), (3, 520))
 # (n, d, first row, input dtype) the int8 quantize plan of ops/quant.py is
 # held against the library's at: qgZ's four widths, odd widths, views one
 # row in, bf16 input
@@ -281,6 +298,8 @@ def phase_build(kernels):
               e["kernel"]: {"registers": e["registers"],
                             "spill_stores": e["spill_stores"]}
               for e in info["quant"]["entries"] if "quantize_int8" in e["kernel"]},
+          "bias_act_sass": sass["fused_bias_act"],
+          "bias_act_plans_checked": _check_bias_act_plans(),
           "sparse_dynamic_smem_bytes": {
               f"d{d}_block{blk}": sparse.dynamic_smem_bytes(d, blk)
               for d in sparse.HEAD_DIMS for blk in sparse.BLOCKS}})
@@ -309,6 +328,9 @@ def phase_build(kernels):
             check(all(n[op] > 0 for op in ops),
                   f"{entry}: {n} (an instruction of {ops} missing)")
     _check_quant_plans()
+    for e in info["fused_bias_act"]["entries"]:
+        check(e["spill_stores"] == 0, f"{e['kernel']}: {e['spill_stores']} "
+              "bytes of spill stores")
     for d in evoformer.HEAD_DIMS:
         lib_smem = evoformer.dynamic_smem_bytes(d)
         for pair, key in ((True, "evo_fwd_mma_pair"), (False, "evo_fwd_mma")):
@@ -342,6 +364,25 @@ def _check_quant_plans():
                           x.element_size())
         check(lib == mine, f"quant_plan({n}, {d}, row {first}, {dtype}): "
               f"ops/quant.py says {mine}, the library {lib}")
+
+
+def _check_bias_act_plans():
+    """ops/fused_bias_act.py's ``launch_plan`` equals the library's at
+    every BIAS_ACT_PLAN_SHAPES case, kind, activation, dtype and address
+    offset, on this card's SM count; returns the cases checked."""
+    from deepspeed_tpu_torch.ops.fused_bias_act import (launch_plan,
+                                                        launch_plan_of_library)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = 0
+    for (n, d), kind, act, dtype, off in itertools.product(
+            BIAS_ACT_PLAN_SHAPES, range(4), range(4),
+            (torch.float32, torch.bfloat16), (0, 2, 4, 8)):
+        lib = launch_plan_of_library(kind, act, n, d, dtype, 4096 + off, sms)
+        mine = launch_plan(kind, act, n, d, dtype, off, sms)
+        check(lib == mine, f"bias_act plan ({kind}, {act}, {n}, {d}, {dtype}, "
+              f"address offset {off}): ops says {mine}, the library {lib}")
+        cases += 1
+    return cases
 
 
 def _build_of(info, source, kernel):
@@ -994,16 +1035,30 @@ def _device_events(fn, iters):
     return events
 
 
+def _per_call_ms(durations_us, iters):
+    """Device ms per call of a kernel whose events in an ``iters``-call
+    window took ``durations_us``: the mean event times the launches per
+    call (the event count over iters, rounded), which stays right when the
+    profiler drops some of a window's events (seen on the H100: 3 of 20
+    delivered)."""
+    per_call = max(1, round(len(durations_us) / iters))
+    return sum(durations_us) / len(durations_us) * per_call / 1e3
+
+
 def _kernel_device_ms(fn, names, iters=10):
     """Mean device time per call of each named CUDA kernel inside ``fn``;
-    a name that matches no kernel event raises."""
-    events = _device_events(fn, iters)
-    out = {}
-    for n in names:
-        mine = [e for e in events if n in e.name]
-        check(mine, f"the profiler saw no kernel whose name holds {n!r}")
-        out[n] = sum(e.time_range.elapsed_us() for e in mine) / 1e3 / iters
-    return out
+    a name that matches no kernel event raises. A window whose event count
+    of some name is not a multiple of ``iters`` lost events and is taken
+    again (up to PROFILE_TRIES windows)."""
+    for _ in range(PROFILE_TRIES):
+        events = _device_events(fn, iters)
+        mine = {n: [e.time_range.elapsed_us() for e in events if n in e.name]
+                for n in names}
+        if all(len(t) % iters == 0 for t in mine.values()):
+            break
+    for n, t in mine.items():
+        check(t, f"the profiler saw no kernel whose name holds {n!r}")
+    return {n: _per_call_ms(t, iters) for n, t in mine.items()}
 
 
 def _call_device_ms(fn, iters=10):
@@ -1528,10 +1583,12 @@ def phase_quant_timing(dev, smi_line):
     """Kernel and plain times of the four kernels at the two path shapes
     (fp32 input; dequantize to bf16 at A1's shape, to fp32 at B's), beside
     the bytes bound: input + codes + scales for quantize, codes + scales +
-    output for dequantize. No single PyTorch call computes these functions,
-    so there is no library time. At both shapes each kernel's codes, scales
-    and outputs are held bit for bit against the plain version's (each
-    grid-stride loop runs many passes there)."""
+    output for dequantize. A kernel's ``ms`` is the profiler's device time
+    of its entries by exact name (``_stem_entries_ms``), ``wrapper_ms`` the
+    CUDA-event time of the wrapper's calls. No single PyTorch call computes
+    these functions, so there is no library time. At both shapes each
+    kernel's codes, scales and outputs are held bit for bit against the
+    plain version's (each grid-stride loop runs many passes there)."""
     from deepspeed_tpu_torch.ops.fp_quant import (dequantize_fp8, quantize_fp8,
                                                   quantize_fp8_plain)
     from deepspeed_tpu_torch.ops.quant import (dequantize_int8,
@@ -1565,8 +1622,10 @@ def phase_quant_timing(dev, smi_line):
                     ("de" + qname, lambda: dk(q, s, dt),
                      lambda: dequantize_plain(q, s, dt), d_bytes)):
                 bound_ms, bound_by = _quant_bound(nbytes)
-                ms = time_ms(fn, iters=20)
-                row = {"ms": ms, "plain_ms": time_ms(plain, iters=3),
+                ms, entries = _stem_entries_ms(fn, name, iters=20)
+                row = {"ms": ms, "entries": entries,
+                       "wrapper_ms": time_ms(fn, iters=20),
+                       "plain_ms": time_ms(plain, iters=3),
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "library_ms": None, "bytes": nbytes}
                 out.setdefault(name, {})[where] = row
@@ -2211,14 +2270,29 @@ def _sdpa_yardstick(q5, k5, v5, b1, b2):
 
 def _entry_ms(fn, iters):
     """{exact entry name: mean device ms per call} of every CUDA kernel one
-    call of ``fn`` launches (profiler)."""
-    out = {}
-    for e in _device_events(fn, iters):
-        m = re.match(r"(?:void\s+)?(?:\(anonymous namespace\)::)?(\w+)", e.name)
-        if m:
-            out[m.group(1)] = (out.get(m.group(1), 0.0)
-                               + e.time_range.elapsed_us() / 1e3 / iters)
-    return out
+    call of ``fn`` launches (profiler; a window that lost events is taken
+    again, as in ``_kernel_device_ms``)."""
+    for _ in range(PROFILE_TRIES):
+        durations = {}
+        for e in _device_events(fn, iters):
+            m = re.match(r"(?:void\s+)?(?:\(anonymous namespace\)::)?(\w+)", e.name)
+            if m:
+                durations.setdefault(m.group(1), []).append(e.time_range.elapsed_us())
+        if all(len(t) % iters == 0 for t in durations.values()):
+            break
+    return {k: _per_call_ms(t, iters) for k, t in durations.items()}
+
+
+def _stem_entries_ms(fn, stem, iters=20):
+    """(mean device ms per call, entry names) of the CUDA kernels of one
+    call of ``fn`` whose exact entry name is ``stem`` or ``stem_<path>``
+    (``quantize_int8_block``, not ``dequantize_int8``); raises if there is
+    none."""
+    per = {e: t for e, t in _entry_ms(fn, iters).items()
+           if e == stem or e.startswith(stem + "_")}
+    check(per, f"the profiler saw no kernel entry named {stem!r} or "
+          f"{stem + '_...'!r}")
+    return sum(per.values()), sorted(per)
 
 
 DB2_SPLIT_SWEEP = (1, 2, 4, 8, 16)
@@ -2392,19 +2466,28 @@ RMS_CASES = [
     ("bf16_small_x", (513, 256, torch.bfloat16, torch.bfloat16, 1e-3), ("eps_dropped",)),
 ]
 
-# name, (N, D, dtype, act, rate): every activation in both dtypes, D odd or
-# not a multiple of 4 (element-wise accesses, quads across two Philox
-# counters), N uneven, [140001, 6] and [4097, 3072] with more rows than one
-# grid pass holds; rate 0 runs the two plain kernels only
+# name, (N, D, dtype, act, rate, offset): every activation in both dtypes,
+# D odd or not a multiple of 4 (element-wise accesses, quads across two
+# Philox counters), N uneven, [140001, 6] and [4097, 3072] with more rows
+# than one grid pass holds; bf16 D a multiple of 4 but not of 8 and views
+# 8 bytes in (the 4-column path where 8 columns would not align), N odd over
+# the dropout kernels' unrolled passes, one row, rate 0.999; rate 0 runs
+# the two plain kernels only. x and g are views ``offset`` elements into
+# their allocations.
 BIAS_ACT_CASES = [
-    ("f32_gelu", (1000, 3072, torch.float32, "gelu", 0.1)),
-    ("f32_relu_uneven", (1001, 100, torch.float32, "relu", 0.0)),
-    ("f32_silu_d1001", (777, 1001, torch.float32, "silu", 0.25)),
-    ("f32_identity", (300, 512, torch.float32, "identity", 0.5)),
-    ("bf16_gelu_bert", (4097, 3072, torch.bfloat16, "gelu", 0.1)),
-    ("bf16_relu_d6_many_rows", (140001, 6, torch.bfloat16, "relu", 0.3)),
-    ("bf16_silu_w4096", (513, 4096, torch.bfloat16, "silu", 0.0)),
-    ("bf16_identity_d1001", (1003, 1001, torch.bfloat16, "identity", 0.2)),
+    ("f32_gelu", (1000, 3072, torch.float32, "gelu", 0.1, 0)),
+    ("f32_relu_uneven", (1001, 100, torch.float32, "relu", 0.0, 0)),
+    ("f32_silu_d1001", (777, 1001, torch.float32, "silu", 0.25, 0)),
+    ("f32_identity", (300, 512, torch.float32, "identity", 0.5, 0)),
+    ("bf16_gelu_bert", (4097, 3072, torch.bfloat16, "gelu", 0.1, 0)),
+    ("bf16_relu_d6_many_rows", (140001, 6, torch.bfloat16, "relu", 0.3, 0)),
+    ("bf16_silu_w4096", (513, 4096, torch.bfloat16, "silu", 0.0, 0)),
+    ("bf16_identity_d1001", (1003, 1001, torch.bfloat16, "identity", 0.2, 0)),
+    ("bf16_gelu_d3076", (1000, 3076, torch.bfloat16, "gelu", 0.1, 0)),
+    ("bf16_gelu_view_8_bytes_in", (1000, 3072, torch.bfloat16, "gelu", 0.1, 4)),
+    ("bf16_gelu_n1001", (1001, 3072, torch.bfloat16, "gelu", 0.1, 0)),
+    ("bf16_silu_one_row", (1, 3072, torch.bfloat16, "silu", 0.1, 0)),
+    ("bf16_gelu_rate_0999", (2048, 1024, torch.bfloat16, "gelu", 0.999, 0)),
 ]
 BIAS_ACT_KERNELS = ("bias_act", "bias_act_bwd", "bias_act_dropout",
                     "bias_act_dropout_bwd")
@@ -2498,24 +2581,38 @@ def _gelu_erf(x, bias, dtype):
     return (0.5 * xb * (1.0 + torch.erf(xb / math.sqrt(2.0)))).to(dtype)
 
 
+def _draws_swapped(keep):
+    """The mask with the two Philox draws of each thread's 8 columns
+    (counters 2k and 2k + 1 of the flat index) traded."""
+    return keep.reshape(-1, 2, 4).flip(1).reshape(keep.shape)
+
+
 def run_bias_act_cases(gen):
     """Every BIAS_ACT_CASES case: bias_act and bias_act_bwd (and, at a
     rate > 0, the two dropout kernels), one launch each, against the plain
     versions: outputs and dx within the row kernels' tolerance, db within
     REDUCE_REL of its largest |plain|, the dropout masks of forward and
-    backward bit-identical to the plain mask; the mutants outside (erf-gelu
-    in the fp32 gelu cases, db from the first BLOCK_ROWS rows, the mask's
-    counter shifted by one row). Returns the rows; raises PhaseError on any
-    failure. The ``gpu`` test runs this too."""
+    backward bit-identical to the plain mask, a second backward's dx and db
+    bit-identical to the first's; the mutants outside (erf-gelu in the fp32
+    gelu cases, db from the first BLOCK_ROWS rows where N is larger, the
+    mask's counter shifted by one row, and where the dropout kernels take 8
+    columns a thread, the thread's two draws swapped). Returns the rows;
+    raises PhaseError on any failure. The ``gpu`` test runs this too."""
     from deepspeed_tpu_torch.ops import build
     from deepspeed_tpu_torch.ops.fused_bias_act import (
-        bias_act_bwd, bias_act_bwd_plain, bias_act_dropout_bwd,
-        bias_act_dropout_fwd, bias_act_fwd, bias_act_plain, dropout_keep)
+        ACTS, bias_act_bwd, bias_act_bwd_plain, bias_act_dropout_bwd,
+        bias_act_dropout_fwd, bias_act_fwd, bias_act_plain, dropout_keep,
+        launch_plan)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    for idx, (name, (n, d, dtype, act, rate)) in enumerate(BIAS_ACT_CASES):
+    for idx, (name, (n, d, dtype, act, rate, off)) in enumerate(BIAS_ACT_CASES):
         seed = 1000 + idx
-        x, g = (torch.randn(n, d, generator=gen, device="cuda").to(dtype)
-                for _ in range(2))
+        if off:
+            x, g = (torch.randn(n * d + off, generator=gen, device="cuda")
+                    .to(dtype)[off:].view(n, d) for _ in range(2))
+        else:
+            x, g = (torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
         # an fp32 bias (the master weight): db stays fp32, so its tolerance
         # sees the partials' order, not a final bf16 rounding
         bias = torch.randn(d, generator=gen, device="cuda")
@@ -2528,6 +2625,12 @@ def run_bias_act_cases(gen):
                 x, bias, g, seed, act, rate)
         torch.cuda.synchronize()
         launched = _launched(before, BIAS_ACT_KERNELS)
+        repeat = dict(zip(("dx", "db"), bias_act_bwd(x, bias, g, act)))
+        if rate > 0:
+            repeat.update(zip(("drop_dx", "drop_db"), bias_act_dropout_bwd(
+                x, bias, g, seed, act, rate)))
+        repeat_differs = {k: _differs(v, got[k]) for k, v in repeat.items()}
+        del repeat
         want_n = {k: int(k in ("bias_act", "bias_act_bwd") or rate > 0)
                   for k in BIAS_ACT_KERNELS}
         keep = dropout_keep(n, d, seed, rate, "cuda") if rate > 0 else None
@@ -2541,9 +2644,11 @@ def run_bias_act_cases(gen):
                 for k, w in want.items()}
         ratios = {k: _err_ratio(got[k], w, tols[k]) for k, w in want.items()}
         mutants = {}
-        first_db = bias_act_bwd_plain(x[:BLOCK_ROWS], bias, g[:BLOCK_ROWS], act)[1]
-        mutants["db_first_block_only"] = _json_ratio(
-            _err_ratio(first_db, want["db"], tols["db"]))
+        if n > BLOCK_ROWS:
+            first_db = bias_act_bwd_plain(x[:BLOCK_ROWS], bias, g[:BLOCK_ROWS],
+                                          act)[1]
+            mutants["db_first_block_only"] = _json_ratio(
+                _err_ratio(first_db, want["db"], tols["db"]))
         if act == "gelu" and dtype == torch.float32:
             mutants["erf_gelu"] = _json_ratio(
                 _err_ratio(_gelu_erf(x, bias, dtype), want["out"], tols["out"]))
@@ -2553,6 +2658,13 @@ def run_bias_act_cases(gen):
             mutants["mask_shifted_one_row"] = _json_ratio(_err_ratio(
                 bias_act_plain(x, bias, act, shifted, rate), want["drop_out"],
                 tols["drop_out"]))
+            addr = x.data_ptr() | g.data_ptr()
+            cols = {k: launch_plan(k, ACTS.index(act), n, d, dtype, addr & 15,
+                                   sms)[0] for k in (2, 3)}
+            if cols[2] == 8:
+                mutants["draws_of_8_columns_swapped"] = _json_ratio(_err_ratio(
+                    bias_act_plain(x, bias, act, _draws_swapped(keep), rate),
+                    want["drop_out"], tols["drop_out"]))
             fwd_mask, bwd_mask = _dropout_masks(n, d, dtype, seed, rate)
             mask = {"fwd_vs_plain": int((fwd_mask != keep).sum()),
                     "bwd_vs_plain": int((bwd_mask != keep).sum()),
@@ -2565,11 +2677,15 @@ def run_bias_act_cases(gen):
                "dtype": str(dtype), "act": act, "rate": rate,
                "max_abs_err": {k: _max_err(got[k], w, k) for k, w in want.items()},
                "err_over_tol": ratios, "finite": finite, "launches": launched,
-               "mutants": mutants, "mask_differences": mask}
+               "mutants": mutants, "mask_differences": mask,
+               "repeat_bits_differing": repeat_differs,
+               "dropout_cols": cols if rate > 0 else None}
         emit(row)
         check(launched == want_n, f"bias_act {name}: launches {launched}, "
               f"expected {want_n}")
         check(finite, f"bias_act {name}: non-finite output")
+        check(not any(repeat_differs.values()), f"bias_act {name}: a second "
+              f"backward differs from the first {repeat_differs}")
         for k, r in ratios.items():
             check(r <= 1.0, f"bias_act {name}: {k} error {r} times its tolerance")
         if mask:
@@ -3006,8 +3122,11 @@ def phase_bias_act_path(dev, smi_line):
 def phase_slice5_timing(dev, smi_line):
     """Each slice-5 kernel's time at its path shape beside its bound, its
     plain version's time and one PyTorch call's (``F.rms_norm``; SDPA with
-    the dense boolean layout mask; none for the bias kernels). Returns the
-    kernels line's numbers."""
+    the dense boolean layout mask; none for the bias kernels). A kernel's
+    ``ms`` is the profiler's device time of its entries by exact name,
+    ``wrapper_ms`` the CUDA-event time of the wrapper's calls and
+    ``host_us`` the host's time per call. Returns the kernels line's
+    numbers."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.fused_bias_act import (
         bias_act_bwd, bias_act_bwd_plain, bias_act_dropout_bwd,
@@ -3020,6 +3139,11 @@ def phase_slice5_timing(dev, smi_line):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 13)
     timing = {}
+
+    def kernel_times(fn, stem):
+        ms, entries = _stem_entries_ms(fn, stem, iters=20)
+        return {"ms": ms, "entries": entries,
+                "wrapper_ms": time_ms(fn, iters=50), "host_us": host_us(fn)}
     # R
     n, d = RMS_PATH
     x = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -3029,12 +3153,12 @@ def phase_slice5_timing(dev, smi_line):
     lib = {}
     for weight in (scale, scale.to(x.dtype)):
         try:
-            lib[str(weight.dtype)] = time_ms(
-                lambda: F.rms_norm(x, (d,), weight, RMS_EPS), iters=50)
+            lib[str(weight.dtype)] = _call_device_ms(
+                lambda: F.rms_norm(x, (d,), weight, RMS_EPS), iters=20)
         except (AttributeError, RuntimeError):
             lib[str(weight.dtype)] = None
     timing["rms_norm"] = {
-        "ms": time_ms(lambda: rms_norm_cuda(x, scale, RMS_EPS), iters=50),
+        **kernel_times(lambda: rms_norm_cuda(x, scale, RMS_EPS), "rms_norm"),
         "plain_ms": time_ms(lambda: rms_norm_plain(x, scale, RMS_EPS), iters=20),
         "library_ms": lib["torch.float32"], "library_ms_by_weight": lib,
         "bytes": 2 * x.numel() * 2 + d * 4, "flops": 0}
@@ -3045,29 +3169,23 @@ def phase_slice5_timing(dev, smi_line):
             for _ in range(2))
     bias = 0.1 * torch.randn(d, generator=gen, device="cuda")
     s, r = DROPOUT_SEED, DROPOUT_RATE
-    per = _kernel_device_ms(lambda: (bias_act_bwd(x, bias, g),
-                                     bias_act_dropout_bwd(x, bias, g, s, "gelu", r)),
-                            ["bias_act_bwd_kernel", "bias_act_dropout_bwd_kernel"])
     fwd_bytes = 2 * x.numel() * 2 + d * 4
     bwd_bytes = 3 * x.numel() * 2 + 2 * d * 4
-    timing["bias_act"] = {
-        "ms": time_ms(lambda: bias_act_fwd(x, bias), iters=50),
-        "plain_ms": time_ms(lambda: bias_act_plain(x, bias), iters=10),
-        "library_ms": None, "bytes": fwd_bytes, "flops": 0}
-    timing["bias_act_bwd"] = {
-        "ms": per["bias_act_bwd_kernel"],
-        "plain_ms": time_ms(lambda: bias_act_bwd_plain(x, bias, g), iters=10),
-        "library_ms": None, "bytes": bwd_bytes, "flops": 0}
-    timing["bias_act_dropout"] = {
-        "ms": time_ms(lambda: bias_act_dropout_fwd(x, bias, s, "gelu", r), iters=50),
-        "plain_ms": time_ms(lambda: bias_act_dropout_plain(x, bias, s, "gelu", r),
-                            iters=5),
-        "library_ms": None, "bytes": fwd_bytes, "flops": 0}
-    timing["bias_act_dropout_bwd"] = {
-        "ms": per["bias_act_dropout_bwd_kernel"],
-        "plain_ms": time_ms(lambda: bias_act_dropout_bwd_plain(
-            x, bias, g, s, "gelu", r), iters=5),
-        "library_ms": None, "bytes": bwd_bytes, "flops": 0}
+    for name, call, plain, nbytes, plain_iters in (
+            ("bias_act", lambda: bias_act_fwd(x, bias),
+             lambda: bias_act_plain(x, bias), fwd_bytes, 10),
+            ("bias_act_bwd", lambda: bias_act_bwd(x, bias, g),
+             lambda: bias_act_bwd_plain(x, bias, g), bwd_bytes, 10),
+            ("bias_act_dropout",
+             lambda: bias_act_dropout_fwd(x, bias, s, "gelu", r),
+             lambda: bias_act_dropout_plain(x, bias, s, "gelu", r), fwd_bytes, 5),
+            ("bias_act_dropout_bwd",
+             lambda: bias_act_dropout_bwd(x, bias, g, s, "gelu", r),
+             lambda: bias_act_dropout_bwd_plain(x, bias, g, s, "gelu", r),
+             bwd_bytes, 5)):
+        timing[name] = {**kernel_times(call, ENTRY_NAMES[name]),
+                        "plain_ms": time_ms(plain, iters=plain_iters),
+                        "library_ms": None, "bytes": nbytes, "flops": 0}
     del x, g
     # S1 and S2
     sparse = {}
@@ -3119,11 +3237,12 @@ def phase_slice5_timing(dev, smi_line):
                      "sparse_attention": "S1 (S2 beside it)"},
           **timing, "sparse_attention_S2": sparse["S2"],
           "notes": "bytes: each input read once, each output written once; "
-                   "sparse flops 4 * live (row, key) pairs * D; sparse ms by "
-                   "profiler device time, wrapper_ms by events; library of "
+                   "sparse flops 4 * live (row, key) pairs * D; ms by "
+                   "profiler device time of each kernel's entries by exact "
+                   "name, wrapper_ms by events; library of "
                    "sparse_attention: SDPA with the dense boolean layout "
-                   "mask (and the causal triangle for S2), device time; of "
-                   "rms_norm: F.rms_norm",
+                   "mask (and the causal triangle for S2), of rms_norm: "
+                   "F.rms_norm, both device time",
           "card": dev["kind"], "nvidia_smi": smi_line})
     return {kn: {key: t[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")}

@@ -15,7 +15,9 @@ derivatives are written out, in the plain versions as in the kernels, and
 both take the same fp32 operations in the same order.
 
 Dropout: element ``e`` of the flat ``[N, D]`` index is kept when
-``(bits >> 8) * 2^-24 >= rate``, with ``bits`` word ``e % 4`` of
+``(bits >> 8) * 2^-24 >= rate`` in fp32, which is ``(bits >> 8) >= thr``
+with ``thr = ceil(float32(rate) * 2^24)`` (``keep_threshold``; kernels and
+plain versions test the integer), with ``bits`` word ``e % 4`` of
 Philox4x32-10 at counter ``(lo32(e // 4), hi32(e // 4), 0, 0)`` and key
 ``(uint32(seed), 0)``; a kept value is ``act(x + b) * (1 / (1 - rate))``
 (the fp32 reciprocal), the others 0. The backward draws the same bits again,
@@ -32,6 +34,8 @@ tiling knobs and have no counterpart.
 """
 
 import ctypes
+import functools
+import math
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -46,7 +50,7 @@ LAUNCH_NAMES = ("bias_act", "bias_act_bwd", "bias_act_dropout",
 ACTS = ("gelu", "relu", "silu", "identity")      # codes 0..3 of the source
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 THREADS = 256
-BLOCKS_PER_SM = 8          # blocks in flight per SM; more rows loop
+PLAN_FIELDS = ("cols", "vec", "tpr", "grid_x", "grid_y")
 SQRT_2_OVER_PI = float(np.float32(0.7978845608028654))
 GELU_COEF = float(np.float32(0.044715))
 GELU_COEF3 = float(np.float32(3.0) * np.float32(0.044715))
@@ -128,8 +132,11 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int = 0):
 
 def seed_key(seed: Union[int, torch.Tensor, np.ndarray]) -> int:
     """uint32 of an int32 seed (an int or a one-element tensor or array)."""
-    return int(np.asarray(seed.detach().cpu() if isinstance(seed, torch.Tensor)
-                          else seed).reshape(-1)[0]) & _U32
+    if isinstance(seed, int):
+        return seed & _U32
+    if isinstance(seed, torch.Tensor):
+        return int(seed.reshape(-1)[0]) & _U32
+    return int(np.asarray(seed).reshape(-1)[0]) & _U32
 
 
 def dropout_bits(numel: int, seed, device="cpu") -> torch.Tensor:
@@ -141,12 +148,18 @@ def dropout_bits(numel: int, seed, device="cpu") -> torch.Tensor:
     return torch.stack(words, dim=1).reshape(-1)[:numel]
 
 
-def keep_threshold(rate: float) -> float:
-    """The fp32 rate the keep test compares with, as the TPU kernel's
-    ``bits_unit >= rate`` does in fp32."""
-    return float(np.float32(rate))
+@functools.lru_cache(maxsize=None)
+def keep_threshold(rate: float) -> int:
+    """The integer ``thr`` of the keep test ``(bits >> 8) >= thr``:
+    ``ceil(float32(rate) * 2^24)``. The TPU kernel's test, ``(bits >> 8) *
+    2^-24 >= rate`` in fp32, compares an exact fp32 multiple of 2^-24 with
+    float32(rate), whose product by 2^24 is exact: the two agree for every
+    32-bit word. A rate whose fp32 rounds to 1.0 gives 2^24 and keeps
+    nothing."""
+    return math.ceil(float(np.float32(rate)) * (1 << 24))
 
 
+@functools.lru_cache(maxsize=None)
 def keep_scale(rate: float) -> float:
     """The fp32 ``1 / (1 - rate)`` a kept value is multiplied by."""
     return float(np.float32(1.0 / (1.0 - rate)))
@@ -156,8 +169,7 @@ def dropout_keep(n: int, d: int, seed, rate: float,
                  device="cpu") -> torch.Tensor:
     """Bool keep mask [n, d] of the kernels for this seed and rate."""
     bits = dropout_bits(n * d, seed, device)
-    unit = (bits >> 8).float() * (1.0 / (1 << 24))
-    return (unit >= keep_threshold(rate)).reshape(n, d)
+    return ((bits >> 8) >= keep_threshold(rate)).reshape(n, d)
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -203,26 +215,97 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.load(KERNEL)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
         lib.dstt_bias_act.argtypes = [i, p, p, p, p, p, ctypes.c_longlong, i,
-                                      i, i, f, f, ctypes.c_uint, i, i, i, p]
+                                      i, i, u, f, u, i, i, p]
         lib.dstt_bias_act.restype = ctypes.c_int
+        lib.dstt_bias_act_plan.argtypes = [i, i, ctypes.c_longlong, i, i,
+                                           ctypes.c_ulonglong, i,
+                                           ctypes.POINTER(i)]
+        lib.dstt_bias_act_plan.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def launch_layout(n: int, d: int, sms: int) -> Tuple[int, int]:
+def rows_per_pass(kind: int, act: int) -> int:
+    """Rows a thread's pass of kernel ``kind`` (its index in LAUNCH_NAMES)
+    with activation code ``act`` takes; the mirror of the source's."""
+    return 1 if kind == 3 or (kind == 2 and act != ACTS.index("silu")) else 2
+
+
+def blocks_per_sm(kind: int, act: int) -> int:
+    """Blocks an SM holds of that kernel (a grid is one wave of them; more
+    rows loop); the mirror of the source's: the dropout forward 6 (silu,
+    whose division needs more registers, 4), the plain forward 4, the
+    backward kernels 3."""
+    if kind == 2:
+        return 4 if act == ACTS.index("silu") else 6
+    return 4 if kind == 0 else 3
+
+
+def launch_layout(n: int, d: int, sms: int, cols: int = 4,
+                  blocks_per_sm: int = 4) -> Tuple[int, int]:
     """(threads per row, grid rows) of a launch over [n, d]: each thread
-    takes 4 columns, ``tpr`` threads a tile of 4 * tpr columns, a block
-    THREADS / tpr rows at a time; the grid holds about BLOCKS_PER_SM blocks
-    per SM and its rows loop over the rest. The backward writes one row of
-    db partials per grid row."""
+    takes ``cols`` columns (4 or 8), ``tpr`` threads a tile of cols * tpr
+    columns, a block THREADS / tpr rows at a time; the grid holds about
+    ``blocks_per_sm`` blocks per SM and its rows loop over the rest. The
+    backward writes one row of db partials per grid row. With 4 columns
+    ``tpr`` is the fewest threads (a power of two up to THREADS) that cover
+    the row; with 8, of the powers of two from 32 to that one, the one that
+    leaves the fewest idle threads in the row's tiles (the largest of
+    equals): 128 at BERT-base's 3072, where 256 would idle a quarter."""
+    chunks = -(-d // cols)
     tpr = 1
-    while tpr < THREADS and 4 * tpr < d:
+    while tpr < THREADS and tpr < chunks:
         tpr *= 2
-    gx = -(-d // (4 * tpr))
+    if cols == 8:
+        def idle(t):
+            return -(-chunks // t) * t - chunks
+        t = tpr // 2
+        while t >= 32:
+            if idle(t) < idle(tpr):
+                tpr = t
+            t //= 2
+    gx = -(-d // (cols * tpr))
     groups = -(-n // (THREADS // tpr))
-    return tpr, max(1, min(groups, max(1, sms * BLOCKS_PER_SM // gx), 65535))
+    return tpr, max(1, min(groups, max(1, sms * blocks_per_sm // gx), 65535))
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(kind: int, act: int, n: int, d: int, dtype: torch.dtype,
+                addr: int, sms: int) -> Tuple[int, int, int, int, int]:
+    """(cols, vec, tpr, grid_x, grid_y) of kernel ``kind`` with activation
+    code ``act`` over [n, d] of ``dtype`` whose operands' addresses (x, g,
+    the output) OR to ``addr``;
+    the mirror of ``plan`` in csrc/fused_bias_act.cu, which refuses a launch
+    whose grid rows differ. 8 bf16 columns a thread (16-byte accesses)
+    where D % 8 == 0 and ``addr`` is 16-byte aligned; else 4, in whole-word
+    accesses (``vec``) where D % 4 == 0 and the 4 elements' bytes align,
+    one element at a time otherwise."""
+    bf16 = dtype == torch.bfloat16
+    cols = 8 if bf16 and d % 8 == 0 and addr % 16 == 0 else 4
+    esize = 2 if bf16 else 4
+    vec = int(cols == 8 or (d % 4 == 0 and addr % (4 * esize) == 0))
+    tpr, gy = launch_layout(n, d, sms, cols, blocks_per_sm(kind, act))
+    return cols, vec, tpr, -(-d // (cols * tpr)), gy
+
+
+def launch_plan_of_library(kind: int, act: int, n: int, d: int,
+                           dtype: torch.dtype, addr: int,
+                           sms: int) -> Tuple[int, ...]:
+    """The built library's plan for the same arguments (what
+    ``launch_plan`` mirrors); launches nothing."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    err = _library().dstt_bias_act_plan(kind, act, n, d, _DTYPES[dtype], addr,
+                                        sms, out)
+    if err != 0:
+        raise RuntimeError(f"dstt_bias_act_plan failed: CUDA error {err}")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -248,27 +331,30 @@ def _launch(kind: int, x, bias, g, act, seed=0, rate=0.0):
     x2 = _rows(x).contiguous()
     n = x2.shape[0]
     out = torch.empty_like(x2)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tpr, gy = launch_layout(n, d, sms)
-    parts = torch.empty(gy, d, dtype=torch.float32, device=x.device) if bwd \
-        else None
     if n == 0:
         return (out.reshape(x.shape), torch.zeros_like(bias)) if bwd \
             else out.reshape(x.shape)
     g2 = _rows(g).contiguous() if bwd else None
     b32 = bias.float().contiguous()
-    ptrs = [x2, out] + ([g2] if bwd else [])
-    vec = int(d % 4 == 0 and all(t.data_ptr() % (4 * x.element_size()) == 0
-                                 for t in ptrs))
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dstt_bias_act(
-            kind, x2.data_ptr(), b32.data_ptr(), g2.data_ptr() if bwd else None,
+    addr = x2.data_ptr() | out.data_ptr() | (g2.data_ptr() if bwd else 0)
+    dev = x.device.index
+    sms = _sm_count(dev)
+    code = _check_act(act)
+    gy = launch_plan(kind, code, n, d, x.dtype, addr & 15, sms)[-1]
+    parts = torch.empty(gy, d, dtype=torch.float32, device=x.device) if bwd \
+        else None
+    drop = kind >= 2
+    args = (kind, x2.data_ptr(), b32.data_ptr(), g2.data_ptr() if bwd else None,
             out.data_ptr(), parts.data_ptr() if bwd else None, n, d,
-            _DTYPES[x.dtype], _check_act(act), keep_threshold(rate),
-            keep_scale(rate) if kind >= 2 else 1.0, seed_key(seed), tpr, gy,
-            vec, stream)
+            _DTYPES[x.dtype], code, keep_threshold(rate) if drop else 0,
+            keep_scale(rate) if drop else 1.0, seed_key(seed), sms, gy,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _library()
+    if torch.cuda.current_device() == dev:
+        err = lib.dstt_bias_act(*args)
+    else:                        # the launch goes to the current device
+        with torch.cuda.device(dev):
+            err = lib.dstt_bias_act(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     build.count_launch(name)

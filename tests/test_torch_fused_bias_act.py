@@ -12,7 +12,9 @@ PRNG is not reproducible elsewhere), so the dropout tests hold the
 reference's contract: the forward's and the backward's masks identical,
 the keep rate, seed determinism, kept values equal to JAX's
 ``fused_bias_act / (1 - rate)``; and the Philox against Random123's known
-answers.
+answers. The integer keep test against the fp32 one, word by word at the
+threshold's edges; the launch plan (the mirror of the library's) covering
+every element once.
 
 The CUDA kernels run only on the card: ``test_kernels_match_plain_on_card``
 is marked ``gpu`` and skips where there is none. On the card:
@@ -28,7 +30,8 @@ from deepspeed_tpu_torch.ops import fused_bias_act as fba
 from deepspeed_tpu_torch.ops.fused_bias_act import (
     ACTS, act_fwd_plain, act_grad_plain, bias_act_bwd, bias_act_dropout_bwd,
     bias_act_dropout_fwd, bias_act_fwd, dropout_bits, dropout_keep,
-    fused_bias_act, fused_bias_act_dropout, launch_layout, philox4x32)
+    fused_bias_act, fused_bias_act_dropout, keep_threshold, launch_layout,
+    launch_plan, philox4x32)
 
 
 def _jax():
@@ -227,7 +230,111 @@ def test_launch_layout_covers_every_column(n, d):
     assert 4 * tpr >= min(d, 4 * fba.THREADS)       # no idle tiles but the last
     gx = -(-d // (4 * tpr))
     assert gx * 4 * tpr >= d and 1 <= gy <= 65535
-    assert gx * gy <= max(132 * fba.BLOCKS_PER_SM, gx)
+    assert gx * gy <= max(132 * fba.blocks_per_sm(0, 0), gx)
+
+
+_RATES = [0.0, 2.0 ** -24, 0.1, 0.25, 0.5, 0.999, 1.0 - 2.0 ** -24,
+          1.0 - 2.0 ** -30]                     # the last rounds to 1.0 in fp32
+
+
+def _float_keep(words, rate):
+    """The TPU kernel's keep test in fp32: (bits >> 8) * 2^-24 >= rate."""
+    unit = (words >> np.uint64(8)).astype(np.float32) * np.float32(2.0 ** -24)
+    return unit >= np.float32(rate)
+
+
+@pytest.mark.parametrize("rate", _RATES)
+def test_integer_threshold_equals_the_float_keep_test(rate):
+    """``(bits >> 8) >= keep_threshold(rate)`` keeps exactly the words the
+    fp32 test keeps: at the threshold's edge (thr * 256 - 1, thr * 256), at
+    0 and 2^32 - 1 and at random words; a rate whose fp32 rounds to 1.0
+    keeps nothing, and thr * 256 never has to fit in 32 bits."""
+    thr = keep_threshold(rate)
+    assert thr == int(np.ceil(np.float64(np.float32(rate)) * 2.0 ** 24))
+    assert 0 <= thr <= 1 << 24
+    rng = np.random.default_rng(17)
+    edge = [w for w in (thr * 256 - 1, thr * 256) if 0 <= w < 1 << 32]
+    words = np.concatenate([np.array(edge + [0, (1 << 32) - 1], np.uint64),
+                            rng.integers(0, 1 << 32, 100_000, dtype=np.uint64)])
+    got = (words >> np.uint64(8)) >= np.uint64(thr)
+    np.testing.assert_array_equal(got, _float_keep(words, rate))
+    if thr * 256 < 1 << 32:
+        assert got[edge.index(thr * 256)]        # the first word kept
+    if thr:
+        assert not got[edge.index(thr * 256 - 1)]   # the last one dropped
+    if np.float32(rate) == 1.0:
+        assert thr == 1 << 24 and not got.any()
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.999])
+def test_plain_mask_takes_the_integer_threshold(rate):
+    """``dropout_keep`` is the integer test on the Philox words, which is
+    the fp32 test."""
+    n, d, seed = 37, 53, 9
+    bits = dropout_bits(n * d, seed)
+    keep = dropout_keep(n, d, seed, rate)
+    assert torch.equal(keep, ((bits >> 8) >= keep_threshold(rate)).reshape(n, d))
+    want = _float_keep(bits.numpy().astype(np.uint64), rate).reshape(n, d)
+    np.testing.assert_array_equal(keep.numpy(), want)
+
+
+_PLAN_CASES = [(8192, 3072, torch.bfloat16, 0), (1000, 3076, torch.bfloat16, 0),
+               (1000, 3072, torch.bfloat16, 8), (1001, 3072, torch.bfloat16, 0),
+               (1, 3072, torch.bfloat16, 0), (513, 4096, torch.bfloat16, 0),
+               (7, 2048, torch.bfloat16, 0), (1003, 1001, torch.bfloat16, 0),
+               (140001, 6, torch.bfloat16, 2), (3, 520, torch.bfloat16, 0),
+               (300, 512, torch.float32, 0), (777, 1001, torch.float32, 0),
+               (5, 24, torch.float32, 8), (64, 3072, torch.float32, 4)]
+
+
+@pytest.mark.parametrize("kind", range(4))
+@pytest.mark.parametrize("n,d,dtype,off", _PLAN_CASES)
+def test_launch_plan_covers_every_element_once(kind, n, d, dtype, off):
+    """The launch plan (the mirror of the library's, which the smoke holds
+    equal on the card), for every activation: every column of a row taken
+    by exactly one thread of one tile, every row by exactly one pass of the
+    grid-stride loop with its ``rows_per_pass`` row groups; 8 columns a
+    thread only for bf16 where D % 8 == 0 and the operands start on 16-byte
+    boundaries."""
+    for act in range(len(ACTS)):
+        cols, vec, tpr, gx, gy = launch_plan(kind, act, n, d, dtype, off, 132)
+        esize = 2 if dtype == torch.bfloat16 else 4
+        wide = dtype == torch.bfloat16 and d % 8 == 0 and off % 16 == 0
+        assert cols == (8 if wide else 4)
+        assert vec == int(wide or (d % 4 == 0 and off % (4 * esize) == 0))
+        assert tpr & (tpr - 1) == 0 and 1 <= tpr <= fba.THREADS
+        assert gx == -(-d // (cols * tpr)) and 1 <= gy <= 65535
+        assert gx * gy <= max(132 * fba.blocks_per_sm(kind, act), gx)
+        cover = np.zeros(d, np.int64)
+        for c0 in range(0, gx * tpr * cols, cols):
+            cover[c0:c0 + cols] += 1
+        np.testing.assert_array_equal(cover, 1)
+        rpi, unroll = fba.THREADS // tpr, fba.rows_per_pass(kind, act)
+        groups = -(-n // rpi)
+        seen = np.zeros(n, np.int64)
+        for by in range(gy):
+            for grp in range(by, groups, gy * unroll):
+                for u in range(unroll):
+                    r = (grp + u * gy) * rpi + np.arange(rpi)
+                    np.add.at(seen, r[r < n], 1)
+        np.testing.assert_array_equal(seen, 1)
+
+
+def test_launch_plan_at_bert_base_ffn():
+    """At F ([8192, 3072] bf16, 132 SMs) every kernel takes 8 columns a
+    thread, 128 threads a row (three whole tiles; 256 would idle a quarter
+    of the second tile's threads), one wave of its blocks (6 an SM for the
+    gelu dropout forward); 8 bytes off a 16-byte boundary, 4 columns and
+    256 threads; fp32, 4 columns."""
+    gelu = ACTS.index("gelu")
+    for kind, blocks in enumerate((4, 3, 6, 3)):
+        assert fba.blocks_per_sm(kind, gelu) == blocks
+        assert launch_plan(kind, gelu, 8192, 3072, torch.bfloat16, 0, 132) == (
+            8, 1, 128, 3, 132 * blocks // 3)
+        assert launch_plan(kind, gelu, 8192, 3072, torch.bfloat16, 8,
+                           132)[:3] == (4, 1, 256)
+        assert launch_plan(kind, gelu, 8192, 3072, torch.float32, 0,
+                           132)[:3] == (4, 1, 256)
 
 
 def test_cpu_dispatch_runs_plain_and_counts_nothing():
@@ -252,11 +359,14 @@ def test_kernels_match_plain_on_card():
     cases and at the tolerances of ``chip_smoke.py``
     (``run_bias_act_cases``: every activation in fp32 and bf16, D not a
     multiple of 4, uneven N, two shapes with more rows than one grid pass
-    holds; outputs and dx within one bf16 ulp of each plain value or 4 fp32
-    ulps of each row's largest |plain|, db within 1e-5 of its largest, the
-    dropout masks of forward and backward bit-identical to the plain mask),
-    with the erf-gelu, db-from-one-block and shifted-mask mutants outside.
-    Then a dtype the kernels do not take raises."""
+    holds, bf16 on the 4-column path (D % 8 != 0, views 8 bytes in), N odd
+    over the unrolled passes, one row, rate 0.999; outputs and dx within one
+    bf16 ulp of each plain value or 4 fp32 ulps of each row's largest
+    |plain|, db within 1e-5 of its largest, the dropout masks of forward and
+    backward bit-identical to the plain mask, a second backward bit for
+    bit), with the erf-gelu, db-from-one-block, shifted-mask and
+    swapped-draws mutants outside. Then a dtype the kernels do not take
+    raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernels; no CPU mode)")
     import chip_smoke
