@@ -55,7 +55,7 @@ for _ in range({HOST_REPEATS}):
     us.append((time.perf_counter() - t0) / {HOST_CALLS} * 1e6)
     torch.cuda.synchronize()
 cs.emit({{"phase": "paged_host", "us_per_call": us, "nvidia_smi": smi}})
-st, eng, lens = cs.phase_engine(dev, smi)
+st, eng, lens = cs.phase_engine(dev, smi)[:3]
 for _ in range({PROFILES}):
     cs.phase_profile(eng, lens, dev, smi)
     for seq in list(eng.state.all()):     # the next profile starts afresh

@@ -15,7 +15,13 @@ call, bit for bit) and times both, then drives the port's paths:
 - serving: 8 requests through ``InferenceEngineV2`` on Llama-3-8B at full
   width and depth (bf16, random weights from a seed), with a check that the
   path went through the paged-attention kernel and a profile of batched
-  decode steps (``torch.profiler``);
+  decode steps (``torch.profiler``); then the same engine behind
+  ``InferenceServer`` and its HTTP front door: one request alone, the 8
+  prompts from 8 client threads (latencies, launches, ``/healthz``,
+  ``/metrics``), a ``bench_serve`` scenario with its conservation checks,
+  drain to an empty KV ledger, the lone request again bit for bit, a host
+  KV tier drill, and the card's idle share of a served window, with no
+  step fault, quarantine or sticky 503 anywhere;
 - quantization kernels: int8 and fp8 (e4m3, e5m2) quantize and dequantize
   held bit for bit against their plain versions over seeded and
   constructed rows (zeros, exact ties, an absmax that scales onto the
@@ -75,6 +81,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -3252,6 +3259,17 @@ def phase_slice5_timing(dev, smi_line):
 # ---------------------------------------------------------------------------
 # phase 4: the serving path
 # ---------------------------------------------------------------------------
+def check_finite(eng, finite):
+    """Fold every logit ``eng`` samples from into the device flag
+    ``finite`` (no sync; read it once at the end)."""
+    sample = eng._sample_batch
+
+    def checked_sample(logits):
+        finite.logical_and_(torch.isfinite(logits).all())
+        return sample(logits)
+    eng._sample_batch = checked_sample
+
+
 def run_engine(cfg, device, kv_num_blocks, prompt_lens, new_tokens,
                prefill_buckets=(128, 256, 512), seed=SEED):
     """Serve ``len(prompt_lens)`` seeded requests admitted together through
@@ -3270,12 +3288,7 @@ def run_engine(cfg, device, kv_num_blocks, prompt_lens, new_tokens,
                                   prefill_buckets=prefill_buckets)),
         device=device)
     finite = torch.ones((), dtype=torch.bool, device=device)
-    sample = eng._sample_batch
-
-    def checked_sample(logits):          # every logit the run samples from
-        finite.logical_and_(torch.isfinite(logits).all())
-        return sample(logits)
-    eng._sample_batch = checked_sample
+    check_finite(eng, finite)
 
     rng = np.random.default_rng(seed)
     eng.generate(rng.integers(0, cfg.vocab_size, 16).tolist(),
@@ -3312,7 +3325,8 @@ def run_engine(cfg, device, kv_num_blocks, prompt_lens, new_tokens,
              "prefill_chunks": eng.sched_ledger.chunks_total - chunks0,
              "decode_steps": eng.sched_ledger.decode_ticks - decode_ticks0,
              "launches": launches,
-             "logits_finite": bool(finite.item())}
+             "logits_finite": bool(finite.item()),
+             "finite_flag": finite}
     return eng, prompts, outputs, stats
 
 
@@ -3384,7 +3398,7 @@ def phase_engine(dev, smi_line):
               "finite": finite})
         check(finite and err <= LOGITS_TOL * spread,
               f"auto vs gather {step} logits differ by {err} (spread {spread})")
-    return st, eng, lens
+    return st, eng, lens, prompts
 
 
 # ---------------------------------------------------------------------------
@@ -3440,6 +3454,330 @@ def phase_profile(eng, lens, dev, smi_line):
           "top_device": _top(events, cuda, "self_device_time_total"),
           "top_host": _top(events, cpu, "self_cpu_time_total")})
     check(kernels, "the profiler saw no kernel on the card")
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the serving layer over the engine (InferenceServer + HTTP)
+# ---------------------------------------------------------------------------
+# bench_serve's scenario at full width: 32 requests, prompts of 100-500
+# tokens, 16-32 new tokens, 8 closed-loop users
+SERVE_SCENARIO = dict(num_requests=32, concurrency=8, prompt_len=(100, 501),
+                      max_new_tokens=(16, 33))
+TIER_BLOCKS = 48        # the tier drill's KV pool, 64-token blocks
+TIER_DEMOTE = 0.3       # its demote line, a share of the usable blocks
+
+
+def _post_generate(url, prompt, max_new):
+    """POST /generate; returns (status, body, seconds) by the host clock."""
+    from deepspeed_tpu_torch.serving import http_util
+    t0 = time.monotonic()
+    reply = http_util.request_json(
+        "POST", url + "/generate",
+        {"prompt_tokens": [int(t) for t in prompt], "max_new_tokens": max_new},
+        timeout_s=600.0)
+    return reply.status, reply.json(), time.monotonic() - t0
+
+
+def _metric(text, name):
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise PhaseError(f"/metrics has no {name}")
+
+
+def _no_faults(server, label):
+    """Fault isolation must not become a fallback: a kernel that failed
+    would surface as a retry, a quarantine or the sticky 503."""
+    snap, health = server.metrics.snapshot(), server.health()
+    faults = {k: snap[k] for k in ("engine_step_faults",
+                                   "requests_quarantined",
+                                   "degraded_latches")}
+    check(not any(faults.values()), f"{label}: {faults}")
+    check(health["status"] != "degraded" and health["level"] != "degraded",
+          f"{label}: health {health}")
+    return faults
+
+
+def _concurrent_generate(url, prompts, server=None):
+    """POST each prompt from its own client thread, all in flight at once.
+    With ``server`` (built, its loop not started) each thread starts once
+    the one before it is queued, and the loop starts when all are: the
+    first tick admits them together in prompt order, so the batch is the
+    one ``_engine_batch`` replays. Returns the replies and the host time
+    from the loop's start to the last reply."""
+    replies = [None] * len(prompts)
+
+    def client(i):
+        replies[i] = _post_generate(url, prompts[i], NEW_TOKENS)
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    if server is not None:
+        base = server.metrics.snapshot()["requests_submitted"]
+    for i, t in enumerate(threads):
+        t.start()
+        deadline = time.monotonic() + 60.0
+        while (server is not None and server.metrics.snapshot()
+               ["requests_submitted"] < base + i + 1):
+            check(time.monotonic() < deadline, f"request {i} never queued")
+            time.sleep(0.001)
+    t0 = time.monotonic()
+    if server is not None:
+        server.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(all(r is not None for r in replies), "a client thread hung")
+    return replies, time.monotonic() - t0
+
+
+def _engine_batch(eng, prompts, uid0):
+    """The prompts admitted together in order on ``eng`` as it stands,
+    greedy, each finished at ``NEW_TOKENS`` tokens as the server does."""
+    for i, p in enumerate(prompts):
+        eng.admit(uid0 + i, p)
+    while eng.has_work():
+        for uid in eng.step():
+            if len(eng.state.get(uid).generated) >= NEW_TOKENS:
+                eng.finish(uid)
+    out = eng.reap_finished()
+    return [out[uid0 + i] for i in range(len(prompts))]
+
+
+def _span_stats(events):
+    """Per-tick host time of the serve window from the tracer ring: ticks,
+    the engine's step inside them and the server's own remainder."""
+    tick = [e[5] for e in events if e[1] == "serve/tick" and e[3] == "X"]
+    step = [e[5] for e in events
+            if e[1] == "serve/engine_step" and e[3] == "X"]
+    decode = [e for e in events if e[1] == "serve/step_decode"]
+    decode_tokens = sum(int((e[7] or {}).get("batch", 0)) for e in decode)
+    decode_s = sum(e[5] for e in decode)
+    return {"ticks": len(tick), "tick_ms": 1e3 * sum(tick) / max(len(tick), 1),
+            "engine_step_ms": 1e3 * sum(step) / max(len(step), 1),
+            "server_ms_per_tick": 1e3 * (sum(tick) - sum(step))
+            / max(len(tick), 1),
+            "decode_tokens": decode_tokens,
+            "decode_tokens_per_s": decode_tokens / decode_s if decode_s
+            else 0.0}
+
+
+def _quantiles(vals):
+    from deepspeed_tpu_torch.telemetry.tracer import _quantile
+    s = sorted(vals)
+    return {"p50": _quantile(s, 0.5), "p99": _quantile(s, 0.99), "n": len(s)}
+
+
+def phase_serve(eng, prompts, st, dev, smi_line):
+    """The engine phase's 32-layer Llama-3-8B engine behind
+    ``InferenceServer`` and its HTTP front door, started once: the 8
+    prompts from 8 client threads at once (queued before the loop starts,
+    so they are admitted together), one request alone, bench_serve's
+    scenario, stop and drain, then on the same engine as the server left it
+    the lone request through ``generate`` and the 8 prompts admitted
+    together (each reply bit for bit), a host-KV-tier drill on a second
+    engine over the same weights, and last the 8 requests again under the
+    profiler (the card's idle share).
+    Returns the kernels' launches over the 8-request window."""
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import (InferenceEngineV2,
+                                                            V2EngineConfig)
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.serving import (InferenceServer, ServingConfig,
+                                             ServingFrontend)
+    from deepspeed_tpu_torch.serving.bench_serve import (ServeScenario,
+                                                         _span_latencies,
+                                                         run_scenario)
+    from deepspeed_tpu_torch.telemetry.tracer import get_tracer
+    phase_t0 = time.monotonic()
+    cfg, vocab = eng.model_config, eng.model_config.vocab_size
+    finite = st["finite_flag"]
+    for uid in [s.uid for s in eng.state.all()]:     # the profile's batch
+        eng.finish(uid)
+    eng.reap_finished()
+    tracer = get_tracer().configure(enabled=True)
+    tracer.clear()
+    server = InferenceServer(eng, ServingConfig(max_queue_depth=64))
+    fe = ServingFrontend(server, host="127.0.0.1", port=0).start()
+    try:
+        # 1-3: the 8 prompts at once from 8 client threads, queued before
+        # the serve loop starts (it starts here, once)
+        ledger0 = (eng.sched_ledger.chunks_total, eng.sched_ledger.decode_ticks)
+        tracer.clear()
+        finite.fill_(True)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        replies, window_s = _concurrent_generate(fe.url, prompts, server)
+        torch.cuda.synchronize()
+        launches = build.launch_counts()
+        events = tracer.events_snapshot()
+        chunks = eng.sched_ledger.chunks_total - ledger0[0]
+        decode_steps = eng.sched_ledger.decode_ticks - ledger0[1]
+        for i, (status, body, _) in enumerate(replies):
+            toks = body.get("tokens", ())
+            check(status == 200 and len(toks) == NEW_TOKENS
+                  and all(0 <= t < vocab for t in toks),
+                  f"request {i}: {status} {body}")
+        check(bool(finite.item()), "non-finite logits through the server")
+        want = cfg.num_layers * (chunks + decode_steps)
+        got = launches.get("paged_attention", 0)
+        check(got >= want, f"paged_attention launched {got} times through "
+              f"the server, expected >= {want} ({cfg.num_layers} layers x "
+              f"({chunks} chunks + {decode_steps} decode steps))")
+        # one request alone, then the front door's own account of all 9
+        status, lone, lone_s = _post_generate(fe.url, prompts[0], NEW_TOKENS)
+        check(status == 200 and len(lone.get("tokens", ())) == NEW_TOKENS,
+              f"lone request: {status} {lone}")
+        check(bool(finite.item()), "non-finite logits in the lone request")
+        from deepspeed_tpu_torch.serving import http_util
+        health = http_util.request_json("GET", fe.url + "/healthz")
+        check(health.status == 200, f"/healthz {health.status}")
+        page = http_util.request_json("GET", fe.url + "/metrics").body.decode()
+        completed = _metric(page, "dstpu_serving_requests_completed")
+        failed = _metric(page, "dstpu_serving_requests_failed")
+        check(completed == 1 + len(prompts) and failed == 0,
+              f"/metrics: {completed} completed, {failed} failed")
+        ttft, tpot = _span_latencies(events)
+        window = {"http_latency_s": _quantiles([r[2] for r in replies]),
+                  "ttft_s": _quantiles(ttft), "tpot_s": _quantiles(tpot),
+                  "window_s": window_s, "prefill_chunks": chunks,
+                  "decode_steps": decode_steps,
+                  "tokens_per_s_wall": len(prompts) * NEW_TOKENS / window_s,
+                  "engine_phase_decode_tokens_per_s":
+                      st["decode_tokens_per_s"],
+                  **_span_stats(events)}
+        _no_faults(server, "serve, 8 requests")
+
+        # 4: bench_serve's scenario at full width, in process
+        scenario = ServeScenario(name="smoke_serve", vocab=vocab, seed=SEED,
+                                 **SERVE_SCENARIO)
+        before = server.metrics.snapshot()
+        slo_before = server.metrics.slo_snapshot()
+        tracer.clear()
+        report = run_scenario(server, scenario)
+        m = report["metrics"]
+        terminal = (m["requests_completed"] + m["requests_failed"]
+                    + m["requests_cancelled"] + m["requests_timed_out"])
+        engine_tokens = m["tokens_generated"] - before["tokens_generated"]
+        ttft_obs = (server.metrics.slo_snapshot()["dstpu_req_ttft_seconds"]
+                    ["count"] - slo_before["dstpu_req_ttft_seconds"]["count"])
+        check(m["requests_submitted"] == terminal and m["requests_failed"] == 0
+              and report["requests"]["states"]
+              == {"finished": SERVE_SCENARIO["num_requests"]},
+              f"bench_serve conservation: {report['requests']}, {terminal} "
+              f"terminal of {m['requests_submitted']}")
+        check(engine_tokens == report["requests"]["client_tokens"],
+              f"engine tokens {engine_tokens} != client tokens "
+              f"{report['requests']['client_tokens']}")
+        check(ttft_obs == SERVE_SCENARIO["num_requests"],
+              f"{ttft_obs} TTFT observations")
+        check(report["drained"] and report["ladder"]["level"] == "healthy",
+              f"bench_serve: drained {report['drained']}, ladder "
+              f"{report['ladder']}")
+        check(bool(finite.item()), "non-finite logits in bench_serve")
+        faults = _no_faults(server, "serve, bench_serve")
+        shares = {k: v["last"] for k, v in tracer.counter_series(
+            "serve/tick_stage_share").get("serve/tick_stage_share",
+                                          {}).items()}
+        bench = {"requests": report["requests"], "wall_s": report["wall_s"],
+                 "client_tokens": report["requests"]["client_tokens"],
+                 "tokens_per_s_wall": report["requests"]["client_tokens"]
+                 / report["wall_s"],
+                 "latency_from_trace": report["latency_from_trace"],
+                 "ticks": _span_stats(tracer.events_snapshot()),
+                 "faults": faults}
+    finally:
+        fe.stop()
+        server.stop(drain_timeout=60.0)
+    # 5: drained and stopped: nothing left in either tier
+    ledger = eng.kv_ledger()
+    check(ledger["device_blocks_reserved"] == 0 and ledger["host_entries"] == 0
+          and ledger["host_bytes"] == 0, f"ledger after the drain: {ledger}")
+    # 6: the same engine, as the server left it, repeats the lone request
+    again = eng.generate(prompts[0], max_new_tokens=NEW_TOKENS, uid=30_000)
+    check(again == lone["tokens"], "the lone request through generate "
+          f"differs from the server's: {again} vs {lone['tokens']}")
+    # and the 8 prompts admitted together: each reply bit for bit (a token
+    # stream delivered to the wrong request fails here)
+    batch = _engine_batch(eng, prompts, 40_000)
+    for i, (_, body, _) in enumerate(replies):
+        check(batch[i] == body["tokens"], f"request {i} through the server "
+              f"differs from the engine's batch: {body['tokens']} vs "
+              f"{batch[i]}")
+
+    # the host KV tier: a second engine on the same weights, a small pool
+    tier_eng = InferenceEngineV2(eng.params, cfg, V2EngineConfig(
+        kv_block_size=64, kv_num_blocks=TIER_BLOCKS,
+        scheduler=eng.config.scheduler), device=eng.device)
+    check_finite(tier_eng, finite)
+    finite.fill_(True)
+    tier = InferenceServer(tier_eng, ServingConfig(
+        kv_offload_enabled=True, host_kv_quantize="int8",
+        kv_demote_watermark=TIER_DEMOTE,
+        kv_demote_watermark_brownout=TIER_DEMOTE,
+        host_kv_budget_bytes=4 << 30, idle_poll_s=0.001)).start()
+    try:
+        t0 = time.monotonic()
+        reqs = [tier.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        for r in reqs:
+            check(r.wait(timeout=600), f"tier drill: request {r.uid} hung")
+        tier_s = time.monotonic() - t0
+        check(all(r.state.value == "finished"
+                  and len(r.tokens) == NEW_TOKENS for r in reqs),
+              f"tier drill: {[r.describe() for r in reqs]}")
+        tier_faults = _no_faults(tier, "tier drill")
+        snap = tier.metrics.snapshot()
+    finally:
+        tier.stop(drain_timeout=60.0)
+    tier_ledger = tier_eng.kv_ledger()
+    check(snap["kv_demotions"] > 0, "tier drill: no page moved")
+    check(snap["kv_demotions"] == snap["kv_promotions"]
+          and snap["kv_demoted_bytes"] == snap["kv_promoted_bytes"],
+          f"tier drill: demotions {snap['kv_demotions']} / "
+          f"{snap['kv_demoted_bytes']} B, promotions {snap['kv_promotions']}"
+          f" / {snap['kv_promoted_bytes']} B")
+    check(tier_ledger["device_blocks_reserved"] == 0
+          and tier_ledger["host_entries"] == 0
+          and tier_ledger["host_bytes"] == 0,
+          f"tier drill ledger after the drain: {tier_ledger}")
+    check(bool(finite.item()), "non-finite logits in the tier drill")
+    del tier_eng
+    # last, so that no profiler runs in the windows above: the 8 requests
+    # through a fresh server over the same engine under the profiler,
+    # kernels only (host-side op records slowed the host-bound step up to
+    # 2.5x, PERF.md §6 PR 13) — the card's busy and idle share of a window
+    server = InferenceServer(eng, ServingConfig(max_queue_depth=64)).start()
+    fe = ServingFrontend(server, host="127.0.0.1", port=0).start()
+    try:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, profiled_s = _concurrent_generate(fe.url, prompts)
+            torch.cuda.synchronize()
+        _no_faults(server, "serve, profiled")
+    finally:
+        fe.stop()
+        server.stop(drain_timeout=60.0)
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    check(kernels, "the profiler saw no kernel on the card")
+    busy_s = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    window["profiled"] = {"window_s": profiled_s, "device_busy_s": busy_s,
+                          "device_idle_share": 1.0 - busy_s / profiled_s,
+                          "kernels": len(kernels)}
+    emit({"phase": "serve", "model": "LLAMA3_8B bf16 (32 layers, full width)",
+          "lone": {"http_latency_s": lone_s, "ttft_s": lone["ttft_s"],
+                   "tpot_s": lone["tpot_s"]},
+          "concurrent": window, "bench_serve": bench,
+          "tick_stage_share": shares, "repeat_bit_exact": True,
+          "batch_bit_exact": True,
+          "tier": {"demotions": snap["kv_demotions"],
+                   "promotions": snap["kv_promotions"],
+                   "demoted_bytes": snap["kv_demoted_bytes"],
+                   "promoted_bytes": snap["kv_promoted_bytes"],
+                   "host_compression_ratio": tier_ledger[
+                       "host_compression_ratio"],
+                   "wall_s": tier_s, "faults": tier_faults},
+          "phase_wall_s": time.monotonic() - phase_t0,
+          "launches": launches, "card": dev["kind"], "nvidia_smi": smi_line})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3968,12 +4306,13 @@ SLICE5_KERNELS = ("rms_norm",) + BIAS_ACT_KERNELS + ("sparse_attention",)
 # entry names where the table's name is the prefix of several kernels'
 ENTRY_NAMES = {n: f"{n}_kernel" for n in BIAS_ACT_KERNELS}
 # the main paths each kernel lies on; the first is the one whose shape the
-# kernel's timing uses (serve: InferenceEngineV2, train: the recipe, A1/A2:
+# kernel's timing uses (serve: InferenceEngineV2, serve_http: the engine
+# behind InferenceServer and its HTTP front door, train: the recipe, A1/A2:
 # ZeRO-Inference fp8/int8, B: training with qgZ, evoformer: E1-E4 through
 # DS4Sci_EvoformerAttention, timed at E1; S1/S2: SparseSelfAttention at
 # BigBird-base and Fixed, timed at S1; R: rms_norm; F: fused_bias_act and
 # fused_bias_act_dropout)
-KERNEL_PATHS = {"paged_attention": ("serve", "A1", "A2"),
+KERNEL_PATHS = {"paged_attention": ("serve", "serve_http", "A1", "A2"),
                 **{n: ("train",) for n in FLASH_PER_STEP},
                 "quantize_fp8": ("A1",), "dequantize_fp8": ("A1",),
                 "quantize_int8": ("B",), "dequantize_int8": ("B", "A2"),
@@ -4021,9 +4360,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase = "engine"
-        st, eng, lens = phase_engine(dev, smi_line)
+        st, eng, lens, prompts = phase_engine(dev, smi_line)
         phase = "profile"
         phase_profile(eng, lens, dev, smi_line)
+        phase = "serve"
+        serve_launches = phase_serve(eng, prompts, st, dev, smi_line)
         del eng                          # free the serving engine's 25 GB
         gc.collect()
         torch.cuda.empty_cache()
@@ -4045,7 +4386,8 @@ def main() -> int:
         # each kernel's launches on every main path run it lies on, each run
         # with its own reset; the line's count is that of the path its
         # timing shape comes from (first listed)
-        path_counts = {"serve": st["launches"], "train": train_launches,
+        path_counts = {"serve": st["launches"], "serve_http": serve_launches,
+                       "train": train_launches,
                        "A1": zi["A1"]["path_launches"],
                        "A2": zi["A2"]["path_launches"], "B": qgz_launches,
                        "evoformer": evo_launches, **sparse_launches,

@@ -10,11 +10,25 @@ written by hand for Hopper under ``csrc/``, built with ``nvcc`` on first use
 
 Ported so far:
 
-- serving — ``InferenceEngineV2`` over the paged KV cache, serving the
-  Llama family, with the paged-attention kernel (``csrc/paged_attention.cu``);
-- training — ``initialize()`` -> ``DeepSpeedTPUEngine.train_batch`` on
-  ``LlamaForCausalLM``, with the flash-attention forward, dQ and dK/dV
-  kernels (``csrc/flash_attention.cu``).
+- serving engine (slice 1) — ``InferenceEngineV2`` over the paged KV cache,
+  serving the Llama family, with the paged-attention kernel
+  (``csrc/paged_attention.cu``);
+- training (slice 2) — ``initialize()`` -> ``DeepSpeedTPUEngine.train_batch``
+  on ``LlamaForCausalLM``, with the flash-attention forward, dQ and dK/dV
+  kernels (``csrc/flash_attention.cu``);
+- the quantized paths (slice 3) — ZeRO-Inference (``inference/
+  zero_inference.py``, resident and host-streamed), qgZ on the training
+  path and the engine's host KV tier, with the int8 and fp8 quantize and
+  dequantize kernels (``csrc/quant.cu``);
+- DS4Sci evoformer attention (slice 4) — ``ops/evoformer_attn.py``'s
+  ``DS4Sci_EvoformerAttention``, forward and backward, with its five
+  kernels (``csrc/evoformer.cu``);
+- the op-level kernels (slice 5) — ``SparseSelfAttention``, ``rms_norm`` and
+  ``fused_bias_act`` (``csrc/{sparse_attention,rms_norm,fused_bias_act}.cu``);
+- the serving layer as one replica — ``serving/``: ``InferenceServer``
+  (bounded queue, backpressure, deadlines, drain, the degradation ladder,
+  the host-KV tier planner, step-fault isolation), the HTTP front door
+  (``python -m deepspeed_tpu_torch.serving.cli``) and ``bench_serve``.
 
 Importing this package starts no work and touches no device.
 """

@@ -110,6 +110,14 @@ class SchedulerConfig:
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
+@dataclasses.dataclass
+class CSVConfig:
+    """The ``csv_monitor`` group that ``monitor.CSVMonitor`` takes."""
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedTPUJob"
+
+
 class DeepSpeedTPUConfig:
     """Parses the single JSON/dict config (reference: DeepSpeedConfig).
     Performs the batch-size triple reconciliation with ``dp_world_size``."""

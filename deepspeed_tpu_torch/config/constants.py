@@ -1,4 +1,4 @@
-"""Config keys and defaults the training path reads.
+"""Config keys and defaults the training and serving paths read.
 
 Copy of the part of ``deepspeed_tpu/config/constants.py`` that the port's
 config parses; the keys are the reference's JSON space.
@@ -22,6 +22,11 @@ GRAD_ACCUM_DTYPE = "grad_accum_dtype"     # reference: constants.py:427
 # legacy spelling of the bf16 group accepted for drop-in compatibility
 BF16_LEGACY = "bfloat16"
 RESILIENCE = "resilience"                 # only its step guard is read
+SERVING = "serving"                       # serving group (admission,
+#                                           degradation ladder, host KV
+#                                           offload tier, fault isolation;
+#                                           serving/server.py
+#                                           ServingConfig.from_ds_config)
 
 STEPS_PER_PRINT_DEFAULT = 10
 GRADIENT_CLIPPING_DEFAULT = 0.0

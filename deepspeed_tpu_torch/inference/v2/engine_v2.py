@@ -19,8 +19,9 @@ pages to host RAM (full width, or int8/fp8 per page) and pauses it,
 ``promote_kv`` brings them back into free blocks; ``kv_ledger``,
 ``kv_resident_bytes``, ``resident_tokens``, ``demoted_uids``,
 ``demoted_blocks`` and ``host_kv_bytes`` gauge both tiers. Not ported yet
-(they come with the serving-layer slice): ``adopt_kv_handoff``,
-``export_prefix_handoff`` and ``import_prefix_handoff``, which raise.
+(they come with the role split and the fleet, the rest of the serving-layer
+slice): ``adopt_kv_handoff``, ``export_prefix_handoff`` and
+``import_prefix_handoff``, which raise.
 """
 
 import dataclasses
@@ -505,7 +506,8 @@ class InferenceEngineV2:
     def _unported_handoff(self, api: str):
         raise NotImplementedError(
             f"{api} (prefill/decode and fleet KV handoffs) is not ported yet: "
-            "it comes with the serving-layer slice (ROADMAP Queue 1)")
+            "it comes with the role split and the fleet, the rest of the "
+            "serving-layer slice (ROADMAP Queue 1)")
 
     def adopt_kv_handoff(self, uid, prompt_tokens, generated, entry) -> bool:
         self._unported_handoff("adopt_kv_handoff")

@@ -2,11 +2,14 @@
 
 Port of ``deepspeed_tpu/utils/timer.py`` (reference
 ``deepspeed/utils/timer.py``: ``SynchronizedWallClockTimer`` :44,
-``ThroughputTimer`` :199), cut to what the training path uses. A timer
-that synchronises waits for the card with ``torch.cuda.synchronize`` when
-one is in use; on the CPU there is nothing to wait for.
+``ThroughputTimer`` :199), cut to what the training path uses, plus the
+serving layer's ``RateTracker``. A timer that synchronises waits for the
+card with ``torch.cuda.synchronize`` when one is in use; on the CPU there
+is nothing to wait for.
 """
 
+import collections
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -177,3 +180,39 @@ class ThroughputTimer:
             partial = max(time.time() - self._edge_time, 1e-9)
             return self.batch_size * self.steps_since_edge / partial
         return 0.0
+
+
+class RateTracker:
+    """Rolling events/sec over a sliding wall-clock window (serving
+    throughput gauges: tokens/sec, requests/sec). Thread-safe; no device
+    sync — serving rates time host-observed events, not kernel completion."""
+
+    def __init__(self, window_s: float = 30.0):
+        self.window_s = window_s
+        self._events = collections.deque()   # (monotonic_ts, count)
+        self._start = time.monotonic()
+        self._lock = threading.Lock()
+
+    def add(self, n: float = 1.0, now: Optional[float] = None):
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            self._events.append((now, n))
+            self._prune(now)
+
+    def _prune(self, now: float):
+        cutoff = now - self.window_s
+        while self._events and self._events[0][0] < cutoff:
+            self._events.popleft()
+
+    def rate(self, now: Optional[float] = None) -> float:
+        """Events/sec averaged over the full window (0.0 when empty). The
+        divisor is the window span — not the oldest-event age, which would
+        spike absurdly for a single event right after an idle period — and
+        shrinks to the tracker's lifetime while younger than the window."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            self._prune(now)
+            if not self._events:
+                return 0.0
+            span = max(min(self.window_s, now - self._start), 1e-9)
+            return sum(n for _, n in self._events) / span
