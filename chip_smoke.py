@@ -64,7 +64,18 @@ call, bit for bit) and times both, then drives the port's paths:
   ``fused_bias_act_dropout`` at BERT-base's FFN (F); exact launch counts,
   every output and gradient held against the plain versions, and the six
   kernels timed by the profiler's device time beside their bounds, plain
-  versions and library calls.
+  versions and library calls;
+- the memory tiers (the host sources ``csrc/cpu_adam.cpp`` and
+  ``csrc/aio.cpp`` built by g++ in the build phase): Llama-3-8B with
+  ``offload_optimizer`` cpu, then ``bench.py``'s 8b tiers (``offload_param``
+  cpu, 4 layers a group, with ``offload_optimizer`` cpu), each at all 32
+  layers or the deepest depth whose host state fits MemAvailable with a
+  25% margin (the cut and the reading on their own line): losses that
+  fall, exact flash launches, each step's split (device, device->host,
+  host optimizer, host->device; streamed bytes), no fp32 state on the
+  card, peak HBM; then at 4 layers the optimizer tier against in-HBM, the
+  NVMe tier against the CPU tier bit for bit, and the parameter tier
+  against the optimizer tier.
 
 Each phase prints one JSON line; the card's name and power limit
 (``nvidia-smi``) and the ``kernels`` line come before the last line,
@@ -78,6 +89,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -282,6 +294,7 @@ def phase_build(kernels):
             if m:
                 spills.append(int(m.group(1)))
         info[name] = {"nvcc_s": round(res.seconds, 3),
+                      "compiler": "g++" if name in HOST_SOURCES else "nvcc",
                       "entries": [{"kernel": k, "registers": r, "spill_stores": s}
                                   for k, r, s in zip(_demangle(entries), regs,
                                                      spills)]}
@@ -4271,6 +4284,416 @@ def phase_train_qgz(batch, plain_norm1, dev, smi_line):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the memory tiers (ZeRO-Offload, ZeRO-Infinity)
+# ---------------------------------------------------------------------------
+HOST_SOURCES = ("cpu_adam", "aio")  # g++ builds them beside the CUDA sources
+PARITY_STEPS = 2                   # train_batch steps of each parity engine
+OFFLOAD_STEPS = 2                  # timed steps after 1 warm-up, optimizer tier
+PARAM_OFFLOAD_STEPS = 1            # the parameter tier's, cut for time
+HOST_MARGIN = 1.25                 # host RAM a tier may plan on: MemAvailable / this
+SETTLE_MAX_S = 90.0                # wait at most this for MemAvailable to settle
+SETTLE_STEP_BYTES = 256 << 20      # settled: it rose less than this in a second
+TIER_LOSS_REL = 1e-3               # optimizer tier vs in-HBM, each step's loss
+MASTERS_ATOL, MASTERS_RTOL = 2e-5, 2e-4   # tests/test_offload.py's tolerance
+PARAM_LOSS_REL = 1e-5              # parameter tier vs optimizer tier, step 1
+# two bf16 pipelines whose masters differ in last bits: the share of
+# elements beyond MASTERS_ATOL/RTOL (tests/test_torch_train.py's bf16 case)
+BF16_SHARE = 5e-3
+# what the engine may hold on the card beside its bf16 parameters and rope
+# tables after the optimizer tier's init: less than the fp32 master of any
+# weight matrix of the model (the smallest, wk, is 16 MiB)
+CARD_SLACK = 8 << 20
+# host bytes a parameter: the fp32 master and two Adam moments; the
+# parameter tier adds its bf16 store and the fp32 gradient accumulators
+HOST_BYTES = {"optimizer": 12, "param": 18}
+ADAM_BYTES = 28                    # the fused host Adam: reads p, g, m, v; writes p, m, v
+# flash launches per layer and micro-batch under the parameter tier: the
+# stream's forward, the group's forward and remat's recompute; one backward
+FLASH_PER_STEP_PARAM = {"flash_fwd": 3, "flash_dq": 1, "flash_dkv": 1}
+
+
+def _release() -> None:
+    """Free what the last phase left: Python garbage, the card's cached
+    blocks and the pinned host blocks the caching allocator keeps."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host = getattr(torch._C, "_host_emptyCache", None)
+    if empty_host is not None:
+        empty_host()
+
+
+def _kb_line(path, key) -> int:
+    with open(path) as f:
+        for line in f:
+            if line.startswith(key):
+                return int(line.split()[1]) * 1024
+    raise PhaseError(f"no {key} in {path}")
+
+
+def mem_available() -> int:
+    """/proc/meminfo's MemAvailable, in bytes."""
+    return _kb_line("/proc/meminfo", "MemAvailable:")
+
+
+def host_memory() -> dict:
+    """MemAvailable and this process's resident bytes."""
+    return {"mem_available": mem_available(),
+            "rss": _kb_line("/proc/self/status", "VmRSS:")}
+
+
+def llama_params(cfg, layers):
+    """Parameters of ``cfg`` at ``layers`` layers (untied head)."""
+    d, f, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
+    layer = d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads) + 3 * d * f + 2 * d
+    return 2 * cfg.vocab_size * d + d + layers * layer
+
+
+def settled_mem_available():
+    """MemAvailable once it stops rising, and the seconds waited: the card
+    machine hands memory a process freed back to MemAvailable over several
+    seconds (32 -> 79 GB in ~15 s after a 23-layer tier, PERF.md)."""
+    _release()
+    t0 = time.monotonic()
+    last = mem_available()
+    while time.monotonic() - t0 < SETTLE_MAX_S:
+        time.sleep(1.0)
+        now = mem_available()
+        if now - last < SETTLE_STEP_BYTES:
+            return now, time.monotonic() - t0
+        last = now
+    return last, time.monotonic() - t0
+
+
+def plan_depth(tier, cfg):
+    """The deepest depth up to the model's whose host state, times
+    HOST_MARGIN, fits in MemAvailable; emits the reading on its own line."""
+    avail, settle_s = settled_mem_available()
+    per = HOST_BYTES[tier]
+    depth = max((n for n in range(1, cfg.num_layers + 1)
+                 if per * llama_params(cfg, n) * HOST_MARGIN <= avail),
+                default=0)
+    need = per * llama_params(cfg, cfg.num_layers)
+    row = {"phase": f"host_memory_{tier}", "mem_available_bytes": avail,
+           "settle_s": settle_s, "rss_bytes": host_memory()["rss"],
+           "cores": os.cpu_count(), "host_bytes_per_param": per,
+           "host_bytes_full_depth": need, "margin": HOST_MARGIN,
+           "layers": depth, "full_depth": cfg.num_layers,
+           "cut": depth < cfg.num_layers}
+    if row["cut"]:
+        row["reason"] = (f"{cfg.num_layers} layers need {need / 1e9:.1f} GB of "
+                         f"host state, x{HOST_MARGIN} > MemAvailable "
+                         f"{avail / 1e9:.1f} GB; {depth} layers fit")
+    emit(row)
+    check(depth >= 1, f"not one layer fits in {avail} bytes of host memory")
+    return depth
+
+
+def _tier_engine(cfg, zero, weight_decay=None):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    _, ds_config = train_config()
+    ds_config["zero_optimization"].update(zero)
+    if weight_decay is not None:
+        ds_config["optimizer"]["params"]["weight_decay"] = weight_decay
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=LlamaForCausalLM(cfg, device="cuda", seed=SEED), config=ds_config)
+    return engine
+
+
+def _tier_steps(engine, batch, steps):
+    """``steps`` train_batch calls: per step the loss, host ms (ending in
+    the loss readback), flash launches, phase seconds and bytes."""
+    from deepspeed_tpu_torch.ops import build
+    rows = []
+    for _ in range(steps):
+        before = build.launch_counts()
+        t0 = time.monotonic()
+        loss = engine.train_batch(batch=batch).item()
+        ms = (time.monotonic() - t0) * 1e3
+        after = build.launch_counts()
+        rows.append({"loss": loss, "step_ms": ms,
+                     "grad_norm": engine.get_global_grad_norm(),
+                     "launches": {n: after.get(n, 0) - before.get(n, 0)
+                                  for n in FLASH_PER_STEP},
+                     "phase_s": dict(engine.phase_seconds),
+                     "bytes": dict(engine.phase_bytes)})
+    return rows
+
+
+def _host_masters(engine):
+    """The engine's fp32 masters on the host (copied down from the card
+    through pinned staging for the in-HBM engine)."""
+    from deepspeed_tpu_torch.runtime.staging import Staging
+    stage = Staging(torch.device("cuda"))
+    return [stage.to_host(m) for _, m in engine.named_masters()]
+
+
+def _masters_gap(got, want):
+    """Over every element: the largest |got - want| / (MASTERS_ATOL +
+    MASTERS_RTOL |want|), the share of elements where that exceeds 1, and
+    the largest |got - want|."""
+    worst, over, n, gap = 0.0, 0, 0, 0.0
+    for a, b in zip(got, want):
+        d = (a - b).abs()
+        r = d / (MASTERS_ATOL + MASTERS_RTOL * b.abs())
+        worst = max(worst, float(r.max()))
+        over += int((r > 1.0).sum())
+        n += r.numel()
+        gap = max(gap, float(d.max()))
+        del d, r
+    return {"over_tol": worst, "share_over_tol": over / n, "max_abs": gap}
+
+
+def _close(engine) -> None:
+    """Unregister a parameter tier's page-locked store before the engine
+    goes (the caller then drops it and calls ``_release``)."""
+    po = getattr(engine, "_param_offload", None)
+    if po is not None:
+        po.close()
+
+
+def phase_train_offload_parity(batch, dev, smi_line):
+    """The recipe at TRAIN_LAYERS layers, PARITY_STEPS steps each (AdamW's
+    decay stated as none, as in ``tests/test_offload.py::
+    test_offload_matches_in_hbm_adamw``: the in-HBM AdamW decays 0.01 by
+    default, the host kernels none, as the JAX package's do; ROADMAP
+    Queue 3):
+
+    - the optimizer tier against in-HBM: each loss within TIER_LOSS_REL;
+      the masters after step 1, where both took the same gradients of the
+      same bf16 weights, within MASTERS_ATOL/RTOL. The two Adams round at
+      other points, a last-bit difference flips a few bf16 shadows, and
+      step 2's gradients differ at bf16 noise, which Adam's normalised step
+      turns into up to lr an element where a moment nearly cancels: the
+      final masters are held to the bound of two bf16 pipelines of
+      ``tests/test_torch_train.py`` (none beyond 2 lr a step, at most
+      BF16_SHARE beyond the tolerance);
+    - the NVMe tier with swapped masters against the CPU tier: bit for bit,
+      the state files present;
+    - the parameter tier (2 layers a group) against the optimizer tier:
+      step 1's loss within PARAM_LOSS_REL (the same bf16 weights through
+      the same kernels: a wider gap is a stream-ordering fault); it sums
+      the two micro-batches' bf16 gradients in fp32 on the host, the
+      optimizer tier in bf16 on the card (the recipe's grad_accum_dtype),
+      so its final masters take the same two-pipeline bound."""
+    import shutil
+    import tempfile
+    cfg, ds_config = train_config()
+    lr = ds_config["optimizer"]["params"]["lr"]
+    _release()
+    runs, gaps = {"start": {"host_after": host_memory()}}, {}
+    t0 = time.monotonic()
+
+    def run(label, zero, keep_step1=False):
+        engine = _tier_engine(cfg, zero, weight_decay=0.0)
+        rows = _tier_steps(engine, batch, 1)
+        step1 = [m.clone() for m in _host_masters(engine)] if keep_step1 else None
+        rows += _tier_steps(engine, batch, PARITY_STEPS - 1)
+        runs[label] = {"losses": [r["loss"] for r in rows],
+                       "step_ms": [r["step_ms"] for r in rows]}
+        final = _host_masters(engine)
+        _close(engine)
+        del engine
+        _release()
+        runs[label]["host_after"] = host_memory()
+        return step1, final
+
+    hbm1, hbm = run("in_hbm", {}, keep_step1=True)
+    cpu_zero = {"offload_optimizer": {"device": "cpu", "ratio": 0.0}}
+    cpu1, cpu = run("cpu", cpu_zero, keep_step1=True)
+    gaps["cpu_vs_in_hbm_step1"] = _masters_gap(cpu1, hbm1)
+    del cpu1, hbm1
+    gaps["cpu_vs_in_hbm"] = _masters_gap(cpu, hbm)
+    del hbm
+    nvme_dir = tempfile.mkdtemp(prefix="dstpu_nvme_")
+    try:
+        _, nvme = run("nvme", {"offload_optimizer": {
+            "device": "nvme", "nvme_path": nvme_dir, "swap_masters": True}})
+        files = {kind: len([f for f in os.listdir(os.path.join(nvme_dir, "proc0"))
+                            if f.startswith(kind)])
+                 for kind in ("state0_", "state1_", "master_")}
+    finally:
+        shutil.rmtree(nvme_dir, ignore_errors=True)
+    nvme_equal = all(torch.equal(a, b) for a, b in zip(nvme, cpu))
+    del nvme
+    _, param = run("param", {**cpu_zero, "offload_param": {
+        "device": "cpu", "layers_per_group": 2}})
+    gaps["param_vs_cpu"] = _masters_gap(param, cpu)
+    n_leaves = len(cpu)
+    del param, cpu
+    _release()
+    runs["end"] = {"host_after": host_memory()}
+    l_hbm, l_cpu, l_param = (runs[k]["losses"] for k in ("in_hbm", "cpu", "param"))
+    tier_rel = max(abs(a - b) / abs(b) for a, b in zip(l_cpu, l_hbm))
+    param_rel = abs(l_param[0] - l_cpu[0]) / abs(l_cpu[0])
+    bound = 2 * lr * PARITY_STEPS + MASTERS_ATOL
+    emit({"phase": "train_offload_parity",
+          "model": f"LLAMA3_8B width, {cfg.num_layers} layers, bf16, flash, "
+          "remat, AdamW lr 3e-4 without decay", "runs": runs,
+          "tier_loss_rel_max": tier_rel, "masters": gaps,
+          "nvme_masters_bit_equal": nvme_equal, "nvme_files": files,
+          "param_step1_loss_rel": param_rel,
+          "limits": {"tier_loss_rel": TIER_LOSS_REL,
+                     "masters_atol": MASTERS_ATOL, "masters_rtol": MASTERS_RTOL,
+                     "two_pipelines_max_abs": bound,
+                     "two_pipelines_share_over_tol": BF16_SHARE,
+                     "param_step1_loss_rel": PARAM_LOSS_REL},
+          "phase_s": time.monotonic() - t0,
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    check(all(math.isfinite(x) for r in runs.values() for x in r.get("losses", [])),
+          f"non-finite loss {runs}")
+    check(tier_rel <= TIER_LOSS_REL, f"optimizer tier vs in-HBM loss {tier_rel}")
+    check(gaps["cpu_vs_in_hbm_step1"]["over_tol"] <= 1.0,
+          f"optimizer tier step-1 masters vs in-HBM {gaps['cpu_vs_in_hbm_step1']}")
+    for key in ("cpu_vs_in_hbm", "param_vs_cpu"):
+        check(gaps[key]["max_abs"] <= bound
+              and gaps[key]["share_over_tol"] <= BF16_SHARE,
+              f"{key} final masters {gaps[key]}, bound {bound}, share "
+              f"{BF16_SHARE}")
+    check(nvme_equal, "NVMe tier masters differ from the CPU tier's")
+    check(all(n == n_leaves for n in files.values()),
+          f"NVMe state files {files}, expected {n_leaves} of each")
+    check(param_rel <= PARAM_LOSS_REL, f"parameter tier step-1 loss "
+          f"{l_param[0]} vs {l_cpu[0]} ({param_rel} relative)")
+
+
+def _tier_summary(rows, n_params, tier):
+    """Mean phase seconds and bytes over the timed steps (after the
+    warm-up), tokens/s, and the host optimizer's rate and share."""
+    timed = rows[1:]
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    step_s = mean([r["step_ms"] for r in timed]) / 1e3
+    phases = {k: mean([r["phase_s"][k] for r in timed])
+              for k in timed[0]["phase_s"]}
+    out = {"step_ms_mean": step_s * 1e3, "phase_s_mean": phases,
+           "bytes_per_step": timed[-1]["bytes"],
+           "tokens_per_s": TRAIN_GAS * TRAIN_SEQ / step_s,
+           "host_optimizer_share": phases["host_optimizer"] / step_s}
+    if tier == "optimizer":
+        out["host_adam_gb_per_s"] = ADAM_BYTES * n_params / phases["host_optimizer"] / 1e9
+    return out
+
+
+def phase_train_offload(batch, dev, smi_line):
+    """Llama-3-8B with ``offload_optimizer`` cpu (ratio 0.0), the recipe
+    otherwise as ``train_config``, at full depth or the deepest the host
+    RAM holds: 1 warm-up and OFFLOAD_STEPS timed steps whose loss falls at
+    every step, exact flash launches, no fp32 state on the card."""
+    import dataclasses
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.ops.cpu_adam import host_threads
+    _release()
+    cfg, _ = train_config()
+    cfg = dataclasses.replace(cfg, num_layers=32)
+    layers = plan_depth("optimizer", cfg)
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    n_params = llama_params(cfg, layers)
+    before_init = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    engine = _tier_engine(cfg, {"offload_optimizer": {"device": "cpu",
+                                                      "ratio": 0.0}})
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    held = torch.cuda.memory_allocated() - before_init
+    module_dtypes = sorted({str(p.dtype) for p in engine.model.parameters()})
+    host_state = {str(t.device) for leaf in engine._offload.leaves
+                  for t in (leaf.master, *leaf.states)}
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()        # the main path's run starts here
+    rows = _tier_steps(engine, batch, 1 + OFFLOAD_STEPS)
+    launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    threads = host_threads()
+    _close(engine)
+    del engine
+    _release()
+    losses = [r["loss"] for r in rows]
+    want = {n: k * layers * TRAIN_GAS for n, k in FLASH_PER_STEP.items()}
+    bf16_bytes = 2 * n_params
+    row = {"phase": "train_offload", "model": f"LLAMA3_8B, {layers} layers, "
+           "bf16, flash, remat, offload_optimizer cpu", "layers": layers,
+           "params": n_params, "init_s": init_s, "losses": losses,
+           "steps": rows, **_tier_summary(rows, n_params, "optimizer"),
+           "host_threads": threads, "cores": os.cpu_count(),
+           "card_bytes_held_after_init": held,
+           "bf16_param_bytes": bf16_bytes, "module_dtypes": module_dtypes,
+           "host_state_devices": sorted(host_state),
+           "max_memory_allocated": peak, "launches": launches,
+           "card": dev["kind"], "nvidia_smi": smi_line}
+    emit(row)
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"loss did not fall at every step: {losses}")
+    check(all(r["launches"] == want for r in rows),
+          f"flash launches per step {[r['launches'] for r in rows]}, "
+          f"expected {want}")
+    check(module_dtypes == ["torch.bfloat16"], f"module holds {module_dtypes}")
+    check(host_state == {"cpu"}, f"masters and moments on {host_state}")
+    rope = 2 * 4 * cfg.max_seq_len * cfg.head_dim_ // 2
+    check(bf16_bytes + rope <= held <= bf16_bytes + rope + CARD_SLACK,
+          f"the engine holds {held} bytes on the card after init; its bf16 "
+          f"parameters and rope tables are {bf16_bytes + rope}: an fp32 "
+          "master or moment stayed there")
+    return launches, peak
+
+
+def phase_train_param_offload(batch, opt_peak, dev, smi_line):
+    """bench.py's 8b tiers as written: ``offload_param`` cpu with
+    ``layers_per_group`` 4 and ``offload_optimizer`` cpu (ratio 0.0), at
+    full depth or the deepest the host RAM holds: 1 warm-up and
+    PARAM_OFFLOAD_STEPS timed steps, the loss falls, exact flash launches,
+    and a peak HBM far below the optimizer tier's."""
+    import dataclasses
+    from deepspeed_tpu_torch.ops import build
+    _release()
+    cfg, _ = train_config()
+    cfg = dataclasses.replace(cfg, num_layers=32)
+    layers = plan_depth("param", cfg)
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    n_params = llama_params(cfg, layers)
+    t0 = time.monotonic()
+    engine = _tier_engine(cfg, {
+        "offload_optimizer": {"device": "cpu", "ratio": 0.0},
+        "offload_param": {"device": "cpu", "layers_per_group": 4}})
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    after_init = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()        # the main path's run starts here
+    rows = _tier_steps(engine, batch, 1 + PARAM_OFFLOAD_STEPS)
+    launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    groups = engine._param_offload._layer_groups
+    _close(engine)
+    del engine
+    _release()
+    losses = [r["loss"] for r in rows]
+    want = {n: k * layers * TRAIN_GAS for n, k in FLASH_PER_STEP_PARAM.items()}
+    summary = _tier_summary(rows, n_params, "param")
+    streamed = summary["bytes_per_step"]["h2d"]
+    copy_s = summary["phase_s_mean"]["h2d_copy_device"]
+    emit({"phase": "train_param_offload", "model": f"LLAMA3_8B, {layers} "
+          "layers, bf16, flash, remat, offload_param cpu x4 layers, "
+          "offload_optimizer cpu", "layers": layers, "groups": len(groups),
+          "params": n_params, "init_s": init_s, "losses": losses,
+          "steps": rows, **summary,
+          "h2d_gb_per_s_copy": streamed / copy_s / 1e9 if copy_s else None,
+          "memory_allocated_after_init": after_init,
+          "max_memory_allocated": peak,
+          "optimizer_tier_max_memory_allocated": opt_peak,
+          "launches": launches, "card": dev["kind"], "nvidia_smi": smi_line})
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"loss did not fall at every step: {losses}")
+    check(all(r["launches"] == want for r in rows),
+          f"flash launches per step {[r['launches'] for r in rows]}, "
+          f"expected {want}")
+    check(peak < 0.5 * opt_peak, f"peak HBM {peak} under the parameter tier, "
+          f"{opt_peak} under the optimizer tier")
+    return launches
+
+
 # where each kernel's source lives and which TPU kernel it replaces
 KERNEL_TABLE = {
     "paged_attention": ("paged_attention",
@@ -4313,7 +4736,8 @@ ENTRY_NAMES = {n: f"{n}_kernel" for n in BIAS_ACT_KERNELS}
 # BigBird-base and Fixed, timed at S1; R: rms_norm; F: fused_bias_act and
 # fused_bias_act_dropout)
 KERNEL_PATHS = {"paged_attention": ("serve", "serve_http", "A1", "A2"),
-                **{n: ("train",) for n in FLASH_PER_STEP},
+                **{n: ("train", "train_offload", "train_param_offload")
+                   for n in FLASH_PER_STEP},
                 "quantize_fp8": ("A1",), "dequantize_fp8": ("A1",),
                 "quantize_int8": ("B",), "dequantize_int8": ("B", "A2"),
                 **{n: ("evoformer",) for n in EVO_KERNELS},
@@ -4332,7 +4756,7 @@ def main() -> int:
         phase = "build"
         build_info = phase_build(["paged_attention", "flash_attention", "quant",
                                   "evoformer", "rms_norm", "fused_bias_act",
-                                  "sparse_attention"])
+                                  "sparse_attention", *HOST_SOURCES])
         phase = "kernel_parity"
         worst, timing = phase_kernel_parity()
         phase = "flash_parity"
@@ -4382,12 +4806,21 @@ def main() -> int:
         plain_norm1 = phase_train_probe(batch, losses, dev, smi_line)
         phase = "train_qgz"
         qgz_launches = phase_train_qgz(batch, plain_norm1, dev, smi_line)
+        phase = "train_offload_parity"
+        phase_train_offload_parity(batch, dev, smi_line)
+        phase = "train_offload"
+        offload_launches, opt_peak = phase_train_offload(batch, dev, smi_line)
+        phase = "train_param_offload"
+        param_launches = phase_train_param_offload(batch, opt_peak, dev,
+                                                   smi_line)
         phase = "kernels"
         # each kernel's launches on every main path run it lies on, each run
         # with its own reset; the line's count is that of the path its
         # timing shape comes from (first listed)
         path_counts = {"serve": st["launches"], "serve_http": serve_launches,
                        "train": train_launches,
+                       "train_offload": offload_launches,
+                       "train_param_offload": param_launches,
                        "A1": zi["A1"]["path_launches"],
                        "A2": zi["A2"]["path_launches"], "B": qgz_launches,
                        "evoformer": evo_launches, **sparse_launches,

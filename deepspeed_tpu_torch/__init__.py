@@ -28,7 +28,17 @@ Ported so far:
 - the serving layer as one replica — ``serving/``: ``InferenceServer``
   (bounded queue, backpressure, deadlines, drain, the degradation ladder,
   the host-KV tier planner, step-fault isolation), the HTTP front door
-  (``python -m deepspeed_tpu_torch.serving.cli``) and ``bench_serve``.
+  (``python -m deepspeed_tpu_torch.serving.cli``) and ``bench_serve``;
+- the memory tiers — ``offload_optimizer`` (``runtime/offload.py``: fp32
+  masters and moments on the host or NVMe, the fused host optimizers of
+  ``ops/cpu_adam.py``, the async file I/O of ``ops/async_io.py``) and
+  ``offload_param`` (``runtime/param_offload.py``: the weights streamed
+  through the card a layer group at a time), at ZeRO stage 0. Their host
+  sources, ``csrc/cpu_adam.cpp`` and ``csrc/aio.cpp``, are built by ``g++``
+  on first use (``ops/build.py``). On the CPU: ``python -m pytest
+  tests/test_torch_offload.py tests/test_torch_param_offload.py``; on the
+  card, ``chip_smoke.py``'s ``train_offload``, ``train_param_offload`` and
+  ``train_offload_parity`` phases.
 
 Importing this package starts no work and touches no device.
 """
@@ -51,7 +61,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``model_parameters`` is None (keep the module's weights) or the flax
     parameter tree (numpy leaves) to load as fp32 masters (the module's
     own weights come from its seed). ``device`` defaults to the card; pass
-    ``device="cpu"`` to train on the CPU."""
+    ``device="cpu"`` to train on the CPU. ``zero_optimization``'s
+    ``offload_optimizer`` and ``offload_param`` (``cpu`` or ``nvme``) put
+    the optimizer state, and the weights, in host memory or files; the
+    returned optimizer is then the host optimizer."""
     from deepspeed_tpu_torch.config.config import DeepSpeedTPUConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedTPUEngine
     if config is None and config_params is not None:

@@ -6,9 +6,11 @@ dataclasses (the card's machine has no pydantic). Unknown keys inside a
 group are ignored, as the reference's models ignore them.
 
 Groups the port does not carry yet raise ``NotImplementedError`` instead
-of being parsed and ignored: ZeRO stages above 0 and every ``offload_*``
-tier (ROADMAP Queue 1, "Distribution and memory tiers"), and any other
-top-level group that the training path does not read.
+of being parsed and ignored: ZeRO stages above 0 (ROADMAP Queue 1,
+"Distribution and memory tiers") and any other top-level group that the
+training path does not read. The memory tiers, ``offload_optimizer`` and
+``offload_param`` with ``cpu`` or ``nvme``, are read at stage 0 as the
+reference reads them whatever the stage.
 """
 
 import dataclasses
@@ -59,22 +61,37 @@ class BF16Config:
 
 @dataclasses.dataclass
 class OffloadConfig:
-    """reference: runtime/zero/offload_config.py. device: none|cpu|nvme;
-    only "none" is ported."""
+    """reference: runtime/zero/offload_config.py. device: none|cpu (host
+    DRAM)|nvme."""
     device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = True
+    pipeline_read: bool = True
+    pipeline_write: bool = True
+    ratio: float = 1.0  # Twin-Flow partial offload (engine.py:757 zero_partial_offload)
+    # offload_param streaming granularity: transformer blocks per streamed
+    # group (larger = fewer, bigger H2D transfers but more HBM per group)
+    layers_per_group: int = 1
+    # nvme tier: swap the fp32 MASTERS too (full ZeRO-Infinity); False
+    # keeps masters in host RAM (moments-only swap)
+    swap_masters: bool = True
 
 
 @dataclasses.dataclass
 class ZeroConfig:
     """reference: runtime/zero/config.py. The port runs stage 0 (plain data
-    parallel, one card); stages 1-3 and the offload tiers come with
-    ROADMAP Queue 1, "Distribution and memory tiers".
-    ``zero_quantized_gradients`` (qgZ) is read at
-    stage 0: on one card it is the int8 round trip of every micro-batch
-    gradient (``runtime/engine.py``)."""
+    parallel, one card) with the memory tiers (``offload_optimizer``,
+    ``offload_param``); stages 1-3 come with ROADMAP Queue 1,
+    "Distribution and memory tiers". ``zero_quantized_gradients`` (qgZ) is
+    read at stage 0: on one card it is the int8 round trip of every
+    micro-batch gradient (``runtime/engine.py``). ``sub_group_size`` is
+    parsed with the reference's default; as in the JAX package, the host
+    optimizer's sub-groups are 4 leaves (``runtime/offload.py``)."""
     stage: int = 0
     offload_param: Any = None
     offload_optimizer: Any = None
+    sub_group_size: int = int(1e9)
     zero_quantized_gradients: bool = False
 
     def __post_init__(self):
@@ -168,11 +185,6 @@ class DeepSpeedTPUConfig:
             raise NotImplementedError(
                 f"ZeRO stage {zc.stage} is not ported yet (ROADMAP Queue 1: "
                 "distribution and memory tiers); use stage 0")
-        for name in ("offload_param", "offload_optimizer"):
-            if getattr(zc, name).device != "none":
-                raise NotImplementedError(
-                    f"zero_optimization.{name} is not ported yet (ROADMAP "
-                    "Queue 1: distribution and memory tiers)")
         unported = sorted(set(self._raw) - _READ_KEYS)
         if unported:
             raise NotImplementedError(

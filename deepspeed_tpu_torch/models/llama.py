@@ -15,6 +15,9 @@ Parameters are fp32 masters named and laid out as the flax tree
 compute dtype at its use, as the reference engine's ``cast_to_compute``
 does before ``apply``, so gradients reach the fp32 masters through the
 cast. Remat is ``torch.utils.checkpoint`` (non-reentrant) per block.
+``LlamaModel``'s ``table``, ``embed_tokens``, ``run_blocks`` and ``head``
+and ``LlamaForCausalLM.loss_of`` are the pieces the whole forward is made
+of, and the entry points of the parameter tier's layer-group stream.
 
 Not ported yet: the ``ulysses`` and ``ring`` backends (ROADMAP Queue 1,
 sequence parallel), the chunked loss (``loss_chunk_size``, with
@@ -334,27 +337,45 @@ class LlamaModel(nn.Module):
     def layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.num_layers)]
 
-    def forward(self, input_ids, positions=None, segment_ids=None,
-                compute_dtype=None):
-        cfg, dt = self.cfg, self.cfg.dtype
-        input_ids = input_ids.long()
+    # -- the entry points of a layer-group stream (``runtime/param_offload.py``
+    # runs them group by group; ``forward`` runs them over the whole model) --
+    def table(self, compute_dtype=None) -> torch.Tensor:
+        """The embedding as the lookup (and a tied head) reads it."""
+        return _cast(self.embed.embedding, compute_dtype).to(self.cfg.dtype)
+
+    @staticmethod
+    def positions_of(input_ids, positions=None) -> torch.Tensor:
         if positions is None:
             positions = torch.arange(input_ids.shape[1],
                                      device=input_ids.device).expand_as(input_ids)
-        positions = positions.long()
-        table = _cast(self.embed.embedding, compute_dtype).to(dt)
-        x = table[input_ids]
-        if cfg.scale_embeddings:          # gemma: normalizer on the embed output
-            x = x * torch.tensor(math.sqrt(cfg.hidden_size)).to(x.dtype)
+        return positions.long()
+
+    def embed_tokens(self, input_ids, table) -> torch.Tensor:
+        """token ids [B, S] -> x [B, S, D] (gemma's normalizer applied)."""
+        x = table[input_ids.long()]
+        if self.cfg.scale_embeddings:     # gemma: normalizer on the embed output
+            x = x * torch.tensor(math.sqrt(self.cfg.hidden_size)).to(x.dtype)
+        return x
+
+    def run_blocks(self, blocks, x, positions, segment_ids=None,
+                   compute_dtype=None) -> torch.Tensor:
+        """``blocks`` in order, each under the config's remat."""
+        cfg = self.cfg
         rope = (self.rope_cos, self.rope_sin)
-        for block in self.layers():
-            if cfg.remat:
+        for block in blocks:
+            if cfg.remat and torch.is_grad_enabled():
                 ctx = REMAT_POLICIES[cfg.remat_policy]
                 kw = {"context_fn": ctx} if ctx is not None else {}
                 x = checkpoint(block, x, positions, segment_ids, rope,
                                compute_dtype, use_reentrant=False, **kw)
             else:
                 x = block(x, positions, segment_ids, rope, compute_dtype)
+        return x
+
+    def head(self, x, table=None, compute_dtype=None) -> torch.Tensor:
+        """final norm -> unembed (the tied ``table`` or ``lm_head``) -> fp32
+        logits, soft-capped."""
+        cfg, dt = self.cfg, self.cfg.dtype
         x = self.final_norm(x, compute_dtype)
         if cfg.tie_embeddings:
             logits = x.to(dt) @ table.T
@@ -362,6 +383,15 @@ class LlamaModel(nn.Module):
             logits = self.lm_head(x, dt, compute_dtype)
         logits = logits.float()
         return softcap_logits(logits, cfg.logits_soft_cap)
+
+    def forward(self, input_ids, positions=None, segment_ids=None,
+                compute_dtype=None):
+        positions = self.positions_of(input_ids, positions)
+        table = self.table(compute_dtype)
+        x = self.embed_tokens(input_ids, table)
+        x = self.run_blocks(self.layers(), x, positions, segment_ids,
+                            compute_dtype)
+        return self.head(x, table, compute_dtype)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -407,8 +437,12 @@ class LlamaForCausalLM(nn.Module):
                           compute_dtype=compute_dtype)
 
     def forward(self, batch, compute_dtype=None):
+        return self.loss_of(self.logits(batch, compute_dtype), batch)
+
+    @staticmethod
+    def loss_of(logits, batch):
+        """The dense next-token loss of fp32 ``logits`` [B, S, V]."""
         input_ids = batch["input_ids"]
-        logits = self.logits(batch, compute_dtype)
         labels = batch.get("labels")
         if labels is None:
             labels = input_ids[:, 1:]

@@ -25,8 +25,27 @@ guard, and then skips the update instead of computing and discarding it.
 Without them a step never waits for the device. The micro-step protocol
 (``forward``/``backward``/``step``), the async metric ring and the batch
 prefetcher are not ported yet (ROADMAP Queue 1).
+
+The memory tiers (reference ``engine.py:238-338,1199-1306``):
+
+- ``offload_optimizer`` (ZeRO-Offload, ``cpu`` or ``nvme``): the module
+  holds compute-dtype parameters on the card; the fp32 masters and moments
+  live only in the host optimizer (``runtime/offload.py``). A step's
+  gradients are accumulated as above, then cast to fp32 and divided by
+  ``scale * gas`` on the card, where the overflow check and the clipping
+  norm are taken leaf by leaf (no second full copy); each leaf's clipped
+  fp32 gradient goes down through bounded pinned buffers
+  (``runtime/staging.py``) into the fused host step at the schedule's lr,
+  and the new bf16 shadow goes back up. An overflow skips the host step,
+  shrinks the loss scale and counts in ``skipped_steps``.
+- ``offload_param`` (ZeRO-Infinity): ``runtime/param_offload.py`` streams
+  the weights through the card one layer group at a time.
+
+Both emit the ``engine/train_step`` span (``mode`` ``offload`` or
+``param_offload``) and keep each phase's seconds in ``phase_seconds``.
 """
 
+import time
 import warnings
 from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional
 
@@ -34,11 +53,14 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.config.config import DeepSpeedTPUConfig
+from deepspeed_tpu_torch.ops.cpu_adam import to_bf16
 from deepspeed_tpu_torch.ops.optimizers import build_optimizer
 from deepspeed_tpu_torch.ops.quant import dequantize_int8, quantize_int8
 from deepspeed_tpu_torch.runtime import precision
 from deepspeed_tpu_torch.runtime.lr_schedules import build_schedule, constant_lr
+from deepspeed_tpu_torch.runtime.staging import STAGING_ELEMS, Staging
 from deepspeed_tpu_torch.runtime.zero.qgz import MIN_QUANT_SIZE
+from deepspeed_tpu_torch.telemetry.tracer import get_tracer
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.logging import log_dist
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
@@ -84,6 +106,25 @@ class DeepSpeedTPUEngine:
         self.zero_stage = config.zero_config.stage
         self.loss_fn = loss_fn
         log_dist(f"engine: {config!r} device={self.device}", ranks=[0])
+        zc = config.zero_config
+        self._offload = None          # the host optimizer of either tier
+        self._param_offload = None    # the ZeRO-Infinity streamed trainer
+        self.phase_seconds: Dict[str, float] = {}
+        self.phase_bytes: Dict[str, int] = {}
+        if zc.offload_param.device != "none":
+            from deepspeed_tpu_torch.runtime.param_offload import (
+                validate_param_offload)
+            # fail fast, before any host allocation
+            validate_param_offload(config, model)
+        elif zc.offload_optimizer.device not in ("none", "cpu", "nvme"):
+            raise ValueError("offload_optimizer.device must be none|cpu|nvme, "
+                             f"got {zc.offload_optimizer.device!r}")
+        tier = "param" if zc.offload_param.device != "none" else \
+            "optimizer" if zc.offload_optimizer.device != "none" else None
+        if tier is not None and client_optimizer is not None:
+            raise ValueError(
+                f"offload_{tier} requires a config-typed optimizer (the "
+                "update runs in the fused host kernel, not a client optimizer)")
         # qgZ on one card: no data-parallel reduction to put int8 on, so
         # every micro-batch gradient takes the int8 round trip instead, the
         # numerics of the reference's quantized-gradient collectives
@@ -111,32 +152,61 @@ class DeepSpeedTPUEngine:
                        if config.optimizer else 1e-3)
             self.lr_schedule = constant_lr(lr=base_lr)
 
-        # --- fp32 master weights on the device ------------------------------
-        self.model = model.to(self.device)
-        for p in self.model.parameters():
+        opt_type = config.optimizer.type if config.optimizer else "adamw"
+        opt_params = dict(config.optimizer.params) if config.optimizer else {}
+        # --- fp32 master weights --------------------------------------------
+        for p in model.parameters():
             if p.is_floating_point() and p.dtype != torch.float32:
                 p.data = p.data.float()
         if params is not None:
             from deepspeed_tpu_torch.models.convert import load_flax_params
-            load_flax_params(self.model, params)
-        named = [(n, p) for n, p in self.model.named_parameters()
-                 if p.requires_grad]
-        self._param_names: List[str] = [n for n, _ in named]
-        self._masters: List[torch.Tensor] = [p for _, p in named]
-
-        # --- optimizer ------------------------------------------------------
-        if client_optimizer is not None:
-            if not (hasattr(client_optimizer, "init")
-                    and hasattr(client_optimizer, "step")):
-                raise TypeError("client optimizer must have init(params) and "
-                                f"step(params, grads), got {type(client_optimizer)}")
-            self.optimizer = client_optimizer
+            load_flax_params(model, params)
+        if tier == "param":
+            # --- ZeRO-Infinity: the weights stream through the card ---------
+            from deepspeed_tpu_torch.runtime.param_offload import (
+                ParamOffloadTrainer)
+            self._param_offload = ParamOffloadTrainer(
+                model, config, self.lr_schedule, self.device,
+                staging_elems=STAGING_ELEMS)
+            self.model = model
+            self._offload = self._param_offload.opt
+            self.optimizer = self._offload
+            self._param_names = list(self._param_offload.names)
+            self._masters = []
         else:
-            opt_type = config.optimizer.type if config.optimizer else "adamw"
-            opt_params = dict(config.optimizer.params) if config.optimizer else {}
-            self.optimizer = build_optimizer(opt_type, opt_params,
-                                             lr_schedule=self.lr_schedule)
-        self.optimizer.init(self._masters)
+            self.model = model.to(self.device)
+            named = [(n, p) for n, p in self.model.named_parameters()
+                     if p.requires_grad]
+            self._param_names: List[str] = [n for n, _ in named]
+            # the tensors gradients are taken against: the fp32 masters, or
+            # under the optimizer tier the compute-dtype shadows
+            self._masters: List[torch.Tensor] = [p for _, p in named]
+        if tier == "optimizer":
+            # --- ZeRO-Offload: masters and moments in the host optimizer -----
+            from deepspeed_tpu_torch.runtime.offload import HostOffloadOptimizer
+            ocfg = zc.offload_optimizer
+            self._staging = Staging(self.device, ocfg.pin_memory, STAGING_ELEMS)
+            host = [self._staging.to_host(p.data) for p in self._masters]
+            self._offload = HostOffloadOptimizer(host, opt_type, opt_params,
+                                                 ocfg)
+            del host
+            for p in self._masters:       # the card keeps compute-dtype shadows
+                p.data = p.data.to(self.compute_dtype, copy=True)
+            self.optimizer = self._offload
+
+        # --- optimizer (the tiers' is the host optimizer above) -------------
+        if tier is None:
+            if client_optimizer is not None:
+                if not (hasattr(client_optimizer, "init")
+                        and hasattr(client_optimizer, "step")):
+                    raise TypeError("client optimizer must have init(params) "
+                                    "and step(params, grads), got "
+                                    f"{type(client_optimizer)}")
+                self.optimizer = client_optimizer
+            else:
+                self.optimizer = build_optimizer(opt_type, opt_params,
+                                                 lr_schedule=self.lr_schedule)
+            self.optimizer.init(self._masters)
 
         self.loss_scale = precision.init_loss_scale(config.fp16)
         self.step_count = 0           # applied updates (the reference's state.step)
@@ -250,12 +320,18 @@ class DeepSpeedTPUEngine:
         step_timer = self.timers(TRAIN_BATCH_TIMER)
         self.tput_timer.start()
         step_timer.start()
-        scale = self.loss_scale.scale
-        loss, acc = self._grads_phase(device_batch, scale)
-        # unscale + average over gas in fp32, after the sum
-        grads = [a.float().div_(scale * gas) for a in acc]
-        del acc
-        out = self._update(grads)._replace(loss=loss)
+        if self._param_offload is not None:
+            out = self._param_offload_step(device_batch)
+        elif self._offload is not None:
+            out = self._offload_step(device_batch)
+        else:
+            scale = self.loss_scale.scale
+            loss, acc = self._grads_phase(device_batch, scale)
+            # unscale + average over gas in fp32, after the sum
+            grads = [a.float().div_(scale * gas) for a in acc]
+            del acc
+            out = self._update(grads)._replace(loss=loss)
+        loss = out.loss
         step_timer.stop()
         self.tput_timer.stop(global_step=True)
         self.global_steps += 1
@@ -264,6 +340,103 @@ class DeepSpeedTPUEngine:
         self._last_metrics = {"lr": out.lr, "grad_norm": out.grad_norm,
                               "loss": out.loss, "overflow": out.overflow}
         return loss
+
+    # ------------------------------------------------------------------
+    # the memory tiers
+    # ------------------------------------------------------------------
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _offload_step(self, device_batch) -> StepOutput:
+        """The optimizer tier's step (reference ``_train_batch_offloaded``
+        and ``_offload_host_update``, ``engine.py:1231-1306``)."""
+        cfg, gas = self.config, self.gradient_accumulation_steps
+        scale = self.loss_scale.scale
+        denom = scale * gas
+        with get_tracer().span("engine/train_step", cat="train",
+                               step=self.global_steps, mode="offload"):
+            t0 = time.perf_counter()
+            loss, acc = self._grads_phase(device_batch, scale)
+            # fp32 / (scale * gas), then the overflow check and the clipping
+            # norm, on the card one leaf at a time
+            check = cfg.fp16.enabled or self._guard_nonfinite
+            sq, bad = [], []
+            for a in acc:
+                g = a.float() / denom
+                sq.append(g.square().sum())
+                if check:
+                    bad.append(torch.logical_not(torch.isfinite(g).all()))
+                del g
+            grad_norm = torch.stack(sq).sum().sqrt()
+            clip = cfg.gradient_clipping
+            factor = (torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
+                      if clip > 0 else None)
+            overflow = bool(torch.stack(bad).any()) if check else False
+            lr = float(self.lr_schedule(self.step_count))
+            self._sync()
+            t_dev = time.perf_counter()
+            secs = {"d2h": 0.0, "shadow": 0.0, "h2d": 0.0}
+            nbytes = {"d2h": 0, "h2d": 0}
+            stage = self._staging
+
+            def grads_of(i, a, b):
+                t = time.perf_counter()
+                g = acc[i].view(-1)[a:b].float() / denom
+                if factor is not None:
+                    g = g * factor
+                host = stage.down(g)
+                nbytes["d2h"] += host.numel() * host.element_size()
+                secs["d2h"] += time.perf_counter() - t
+                return host
+
+            def shadow_up(i, a, b, master):
+                t = time.perf_counter()
+                p = self._masters[i]
+                up = stage.up_buffer(p.dtype, b - a)
+                if p.dtype == torch.bfloat16:
+                    to_bf16(master, out=up)
+                else:
+                    up.copy_(master)
+                t_cast = time.perf_counter()
+                stage.up(p.data.view(-1)[a:b], up)
+                nbytes["h2d"] += up.numel() * up.element_size()
+                secs["shadow"] += t_cast - t
+                secs["h2d"] += time.perf_counter() - t_cast
+
+            if overflow:
+                self._skipped_steps += 1
+            else:
+                self._offload.step(grads_of, lr=lr, after=shadow_up,
+                                   chunk=stage.elems)
+                self.step_count += 1
+            del acc
+            self.loss_scale = precision.update_loss_scale(self.loss_scale,
+                                                          overflow, cfg.fp16)
+            t_end = time.perf_counter()
+        self.phase_seconds = {"device_fwd_bwd": t_dev - t0, **secs,
+                              "host_optimizer": (t_end - t_dev) - sum(secs.values())}
+        self.phase_bytes = nbytes
+        return StepOutput(loss=loss, grad_norm=grad_norm, lr=lr,
+                          overflow=overflow)
+
+    def _param_offload_step(self, device_batch) -> StepOutput:
+        """The parameter tier's step (reference
+        ``_train_batch_param_offload``, ``engine.py:1199-1229``): the
+        streamed step at the schedule's lr of the applied step, which is
+        the lr reported."""
+        applied = self.global_steps
+        with get_tracer().span("engine/train_step", cat="train",
+                               step=applied, mode="param_offload"):
+            loss, norm = self._param_offload.train_batch(device_batch,
+                                                         step=applied)
+        self.step_count += 1
+        po = self._param_offload
+        self.phase_seconds = dict(po.phase_seconds)
+        self.phase_bytes = {"h2d": po.bytes_streamed, "d2h": po.bytes_down}
+        return StepOutput(loss=torch.tensor(loss, dtype=torch.float32),
+                          grad_norm=torch.tensor(norm, dtype=torch.float32),
+                          lr=float(self.lr_schedule(applied)), overflow=False)
 
     def set_nonfinite_guard(self, enabled: bool = True) -> None:
         """Treat non-finite gradients as an overflow in every precision
@@ -275,9 +448,26 @@ class DeepSpeedTPUEngine:
     # not ported yet
     # ------------------------------------------------------------------
     def _unported(self, api: str):
+        if self._param_offload is not None:     # the reference's refusal
+            raise NotImplementedError(
+                f"{api} is not supported with offload_param: the streamed "
+                "step cannot keep per-microbatch grads device-resident "
+                "between calls — use train_batch()")
         raise NotImplementedError(
             f"{api} (the micro-step protocol) is not ported yet (ROADMAP "
             "Queue 1); use train_batch()")
+
+    def save_checkpoint(self, save_dir, tag=None, **kwargs):
+        raise NotImplementedError(
+            "save_checkpoint (checkpoint and resilience) is not ported yet "
+            "(ROADMAP Queue 1); the memory tiers' state round-trips through "
+            "engine.optimizer.state_dict() / load_state_dict()")
+
+    def load_checkpoint(self, load_dir, tag=None, **kwargs):
+        raise NotImplementedError(
+            "load_checkpoint (checkpoint and resilience) is not ported yet "
+            "(ROADMAP Queue 1); the memory tiers' state round-trips through "
+            "engine.optimizer.state_dict() / load_state_dict()")
 
     def forward(self, batch):
         self._unported("forward()")
@@ -292,6 +482,8 @@ class DeepSpeedTPUEngine:
     # eval and introspection
     # ------------------------------------------------------------------
     def eval_batch(self, batch) -> torch.Tensor:
+        if self._param_offload is not None:
+            self._unported("eval_batch()")
         with torch.no_grad():
             return self._compute_loss(_to_device(batch, self.device))
 
@@ -310,7 +502,10 @@ class DeepSpeedTPUEngine:
         return self._skipped_steps
 
     def named_masters(self):
-        """(name, fp32 master) pairs, in the order gradients come."""
+        """(name, fp32 master) pairs, in the order gradients come; under
+        either memory tier the host optimizer's masters."""
+        if self._offload is not None:
+            return list(zip(self._param_names, self._offload.masters()))
         return list(zip(self._param_names, self._masters))
 
     def module_state_dict(self) -> Dict[str, torch.Tensor]:

@@ -294,11 +294,20 @@ def test_port_never_imports_jax_or_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deepspeed_tpu' or m.startswith('deepspeed_tpu.'))\n"
         "assert not bad, bad\n"
-        "print(len(mods))\n")
+        "from deepspeed_tpu_torch.ops import build\n"
+        "assert not build._builds, 'an import built a library'\n"
+        "print(len(mods))\n"
+        "print(' '.join(mods))\n")
     res = subprocess.run([sys.executable, "-I", "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    n_modules = int(res.stdout.strip())
+    scanned = set(res.stdout.split()[1:])
+    # the memory tiers' modules are among those imported
+    assert {"deepspeed_tpu_torch.ops.cpu_adam", "deepspeed_tpu_torch.ops.async_io",
+            "deepspeed_tpu_torch.runtime.offload",
+            "deepspeed_tpu_torch.runtime.param_offload",
+            "deepspeed_tpu_torch.runtime.staging"} <= scanned
+    n_modules = int(res.stdout.split()[0])
     assert n_modules == len(list(pkgutil.walk_packages(
         deepspeed_tpu_torch.__path__, "deepspeed_tpu_torch.")))
     files = list((REPO / "deepspeed_tpu_torch").rglob("*.py"))

@@ -426,12 +426,22 @@ def test_config_errors_match_jax(raw):
 
 def test_config_refuses_unported_groups():
     for raw, match in (({"zero_optimization": {"stage": 2}}, "distribution and memory"),
-                       ({"zero_optimization": {"offload_optimizer":
+                       ({"zero_optimization": {"stage": 1, "offload_optimizer":
                                                {"device": "cpu"}}},
-                        "offload_optimizer"),
+                        "distribution and memory"),
                        ({"async_pipeline": {"enabled": True}}, "not ported")):
         with pytest.raises(NotImplementedError, match=match):
             DeepSpeedTPUConfig(raw)
+    # the memory tiers are read at stage 0, with the JAX package's defaults
+    tiers = {"zero_optimization": {"stage": 0,
+                                   "offload_optimizer": {"device": "cpu"},
+                                   "offload_param": {"device": "nvme",
+                                                     "nvme_path": "/x"}}}
+    ours, ref = DeepSpeedTPUConfig(tiers).zero_config, JConfig(tiers).zero_config
+    for name in ("offload_optimizer", "offload_param"):
+        assert dataclasses.asdict(getattr(ours, name)) == \
+            getattr(ref, name).model_dump()
+    assert ours.sub_group_size == ref.sub_group_size
     cfg = DeepSpeedTPUConfig({"train_batch_size": 8,
                               "gradient_accumulation_steps": 2,
                               "bf16": {"enabled": True},
