@@ -21,7 +21,16 @@ call, bit for bit) and times both, then drives the port's paths:
   ``/metrics``), a ``bench_serve`` scenario with its conservation checks,
   drain to an empty KV ledger, the lone request again bit for bit, a host
   KV tier drill, and the card's idle share of a served window, with no
-  step fault, quarantine or sticky 503 anywhere;
+  step fault, quarantine or sticky 503 anywhere; then the prefill/decode
+  role split over the same weights (``DisaggregatedEngine`` behind the
+  server: full-width handoffs give the single engine's greedy tokens bit
+  for bit, int8 handoffs land as the host round trip within its bound,
+  one 512-token handoff timed part by part), two replicas behind
+  ``FleetRouter`` (prefix affinity, router vs replica latency stitched by
+  ``reqtrace``, a retirement whose int8 prefix handoff the successor
+  serves as hits) and the fleet's chaos drill over two ``fleet_worker``
+  processes on the card (a replica killed mid-decode, no request lost,
+  the relaunch back in rotation);
 - quantization kernels: int8 and fp8 (e4m3, e5m2) quantize and dequantize
   held bit for bit against their plain versions over seeded and
   constructed rows (zeros, exact ties, an absmax that scales onto the
@@ -301,7 +310,7 @@ def phase_build(kernels):
     sass = {label: _sass_counts(results[lib].path, entries, ops)
             for label, (lib, entries, ops, _) in SASS_CHECKS.items()}
     smem = {f"d{d}_rows{rows}_{name}": dynamic_smem_bytes(d, rows, dt)
-            for d in (64, 128) for rows in (4, 8, 32)
+            for d in (32, 64, 128) for rows in (4, 8, 32)
             for name, dt in kv_dtypes.items()}
     emit({"phase": "build", "wall_s": round(time.monotonic() - t0, 3),
           "kernels": info, "paged_attention_dynamic_smem_bytes": smem,
@@ -417,14 +426,14 @@ def _build_of(info, source, kernel):
 # phase 3: kernel vs plain on the card
 # ---------------------------------------------------------------------------
 def _paged_inputs(gen, b, t, ctx, start, fp8=False, ragged=False, hkv=8,
-                  rep=4, d=128, bs=64):
+                  rep=4, d=128, bs=64, dtype=torch.bfloat16):
     """Seeded kernel inputs on the card; ``ragged`` draws each sequence's
     start in [0, ctx - t] instead of ``start``, which may also be a list of
     per-sequence starts."""
     dev = "cuda"
     mb = -(-ctx // bs)
     nb = b * mb + 1
-    q = torch.randn(b, t, hkv * rep, d, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn(b, t, hkv * rep, d, generator=gen, device=dev).to(dtype)
     k = torch.randn(hkv, nb, bs, d, generator=gen, device=dev)
     v = torch.randn(hkv, nb, bs, d, generator=gen, device=dev)
     kw = {}
@@ -435,7 +444,7 @@ def _paged_inputs(gen, b, t, ctx, start, fp8=False, ragged=False, hkv=8,
         v = (v / vs[..., None, None]).to(torch.float8_e4m3fn)
         kw = {"k_scales": ks, "v_scales": vs}
     else:
-        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        k, v = k.to(dtype), v.to(dtype)
     tables = torch.randperm(nb - 1, generator=gen, device=dev)[:b * mb]
     tables = tables.reshape(b, mb).to(torch.int32)
     start_pos = torch.tensor(start, dtype=torch.int32, device=dev).expand(
@@ -593,6 +602,17 @@ def phase_kernel_parity():
          without("window")),
         ("decode_fp8_ragged_span", dict(b=16, t=1, ctx=1450, start=1449,
                                         fp8=True), {}, unscaled),
+        # the tiny fp32 serving model (TINY_LLAMA: head_dim 32, 4 heads
+        # over 2 KV heads, 16-token blocks) that the fleet drill's workers
+        # serve: a prefill chunk and a ragged decode batch
+        ("tiny_fp32_d32_prefill", dict(b=1, t=64, ctx=64, start=0, hkv=2,
+                                       rep=2, d=32, bs=16,
+                                       dtype=torch.float32), {},
+         mask_off_by_one),
+        ("tiny_fp32_d32_decode", dict(b=8, t=1, ctx=96, start=0,
+                                      ragged=True, hkv=2, rep=2, d=32,
+                                      bs=16, dtype=torch.float32), {},
+         mask_off_by_one),
     ]
     worst = 0.0
     timing = None
@@ -3790,7 +3810,495 @@ def phase_serve(eng, prompts, st, dev, smi_line):
                    "wall_s": tier_s, "faults": tier_faults},
           "phase_wall_s": time.monotonic() - phase_t0,
           "launches": launches, "card": dev["kind"], "nvidia_smi": smi_line})
+    return launches, batch
+
+
+# ---------------------------------------------------------------------------
+# phases 5b-5d: the role split, the fleet router and its chaos drill
+# ---------------------------------------------------------------------------
+ROLE_BLOCKS = 256       # each role/replica engine's KV pool, 64-token blocks
+CHAIN_TOKENS = 512      # the chain whose handoff is timed part by part
+FLEET_PREFIX, FLEET_SUFFIX, FLEET_NEW = 256, 64, 16   # fleet prompt shape
+FLEET_WAVE = 3          # concurrent requests per shared prefix after a seed
+DRILL_CLIENTS, DRILL_NEW = 12, 6
+
+
+def _side_engine(eng):
+    """An engine over ``eng``'s weights (the same tensors, not a copy) with
+    a KV pool of its own."""
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import (InferenceEngineV2,
+                                                            V2EngineConfig)
+    return InferenceEngineV2(eng.params, eng.model_config, V2EngineConfig(
+        kv_block_size=64, kv_num_blocks=ROLE_BLOCKS,
+        scheduler=eng.config.scheduler), device=eng.device)
+
+
+def _recording_handoffs(pair):
+    """Keep a copy of every handoff latency the serve loop drains."""
+    lat = []
+    pop = pair.pop_handoff_latencies
+
+    def recording():
+        out = pop()
+        lat.extend(s for _, s in out)
+        return out
+    pair.pop_handoff_latencies = recording
+    return lat
+
+
+def _serve_pair(pair, prompts, finite):
+    """The prompts through ``InferenceServer`` over ``pair``, queued before
+    the loop starts (admitted together, as the serve phase's 8). Returns
+    the replies, the launches, the pair's chunks and decode ticks and the
+    handoff latencies."""
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.serving import (InferenceServer, ServingConfig,
+                                             ServingFrontend)
+    lat = _recording_handoffs(pair)
+    server = InferenceServer(pair, ServingConfig(max_queue_depth=64))
+    fe = ServingFrontend(server, host="127.0.0.1", port=0).start()
+    led = pair.sched_ledger
+    ledger0 = (led.chunks_total, led.decode_ticks)
+    try:
+        finite.fill_(True)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        replies, window_s = _concurrent_generate(fe.url, prompts, server)
+        torch.cuda.synchronize()
+        launches = build.launch_counts()
+        faults = _no_faults(server, "disagg")
+    finally:
+        fe.stop()
+        server.stop(drain_timeout=60.0)
+    return {"replies": replies, "window_s": window_s, "launches": launches,
+            "chunks": led.chunks_total - ledger0[0],
+            "decode_steps": led.decode_ticks - ledger0[1],
+            "latencies": lat, "faults": faults}
+
+
+def _chain_split(pair, cfg, finite):
+    """One CHAIN_TOKENS-token sequence prefilled on the prefill engine and
+    handed across with the int8 codec: its D2H gather, host codec and H2D
+    scatter timed part by part on a copy, then the pair's own handoff; the
+    adopted pages held against the host round trip (bit for bit) and the
+    round trip against the donor (``quantize_error_bound``)."""
+    from deepspeed_tpu_torch.inference.v2.kv_offload import (
+        dequantize_pages, quantize_error_bound, quantize_pages)
+    prefill, decode = pair.prefill, pair.decode
+    uid = 50_000
+    prompt = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, CHAIN_TOKENS).tolist()
+    prefill.admit(uid, prompt)
+    while prefill.state.get(uid).in_prefill:
+        prefill.step()
+    blocks = list(prefill.state.get(uid).blocks)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    data, _ = prefill.kv.gather_blocks(blocks)          # D2H (pageable)
+    t1 = time.monotonic()
+    codes, qs = quantize_pages(data, "int8")            # host codec
+    t2 = time.monotonic()
+    back = dequantize_pages(codes, qs, "int8", torch.float32)
+    t3 = time.monotonic()
+    spare = decode.kv.reserve(len(blocks))
+    decode.kv.scatter_blocks(spare, back)               # H2D
+    torch.cuda.synchronize()
+    t4 = time.monotonic()
+    decode.kv.release(spare)
+    bound = quantize_error_bound(qs, "int8")
+    round_trip_err = (back - data.float()).abs().max().item()
+    pair._handoff()
+    (_, lat_s), = pair.pop_handoff_latencies()
+    seq = decode.state.get(uid)
+    check(seq is not None and uid not in prefill.state,
+          "the 512-token chain did not cross")
+    adopted, _ = decode.kv.gather_blocks(seq.blocks)
+    decode.finish(uid)
+    decode.reap_finished()
+    check(torch.equal(adopted, back.to(adopted.dtype)),
+          "int8 handoff: the adopted pages are not the host round trip")
+    check(round_trip_err <= bound, f"int8 handoff: round trip error "
+          f"{round_trip_err} over its bound {bound}")
+    return {"tokens": CHAIN_TOKENS, "blocks": len(blocks),
+            "raw_bytes": data.numel() * data.element_size(),
+            "stored_bytes": codes.numel() + qs.numel() * 4,
+            "d2h_s": t1 - t0, "quantize_s": t2 - t1, "dequantize_s": t3 - t2,
+            "h2d_s": t4 - t3, "handoff_s": lat_s,
+            "round_trip_max_abs_err": round_trip_err, "bound": bound,
+            "adopted_vs_donor_max_abs_err":
+                (adopted.float() - data.float()).abs().max().item()}
+
+
+def phase_disagg(eng, prompts, batch, finite, dev, smi_line):
+    """A prefill-role and a decode-role ``InferenceEngineV2`` over the
+    engine phase's Llama-3-8B weights, each with its own KV pool, as one
+    ``DisaggregatedEngine`` behind ``InferenceServer``: the 8 prompts with
+    the "none" codec (greedy tokens bit for bit the single engine's, every
+    uid across, no host bytes left), then with "int8" (every request in
+    full), and one 512-token chain's int8 handoff timed part by part.
+    Returns the paged kernel's launches over the "none" run."""
+    from deepspeed_tpu_torch.serving import DisaggregatedEngine
+    phase_t0 = time.monotonic()
+    cfg, vocab = eng.model_config, eng.model_config.vocab_size
+    prefill, decode = _side_engine(eng), _side_engine(eng)
+    check(prefill.params is eng.params and decode.params is eng.params,
+          "a role engine copied the weights")
+    for e in (prefill, decode):
+        check_finite(e, finite)
+    runs = {}
+    for codec in ("none", "int8"):
+        pair = DisaggregatedEngine(prefill, decode, handoff_quantize=codec)
+        run = _serve_pair(pair, prompts, finite)
+        for i, (status, body, _) in enumerate(run["replies"]):
+            toks = body.get("tokens", ())
+            check(status == 200 and len(toks) == NEW_TOKENS
+                  and all(0 <= t < vocab for t in toks),
+                  f"disagg {codec}, request {i}: {status} {body}")
+        check(bool(finite.item()), f"disagg {codec}: non-finite logits")
+        stats = dict(pair.handoff_stats)
+        check(stats["handoffs"] == len(prompts) and
+              pair.host_kv_bytes() == 0,
+              f"disagg {codec}: {stats}, {pair.host_kv_bytes()} host bytes")
+        want = cfg.num_layers * (run["chunks"] + run["decode_steps"])
+        got = run["launches"].get("paged_attention", 0)
+        check(got >= want, f"disagg {codec}: paged_attention launched {got} "
+              f"times, expected >= {want}")
+        lat = sorted(run["latencies"])
+        runs[codec] = {"handoff_stats": stats,
+                       "handoff_latency_s": _quantiles(lat),
+                       "window_s": run["window_s"],
+                       "http_latency_s": _quantiles(
+                           [r[2] for r in run["replies"]]),
+                       "prefill_chunks": run["chunks"],
+                       "decode_steps": run["decode_steps"],
+                       "launches": run["launches"], "faults": run["faults"]}
+        if codec == "none":
+            for i, (_, body, _) in enumerate(run["replies"]):
+                check(body["tokens"] == batch[i],
+                      f"disagg none, request {i}: {body['tokens']} differs "
+                      f"from the single engine's {batch[i]}")
+            launches = run["launches"]
+        else:
+            check(stats["handoff_bytes"] < stats["handoff_raw_bytes"],
+                  f"disagg int8: stored {stats['handoff_bytes']} not under "
+                  f"raw {stats['handoff_raw_bytes']}")
+            chain = _chain_split(pair, cfg, finite)
+    for e in (prefill, decode):
+        led = e.kv_ledger()
+        check(led["device_blocks_reserved"] == 0 and led["host_bytes"] == 0,
+              f"disagg: a role engine's ledger after the drain: {led}")
+    emit({"phase": "disagg", "model": "LLAMA3_8B bf16 (32 layers, full width)",
+          "role_blocks": ROLE_BLOCKS, "none": runs["none"],
+          "int8": runs["int8"], "tokens_bit_exact": True,
+          "chain_512": chain, "phase_wall_s": time.monotonic() - phase_t0,
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    del prefill, decode
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
+
+
+def _fleet_prompts(vocab):
+    """Two shared 256-token prefixes; every prompt is one of them plus a
+    64-token suffix of its own."""
+    rng = np.random.default_rng(SEED + 6)
+    heads = [rng.integers(0, vocab, FLEET_PREFIX).tolist() for _ in range(2)]
+    return heads, lambda h: heads[h] + rng.integers(
+        0, vocab, FLEET_SUFFIX).tolist()
+
+
+def _timed(obj, name, log):
+    """Wrap ``obj.name`` to append (seconds, result) of each call to log."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        t0 = time.monotonic()
+        out = fn(*a, **kw)
+        log.append((time.monotonic() - t0, out))
+        return out
+    setattr(obj, name, timed)
+
+
+def phase_fleet(eng, finite, dev, smi_line):
+    """Two in-process replicas (``InferenceServer`` + ``ServingFrontend``
+    over engines that share the engine phase's weights, prefix caches on)
+    behind ``FleetRouter``: one seed request per shared prefix (the second
+    sent while the first is in flight, so each prefix starts on its own
+    replica), then a concurrent wave that affinity must keep on the seed's
+    replica, every reply in full; then replica 1 retires through
+    ``/admin/drain`` with an int8 prefix handoff and replica 0, its
+    successor, must serve the retiree's prefix as a hit. Returns the paged
+    kernel's launches over the seed and the wave."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.serving import (FleetConfig, FleetRouter,
+                                             InferenceServer, ReplicaHandle,
+                                             ServingConfig, ServingFrontend)
+    from deepspeed_tpu_torch.telemetry import reqtrace
+    from deepspeed_tpu_torch.telemetry.tracer import get_tracer
+    phase_t0 = time.monotonic()
+    cfg, vocab = eng.model_config, eng.model_config.vocab_size
+    workdir = tempfile.mkdtemp(prefix="smoke-fleet-")
+    engines = [_side_engine(eng) for _ in range(2)]
+    for e in engines:
+        check_finite(e, finite)
+    servers = [InferenceServer(e, ServingConfig(
+        max_queue_depth=64, prefix_cache_enabled=True)).start()
+        for e in engines]
+    for rid, server in enumerate(servers):
+        server.replica_id = rid
+    fes = [ServingFrontend(s, host="127.0.0.1", port=0).start()
+           for s in servers]
+    router = FleetRouter(FleetConfig(
+        replicas=2, affinity_block_tokens=64, poll_interval_s=0.05,
+        drain_deadline_s=300.0, handoff_dir=workdir,
+        handoff_quantize="int8", request_timeout_s=600.0),
+        handles=[ReplicaHandle(i, fe.url) for i, fe in enumerate(fes)])
+    tracer = get_tracer().configure(enabled=True)
+    tracer.clear()
+    router.start()
+    try:
+        heads, prompt_of = _fleet_prompts(vocab)
+        led0 = [(e.sched_ledger.chunks_total, e.sched_ledger.decode_ticks)
+                for e in engines]
+        finite.fill_(True)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        out = {}
+
+        def send(key, prompt):
+            out[key] = _post_generate(router.url, prompt, FLEET_NEW)
+        seed0 = threading.Thread(target=send, args=(("seed", 0),
+                                                    prompt_of(0)))
+        seed0.start()
+        deadline = time.monotonic() + 60.0
+        while router._handles[0].pending == 0:
+            check(time.monotonic() < deadline and seed0.is_alive(),
+                  "the first seed was never routed")
+            time.sleep(0.001)
+        send(("seed", 1), prompt_of(1))
+        seed0.join(timeout=600)
+        wave = [threading.Thread(target=send, args=((h, j), prompt_of(h)))
+                for h in range(2) for j in range(FLEET_WAVE)]
+        for t in wave:
+            t.start()
+        for t in wave:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        launches = build.launch_counts()
+        check(len(out) == 2 + 2 * FLEET_WAVE, "a fleet client hung")
+        for key, (status, body, _) in out.items():
+            toks = body.get("tokens", ())
+            check(status == 200 and len(toks) == FLEET_NEW
+                  and all(0 <= t < vocab for t in toks),
+                  f"fleet request {key}: {status} {body}")
+        home = {h: out[("seed", h)][1]["replica_id"] for h in range(2)}
+        check(home == {0: 0, 1: 1}, f"the seeds' replicas: {home}")
+        for (h, j), (_, body, _) in out.items():
+            if h != "seed":
+                check(body["replica_id"] == home[h],
+                      f"prefix {h} request {j} went to replica "
+                      f"{body['replica_id']}, its prefix lives on {home[h]}")
+        check(bool(finite.item()), "fleet: non-finite logits")
+        chunks = sum(e.sched_ledger.chunks_total - c for e, (c, _) in
+                     zip(engines, led0))
+        decode_steps = sum(e.sched_ledger.decode_ticks - d for e, (_, d) in
+                           zip(engines, led0))
+        want = cfg.num_layers * (chunks + decode_steps)
+        got = launches.get("paged_attention", 0)
+        check(got >= want, f"fleet: paged_attention launched {got} times, "
+              f"expected >= {want}")
+        counters = router.counters_snapshot()
+        check(counters["completed"] == len(out)
+              and counters["requests_lost"] == 0
+              and counters["affinity_hits"] == 2 * FLEET_WAVE,
+              f"fleet counters: {counters}")
+        stats = [e.prefix_stats() for e in engines]
+        hit = sum(st["prefix_hit_tokens"] for st in stats)
+        looked = sum(st["prefix_lookup_tokens"] for st in stats)
+        ring = os.path.join(workdir, "ring.json")
+        tracer.export_chrome(ring)
+        stitched = reqtrace.stitch_requests([ring])
+        check(stitched["requests_stitched"] == len(out)
+              and not stitched["tie_out_violations"],
+              f"reqtrace: {stitched['requests_stitched']} stitched, "
+              f"violations {stitched['tie_out_violations']}")
+        rows = list(stitched["traces"].values())
+        wall = [r["wall"]["dur_us"] / 1e6 for r in rows]
+        replica = [r["span_sum_us"] / 1e6 for r in rows]
+        gaps = [r["gap_us"] / 1e6 for r in rows]
+
+        # retire replica 1 through /admin/drain; replica 0 adopts
+        exports, imports = [], []
+        _timed(servers[1], "export_prefix_handoff", exports)
+        _timed(engines[0], "import_prefix_handoff", imports)
+        before = engines[0].prefix_stats()["prefix_hit_tokens"]
+        router._retire_one()
+        deadline = time.monotonic() + 300.0
+        while router.counters_snapshot()["handoffs"] < 1:
+            check(time.monotonic() < deadline, "the retirement never "
+                  f"handed off: {router.counters_snapshot()}")
+            time.sleep(0.05)
+        check(exports and imports and imports[0][1]["chains"] > 0
+              and imports[0][1]["skipped"] == 0,
+              f"handoff: export {exports}, import {imports}")
+        warm = [_post_generate(router.url, prompt_of(1), FLEET_NEW)
+                for _ in range(2)]
+        for status, body, _ in warm:
+            check(status == 200 and len(body.get("tokens", ())) == FLEET_NEW
+                  and body["replica_id"] == 0,
+                  f"warm request after the retirement: {status} {body}")
+        hits = engines[0].prefix_stats()["prefix_hit_tokens"] - before
+        check(hits >= len(warm) * FLEET_PREFIX,
+              f"the successor served the retiree's prefix with {hits} hit "
+              f"tokens, expected >= {len(warm) * FLEET_PREFIX}")
+        faults = [_no_faults(s, f"fleet replica {i}")
+                  for i, s in enumerate(servers)]
+        snaps = {s["id"]: s for s in router.health()["replicas"]}
+        check(snaps[1]["retired"] and snaps[0]["in_rotation"],
+              f"after the retirement: {snaps}")
+        counters = router.counters_snapshot()
+    finally:
+        router.stop(terminate_replicas=False)
+        for fe in fes:
+            fe.stop()
+        for server in servers:
+            if server.running:
+                server.stop(drain_timeout=60.0)
+        tracer.configure(enabled=False)
+        tracer.clear()
+        shutil.rmtree(workdir, ignore_errors=True)
+    served = [b["replica_id"] for _, b, _ in out.values()]
+    ex_s, ex = exports[0]
+    im_s, im = imports[0]
+    emit({"phase": "fleet", "model": "LLAMA3_8B bf16 (32 layers, full width)",
+          "replicas": 2, "replica_blocks": ROLE_BLOCKS,
+          "requests": len(out), "new_tokens": FLEET_NEW,
+          "router_latency_s": _quantiles(wall),
+          "replica_latency_s": _quantiles(replica),
+          "router_gap_s": _quantiles(gaps),
+          "client_latency_s": _quantiles([r[2] for r in out.values()]),
+          "replica_share": {str(i): served.count(i) / len(served)
+                            for i in range(2)},
+          "fleet_hit_ratio": hit / max(looked, 1),
+          "export": {"seconds": ex_s, **ex}, "import": {"seconds": im_s,
+                                                        **im},
+          "warm_hit_tokens": hits, "counters": counters, "faults": faults,
+          "replica_ttft_p50_s": [s.metrics.snapshot()["ttft_p50_s"]
+                                 for s in servers],
+          "phase_wall_s": time.monotonic() - phase_t0, "card": dev["kind"],
+          "nvidia_smi": smi_line})
+    del engines, servers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fleet_drill(dev, smi_line):
+    """Two ``fleet_worker`` processes on the card (``build_tiny_server``,
+    fp32), launched by ``subprocess_launcher``, with
+    ``DSTPU_CHAOS_REPLICA_KILL=1:4``: replica 1 kills itself mid-decode,
+    and the router's exact counters must show no request lost (every
+    client holds its full token count), replica 1 lost exactly once, its
+    streams rerouted and recomputed, and the relaunch back in rotation."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.serving import FleetConfig, FleetRouter, http_util
+    from deepspeed_tpu_torch.serving.fleet import subprocess_launcher
+    phase_t0 = time.monotonic()
+    workdir = tempfile.mkdtemp(prefix="smoke-drill-")
+    saved = os.environ.get("DSTPU_CHAOS_REPLICA_KILL")
+    os.environ["DSTPU_CHAOS_REPLICA_KILL"] = "1:4"
+    router = None
+    try:
+        launcher = subprocess_launcher(
+            workdir, worker_args=[
+                "--kv-num-blocks", "64", "--kv-block-size", "16",
+                "--serving-overrides", json.dumps(
+                    {"idle_poll_s": 0.001, "max_queue_depth": 32})],
+            start_timeout_s=300.0)
+        router = FleetRouter(FleetConfig(
+            replicas=2, poll_interval_s=0.1, poll_timeout_s=2.0,
+            lost_after_s=0.5, retry_budget=3, retry_backoff_s=0.01,
+            retry_backoff_max_s=0.1, relaunch_budget=1,
+            affinity_enabled=False, request_timeout_s=240.0,
+            flight_dir=workdir), launcher=launcher)
+        t0 = time.monotonic()
+        router.start()
+        start_s = time.monotonic() - t0
+        results = {}
+
+        def client(i):
+            tokens, final, status = [], {}, -1
+            try:
+                reply = http_util.open_stream(
+                    router.url + "/generate",
+                    {"prompt_tokens": [(i * 7 + j) % 96 + 1
+                                       for j in range(8 + i % 4)],
+                     "max_new_tokens": DRILL_NEW, "stream": True},
+                    timeout_s=240.0)
+                status = reply.status
+                for rec in reply.records():
+                    if "token" in rec:
+                        tokens.append(rec["token"])
+                    elif rec.get("done"):
+                        final = rec
+            except Exception as e:
+                final = {"error": repr(e)}
+            results[i] = (status, tokens, final)
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(DRILL_CLIENTS)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        clients_s = time.monotonic() - t0
+        check(len(results) == DRILL_CLIENTS, "a drill client hung")
+        for i, (status, tokens, final) in sorted(results.items()):
+            check(status == 200 and len(tokens) == DRILL_NEW
+                  and final.get("state") == "finished",
+                  f"drill client {i}: {status} {tokens} {final}")
+        c = router.counters_snapshot()
+        rerouted = [f for _, _, f in results.values()
+                    if f.get("rerouted", 0) > 0]
+        check(c["requests_lost"] == 0 and c["completed"] == DRILL_CLIENTS
+              and c["replicas_lost"] == 1 and c["reroutes"] >= 1
+              and c["recomputed_tokens"] > 0 and rerouted
+              and sum(f["recomputed_tokens"] for f in rerouted)
+              == c["recomputed_tokens"], f"drill counters: {c}")
+        deadline = time.monotonic() + 300.0
+        while True:
+            c = router.counters_snapshot()
+            snaps = {s["id"]: s for s in router.health()["replicas"]}
+            if (c["relaunches"] == 1 and snaps[1]["in_rotation"]
+                    and snaps[1]["relaunches"] == 1):
+                break
+            check(time.monotonic() < deadline,
+                  f"replica 1 never rejoined: {router.health()}")
+            time.sleep(0.25)
+        rejoin_s = time.monotonic() - t0
+        flight = router.discover_flight_dumps()
+        check(any(os.path.basename(p).startswith("flight_replica1_")
+                  for p in flight), f"no flight dump of replica 1: {flight}")
+    finally:
+        if router is not None:
+            router.stop()
+        if saved is None:
+            os.environ.pop("DSTPU_CHAOS_REPLICA_KILL", None)
+        else:
+            os.environ["DSTPU_CHAOS_REPLICA_KILL"] = saved
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit({"phase": "fleet_drill", "model": "TINY_LLAMA fp32",
+          "workers": 2, "clients": DRILL_CLIENTS, "new_tokens": DRILL_NEW,
+          "counters": c, "rerouted_requests": len(rerouted),
+          "fleet_start_s": start_s, "clients_s": clients_s,
+          "rejoined_after_s": rejoin_s,
+          "phase_wall_s": time.monotonic() - phase_t0, "card": dev["kind"],
+          "nvidia_smi": smi_line})
 
 
 # ---------------------------------------------------------------------------
@@ -4735,7 +5243,8 @@ ENTRY_NAMES = {n: f"{n}_kernel" for n in BIAS_ACT_KERNELS}
 # DS4Sci_EvoformerAttention, timed at E1; S1/S2: SparseSelfAttention at
 # BigBird-base and Fixed, timed at S1; R: rms_norm; F: fused_bias_act and
 # fused_bias_act_dropout)
-KERNEL_PATHS = {"paged_attention": ("serve", "serve_http", "A1", "A2"),
+KERNEL_PATHS = {"paged_attention": ("serve", "serve_http", "disagg", "fleet",
+                                     "A1", "A2"),
                 **{n: ("train", "train_offload", "train_param_offload")
                    for n in FLASH_PER_STEP},
                 "quantize_fp8": ("A1",), "dequantize_fp8": ("A1",),
@@ -4788,7 +5297,14 @@ def main() -> int:
         phase = "profile"
         phase_profile(eng, lens, dev, smi_line)
         phase = "serve"
-        serve_launches = phase_serve(eng, prompts, st, dev, smi_line)
+        serve_launches, batch = phase_serve(eng, prompts, st, dev, smi_line)
+        phase = "disagg"
+        disagg_launches = phase_disagg(eng, prompts, batch, st["finite_flag"],
+                                       dev, smi_line)
+        phase = "fleet"
+        fleet_launches = phase_fleet(eng, st["finite_flag"], dev, smi_line)
+        phase = "fleet_drill"
+        phase_fleet_drill(dev, smi_line)
         del eng                          # free the serving engine's 25 GB
         gc.collect()
         torch.cuda.empty_cache()
@@ -4818,6 +5334,7 @@ def main() -> int:
         # with its own reset; the line's count is that of the path its
         # timing shape comes from (first listed)
         path_counts = {"serve": st["launches"], "serve_http": serve_launches,
+                       "disagg": disagg_launches, "fleet": fleet_launches,
                        "train": train_launches,
                        "train_offload": offload_launches,
                        "train_param_offload": param_launches,

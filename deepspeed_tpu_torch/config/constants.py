@@ -27,6 +27,12 @@ SERVING = "serving"                       # serving group (admission,
 #                                           offload tier, fault isolation;
 #                                           serving/server.py
 #                                           ServingConfig.from_ds_config)
+FLEET = "fleet"                           # fleet router group (replicas,
+#                                           prefix affinity, ladder-aware
+#                                           spill, failover retry budget,
+#                                           scale-out thresholds;
+#                                           serving/fleet.py
+#                                           FleetConfig.from_ds_config)
 
 STEPS_PER_PRINT_DEFAULT = 10
 GRADIENT_CLIPPING_DEFAULT = 0.0

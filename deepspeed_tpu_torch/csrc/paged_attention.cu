@@ -550,6 +550,7 @@ int pick_rows(int rows, A... a) {
 
 template <typename F, typename TQ, typename TKV, typename... A>
 int pick_dim(int head_dim, int rows, A... a) {
+  if (head_dim == 32) return pick_rows<F, TQ, TKV, 32>(rows, a...);
   if (head_dim == 64) return pick_rows<F, TQ, TKV, 64>(rows, a...);
   if (head_dim == 128) return pick_rows<F, TQ, TKV, 128>(rows, a...);
   return kNotCompiled;
@@ -577,6 +578,7 @@ int smem_bytes(int rows) {
 
 template <typename TKV>
 int smem_bytes_d(int head_dim, int rows) {
+  if (head_dim == 32) return smem_bytes<TKV, 32>(rows);
   if (head_dim == 64) return smem_bytes<TKV, 64>(rows);
   if (head_dim == 128) return smem_bytes<TKV, 128>(rows);
   return -1;

@@ -18,10 +18,12 @@ The host KV tier (``kv_offload.py``): ``demote_kv`` spills a sequence's
 pages to host RAM (full width, or int8/fp8 per page) and pauses it,
 ``promote_kv`` brings them back into free blocks; ``kv_ledger``,
 ``kv_resident_bytes``, ``resident_tokens``, ``demoted_uids``,
-``demoted_blocks`` and ``host_kv_bytes`` gauge both tiers. Not ported yet
-(they come with the role split and the fleet, the rest of the serving-layer
-slice): ``adopt_kv_handoff``, ``export_prefix_handoff`` and
-``import_prefix_handoff``, which raise.
+``demoted_blocks`` and ``host_kv_bytes`` gauge both tiers.
+
+The three KV handoffs: ``adopt_kv_handoff`` continues a sequence a
+prefill-role engine demoted (``serving/disagg.py``); ``export_prefix_handoff``
+and ``import_prefix_handoff`` carry a retiring fleet replica's prefix cache
+to its successor through an ``.npz`` file (``serving/fleet.py``).
 """
 
 import dataclasses
@@ -39,7 +41,9 @@ from deepspeed_tpu_torch.inference.v2.kv_cache import (BlockedKVCache,
 from deepspeed_tpu_torch.inference.v2.kv_offload import (HostKVEntry,
                                                          HostKVStore,
                                                          dequantize_pages,
-                                                         quantize_pages)
+                                                         from_handoff_array,
+                                                         quantize_pages,
+                                                         to_handoff_array)
 from deepspeed_tpu_torch.inference.v2.modules import policy_for
 from deepspeed_tpu_torch.inference.v2.prefix_cache import PrefixCache
 from deepspeed_tpu_torch.inference.v2.ragged_manager import (SequenceDescriptor,
@@ -503,20 +507,137 @@ class InferenceEngineV2:
         self._table_sig = None
         return entry.nbytes
 
-    def _unported_handoff(self, api: str):
-        raise NotImplementedError(
-            f"{api} (prefill/decode and fleet KV handoffs) is not ported yet: "
-            "it comes with the role split and the fleet, the rest of the "
-            "serving-layer slice (ROADMAP Queue 1)")
+    def adopt_kv_handoff(self, uid: int, prompt_tokens: Sequence[int],
+                         generated: Sequence[int],
+                         entry: HostKVEntry) -> bool:
+        """In-process disaggregation adoption (``serving/disagg.py``):
+        continue a sequence whose KV a prefill-role engine demoted into a
+        ``HostKVEntry``. Create it here with its history, reserve device
+        blocks, scatter the dequantized pages, and let the planner pick it
+        up as a running decode. Prefix admission is bypassed: the prefill
+        work was done (and counted) on the donor engine. Returns False with
+        nothing mutated when this engine cannot cover the entry right now
+        (capacity, slots, a uid collision); the caller retries next tick."""
+        if uid in self.state or \
+                len(self.state) >= self.state.max_tracked_sequences or \
+                entry.blocks > self.kv.free_blocks + self._evictable_blocks():
+            return False
+        seq = self.state.create(uid, prompt_tokens)
+        seq.generated = list(generated)
+        blocks = self._reserve(entry.blocks)
+        if entry.blocks:
+            data = dequantize_pages(entry.data, entry.qscales, entry.codec,
+                                    torch.float32 if entry.codec != "none"
+                                    else entry.data.dtype)
+            self.kv.scatter_blocks(blocks, data, entry.scales)
+        seq.blocks = list(blocks)
+        seq.seen_tokens = int(entry.seen_tokens)
+        self._table_sig = None
+        return True
 
-    def adopt_kv_handoff(self, uid, prompt_tokens, generated, entry) -> bool:
-        self._unported_handoff("adopt_kv_handoff")
+    # ------------------------------------------------------------------
+    # fleet prefix handoff (drain-time export / adopt-time import)
+    # ------------------------------------------------------------------
+    def export_prefix_handoff(self, path: str,
+                              quantize: str = "none") -> Dict[str, int]:
+        """Serialize every cached prefix chain to ``path`` (npz): for each
+        root-to-leaf trie chain, the token key and its KV pages gathered
+        from the device through the host-tier codec (``quantize``: "none" |
+        "int8" | "fp8", as ``demote_kv``; device-fp8 pages are never
+        re-quantized). A retiring fleet replica's warm cache for its
+        successor. Pages numpy cannot hold (bf16, fp8) are written as raw
+        bits with a dtype tag (``kv_offload.to_handoff_array``). A
+        deliberate device-to-host gather, made at drain time only."""
+        cache = self.prefix_cache
+        out = {"chains": 0, "blocks": 0, "stored_bytes": 0, "raw_bytes": 0}
+        payload: Dict[str, np.ndarray] = {}
+        for tokens, blocks in (cache.chains() if cache is not None else ()):
+            data, scales = self.kv.gather_blocks(list(blocks))
+            raw = data.numel() * data.element_size() + (
+                scales.numel() * scales.element_size()
+                if scales is not None else 0)
+            codec, qscales = "none", None
+            if quantize != "none" and self.kv.cfg.dtype != torch.float8_e4m3fn:
+                data, qscales = quantize_pages(data, quantize)
+                codec = quantize
+            entry = HostKVEntry(blocks=len(blocks), data=data, scales=scales,
+                                seen_tokens=len(tokens), codec=codec,
+                                qscales=qscales, raw_nbytes=raw)
+            i = out["chains"]
+            payload[f"tokens_{i}"] = np.asarray(tokens, np.int32)
+            payload[f"data_{i}"], tag = to_handoff_array(entry.data)
+            if tag is not None:
+                payload[f"dtype_{i}"] = np.array(tag)
+            payload[f"codec_{i}"] = np.array(entry.codec)
+            if entry.scales is not None:
+                payload[f"scales_{i}"] = entry.scales.numpy()
+            if entry.qscales is not None:
+                payload[f"qscales_{i}"] = entry.qscales.numpy()
+            out["chains"] += 1
+            out["blocks"] += entry.blocks
+            out["stored_bytes"] += entry.nbytes
+            out["raw_bytes"] += raw
+        payload["block_size"] = np.asarray(self.config.kv_block_size,
+                                           np.int32)
+        payload["num_chains"] = np.asarray(out["chains"], np.int32)
+        with open(path, "wb") as f:
+            np.savez(f, **payload)
+        return out
 
-    def export_prefix_handoff(self, path: str, quantize: str = "none"):
-        self._unported_handoff("export_prefix_handoff")
-
-    def import_prefix_handoff(self, path: str):
-        self._unported_handoff("import_prefix_handoff")
+    def import_prefix_handoff(self, path: str) -> Dict[str, int]:
+        """Adopt a predecessor's exported prefix chains: reserve device
+        blocks, scatter the dequantized pages, and register each chain in
+        the trie as evictable nodes (refcount 0: a warm start, not a pin).
+        Chains that do not fit the free pool, mismatch the block geometry,
+        or collide with incumbents are skipped or trimmed and counted.
+        Deliberate host-to-device copies: wire it through
+        ``InferenceServer.adopt_prefix_handoff`` so the serve-loop thread
+        (the engine's owner) runs it between ticks."""
+        out = {"chains": 0, "blocks": 0, "skipped": 0, "bytes": 0}
+        cache = self.prefix_cache
+        with np.load(path, allow_pickle=False) as z:
+            n = int(z["num_chains"]) if "num_chains" in z else 0
+            bs = int(z["block_size"]) if "block_size" in z else -1
+            for i in range(n):
+                tokens = [int(t) for t in z[f"tokens_{i}"]]
+                raw = z[f"data_{i}"]
+                tag = str(z[f"dtype_{i}"]) if f"dtype_{i}" in z.files \
+                    else None
+                codec = str(z[f"codec_{i}"])
+                scales = (torch.from_numpy(z[f"scales_{i}"])
+                          if f"scales_{i}" in z.files else None)
+                qscales = (torch.from_numpy(z[f"qscales_{i}"])
+                           if f"qscales_{i}" in z.files else None)
+                nb = int(raw.shape[3])
+                if (cache is None or bs != self.config.kv_block_size
+                        or nb > self.kv.free_blocks):
+                    out["skipped"] += 1
+                    continue
+                blocks = self.kv.reserve(nb)
+                try:
+                    stored = from_handoff_array(raw, tag)
+                    data = dequantize_pages(stored, qscales, codec,
+                                            torch.float32 if codec != "none"
+                                            else stored.dtype)
+                    self.kv.scatter_blocks(blocks, data, scales)
+                except Exception:
+                    # geometry mismatch (another model or layout): give the
+                    # reservation back and skip, so that adoption never
+                    # poisons a healthy successor
+                    self.kv.release(blocks)
+                    out["skipped"] += 1
+                    continue
+                added = cache.insert_from_seq(0, tokens, blocks,
+                                              seen_tokens=len(tokens),
+                                              pin=False)
+                # chain prefixes the trie already held keep the incumbent
+                # pages (first writer wins); unclaimed reservations go
+                # straight back to the allocator
+                self.kv.release([b for b in blocks if not cache.owns(b)])
+                out["chains"] += 1
+                out["blocks"] += added
+                out["bytes"] += int(raw.nbytes)
+        return out
 
     def demoted_uids(self) -> List[int]:
         """Demotion-ordered uids currently in the host tier."""

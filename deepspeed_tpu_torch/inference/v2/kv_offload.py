@@ -14,11 +14,19 @@ already fp8 on the device are never re-quantized.
 The codecs are torch ops on host tensors (the reference's are numpy with
 ``ml_dtypes``); this module is the storage half only, the engine
 (``InferenceEngineV2.demote_kv`` / ``promote_kv``) moves the pages.
+
+The fleet's prefix-handoff file (``InferenceEngineV2.export_prefix_handoff``)
+is an ``.npz`` of numpy arrays, as the reference's. numpy has no bfloat16
+and no float8: ``to_handoff_array`` writes such pages as their raw bits
+(``uint16`` / ``uint8``) with a dtype tag, and ``from_handoff_array``
+restores them. fp32 pages, int8 codes and fp32 scales stay plain numpy, so
+those files interchange with the reference's in both directions.
 """
 
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 #: host-tier page codecs the serving ``host_kv_quantize`` knob selects
@@ -70,6 +78,35 @@ def dequantize_pages(stored: torch.Tensor, qscales: Optional[torch.Tensor],
     if codec == "none" or qscales is None:
         return stored
     return (stored.float() * qscales[..., None, None]).to(out_dtype)
+
+
+#: dtypes numpy cannot hold, written to a handoff file as raw bits
+_BITS_OF = {torch.bfloat16: torch.uint16, torch.float8_e4m3fn: torch.uint8}
+_TAG_OF = {torch.bfloat16: "bfloat16", torch.float8_e4m3fn: "float8_e4m3fn"}
+_DTYPE_OF_TAG = {tag: dt for dt, tag in _TAG_OF.items()}
+
+
+def to_handoff_array(t: torch.Tensor) -> Tuple[np.ndarray, Optional[str]]:
+    """A host tensor as a numpy array for the handoff file, and the dtype
+    tag to store beside it (None when numpy holds the dtype itself)."""
+    t = t.detach().cpu().contiguous()
+    bits = _BITS_OF.get(t.dtype)
+    if bits is None:
+        return t.numpy(), None
+    return t.view(bits).numpy(), _TAG_OF[t.dtype]
+
+
+def from_handoff_array(a: np.ndarray, tag: Optional[str] = None
+                       ) -> torch.Tensor:
+    """Invert ``to_handoff_array``: raw bits under a dtype tag come back as
+    that dtype. (The reference's own bf16/fp8 pages load as numpy void
+    arrays, which torch refuses: the import skips such a chain.)"""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if tag is None:
+        return t
+    if tag not in _DTYPE_OF_TAG:
+        raise ValueError(f"handoff array of unknown dtype tag {tag!r}")
+    return t.view(_DTYPE_OF_TAG[tag])
 
 
 def quantize_error_bound(qscales: Optional[torch.Tensor], codec: str) -> float:

@@ -35,7 +35,7 @@ from deepspeed_tpu_torch.ops import build
 NEG_INF = -1e30
 KERNEL = "paged_attention"
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)   # 32: the tiny serving model (TINY_LLAMA)
 KEYS_PER_TILE = 64         # the kernel's key tile
 _lib: Optional[ctypes.CDLL] = None
 

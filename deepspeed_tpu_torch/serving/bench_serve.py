@@ -1,5 +1,5 @@
 """bench_serve — open/closed-loop synthetic load for the serving stack
-(port of ``deepspeed_tpu/serving/bench_serve.py``, one replica).
+(port of ``deepspeed_tpu/serving/bench_serve.py``).
 
 Drives an ``InferenceServer`` with deterministic synthetic traffic (burst,
 multi-turn, slow-client, low-priority mixes; chaos scenarios ride on
@@ -26,7 +26,12 @@ request INDEX, so the workload is identical regardless of thread timing.
 
 The reference's ``compiles_during_measurement`` counter has no counterpart:
 the port's decode is eager (no compile to count until decode capture
-lands). The fleet lane and ``--verify-plan`` are not ported yet.
+lands). ``--verify-plan`` is not ported yet.
+
+Fleet mode (``--replicas N``, ``build_tiny_fleet`` + ``run_fleet_scenario``)
+drives the same workloads through a ``FleetRouter`` over N in-process
+replicas; ``serving.scheduler.role_split`` in ``--serving-overrides``
+builds each server over a prefill/decode ``DisaggregatedEngine`` pair.
 
 CLI: ``python -m deepspeed_tpu_torch.serving.bench_serve --scenario micro``
 (tiny random-init fp32 llama, on the card unless ``--device cpu``).
@@ -569,15 +574,240 @@ def run_scenario(server: InferenceServer, scenario: ServeScenario,
 
 
 # ---------------------------------------------------------------------------
-# fleet mode: the reference drives the same workloads through FleetRouter
+# fleet mode: the same seeded workloads through the multi-replica router
 # ---------------------------------------------------------------------------
-def _fleet_not_ported(*_args, **_kwargs):
-    raise NotImplementedError(
-        "the fleet lane of bench_serve is not ported yet: it comes with the "
-        "fleet part of the serving-layer slice (ROADMAP Queue 1)")
+def build_tiny_fleet(replicas: int = 2, kv_num_blocks: int = 64,
+                     kv_block_size: int = 16,
+                     fleet_overrides: Optional[dict] = None,
+                     device=None, **builder_kwargs):
+    """N in-process ``build_tiny_server`` replicas behind HTTP frontends,
+    fronted by a ``FleetRouter`` (affinity keyed to the replicas' KV
+    block size), on the card unless ``device="cpu"``. Returns the started
+    router; tear it down with ``stop_tiny_fleet``. Each replica has its own
+    engine and KV pool."""
+    from deepspeed_tpu_torch.serving.fleet import (FleetConfig, FleetRouter,
+                                                   ReplicaHandle)
+    from deepspeed_tpu_torch.serving.frontend import ServingFrontend
+    handles, members = [], []
+    for rid in range(replicas):
+        server = build_tiny_server(kv_num_blocks=kv_num_blocks,
+                                   kv_block_size=kv_block_size,
+                                   device=device, **builder_kwargs)
+        server.replica_id = rid     # in-process: env identity can't differ
+        server.start()
+        fe = ServingFrontend(server).start()
+        handles.append(ReplicaHandle(rid, fe.url))
+        members.append((server, fe))
+    cfg = FleetConfig(replicas=replicas,
+                      affinity_block_tokens=kv_block_size,
+                      **(fleet_overrides or {}))
+    router = FleetRouter(cfg, handles=handles)
+    router._members = members       # teardown + warm need the objects
+    return router.start()
 
 
-build_tiny_fleet = stop_tiny_fleet = run_fleet_scenario = _fleet_not_ported
+def stop_tiny_fleet(router) -> None:
+    router.stop(terminate_replicas=False)
+    for server, fe in getattr(router, "_members", ()):
+        fe.stop()
+        if server.running:
+            server.stop(drain_timeout=30.0)
+
+
+class _FleetLane:
+    """One closed-loop user against the ROUTER's front door: same seeded
+    request shapes as ``_Lane``, but through HTTP streams, retrying fleet
+    429s with the router's Retry-After hint (bounded)."""
+
+    def __init__(self, router_url: str, scenario: ServeScenario,
+                 indices: List[int], results: dict, lock: threading.Lock):
+        self.url = router_url
+        self.scenario = scenario
+        self.indices = indices
+        self.results = results
+        self.lock = lock
+
+    def run(self):
+        from deepspeed_tpu_torch.serving import http_util
+        sc = self.scenario
+        for index in self.indices:
+            prompt, max_new, priority, shared_len = _request_shape(sc, index)
+            record = {"state": "gave_up", "retries": 0}
+            for attempt in range(sc.submit_retry_limit + 1):
+                tokens: List[int] = []
+                final: dict = {}
+                try:
+                    reply = http_util.open_stream(
+                        self.url + "/generate",
+                        {"prompt_tokens": prompt,
+                         "max_new_tokens": max_new, "priority": priority,
+                         "stream": True},
+                        timeout_s=sc.result_timeout_s)
+                    if reply.status == 429:
+                        record = {"state": "rejected", "retries": attempt}
+                        time.sleep(min(reply.retry_after_s() or 0.02, 0.02))
+                        continue
+                    if reply.status != 200:
+                        record = {"state": "refused", "retries": attempt,
+                                  "error": reply.error}
+                        break
+                    for rec in reply.records():
+                        if "token" in rec:
+                            tokens.append(int(rec["token"]))
+                        elif rec.get("done"):
+                            final = rec
+                except Exception as e:
+                    record = {"state": "failed", "retries": attempt,
+                              "error": repr(e)}
+                    break
+                record = {"state": final.get("state", "failed"),
+                          "uid": final.get("uid"), "tokens": tokens,
+                          "finish_reason": final.get("finish_reason"),
+                          "rerouted": final.get("rerouted", 0),
+                          "recomputed_tokens":
+                              final.get("recomputed_tokens", 0),
+                          "retries": attempt}
+                break
+            record["reusable_tokens"] = shared_len
+            with self.lock:
+                self.results[(0, index)] = record
+
+
+def run_fleet_scenario(router, scenario: ServeScenario,
+                       provenance: Optional[dict] = None,
+                       warmup: bool = False) -> dict:
+    """Closed-loop drive of a fleet through the ROUTER. The proof set is
+    the router's exact counters plus the replica-summed prefix section
+    (same conservation identity as the single-replica report: ``saved +
+    computed == total`` holds fleet-wide because every replica holds it),
+    and the routing conservation identity ``completed + client_sheds +
+    requests_lost + client_errors == submitted`` — every HTTP request the
+    router admitted is accounted to exactly one terminal counter."""
+    if scenario.mode != "closed" or scenario.turns > 1:
+        raise ValueError("fleet scenarios are closed-loop single-turn")
+    members = getattr(router, "_members", ())
+    if warmup:
+        for server, _fe in members:
+            warm_scenario(server, scenario)
+    c0 = router.counters_snapshot()
+    # always a delta (like the router counters above): a previous
+    # scenario on the same fleet must not leak into this proof set
+    pre_slo: List[Dict[str, dict]] = [
+        server.metrics.slo_snapshot() for server, _fe in members]
+    pre_prefix: List[dict] = [
+        server.engine.prefix_stats() if hasattr(server.engine,
+                                                "prefix_stats") else {}
+        for server, _fe in members]
+    results: dict = {}
+    lock = threading.Lock()
+    t0 = time.monotonic()
+    lanes = [
+        _FleetLane(router.url, scenario,
+                   list(range(i, scenario.num_requests,
+                              scenario.concurrency)),
+                   results, lock)
+        for i in range(max(scenario.concurrency, 1))]
+    threads = [threading.Thread(target=lane.run, daemon=True,
+                                name=f"fleet-lane-{i}")
+               for i, lane in enumerate(lanes)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall_s = time.monotonic() - t0
+    # settle WITHOUT drain(): drain flips the replica to draining
+    # permanently, which would pull every member out of rotation and
+    # leave the fleet unroutable after one scenario (lanes already hold
+    # final records, so quiescence is just the tail of bookkeeping)
+    settle_deadline = time.monotonic() + scenario.result_timeout_s
+    for server, _fe in members:
+        while time.monotonic() < settle_deadline:
+            h = server.health()
+            if h.get("queued", 0) == 0 and h.get("inflight", 0) == 0:
+                break
+            time.sleep(0.01)
+
+    counters = {k: v - c0.get(k, 0)
+                for k, v in router.counters_snapshot().items()}
+    states: Dict[str, int] = {}
+    client_tokens = 0
+    for rec in results.values():
+        states[rec["state"]] = states.get(rec["state"], 0) + 1
+        client_tokens += len(rec.get("tokens") or ())
+    prefix: dict = {}
+    for i, (server, _fe) in enumerate(members):
+        if not hasattr(server.engine, "prefix_stats"):
+            continue
+        stats = server.engine.prefix_stats()
+        for k in ("prefill_tokens_total", "prefill_tokens_saved",
+                  "prefill_tokens_computed", "prefix_lookups",
+                  "prefix_hits", "prefix_misses", "prefix_hit_tokens",
+                  "prefix_lookup_tokens"):
+            if k in stats:
+                prefix[k] = (prefix.get(k, 0) + stats[k]
+                             - (pre_prefix[i].get(k, 0) if warmup else 0))
+    if prefix:
+        prefix["prefix_hit_ratio"] = (
+            prefix.get("prefix_hit_tokens", 0)
+            / max(prefix.get("prefix_lookup_tokens", 0), 1))
+        prefix["expected_reusable_tokens"] = sum(
+            rec.get("reusable_tokens", 0) for rec in results.values())
+        prefix["conservation_ok"] = (
+            prefix.get("prefill_tokens_saved", 0)
+            + prefix.get("prefill_tokens_computed", 0)
+            == prefix.get("prefill_tokens_total", 0))
+    # fleet SLO proof set: per-replica histograms folded counterwise
+    # (LogHistogram.merge — same fixed bounds everywhere). Conservation
+    # is a band, not a point: every router-completed request observed
+    # TTFT at exactly one replica, and each reroute may have added one
+    # extra observation at the abandoned replica before the failover
+    slo = _slo_section([server.metrics.slo_snapshot()
+                        for server, _fe in members], pre_slo)
+    ttft_n = slo.get("dstpu_req_ttft_seconds", {}).get("count", 0)
+    completed = counters.get("completed", 0)
+    slo["conservation"] = {
+        "ttft_observations": ttft_n,
+        "completed": completed,
+        "reroutes": counters.get("reroutes", 0),
+        "ok": (completed <= ttft_n
+               <= completed + counters.get("reroutes", 0)),
+    }
+    health = router.health()
+    prov = {
+        "preset": scenario.name,
+        "seed": scenario.seed,
+        "mode": "fleet_closed",
+        "num_requests": scenario.num_requests,
+        "scenario": dataclasses.asdict(scenario),
+        # the fleet topology: who routed, with what affinity/spill policy
+        "fleet": {
+            "replicas": [{"id": s["id"], "url": s["url"]}
+                         for s in health["replicas"]],
+            "affinity_enabled": router.config.affinity_enabled,
+            "affinity_block_tokens": router.config.affinity_block_tokens,
+            "spill_enabled": router.config.spill_enabled,
+            "retry_budget": router.config.retry_budget,
+        },
+    }
+    if provenance:
+        prov.update(provenance)
+    return {
+        "scenario": dataclasses.asdict(scenario),
+        "provenance": prov,
+        "wall_s": round(wall_s, 3),
+        "requests": {"issued": len(results), "states": states,
+                     "client_tokens": client_tokens},
+        # the router's exact proof set + the conservation identity over it
+        "counters": counters,
+        "routing_conservation_ok": (
+            counters.get("completed", 0) + counters.get("client_sheds", 0)
+            + counters.get("requests_lost", 0)
+            + counters.get("client_errors", 0)
+            == counters.get("submitted", 0)),
+        "slo": slo,
+        "prefix": prefix,
+        "replicas": health["replicas"],
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -601,19 +831,14 @@ def build_tiny_server(kv_num_blocks: int = 64, kv_block_size: int = 16,
     from deepspeed_tpu_torch.models.llama import TINY_LLAMA
     from deepspeed_tpu_torch.serving.server import ServingConfig
 
-    sched_group = dict((serving_overrides or {}).get("scheduler") or {})
-    if sched_group.get("role_split"):
-        raise NotImplementedError(
-            "the prefill/decode role split (serving/disagg.py) is not ported "
-            "yet: it comes with the serving-layer slice (ROADMAP Queue 1)")
     cfg = dataclasses.replace(TINY_LLAMA, dtype=torch.float32,
                               max_seq_len=512)
     params = init_llama_params(cfg, seed=0, device=device)
-    engine = InferenceEngineV2(params, cfg, V2EngineConfig(
+    v2cfg = V2EngineConfig(
         kv_block_size=kv_block_size, kv_num_blocks=kv_num_blocks,
         scheduler=SchedulerConfig(max_tokens_per_step=64,
-                                  prefill_buckets=(16, 32, 64))),
-        device=device)
+                                  prefill_buckets=(16, 32, 64)))
+    engine = InferenceEngineV2(params, cfg, v2cfg, device=device)
     overrides = {"max_queue_depth": 32, "kv_offload_enabled": kv_offload,
                  "kv_demote_watermark": 0.5,
                  "kv_demote_watermark_brownout": 0.3,
@@ -622,6 +847,15 @@ def build_tiny_server(kv_num_blocks: int = 64, kv_block_size: int = 16,
                                       else "none"),
                  "idle_poll_s": 0.001}
     overrides.update(serving_overrides or {})
+    sched_group = dict((serving_overrides or {}).get("scheduler") or {})
+    if sched_group.get("role_split"):
+        # prefill-role/decode-role pair sharing the tiny params; each role
+        # gets its own KV pool at the configured geometry, and the server
+        # drives the pair through the single-engine surface
+        from deepspeed_tpu_torch.serving.disagg import DisaggregatedEngine
+        engine = DisaggregatedEngine(
+            engine, InferenceEngineV2(params, cfg, v2cfg, device=device),
+            handoff_quantize=sched_group.get("handoff_quantize", "none"))
     return InferenceServer(engine, ServingConfig(**overrides))
 
 
@@ -641,7 +875,10 @@ def main(argv=None) -> int:
     p.add_argument("--kv-num-blocks", type=int, default=64)
     p.add_argument("--kv-block-size", type=int, default=16)
     p.add_argument("--replicas", type=int, default=1,
-                   help="more than 1 runs the fleet lane (not ported yet)")
+                   help="run the scenario through a FleetRouter over this "
+                        "many in-process replicas (>1 switches to fleet "
+                        "mode: router counters + replica-summed prefix "
+                        "proof set; topology lands in provenance)")
     p.add_argument("--no-kv-offload", action="store_true",
                    help="run with the offload tier disabled (pre-tier "
                         "admission semantics)")
@@ -676,9 +913,6 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "--verify-plan (autotuning/serve_verify.py) is not ported yet: "
             "it comes after the serving-layer slice (ROADMAP Queue 1)")
-    if args.replicas > 1:
-        _fleet_not_ported()
-
     scenario = SCENARIOS[args.scenario]
     patch = {}
     if args.requests is not None:
@@ -703,12 +937,24 @@ def main(argv=None) -> int:
     provenance = {"builder": dict(builder, device=args.device)}
     if args.trace:
         provenance["trace_path"] = os.path.abspath(args.trace)
-    server = build_tiny_server(device=args.device, **builder).start()
-    try:
-        report = run_scenario(server, scenario, provenance=provenance,
-                              warmup=args.warm)
-    finally:
-        server.stop(drain_timeout=30.0)
+    if args.replicas > 1:
+        provenance["builder"] = dict(provenance["builder"],
+                                     replicas=args.replicas)
+        router = build_tiny_fleet(replicas=args.replicas,
+                                  device=args.device, **builder)
+        try:
+            report = run_fleet_scenario(router, scenario,
+                                        provenance=provenance,
+                                        warmup=args.warm)
+        finally:
+            stop_tiny_fleet(router)
+    else:
+        server = build_tiny_server(device=args.device, **builder).start()
+        try:
+            report = run_scenario(server, scenario, provenance=provenance,
+                                  warmup=args.warm)
+        finally:
+            server.stop(drain_timeout=30.0)
     if args.trace:
         get_tracer().export_chrome(args.trace)
     text = json.dumps(report, indent=2, default=str)

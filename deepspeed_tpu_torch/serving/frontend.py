@@ -30,8 +30,9 @@ Endpoints:
          then fire ``on_retired`` (the fleet worker exits there)
   POST /admin/adopt {"handoff_path": P}
       -> 200 once the serve loop (the engine-owning thread) has imported P
-         between ticks; 501 while the engine cannot import handoffs, 503
-         once the server has stopped, 500 if the import fails
+         between ticks; 501 for an engine without
+         ``import_prefix_handoff``, 503 once the server has stopped, 500
+         if the import fails
 
 Slow/malformed-client hardening: a declared Content-Length over
 ``max_body_bytes`` is refused with 413 WITHOUT reading the body (the

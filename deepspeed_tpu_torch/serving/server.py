@@ -393,11 +393,13 @@ class InferenceServer:
         only thread that owns the engine — imports it between ticks, so
         this is safe to call from the frontend's admin route while requests
         are in flight; the call waits for that import and raises what it
-        raised (an engine that cannot import raises ``NotImplementedError``
-        here, not in a log line). With no serve loop running (worker
-        startup), the import runs inline."""
+        raised, not in a log line. An engine without
+        ``import_prefix_handoff`` raises ``NotImplementedError``. With no
+        serve loop running (worker startup), the import runs inline."""
         if not hasattr(self.engine, "import_prefix_handoff"):
-            raise ValueError("engine has no prefix-handoff support")
+            raise NotImplementedError(
+                f"{type(self.engine).__name__} cannot import a prefix "
+                "handoff (no import_prefix_handoff)")
         if not self.running:
             self._import_handoff(path)
             return

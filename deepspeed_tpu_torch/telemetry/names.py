@@ -132,3 +132,22 @@ TRACE_NAMES: Dict[str, Tuple[str, ...]] = {
 #: these (per-state request transitions); every other name is a literal
 #: registered above.
 DYNAMIC_PREFIXES: Tuple[str, ...] = ("comm/", "serve/")
+
+#: per-request tracing namespace (``telemetry/reqtrace.py`` stitches on
+#: it). Spans carrying a ``trace_id`` arg under REQ_PREFIX are the stitch
+#: join; REQ_STAGE_OF maps each lifecycle span to its timeline stage;
+#: REQ_WALL_NAME is the router-side envelope every replica-side span must
+#: fit inside (the tie-out denominator); REQ_TRACE_ARG is the one arg key
+#: the join uses.
+REQ_PREFIX = "req/"
+REQ_TRACE_ARG = "trace_id"
+REQ_WALL_NAME = "req/wall"
+REQ_REROUTE_NAME = "req/reroute"
+REQ_HANDOFF_NAME = "req/handoff"
+REQ_STAGE_OF: Dict[str, str] = {
+    "req/queue": "queue",
+    "req/prefill": "prefill",
+    "req/decode": "decode",
+    "req/handoff": "handoff",
+    "req/reroute": "reroute",
+}

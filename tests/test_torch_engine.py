@@ -292,7 +292,8 @@ def test_port_never_imports_jax_or_the_jax_package():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'deepspeed_tpu' or m.startswith('deepspeed_tpu.'))\n"
+        " or m == 'deepspeed_tpu' or m.startswith('deepspeed_tpu.')"
+        " or m == 'ml_dtypes')\n"
         "assert not bad, bad\n"
         "from deepspeed_tpu_torch.ops import build\n"
         "assert not build._builds, 'an import built a library'\n"
@@ -307,6 +308,12 @@ def test_port_never_imports_jax_or_the_jax_package():
             "deepspeed_tpu_torch.runtime.offload",
             "deepspeed_tpu_torch.runtime.param_offload",
             "deepspeed_tpu_torch.runtime.staging"} <= scanned
+    # and the role split, the fleet and the request-trace stitcher
+    assert {"deepspeed_tpu_torch.serving.disagg",
+            "deepspeed_tpu_torch.serving.fleet",
+            "deepspeed_tpu_torch.serving.fleet_worker",
+            "deepspeed_tpu_torch.telemetry.reqtrace",
+            "deepspeed_tpu_torch.telemetry.crossrank"} <= scanned
     n_modules = int(res.stdout.split()[0])
     assert n_modules == len(list(pkgutil.walk_packages(
         deepspeed_tpu_torch.__path__, "deepspeed_tpu_torch.")))
@@ -321,7 +328,8 @@ def test_port_never_imports_jax_or_the_jax_package():
                 names = [node.module]
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "flax", "deepspeed_tpu"), \
+                assert top not in ("jax", "jaxlib", "flax", "deepspeed_tpu",
+                                   "ml_dtypes"), \
                     (path, name)
 
 

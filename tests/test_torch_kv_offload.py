@@ -186,12 +186,3 @@ def test_demote_promote_matches_jax(models, codec):
     assert final["host_entries"] == final["host_bytes"] == 0
     assert final["device_blocks_reserved"] == 0
     assert final["demotions"] == final["promotions"] == 1
-
-
-def test_handoffs_raise_until_ported(models):
-    eng = _engine(models, "torch")
-    for call in (lambda: eng.adopt_kv_handoff(1, [1], [], None),
-                 lambda: eng.export_prefix_handoff("x.npz"),
-                 lambda: eng.import_prefix_handoff("x.npz")):
-        with pytest.raises(NotImplementedError, match="serving-layer slice"):
-            call()

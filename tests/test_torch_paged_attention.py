@@ -369,6 +369,27 @@ def _bf16_row_tol(want, ulps=4):
     return ulps * torch.exp2(torch.floor(torch.log2(top.clamp_min(1e-30))) - 7)
 
 
+def test_kernel_takes_every_serving_presets_head_dim():
+    """The wrapper's head dims are the CUDA source's instantiations, and
+    every Llama preset of the port, the tiny serving model (head_dim 32)
+    included, has one: the tiny server, the CLI's default preset and the
+    fleet's workers run on the card through this kernel."""
+    import pathlib
+    import re
+
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    src = (pathlib.Path(pa.__file__).resolve().parents[1] / "csrc"
+           / "paged_attention.cu").read_text()
+    dims = {int(d) for d in
+            re.findall(r"head_dim == (\d+)\) return pick_rows", src)}
+    assert dims == set(pa._HEAD_DIMS)
+    assert dims == {int(d) for d in
+                    re.findall(r"head_dim == (\d+)\) return smem_bytes", src)}
+    for name in ("TINY_LLAMA", "LLAMA2_7B", "LLAMA3_8B"):
+        assert getattr(llama, name).head_dim_ in dims, name
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain():
     """The CUDA kernel against the plain version on the card, at the
@@ -376,7 +397,8 @@ def test_kernel_matches_plain():
     bs=16 with d=64, a truncated table, window, softcap, fp8, and for the
     split over pages: the serving batch's decode, sequences whose later
     splits are dead, a window that kills the early splits, fp8 over a span
-    that is not a multiple of the split length): bf16 within 4 bf16 ulps of
+    that is not a multiple of the split length; head_dim 32, the tiny
+    serving model's): bf16 within 4 bf16 ulps of
     each row's largest |plain| value (both round P and the output to bf16;
     the sums run in other orders), fp32 within 1e-4; a second call repeats
     the output bit for bit. softcap=5 bites on unit-variance scores (50
@@ -403,7 +425,14 @@ def test_kernel_matches_plain():
                    starts=[0, 1, 62, 63, 64, 100, 447, 448, 449, 895, 1022,
                            1023, 1024, 1025, 2046, 2047]), None),
              (dict(b=16, t=1, rep=4, ctx=2048, dtype=bf16, window=300), None),
-             (dict(b=16, t=1, rep=4, ctx=1450, dtype=bf16, fp8=True), None)]
+             (dict(b=16, t=1, rep=4, ctx=1450, dtype=bf16, fp8=True), None),
+             # head_dim 32: the tiny serving model's (fp32, 16-token
+             # blocks), and bf16 / fp8 pages at that width
+             (dict(b=1, t=64, rep=2, ctx=64, dtype=f32, d=32, bs=16), 1e-4),
+             (dict(b=8, t=1, rep=2, ctx=96, dtype=f32, d=32, bs=16,
+                   ragged=True), 1e-4),
+             (dict(b=8, t=1, rep=4, ctx=1000, dtype=bf16, d=32, bs=16,
+                   fp8=True), None)]
     for spec, tol in cases:
         args, kw = _card_case(gen, **spec)
         before = build.launch_counts().get("paged_attention", 0)

@@ -821,7 +821,14 @@ def test_bench_serve_cli_on_cpu(capsys):
     assert report["requests"]["states"] == {"finished": 12}
     assert report["slo"]["conservation"]["ok"] is True
     assert report["provenance"]["builder"]["device"] == "cpu"
-    with pytest.raises(NotImplementedError, match="serving-layer slice"):
-        bench_serve.main(["--device", "cpu", "--replicas", "2"])
+    # --replicas > 1 runs the fleet lane: a FleetRouter over in-process
+    # replicas, the router's conservation identity closed
+    assert bench_serve.main(["--device", "cpu", "--requests", "8",
+                             "--concurrency", "4", "--replicas", "2"]) == 0
+    fleet = json.loads(capsys.readouterr().out)
+    assert fleet["requests"]["states"] == {"finished": 8}
+    assert fleet["routing_conservation_ok"] is True
+    assert fleet["provenance"]["builder"]["replicas"] == 2
+    assert len(fleet["provenance"]["fleet"]["replicas"]) == 2
     with pytest.raises(NotImplementedError, match="serving-layer slice"):
         bench_serve.main(["--verify-plan", "plan.json"])

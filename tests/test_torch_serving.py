@@ -16,8 +16,10 @@ port's engine, against the JAX package.
   request; their ``/metrics`` families and ``/healthz`` keys are the same;
   the engines' ``kv_ledger``/``sched_stats``/``prefix_stats`` keys are the
   same.
-- The port's own contracts: the handoff methods raise "not ported" through
-  the server and the front door; the serve loop runs with grad disabled
+- The port's own contracts: a prefix handoff adopted inline and through
+  ``/admin/adopt`` (which answers once the loop imported it; 501 for an
+  engine without an import, 503 once stopped, 500 for a failed import);
+  the serve loop runs with grad disabled
   whatever the caller's mode; every trace name the serving layer emits is
   registered in ``telemetry/names.py``; the CLI refuses a checkpoint and,
   with no card, a run that did not ask for the CPU.
@@ -479,26 +481,67 @@ def test_engine_stats_keys_match_jax(models):
 # ---------------------------------------------------------------------------
 # the port's own contracts
 # ---------------------------------------------------------------------------
-def test_handoff_methods_raise_not_ported_through_server_and_frontend(
-        models, tmp_path):
+def test_handoffs_through_server_and_frontend(models, tmp_path):
+    """A prefix handoff exported by a stopped server is adopted by another
+    through the serve loop (inline before ``start``, then through
+    ``/admin/adopt``, which answers once the import ran); the adopted
+    chains serve their prompt as a prefix hit and the loop keeps serving."""
     path = str(tmp_path / "handoff.npz")
-    server = _server(models)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        server.adopt_prefix_handoff(path)            # no loop: inline
-    with pytest.raises(NotImplementedError, match="not ported"):
-        server.export_prefix_handoff(path)           # stopped server
-    server.start()
+    prompt = [int(t) for t in np.random.default_rng(5).integers(0, 512, 40)]
+    donor = _server(models, prefix_cache_enabled=True).start()
+    try:
+        assert len(donor.submit(prompt, max_new_tokens=2).result(
+            timeout=120)) == 2
+        with pytest.raises(RuntimeError, match="stopped server"):
+            donor.export_prefix_handoff(path)        # still serving
+    finally:
+        donor.stop(drain_timeout=5.0)
+    got = donor.export_prefix_handoff(path, quantize="none")
+    assert got["chains"] >= 1 and got["blocks"] == 2
+    inline = _server(models, prefix_cache_enabled=True)
+    inline.adopt_prefix_handoff(path)                # no loop: inline
+    assert inline.handoff_stats["imported_chains"] == got["chains"]
+    server = _server(models, prefix_cache_enabled=True).start()
     fe = ServingFrontend(server, port=0).start()
     try:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            server.adopt_prefix_handoff(path)        # through the loop
         status, _, body = _http("POST", fe.host, fe.port, "/admin/adopt",
                                 {"handoff_path": path})
-        assert status == 501 and "not ported" in json.loads(body)["error"]
-        # the loop keeps serving after the refused adoption
+        assert status == 200 and json.loads(body)["adopted"] is True
+        assert server.handoff_stats["imported_chains"] == got["chains"]
+        before = server.engine.prefix_stats()["prefix_hit_tokens"]
+        ok = server.submit(prompt, max_new_tokens=2)
+        assert len(ok.result(timeout=120)) == 2
+        assert server.engine.prefix_stats()["prefix_hit_tokens"] - before \
+            == 32
+        assert server.health()["status"] == "serving"
+    finally:
+        fe.stop()
+        server.stop(drain_timeout=5.0)
+
+
+def test_admin_adopt_answers_501_for_an_engine_without_import(models):
+    """``/admin/adopt`` keeps its 501 for an engine that has no
+    ``import_prefix_handoff``; the loop keeps serving."""
+    server = _server(models).start()
+    fe = ServingFrontend(server, port=0).start()
+
+    class NoImport:
+        def __init__(self, engine):
+            self._engine = engine
+
+        def __getattr__(self, name):
+            if name == "import_prefix_handoff":
+                raise AttributeError(name)
+            return getattr(self._engine, name)
+    try:
+        server.engine = NoImport(server.engine)
+        with pytest.raises(NotImplementedError, match="cannot import"):
+            server.adopt_prefix_handoff("any.npz")
+        status, _, body = _http("POST", fe.host, fe.port, "/admin/adopt",
+                                {"handoff_path": "any.npz"})
+        assert status == 501 and "cannot import" in json.loads(body)["error"]
         ok = server.submit([5, 6, 7], max_new_tokens=2)
         assert len(ok.result(timeout=120)) == 2
-        assert server.health()["status"] == "serving"
     finally:
         fe.stop()
         server.stop(drain_timeout=5.0)
@@ -543,7 +586,7 @@ def test_adoption_queued_at_stop_fails_instead_of_hanging(models):
     assert not stopper.is_alive() and not caller.is_alive()
     assert len(errors) == 1 and isinstance(errors[0], ServerClosedError)
     assert server._handoff_paths == []
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(FileNotFoundError):
         server.adopt_prefix_handoff("inline.npz")   # stopped: runs inline
 
 
