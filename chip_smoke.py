@@ -52,6 +52,15 @@ call, bit for bit) and times both, then drives the port's paths:
   and with the plain attention backend, and the same lr with qgZ
   (``zero_quantized_gradients``): exact int8 launches per step, a loss that
   falls every step, the step-1 gradient norm beside the probe's;
+- distribution: the recipe at ZeRO stages 1, 2 and 3 on one rank over NCCL
+  (``init_distributed``), bit for bit with stage 0; then two processes on
+  the card over gloo (spawned by ``testing.run_distributed``): stage 3 and
+  stage 2 at fsdp=2 within twice the distance of two stage-0 runs that
+  differ only in summation order, each rank's state, peak HBM and comm
+  bytes; and qgZ at data=2 (the int8 wire through ``quantized_all_reduce``)
+  with exact quantize/dequantize launches, step 1's synced gradients bit
+  for bit against the plain codec, and the six quantized collectives at
+  two ranks bit for bit against their plain versions;
 - evoformer attention: the five kernels against their plain versions in 15
   cases (fp32 and bf16, head dims 8 to 128, every bias combination, Lq !=
   Lk, groups of MSA rows with N not a multiple of the group) with mutants,
@@ -100,8 +109,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -4793,6 +4804,620 @@ def phase_train_qgz(batch, plain_norm1, dev, smi_line):
 
 
 # ---------------------------------------------------------------------------
+# phase 8b: distribution: ZeRO stages 1-3 and qgZ over ranks
+# ---------------------------------------------------------------------------
+ZERO_STEPS = 3                     # train_zero: steps after 1 warm-up
+RANKS = 2                          # processes of the two-rank phases, one card
+RANKS_STEPS = 2                    # train_batch steps of each two-rank run
+RANKS_TIMEOUT = 420                # seconds one spawned two-rank job may take
+# depth of the two-rank runs: the recipe's, cut only if gloo's host copies
+# make full width too slow (width is never cut)
+RANKS_LAYERS = TRAIN_LAYERS
+RANKS_BATCH = 4                    # sequences a step: micro 1 x gas 2 x 2 ranks
+# a master "moved apart" from the reference's when the two differ by more
+# than this share of one AdamW step (lr): a step moves each weight by about
+# lr, so a gradient whose sign flips in another summation order moves it
+# ~2 lr, while the rest agree to rounding; the check counts such elements
+MASTERS_ATOL_LR = 0.1
+QGZ_RANKS_STEPS = 2                # train_qgz_ranks: steps after the first
+# its depth: two ranks with the whole fp32 state (12 bytes a parameter) and
+# a step's activations peak at ~36 GB each at 4 layers, which with the
+# spawning process's blocks does not fit the 80 GB card; 2 layers leave
+# ~8 GB a rank (width is never cut)
+QGZ_RANKS_LAYERS = 2
+RANK_OUT_ENV = "DSTPU_SMOKE_OUT"   # where a spawned rank writes its rows
+RANK_MODEL_ENV = "DSTPU_SMOKE_MODEL"   # "8b" (the recipe) or "tiny" (tests)
+RANK_DEVICE_ENV = "DSTPU_SMOKE_DEVICE"  # "cuda" (the card) or "cpu" (tests)
+COLLECTIVE_SHAPE = (4096, 4096)    # the quantized collectives' input, bf16
+
+
+def _init_world1():
+    """The port's process group at one rank on the card: NCCL."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm.mesh import init_distributed
+    from deepspeed_tpu_torch.testing import free_port
+    if not dist.is_initialized():
+        init_distributed(coordinator_address=f"127.0.0.1:{free_port()}",
+                         num_processes=1, process_id=0, device="cuda")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"world-1 group is {dist.get_backend()} x {dist.get_world_size()}")
+
+
+def _zero_recipe(stage, layers=TRAIN_LAYERS, model="8b", **zero):
+    """``train_config()`` at ZeRO ``stage`` (for the card tests the tiny
+    model in fp32 with the plain attention backend: at its few tokens a
+    bf16 forward turns master differences far inside the tolerance into
+    flipped bf16 weights)."""
+    import dataclasses
+    cfg, ds_config = train_config()
+    if model == "tiny":
+        from deepspeed_tpu_torch.models.llama import TINY_LLAMA
+        cfg = dataclasses.replace(TINY_LLAMA, dtype=torch.float32,
+                                  attention_backend="xla", remat=True,
+                                  remat_policy=cfg.remat_policy)
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    ds_config["zero_optimization"].update(stage=stage, **zero)
+    return cfg, ds_config
+
+
+def _rank_device() -> str:
+    return os.environ.get(RANK_DEVICE_ENV, "cuda")
+
+
+def _engine(cfg, ds_config, mesh=None):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    dev = _rank_device()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=LlamaForCausalLM(cfg, device=dev, seed=SEED),
+        config=ds_config, mesh=mesh, device=dev)
+    return engine
+
+
+def _peak_reset() -> None:
+    if _rank_device() == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak() -> int:
+    return torch.cuda.max_memory_allocated() if _rank_device() == "cuda" \
+        else 0
+
+
+def _state_bytes_of(shapes) -> dict:
+    """fp32 masters and Adam's two moments of leaves ``shapes``, whole."""
+    n = sum(math.prod(s) for s in shapes)
+    return {"masters": 4 * n, "moments": 8 * n}
+
+
+def _state_bytes(engine) -> dict:
+    """What the engine holds on its rank: fp32 masters (a stage-3 leaf's
+    block) and Adam's two moments (blocks from stage 1 on)."""
+    opt = engine.optimizer
+    return {"masters": sum(m.numel() * m.element_size()
+                           for m in engine._masters),
+            "moments": sum(t.numel() * t.element_size()
+                           for t in list(opt.mu) + list(opt.nu))}
+
+
+def phase_train_zero(batch, dev, smi_line):
+    """ZeRO stages 1, 2 and 3 at one rank over NCCL (``init_distributed``
+    on the card), 1 + ZERO_STEPS steps each on the ``train`` phase's batch,
+    against the same steps at stage 0: losses, gradient norms and every
+    fp32 master bit for bit (nothing is sharded and every reduction divides
+    by 1), exactly FLASH_PER_STEP x layers x gas flash launches a step."""
+    from deepspeed_tpu_torch.comm.comms_logging import get_comms_logger
+    from deepspeed_tpu_torch.ops import build
+    _init_world1()
+    comms = get_comms_logger()
+    comms.reset()
+    comms.configure(enabled=True)
+    want = {n: k * TRAIN_LAYERS * TRAIN_GAS for n, k in FLASH_PER_STEP.items()}
+    rows, ref, ref_masters, path = {}, None, None, {}
+    for stage in (0, 1, 2, 3):
+        engine = _engine(*_zero_recipe(stage))
+        torch.cuda.synchronize()
+        if stage == 1:
+            build.reset_launch_counts()      # the main path's run starts here
+        losses, step_ms, per_step, norms = _train_steps(engine, batch,
+                                                        1 + ZERO_STEPS)
+        row = {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
+               "launches_per_step": per_step, **_state_bytes(engine)}
+        check(all(s == want for s in per_step),
+              f"stage {stage} flash launches per step {per_step}, "
+              f"expected {want}")
+        masters = [m for _, m in engine.named_masters()]
+        if stage == 0:
+            ref = (losses, norms)
+            ref_masters = [m.detach().cpu() for m in masters]
+        else:
+            same = sum(torch.equal(m, r.to(m.device))
+                       for m, r in zip(masters, ref_masters))
+            row.update(masters_equal=same, leaves=len(masters))
+            check(losses == ref[0] and norms == ref[1],
+                  f"stage {stage} at world 1: losses {losses} norms {norms}"
+                  f", stage 0: {ref}")
+            check(same == len(masters), f"stage {stage} at world 1: "
+                  f"{len(masters) - same} masters differ from stage 0's")
+        rows[stage] = row
+        del engine, masters
+        _release()
+    path = build.launch_counts()
+    emit({"phase": "train_zero", "model": f"LLAMA3_8B width, {TRAIN_LAYERS} "
+          "layers, bf16, flash, world 1 (NCCL)", "stages": rows,
+          "comms": comms.per_op_totals(), "launches": path,
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    comms.configure(enabled=False)
+    del ref_masters
+    _release()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return path
+
+
+def _expected_comm(engine, stage, gas, bf16=2):
+    """The facade bytes one step moves at two fsdp ranks, from the leaves'
+    shapes: ``all_gather`` (stage 3: every sharded block in the compute
+    dtype once a micro-batch, and again for the layers' blocks under remat;
+    stages 1-2: the fp32 blocks after the update) and ``reduce_scatter``
+    (each sharded leaf's full gradient a micro-batch: compute dtype under
+    stage 3, fp32 under stage 2)."""
+    ag = rs = 0
+    for name, p, d_opt, d_par in zip(engine._param_names, engine._masters,
+                                     engine._opt_dim, engine._param_dim):
+        if d_opt is None:
+            continue
+        n = p.numel()                 # a block (stage 3) or the full leaf
+        if stage == 3:
+            gathers = 2 if ".layer_" in name else 1
+            ag += gathers * n * bf16 * gas
+            rs += 2 * n * bf16 * gas
+        else:
+            ag += n // 2 * 4
+            rs += n * 4 * gas if stage == 2 else 0
+    return {"all_gather": ag, "reduce_scatter": rs}
+
+
+def _rank_out(name):
+    return os.path.join(os.environ[RANK_OUT_ENV], name)
+
+
+def _rank_steps(engine, batch, steps, comms):
+    """``_train_steps`` with the comms logger's bytes of each step."""
+    from deepspeed_tpu_torch.ops import build
+    rows = []
+    for _ in range(steps):
+        before = build.launch_counts()
+        ops0 = comms.per_op_totals()
+        t0 = time.monotonic()
+        loss = engine.train_batch(batch=batch).item()
+        ms = (time.monotonic() - t0) * 1e3
+        after = build.launch_counts()
+        ops1 = comms.per_op_totals()
+        rows.append({
+            "loss": loss, "step_ms": ms,
+            "grad_norm": engine.get_global_grad_norm(),
+            "launches": {n: after.get(n, 0) - before.get(n, 0)
+                         for n in set(after) | set(before)},
+            "comm": {op: {k: t[k] - ops0.get(op, {}).get(k, 0)
+                          for k in ("count", "bytes", "wire_bytes",
+                                    "seconds")}
+                     for op, t in ops1.items()}})
+    return rows
+
+
+def _recipe_lr(model) -> float:
+    return float(_zero_recipe(0, 1, model)[1]["optimizer"]["params"]["lr"])
+
+
+def _masters_apart(got, want, atol):
+    """(share of elements more than ``atol`` apart, largest distance)."""
+    n = apart = 0
+    worst = 0.0
+    for a, b in zip(got, want):
+        d = (a - b).abs()
+        n += d.numel()
+        apart += int((d > atol).sum())
+        worst = max(worst, float(d.max()))
+    return apart / n, worst
+
+
+def _world1_mesh():
+    from deepspeed_tpu_torch.comm.mesh import MESH_AXES, Mesh
+    return Mesh({a: 1 for a in MESH_AXES}, 0, torch.device(_rank_device()))
+
+
+def zero_ranks_body():
+    """One rank of ``train_zero_ranks`` (spawned by ``run_distributed`` on
+    the card over gloo): rank 0 first runs the stage-0 reference on its own
+    (a one-rank mesh) in three summation orders over the same sequences:
+    micro 2 x gas 2 (the reference), micro 1 x gas 4, and micro 1 x gas 4
+    with each micro-batch's two sequences swapped; the tolerance is twice
+    the larger distance of the latter two from the reference. Then both
+    ranks run stage 3 and stage 2 at fsdp=2, and rank 0 holds each against
+    the reference. Three readings: each step's loss and global gradient
+    norm (a reduction that forgets to divide by the world, or drops a
+    rank's rows, moves the norm at once, where AdamW's masters barely
+    notice the scale), and the share of master elements more than
+    ``MASTERS_ATOL_LR`` x lr from the reference's (summation order flips
+    the sign of a few near-zero gradients, each such element ~2 lr away,
+    so a largest distance cannot tell a fault from those flips)."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm.comms_logging import get_comms_logger
+    from deepspeed_tpu_torch.models.llama import random_tokens
+    r = dist.get_rank()
+    model = os.environ.get(RANK_MODEL_ENV, "8b")
+    layers = int(os.environ.get("DSTPU_SMOKE_LAYERS", RANKS_LAYERS))
+    out = {"rank": r, "runs": {}}
+    gas = TRAIN_GAS
+    cfg0, _ = _zero_recipe(0, layers, model)
+    batch = random_tokens(RANKS_BATCH // gas, TRAIN_SEQ if model == "8b"
+                          else 64, vocab_size=cfg0.vocab_size, seed=SEED,
+                          gas=gas)
+    flat = {k: v.reshape(gas * v.shape[1], 1, -1) for k, v in batch.items()}
+    swapped = {k: v[:, ::-1].reshape(gas * v.shape[1], 1, -1)
+               for k, v in batch.items()}
+    atol = MASTERS_ATOL_LR * _recipe_lr(model)
+    ref, tol = None, None
+    if r == 0:
+        runs = {}
+        for name, b, g in (("micro2_gas2", batch, gas),
+                           ("micro1_gas4", flat, 2 * gas),
+                           ("micro1_gas4_swapped", swapped, 2 * gas)):
+            cfg, ds = _zero_recipe(0, layers, model)
+            ds.update(train_batch_size=RANKS_BATCH,
+                      gradient_accumulation_steps=g)
+            engine = _engine(cfg, ds, mesh=_world1_mesh())
+            losses, norms = [], []
+            for _ in range(RANKS_STEPS):
+                losses.append(engine.train_batch(batch=b).item())
+                norms.append(engine.get_global_grad_norm())
+            runs[name] = (losses, norms, [m.detach().cpu() for _, m
+                                          in engine.named_masters()])
+            del engine
+            _release()
+        la, na, ma = runs.pop("micro2_gas2")
+        apart = {k: _masters_apart(mb, ma, atol) for k, (_, _, mb)
+                 in runs.items()}
+        tol = {"loss": 2 * max(abs(a - b) for lb, _, _ in runs.values()
+                               for a, b in zip(la, lb)),
+               "grad_norm": 2 * max(abs(a - b) for _, nb, _ in runs.values()
+                                    for a, b in zip(na, nb)),
+               "masters_share": 2 * max(s for s, _ in apart.values())}
+        ref = (la, na, ma)
+        out["reference"] = {
+            "losses_micro2_gas2": la, "grad_norms_micro2_gas2": na,
+            "tolerance": tol, "masters_atol": atol,
+            **{f"losses_{k}": v[0] for k, v in runs.items()},
+            **{f"grad_norms_{k}": v[1] for k, v in runs.items()},
+            **{f"masters_share_{k}": s for k, (s, _) in apart.items()},
+            **{f"masters_max_abs_{k}": m for k, (_, m) in apart.items()}}
+        del runs
+    dist.barrier()
+    comms = get_comms_logger()
+    comms.configure(enabled=True)
+    for stage in (3, 2):
+        cfg, ds = _zero_recipe(stage, layers, model)
+        ds.update(train_batch_size=RANKS_BATCH, mesh={"fsdp": RANKS,
+                                                      "data": 1})
+        _peak_reset()
+        engine = _engine(cfg, ds)
+        comms.reset()
+        steps = _rank_steps(engine, batch, RANKS_STEPS, comms)
+        run = {"steps": steps, **_state_bytes(engine),
+               "peak_hbm": _peak(),
+               "expected_comm_per_step": _expected_comm(engine, stage, gas),
+               "opt_dims": engine._opt_dim, "param_dims": engine._param_dim}
+        # every rank reads them (a stage-3 master is gathered); rank 0 keeps
+        masters = [m.detach().cpu() for _, m in engine.named_masters()
+                   if r == 0]
+        if r == 0:
+            run["masters_share"], run["masters_max_abs"] = _masters_apart(
+                masters, ref[2], atol)
+            run["loss_gap"] = max(abs(s["loss"] - a)
+                                  for s, a in zip(steps, ref[0]))
+            run["grad_norm_gap"] = max(abs(s["grad_norm"] - a)
+                                       for s, a in zip(steps, ref[1]))
+        out["runs"][stage] = run
+        del engine, masters
+        _release()
+    comms.configure(enabled=False)
+    with open(_rank_out(f"zero_ranks{r}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _read_ranks(stem, tmp):
+    rows = []
+    for r in range(RANKS):
+        with open(os.path.join(tmp, f"{stem}{r}.json")) as f:
+            rows.append(json.load(f))
+    return rows
+
+
+def _spawn(body, tmp, device="cuda", timeout=RANKS_TIMEOUT, **env):
+    """Run ``body`` of this file in RANKS processes over gloo (on the card
+    unless ``device`` says otherwise); the seconds it took."""
+    from deepspeed_tpu_torch.testing import run_distributed
+    t0 = time.monotonic()
+    # the ranks share one card: segments that grow in place leave no
+    # reserved-but-unusable blocks between them
+    run_distributed(f"chip_smoke:{body}", RANKS, timeout=timeout,
+                    env={RANK_OUT_ENV: tmp, RANK_DEVICE_ENV: device,
+                         "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True",
+                         **env},
+                    backend="gloo", device=device)
+    return time.monotonic() - t0
+
+
+def _host_side(dev_type="cuda") -> dict:
+    """What this (spawning) process holds on the card while ranks run."""
+    if dev_type != "cuda":
+        return {}
+    return {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved()}
+
+
+def phase_train_zero_ranks(dev, smi_line, tmp):
+    """Two processes on the one card over gloo (named: NCCL refuses two
+    ranks on one device), spawned through ``testing.run_distributed``:
+    Llama-3-8B at full width, RANKS_LAYERS layers, stage 3 then stage 2 at
+    fsdp=2, RANKS_STEPS steps each; losses, gradient norms and the share
+    of masters apart within twice the distance of stage-0 runs that differ
+    only in summation order, every rank's losses and norms equal; each
+    rank's fp32 masters + moments, peak HBM, and the all_gather /
+    reduce_scatter bytes a step beside the count from the leaves' shapes;
+    exact flash launches a step."""
+    _release()
+    spawner = _host_side()
+    seconds = _spawn("zero_ranks_body", tmp)
+    rows = _read_ranks("zero_ranks", tmp)
+    ref = rows[0]["reference"]
+    tol = ref["tolerance"]
+    want = {n: k * RANKS_LAYERS * TRAIN_GAS for n, k in FLASH_PER_STEP.items()}
+    path = {n: 0 for n in FLASH_PER_STEP}
+    summary = {}
+    for stage in ("3", "2"):
+        r0 = rows[0]["runs"][stage]
+        per_rank = [{"masters": row["runs"][stage]["masters"],
+                     "moments": row["runs"][stage]["moments"],
+                     "peak_hbm": row["runs"][stage]["peak_hbm"]}
+                    for row in rows]
+        comm = [{op: s["comm"].get(op, {}).get("bytes", 0)
+                 for op in ("all_gather", "reduce_scatter")}
+                for s in r0["steps"]]
+        summary[stage] = {"losses": [s["loss"] for s in r0["steps"]],
+                          "step_ms": [s["step_ms"] for s in r0["steps"]],
+                          "grad_norms": [s["grad_norm"] for s in r0["steps"]],
+                          "masters_share": r0["masters_share"],
+                          "masters_max_abs": r0["masters_max_abs"],
+                          "loss_gap": r0["loss_gap"],
+                          "grad_norm_gap": r0["grad_norm_gap"],
+                          "per_rank": per_rank,
+                          "comm_bytes_per_step": comm,
+                          "comm_expected_per_step":
+                              r0["expected_comm_per_step"],
+                          "comm_per_step": r0["steps"][-1]["comm"]}
+        check(r0["masters_share"] <= tol["masters_share"],
+              f"stage {stage} x {RANKS}: a share {r0['masters_share']} of the"
+              f" masters more than {ref['masters_atol']} from the stage-0 "
+              f"run's, tolerance {tol['masters_share']}")
+        check(r0["loss_gap"] <= tol["loss"], f"stage {stage} x {RANKS}: "
+              f"losses {r0['loss_gap']} from stage 0, tolerance {tol['loss']}")
+        check(r0["grad_norm_gap"] <= tol["grad_norm"],
+              f"stage {stage} x {RANKS}: gradient norms {r0['grad_norm_gap']}"
+              f" from stage 0, tolerance {tol['grad_norm']}")
+        for row in rows:
+            check([(s["loss"], s["grad_norm"]) for s in
+                   row["runs"][stage]["steps"]] ==
+                  [(s["loss"], s["grad_norm"]) for s in r0["steps"]],
+                  f"stage {stage}: rank {row['rank']}'s losses or gradient "
+                  "norms differ from rank 0's")
+        check(all(c == r0["expected_comm_per_step"] for c in comm),
+              f"stage {stage}: comm bytes {comm}, expected "
+              f"{r0['expected_comm_per_step']}")
+        for row in rows:
+            for s in row["runs"][stage]["steps"]:
+                got = {n: s["launches"].get(n, 0) for n in FLASH_PER_STEP}
+                check(got == want, f"rank {row['rank']} stage {stage} flash "
+                      f"launches {got}, expected {want}")
+                for n in FLASH_PER_STEP:
+                    path[n] += got[n]
+    s3 = summary["3"]["per_rank"][0]
+    emit({"phase": "train_zero_ranks", "model": f"LLAMA3_8B width, "
+          f"{RANKS_LAYERS} layers (depth cut from 32 for gloo's host copies)"
+          f", bf16, flash, {RANKS} ranks on one card over gloo",
+          "reference": ref, "stages": summary, "seconds": seconds,
+          "spawner_hbm": spawner,
+          "stage3_state_share_of_stage0": (s3["masters"] + s3["moments"]) / (
+              12 * llama_params(_zero_recipe(0)[0], RANKS_LAYERS)),
+          "launches": path, "card": dev["kind"], "nvidia_smi": smi_line})
+    check(s3["masters"] + s3["moments"] < 0.55 * 12 * llama_params(
+        _zero_recipe(0)[0], RANKS_LAYERS),
+          f"stage 3 holds {s3['masters'] + s3['moments']} bytes a rank")
+    return path
+
+
+QUANT_COLLECTIVES = ("quantized_all_gather", "quantized_psum_scatter",
+                     "all_to_all_quant_reduce", "quantized_psum",
+                     "quantized_all_to_all", "quantized_all_gather_fp8")
+
+
+def _collectives(x):
+    """The six quantized collectives of ``ops/quant.py`` and
+    ``ops/fp_quant.py`` on ``x`` over the mesh's ``data`` axis."""
+    from deepspeed_tpu_torch.ops import fp_quant, quant
+    return {"quantized_all_gather": quant.quantized_all_gather(x, "data"),
+            "quantized_psum_scatter": quant.quantized_psum_scatter(
+                x, "data", mean=True),
+            "all_to_all_quant_reduce": quant.all_to_all_quant_reduce(
+                x, "data"),
+            "quantized_psum": quant.quantized_psum(x, ("data",)),
+            "quantized_all_to_all": quant.quantized_all_to_all(x, "data"),
+            "quantized_all_gather_fp8": fp_quant.quantized_all_gather_fp8(
+                x, "data")}
+
+
+class _Plain:
+    """Within the block the quantize / dequantize wrappers run their plain
+    versions (torch ops on the card); the wire codec and the collectives
+    call them through their modules."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops import fp_quant, quant
+        self.saved = [(quant, "quantize_int8", quant.quantize_int8_plain),
+                      (quant, "dequantize_int8", quant.dequantize_int8_plain),
+                      (fp_quant, "quantize_fp8", fp_quant.quantize_fp8_plain),
+                      (fp_quant, "dequantize_fp8",
+                       fp_quant.dequantize_fp8_plain)]
+        self.saved = [(m, n, getattr(m, n), new) for m, n, new in self.saved]
+        for m, n, _, new in self.saved:
+            setattr(m, n, new)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, old, _ in self.saved:
+            setattr(m, n, old)
+
+
+def qgz_ranks_body():
+    """One rank of ``train_qgz_ranks``: mesh data=2, qgZ, 1 + QGZ_RANKS_STEPS
+    steps; the gradient sync of step 1 recorded, then run again on the same
+    inputs with the plain codec, leaf by leaf, bit for bit; then the six
+    quantized collectives once with the kernels (the ``quant_collectives``
+    path) and once with the plain versions."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm.comms_logging import get_comms_logger
+    from deepspeed_tpu_torch.models.llama import random_tokens
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.runtime import engine as engine_mod
+    from deepspeed_tpu_torch.runtime.zero import qgz
+    r = dist.get_rank()
+    model = os.environ.get(RANK_MODEL_ENV, "8b")
+    layers = int(os.environ.get("DSTPU_SMOKE_LAYERS", QGZ_RANKS_LAYERS))
+    cfg, ds = _zero_recipe(0, layers, model, zero_quantized_gradients=True)
+    ds.update(train_batch_size=RANKS_BATCH, mesh={"data": RANKS})
+    ds["optimizer"]["params"]["lr"] = LOW_LR
+    engine = _engine(cfg, ds)
+    batch = random_tokens(RANKS_BATCH // TRAIN_GAS, TRAIN_SEQ if model == "8b"
+                          else 64, vocab_size=cfg.vocab_size, seed=SEED,
+                          gas=TRAIN_GAS)
+    n_leaves = len(engine._masters)
+    record = {"inputs": [], "outputs": []}
+    sync = engine_mod.quantized_grad_sync
+
+    def recording(grads, axes):       # step 1's calls, a leaf each
+        out = sync(grads, axes)
+        if len(record["inputs"]) < n_leaves:
+            record["inputs"] += [g.detach().cpu() for g in grads]
+            record["outputs"] += [g.detach().cpu() for g in out]
+            record["axes"] = axes
+        return out
+
+    engine_mod.quantized_grad_sync = recording
+    comms = get_comms_logger()
+    comms.reset()
+    comms.configure(enabled=True)
+    try:
+        build.reset_launch_counts()        # the main path's run starts here
+        steps = _rank_steps(engine, batch, 1 + QGZ_RANKS_STEPS, comms)
+        path = build.launch_counts()
+    finally:
+        engine_mod.quantized_grad_sync = sync
+        comms.configure(enabled=False)
+    peak = _peak()
+    shapes = [tuple(m.shape) for m in engine._masters]
+    itemsize = torch.empty((), dtype=engine.config.grad_accum_dtype
+                           ).element_size()
+    quantized = qgz.quantized_leaves(shapes, RANKS, itemsize)
+    del engine
+    _release()
+    # the same sync with the plain codec, a leaf at a time
+    same, launched = 0, 0
+    with _Plain():
+        before = sum(build.launch_counts().values())
+        for g, want in zip(record["inputs"], record["outputs"]):
+            got = qgz.quantized_grad_sync([g.to(_rank_device())],
+                                          record["axes"])[0]
+            same += int(torch.equal(got.cpu(), want))
+        launched = sum(build.launch_counts().values()) - before
+    # the quantized collectives, kernels then plain versions
+    dev = _rank_device()
+    gen = torch.Generator(device=dev).manual_seed(SEED + r)
+    x = torch.randn(COLLECTIVE_SHAPE if model == "8b" else (64, 256),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    build.reset_launch_counts()
+    kern = _collectives(x)
+    coll_path = build.launch_counts()
+    with _Plain():
+        plain = _collectives(x)
+    coll = {n: bool(torch.equal(kern[n].view(torch.int16),
+                                plain[n].view(torch.int16)))
+            for n in QUANT_COLLECTIVES}
+    out = {"rank": r, "steps": steps, "path": path, "quantized_leaves":
+           quantized, "leaves": len(shapes), "sync_equal": same,
+           "sync_leaves": len(record["outputs"]), "plain_launches": launched,
+           "collectives_equal": coll, "collectives_path": coll_path,
+           "layers": layers, "peak_hbm": peak, **_state_bytes_of(shapes)}
+    with open(_rank_out(f"qgz_ranks{r}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_train_qgz_ranks(dev, smi_line, tmp):
+    """Two processes on the card over gloo, mesh data=2 with
+    ``zero_quantized_gradients``: the step's gradient sync is
+    ``quantized_all_reduce`` through the int8 kernels, exactly 2 quantize
+    and 2 dequantize launches a step for each leaf that passes
+    MIN_QUANT_SIZE and the wire test; step 1's synced gradients bit for bit
+    those of the plain codec on the same inputs; the six quantized
+    collectives once at world 2, bit for bit against their plain
+    versions."""
+    _release()
+    spawner = _host_side()
+    seconds = _spawn("qgz_ranks_body", tmp)
+    rows = _read_ranks("qgz_ranks", tmp)
+    want_flash = {n: k * QGZ_RANKS_LAYERS * TRAIN_GAS
+                  for n, k in FLASH_PER_STEP.items()}
+    path, coll_path = {}, {}
+    for row in rows:
+        q = row["quantized_leaves"]
+        want = {**want_flash, "quantize_int8": 2 * q, "dequantize_int8": 2 * q}
+        for s in row["steps"]:
+            got = {n: s["launches"].get(n, 0) for n in want}
+            check(got == want, f"rank {row['rank']} launches {got}, "
+                  f"expected {want}")
+        check(row["sync_equal"] == row["sync_leaves"], f"rank {row['rank']}:"
+              f" {row['sync_leaves'] - row['sync_equal']} synced gradients "
+              "differ from the plain codec's")
+        check(row["plain_launches"] == 0, "the plain codec launched kernels")
+        check(all(row["collectives_equal"].values()),
+              f"rank {row['rank']} collectives vs plain "
+              f"{row['collectives_equal']}")
+        losses = [s["loss"] for s in row["steps"]]
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        for n, k in row["path"].items():
+            path[n] = path.get(n, 0) + k
+        for n, k in row["collectives_path"].items():
+            coll_path[n] = coll_path.get(n, 0) + k
+    r0 = rows[0]
+    emit({"phase": "train_qgz_ranks", "model": f"LLAMA3_8B width, "
+          f"{QGZ_RANKS_LAYERS} layers (depth cut from 32 for two ranks' "
+          f"state on one card), bf16, flash, lr 3e-5, qgZ, data={RANKS} on "
+          "one card over gloo", "seconds": seconds, "spawner_hbm": spawner,
+          "per_rank": [{k: row[k] for k in ("masters", "moments", "peak_hbm")}
+                       for row in rows],
+          "losses": [s["loss"] for s in r0["steps"]],
+          "step_ms": [s["step_ms"] for s in r0["steps"]],
+          "quantized_leaves": r0["quantized_leaves"], "leaves": r0["leaves"],
+          "launches_per_step": [s["launches"] for s in r0["steps"]],
+          "comm_per_step": r0["steps"][-1]["comm"],
+          "sync_equal": [row["sync_equal"] for row in rows],
+          "collectives_equal": r0["collectives_equal"], "launches": path,
+          "collectives_launches": coll_path, "card": dev["kind"],
+          "nvidia_smi": smi_line})
+    return path, coll_path
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the memory tiers (ZeRO-Offload, ZeRO-Infinity)
 # ---------------------------------------------------------------------------
 HOST_SOURCES = ("cpu_adam", "aio")  # g++ builds them beside the CUDA sources
@@ -5242,13 +5867,20 @@ ENTRY_NAMES = {n: f"{n}_kernel" for n in BIAS_ACT_KERNELS}
 # ZeRO-Inference fp8/int8, B: training with qgZ, evoformer: E1-E4 through
 # DS4Sci_EvoformerAttention, timed at E1; S1/S2: SparseSelfAttention at
 # BigBird-base and Fixed, timed at S1; R: rms_norm; F: fused_bias_act and
-# fused_bias_act_dropout)
+# fused_bias_act_dropout; train_zero: stages 1-3 at one rank;
+# train_zero_ranks: stages 3 and 2 on two ranks; train_qgz_ranks: qgZ's
+# int8 wire on two ranks; quant_collectives: the six quantized collectives
+# at two ranks)
 KERNEL_PATHS = {"paged_attention": ("serve", "serve_http", "disagg", "fleet",
                                      "A1", "A2"),
-                **{n: ("train", "train_offload", "train_param_offload")
+                **{n: ("train", "train_offload", "train_param_offload",
+                       "train_zero", "train_zero_ranks", "train_qgz_ranks")
                    for n in FLASH_PER_STEP},
-                "quantize_fp8": ("A1",), "dequantize_fp8": ("A1",),
-                "quantize_int8": ("B",), "dequantize_int8": ("B", "A2"),
+                "quantize_fp8": ("A1", "quant_collectives"),
+                "dequantize_fp8": ("A1", "quant_collectives"),
+                "quantize_int8": ("B", "train_qgz_ranks", "quant_collectives"),
+                "dequantize_int8": ("B", "A2", "train_qgz_ranks",
+                                    "quant_collectives"),
                 **{n: ("evoformer",) for n in EVO_KERNELS},
                 "rms_norm": ("R",), **{n: ("F",) for n in BIAS_ACT_KERNELS},
                 "sparse_attention": ("S1", "S2")}
@@ -5322,6 +5954,18 @@ def main() -> int:
         plain_norm1 = phase_train_probe(batch, losses, dev, smi_line)
         phase = "train_qgz"
         qgz_launches = phase_train_qgz(batch, plain_norm1, dev, smi_line)
+        _release()
+        phase = "train_zero"
+        zero_launches = phase_train_zero(batch, dev, smi_line)
+        tmp = tempfile.mkdtemp(prefix="dstpu-ranks-")
+        try:
+            phase = "train_zero_ranks"
+            zero_ranks_launches = phase_train_zero_ranks(dev, smi_line, tmp)
+            phase = "train_qgz_ranks"
+            qgz_ranks_launches, coll_launches = phase_train_qgz_ranks(
+                dev, smi_line, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
         phase = "train_offload_parity"
         phase_train_offload_parity(batch, dev, smi_line)
         phase = "train_offload"
@@ -5340,6 +5984,10 @@ def main() -> int:
                        "train_param_offload": param_launches,
                        "A1": zi["A1"]["path_launches"],
                        "A2": zi["A2"]["path_launches"], "B": qgz_launches,
+                       "train_zero": zero_launches,
+                       "train_zero_ranks": zero_ranks_launches,
+                       "train_qgz_ranks": qgz_ranks_launches,
+                       "quant_collectives": coll_launches,
                        "evoformer": evo_launches, **sparse_launches,
                        "R": rms_launches, "F": bias_act_launches}
         launches_by_path = {

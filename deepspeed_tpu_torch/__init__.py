@@ -33,25 +33,78 @@ Ported so far:
   masters and moments on the host or NVMe, the fused host optimizers of
   ``ops/cpu_adam.py``, the async file I/O of ``ops/async_io.py``) and
   ``offload_param`` (``runtime/param_offload.py``: the weights streamed
-  through the card a layer group at a time), at ZeRO stage 0. Their host
+  through the card a layer group at a time), at one rank. Their host
   sources, ``csrc/cpu_adam.cpp`` and ``csrc/aio.cpp``, are built by ``g++``
   on first use (``ops/build.py``). On the CPU: ``python -m pytest
   tests/test_torch_offload.py tests/test_torch_param_offload.py``; on the
   card, ``chip_smoke.py``'s ``train_offload``, ``train_param_offload`` and
-  ``train_offload_parity`` phases.
+  ``train_offload_parity`` phases;
+- distribution — ``comm/`` on ``torch.distributed`` (the named-axis mesh,
+  the collective facade, the quantized collectives, comm logging, the
+  commguard), ``testing.py``'s multi-process harness, ZeRO stages 1-3
+  (``runtime/zero/partition.py``) and qgZ's int8 wire over replica ranks
+  (``runtime/zero/qgz.py``). ``init_distributed`` starts the process group
+  (NCCL on the card, gloo for ``device="cpu"``), ``initialize(...,
+  mesh=)`` trains over it. On the CPU: ``python -m pytest
+  tests/test_torch_comm.py tests/test_torch_zero.py``; on the card,
+  ``chip_smoke.py``'s ``train_zero``, ``train_zero_ranks`` and
+  ``train_qgz_ranks`` phases.
 
-Importing this package starts no work and touches no device.
+Importing this package starts no work and touches no device: the
+reference's re-exports (``DeepSpeedTPUConfig``, ``DeepSpeedTPUEngine``,
+``log_dist``, ``logger``, ``init_distributed``) load on first use.
 """
 
 from typing import Any, Callable, Optional
 
 __version__ = "0.2.0"
 
+_LAZY = {
+    "DeepSpeedTPUConfig": "deepspeed_tpu_torch.config.config",
+    "DeepSpeedTPUEngine": "deepspeed_tpu_torch.runtime.engine",
+    "log_dist": "deepspeed_tpu_torch.utils.logging",
+    "logger": "deepspeed_tpu_torch.utils.logging",
+    "init_distributed": "deepspeed_tpu_torch.comm.mesh",
+}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def get_accelerator():
+    """reference ``deepspeed_tpu.accelerator.get_accelerator``."""
+    raise NotImplementedError(
+        "get_accelerator (accelerator/) is not ported yet (ROADMAP Queue 1 "
+        "item 7); the port runs on the card unless device='cpu' is given")
+
+
+def init_inference(model=None, config=None, params=None, mesh=None,
+                   tensor_rules=None, **kwargs):
+    """reference ``deepspeed.init_inference``."""
+    raise NotImplementedError(
+        "init_inference (inference/engine.py) is not ported yet (ROADMAP "
+        "Queue 1 item 7); serve with inference.v2.engine_v2."
+        "InferenceEngineV2")
+
+
+def add_config_arguments(parser):
+    """reference: deepspeed.add_config_arguments (deepspeed/__init__.py:268)."""
+    group = parser.add_argument_group("DeepSpeed-TPU", "DeepSpeed-TPU configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed-TPU (helper flag for config parsing)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="Path to the DeepSpeed-TPU json config file")
+    return parser
+
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, config: Any = None,
                config_params: Any = None, loss_fn: Optional[Callable] = None,
-               device=None):
+               device=None, mesh=None):
     """Build the training engine (reference ``deepspeed.initialize``;
     ``deepspeed_tpu/__init__.py:28``). Returns ``(engine, optimizer, None,
     lr_schedule)`` for a non-pipeline model.
@@ -64,7 +117,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``device="cpu"`` to train on the CPU. ``zero_optimization``'s
     ``offload_optimizer`` and ``offload_param`` (``cpu`` or ``nvme``) put
     the optimizer state, and the weights, in host memory or files; the
-    returned optimizer is then the host optimizer."""
+    returned optimizer is then the host optimizer. ``mesh`` is a
+    ``comm.mesh.Mesh`` over the started process group; by default the
+    config's ``mesh`` group over every rank (one rank when
+    ``init_distributed`` was not called)."""
     from deepspeed_tpu_torch.config.config import DeepSpeedTPUConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedTPUEngine
     if config is None and config_params is not None:
@@ -74,7 +130,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     if training_data is not None:
         raise NotImplementedError(
             "training_data (the data loader) is not ported yet (ROADMAP "
-            "Queue 1); pass batches to train_batch()")
+            "Queue 1 item 5); pass batches to train_batch()")
     if model is None:
         raise ValueError("initialize needs a model (an nn.Module)")
     ds_config = config if isinstance(config, DeepSpeedTPUConfig) \
@@ -82,5 +138,5 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     engine = DeepSpeedTPUEngine(
         model, ds_config, params=model_parameters, loss_fn=loss_fn,
         lr_scheduler=lr_scheduler if callable(lr_scheduler) else None,
-        client_optimizer=optimizer, device=device)
+        client_optimizer=optimizer, device=device, mesh=mesh)
     return engine, engine.optimizer, None, engine.lr_schedule

@@ -5,12 +5,18 @@ batch-size triple reconciliation and validation errors, written as
 dataclasses (the card's machine has no pydantic). Unknown keys inside a
 group are ignored, as the reference's models ignore them.
 
-Groups the port does not carry yet raise ``NotImplementedError`` instead
-of being parsed and ignored: ZeRO stages above 0 (ROADMAP Queue 1,
-"Distribution and memory tiers") and any other top-level group that the
-training path does not read. The memory tiers, ``offload_optimizer`` and
-``offload_param`` with ``cpu`` or ``nvme``, are read at stage 0 as the
-reference reads them whatever the stage.
+Options the port does not carry yet raise ``NotImplementedError`` naming
+their ROADMAP Queue 1 item instead of being parsed and ignored: any
+top-level group the training path does not read, and inside the read
+groups MiCS (``mics_shard_size``), hpZ (``zero_hpz_partition_size > 1``),
+qwZ (``zero_quantized_weights``), ``comm_compression``, a mesh with
+``fsdp_outer``, ``tensor``, ``sequence``, ``expert`` or ``pipe`` above 1,
+or with ``dcn_axes`` (item 2 "distribution and memory tiers", item 3
+"sequence parallel", item 4 "MoE"). A comms-logger op filter
+(``prof_all`` false, ``prof_ops``) is refused too: no logger applies it.
+ZeRO stages 0-3 are read; the memory tiers, ``offload_optimizer`` and
+``offload_param`` with ``cpu`` or ``nvme``, run at a world of one rank
+(the engine refuses them at more).
 """
 
 import dataclasses
@@ -27,8 +33,11 @@ _READ_KEYS = frozenset({
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
     C.GRADIENT_ACCUMULATION_STEPS, C.OPTIMIZER, C.SCHEDULER, C.FP16, C.BF16,
     C.BF16_LEGACY, C.ZERO_OPTIMIZATION, C.GRADIENT_CLIPPING, C.STEPS_PER_PRINT,
-    C.WALL_CLOCK_BREAKDOWN, C.DATA_TYPES,
+    C.WALL_CLOCK_BREAKDOWN, C.DATA_TYPES, C.MESH, C.COMMS_LOGGER,
 })
+
+# the Queue 1 items refusals name (ROADMAP.md)
+ITEM_DIST = "ROADMAP Queue 1 item 2: distribution and memory tiers"
 
 
 def _from_dict(cls, raw: Optional[Dict[str, Any]]):
@@ -80,19 +89,23 @@ class OffloadConfig:
 
 @dataclasses.dataclass
 class ZeroConfig:
-    """reference: runtime/zero/config.py. The port runs stage 0 (plain data
-    parallel, one card) with the memory tiers (``offload_optimizer``,
-    ``offload_param``); stages 1-3 come with ROADMAP Queue 1,
-    "Distribution and memory tiers". ``zero_quantized_gradients`` (qgZ) is
-    read at stage 0: on one card it is the int8 round trip of every
-    micro-batch gradient (``runtime/engine.py``). ``sub_group_size`` is
-    parsed with the reference's default; as in the JAX package, the host
-    optimizer's sub-groups are 4 leaves (``runtime/offload.py``)."""
+    """reference: runtime/zero/config.py. Stages 0-3 over the mesh's
+    ``fsdp`` axis (``runtime/zero/partition.py``, the engine's
+    data-parallel step), the memory tiers (``offload_optimizer``,
+    ``offload_param``) at one rank, and ``zero_quantized_gradients`` (qgZ:
+    int8 on the wire over replica axes, else the int8 round trip of every
+    micro-batch gradient). MiCS, hpZ and qwZ raise (ROADMAP Queue 1 item
+    2). ``sub_group_size`` is parsed with the reference's default; as in
+    the JAX package, the host optimizer's sub-groups are 4 leaves
+    (``runtime/offload.py``)."""
     stage: int = 0
     offload_param: Any = None
     offload_optimizer: Any = None
     sub_group_size: int = int(1e9)
+    zero_hpz_partition_size: int = 1
+    zero_quantized_weights: bool = False
     zero_quantized_gradients: bool = False
+    mics_shard_size: int = -1
 
     def __post_init__(self):
         if self.stage not in (0, 1, 2, 3):
@@ -113,6 +126,35 @@ class DataTypesConfig:
             raise ValueError(
                 f"{C.GRAD_ACCUM_DTYPE} must be fp32|bf16|fp16, "
                 f"got {self.grad_accum_dtype}")
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """The ``mesh`` group: named-axis process mesh (data, fsdp, tensor,
+    sequence, expert, pipe). -1 on at most one axis fills it with the
+    remaining ranks."""
+    data: int = -1
+    fsdp: int = 1
+    # hierarchical-sharding replica factor (MiCS / ZeRO++ hpZ)
+    fsdp_outer: int = 1
+    tensor: int = 1
+    sequence: int = 1
+    expert: int = 1
+    pipe: int = 1
+    # axes that ride the slow wire, outermost first: the port lays ranks
+    # out row-major only, so a non-empty list is refused
+    dcn_axes: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class CommsLoggerConfig:
+    """The ``comms_logger`` group (``comm/comms_logging.py``)."""
+    enabled: bool = False
+    verbose: bool = False
+    # the logger records every op, as the JAX package's does: a filter
+    # (prof_all false, or prof_ops named) is refused, not ignored
+    prof_all: bool = True
+    prof_ops: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -163,6 +205,9 @@ class DeepSpeedTPUConfig:
             if C.SCHEDULER in self._raw else None
         self.data_types = _from_dict(DataTypesConfig,
                                      self._raw.get(C.DATA_TYPES))
+        self.mesh = _from_dict(MeshConfig, self._raw.get(C.MESH))
+        self.comms_logger = _from_dict(CommsLoggerConfig,
+                                       self._raw.get(C.COMMS_LOGGER))
         self.gradient_clipping: float = float(
             self._raw.get(C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT))
         self.steps_per_print: int = int(
@@ -180,11 +225,43 @@ class DeepSpeedTPUConfig:
         self._refuse_unported()
 
     def _refuse_unported(self) -> None:
-        zc = self.zero_config
-        if zc.stage > 0:
+        zc, mesh = self.zero_config, self.mesh
+        if zc.mics_shard_size is not None and zc.mics_shard_size > 0:
             raise NotImplementedError(
-                f"ZeRO stage {zc.stage} is not ported yet (ROADMAP Queue 1: "
-                "distribution and memory tiers); use stage 0")
+                f"mics_shard_size (MiCS) is not ported yet ({ITEM_DIST})")
+        if int(zc.zero_hpz_partition_size or 1) > 1:
+            raise NotImplementedError(
+                "zero_hpz_partition_size > 1 (ZeRO++ hpZ) is not ported yet "
+                f"({ITEM_DIST})")
+        if zc.zero_quantized_weights:
+            raise NotImplementedError(
+                "zero_quantized_weights (ZeRO++ qwZ) is not ported yet "
+                f"({ITEM_DIST})")
+        if C.COMM_COMPRESSION in self._raw:
+            raise NotImplementedError(
+                "comm_compression (bucketed error-feedback gradient "
+                f"compression) is not ported yet ({ITEM_DIST})")
+        for axis, item in (("fsdp_outer", ITEM_DIST),
+                           ("tensor", ITEM_DIST + " (tensor-parallel rules)"),
+                           ("sequence", "ROADMAP Queue 1 item 3: sequence "
+                                        "parallel"),
+                           ("expert", "ROADMAP Queue 1 item 4: MoE"),
+                           ("pipe", "ROADMAP Queue 1 item 7: the pipeline "
+                                    "engine")):
+            if getattr(mesh, axis) != 1:
+                raise NotImplementedError(
+                    f"mesh.{axis}={getattr(mesh, axis)} is not ported yet "
+                    f"({item})")
+        if mesh.dcn_axes:
+            raise NotImplementedError(
+                f"mesh.dcn_axes={mesh.dcn_axes} (the multi-slice layout) is "
+                f"not ported yet ({ITEM_DIST})")
+        cl = self.comms_logger
+        if not cl.prof_all or cl.prof_ops:
+            raise NotImplementedError(
+                "comms_logger.prof_all=false / prof_ops: the comms logger "
+                "records every op and filters none (the JAX package's "
+                "logger stores the filter and never reads it)")
         unported = sorted(set(self._raw) - _READ_KEYS)
         if unported:
             raise NotImplementedError(
@@ -247,6 +324,22 @@ class DeepSpeedTPUConfig:
         return {None: torch.float32, "fp32": torch.float32,
                 "bf16": torch.bfloat16,
                 "fp16": torch.float16}[self.data_types.grad_accum_dtype]
+
+    # --- convenience accessors (the reference's subset) ---
+    @property
+    def zero_enabled(self) -> bool:
+        return self.zero_config.stage > 0
+
+    @property
+    def zero_optimization_stage(self) -> int:
+        return self.zero_config.stage
+
+    @property
+    def loss_scale(self) -> float:
+        return self.fp16.loss_scale if self.fp16.enabled else 1.0
+
+    def raw(self) -> Dict[str, Any]:
+        return dict(self._raw)
 
     def __repr__(self) -> str:
         return (f"DeepSpeedTPUConfig(train_batch_size={self.train_batch_size}, "

@@ -22,6 +22,9 @@ GRAD_ACCUM_DTYPE = "grad_accum_dtype"     # reference: constants.py:427
 # legacy spelling of the bf16 group accepted for drop-in compatibility
 BF16_LEGACY = "bfloat16"
 RESILIENCE = "resilience"                 # only its step guard is read
+MESH = "mesh"                             # named-axis process mesh
+COMMS_LOGGER = "comms_logger"             # comm volume/bandwidth logging
+COMM_COMPRESSION = "comm_compression"     # refused: not ported yet
 SERVING = "serving"                       # serving group (admission,
 #                                           degradation ladder, host KV
 #                                           offload tier, fault isolation;

@@ -10,9 +10,9 @@ as the reference does, so kernel and plain version agree bit for bit.
 CPU tensors run the plain versions; CUDA tensors launch the kernels or
 raise.
 
-Not ported yet (ROADMAP): ``fp8_matmul`` and the ``fp8_gemm`` pair (a
-Hopper fp8 GEMM is a kernel of its own) and the fp8 all-gather, which comes
-with the distribution slice.
+``quantized_all_gather_fp8`` is the fp8 all-gather over the comm facade.
+Not ported yet (ROADMAP Queue 2): ``fp8_matmul`` and the ``fp8_gemm`` pair
+(a Hopper fp8 GEMM is a kernel of its own).
 """
 
 from typing import Tuple
@@ -84,11 +84,19 @@ def selective_dequantize_fp8(q: torch.Tensor, scales: torch.Tensor,
 def _unported(name: str):
     raise NotImplementedError(
         f"{name} is not ported yet (ROADMAP Queue 2: an fp8 GEMM kernel for "
-        "Hopper; the fp8 all-gather comes with the distribution slice)")
+        "Hopper)")
 
 
-def quantized_all_gather_fp8(x, axis_name, fmt: str = "e4m3"):
-    _unported("quantized_all_gather_fp8")
+def quantized_all_gather_fp8(x: torch.Tensor, axis_name,
+                             fmt: str = "e4m3") -> torch.Tensor:
+    """qwZ-style collective with an fp8 wire: quantize per row, all-gather
+    the codes + scales along dim 0 over the comm facade, dequantize to x's
+    dtype."""
+    from deepspeed_tpu_torch.comm import comm
+    q, s = quantize_fp8(x, fmt=fmt)
+    qg = comm.all_gather(q, axis_name, axis=0, tiled=True)
+    sg = comm.all_gather(s, axis_name, axis=0, tiled=True)
+    return dequantize_fp8(qg, sg, dtype=x.dtype)
 
 
 def fp8_matmul(a, b_q, b_scales, preferred=torch.float32):

@@ -30,8 +30,8 @@ Rows are the last axis: ``x [..., D]`` gives codes ``[..., D]`` and fp32
 scales ``[..., 1]``. The TPU's ``block_rows`` padding has no counterpart.
 The collectives built on these kernels (``quantized_all_gather``,
 ``quantized_psum_scatter``, ``all_to_all_quant_reduce``,
-``quantized_psum``, ``quantized_all_to_all``) come with the distribution
-slice (ROADMAP Queue 1, "Distribution and memory tiers") and raise here.
+``quantized_psum``, ``quantized_all_to_all``) run over the comm facade
+(``comm/comm.py``) on the global mesh's process groups.
 """
 
 import ctypes
@@ -329,31 +329,103 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# not ported yet: the collectives on top of the kernels
+# the quantized collectives over the comm facade (reference
+# ``ops/pallas/quant.py:87-230``): ``axis_name`` is an axis (or a tuple)
+# of the global mesh, and each op runs eagerly on its process group
 # ---------------------------------------------------------------------------
-def _unported(name: str):
-    raise NotImplementedError(
-        f"{name} (a quantized collective) is not ported yet: it comes with "
-        "the distribution slice on torch.distributed (ROADMAP Queue 1)")
+def quantized_all_gather(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """qwZ-style collective: quantize locally, all-gather the int8 codes +
+    scales along dim 0, dequantize to x's dtype (reference quantized weights
+    allgather, ``partition_parameters.py:1664``)."""
+    from deepspeed_tpu_torch.comm import comm
+    q, s = quantize_int8(x)
+    qg = comm.all_gather(q, axis_name, axis=0, tiled=True)
+    sg = comm.all_gather(s, axis_name, axis=0, tiled=True)
+    return dequantize_int8(qg, sg, dtype=x.dtype)
 
 
-def quantized_all_gather(x, axis_name):
-    _unported("quantized_all_gather")
+def quantized_psum_scatter(x: torch.Tensor, axis_name,
+                           mean: bool = False) -> torch.Tensor:
+    """qgZ building block: reduce-scatter with int8 on the wire. x [N, D]
+    per-member partial values; returns this member's [N/W, D] block of the
+    sum (reference ``all_to_all_quant_reduce``, ``quant_reduce.cu``:
+    quantize, all-to-all the codes + scales, dequantize and sum on the
+    receiver). N not divisible by W is zero-padded; the pad rows end up as
+    trailing zero rows of the last members' blocks."""
+    from deepspeed_tpu_torch.comm import comm, compress
+    _, w = comm.group_of(axis_name)
+    n, d = x.shape
+    pad = (-n) % w
+    if pad:
+        x = torch.cat([x, x.new_zeros(pad, d)])
+    q, s = quantize_int8(x)
+    out = compress.exchange_and_sum(
+        q.reshape(w, -1, d), s.reshape(w, -1, 1),
+        lambda t: comm.all_to_all(t, axis_name, 0, 0, tiled=False),
+        lambda c, sc: dequantize_int8(c.reshape(-1, d), sc.reshape(-1, 1),
+                                      dtype=torch.float32).reshape(w, -1, d))
+    if mean:
+        out = out / w
+    return out.to(x.dtype)
 
 
-def quantized_psum_scatter(x, axis_name, mean: bool = False):
-    _unported("quantized_psum_scatter")
+def all_to_all_quant_reduce(x: torch.Tensor, axis_name,
+                            outer_axis_name=None,
+                            mean: bool = False) -> torch.Tensor:
+    """qgZ: hierarchical quantized gradient reduce-scatter (reference
+    ``coalesced_collectives.py:31``: int8 all-to-all within the inner
+    group, dequant-reduce, a second quantized hop across the outer one)."""
+    y = quantized_psum_scatter(x, axis_name, mean=mean)
+    if outer_axis_name is not None:
+        y = quantized_psum_scatter(y, outer_axis_name, mean=mean)
+    return y
 
 
-def all_to_all_quant_reduce(x, axis_name, outer_axis_name=None,
-                            mean: bool = False):
-    _unported("all_to_all_quant_reduce")
+def _quantized_psum_core(x, axes, mean):
+    rows = []
+    for ax in reversed(tuple(axes)):
+        rows.append(x.shape[0])
+        x = quantized_psum_scatter(x, ax, mean=mean)
+    for ax, r in zip(tuple(axes), reversed(rows)):
+        x = quantized_all_gather(x, ax)[:r]
+    return x
 
 
-def quantized_psum(x, axes, mean: bool = False):
-    _unported("quantized_psum")
+class _QuantizedPsum(torch.autograd.Function):
+    """The straight-through backward (reference ``quantized_psum``'s
+    custom vjp, ``quant.py:164-190``): a sum whose output every member
+    holds has the identity (÷W for the mean) as its exact vjp, so the
+    backward moves no bytes and only the int8 rounding is passed
+    through."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mean):
+        from deepspeed_tpu_torch.comm import comm
+        ctx.mean = mean
+        ctx.world = comm.group_of(axes)[1]
+        return _quantized_psum_core(x, axes, mean)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g / ctx.world if ctx.mean else g), None, None
 
 
-def quantized_all_to_all(x, axis_name, split_axis: int = 0,
-                         concat_axis: int = 0):
-    _unported("quantized_all_to_all")
+def quantized_psum(x: torch.Tensor, axes, mean: bool = False) -> torch.Tensor:
+    """All-reduce with int8 on the wire: hierarchical quantized
+    reduce-scatter (innermost axis first) + int8 regather over ``axes``
+    (outermost first). x [N, D]; every member gets the result.
+    Differentiable with the straight-through backward."""
+    from deepspeed_tpu_torch.comm.mesh import axes_tuple
+    return _QuantizedPsum.apply(x, axes_tuple(axes), mean)
+
+
+def quantized_all_to_all(x: torch.Tensor, axis_name, split_axis: int = 0,
+                         concat_axis: int = 0) -> torch.Tensor:
+    """MoE-dispatch collective with an int8 wire (cf. EQuARX): quantize
+    per row (the last axis), all-to-all the codes + scales, dequantize on
+    the receiver. The split axis must not be the last one."""
+    from deepspeed_tpu_torch.comm import comm
+    q, s = quantize_int8(x)
+    qx = comm.all_to_all(q, axis_name, split_axis, concat_axis, tiled=True)
+    sx = comm.all_to_all(s, axis_name, split_axis, concat_axis, tiled=True)
+    return dequantize_int8(qx, sx, dtype=x.dtype)

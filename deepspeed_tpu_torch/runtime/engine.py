@@ -1,32 +1,64 @@
 """The training engine, cut to the fused ``train_batch`` path.
 
 Port of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedTPUEngine``,
-reference ``deepspeed/runtime/engine.py``) on one device, ZeRO stage 0:
+reference ``deepspeed/runtime/engine.py``). The JAX engine is one SPMD
+program over ``NamedSharding``s; here each rank is a process running this
+engine over the global mesh (``comm/mesh.py``) with explicit collectives.
+The contract: the same config, initial parameters and global batch give
+the same masters, loss and gradient norm on every rank as the JAX engine
+on a mesh of the same shape.
 
+- ``train_batch`` takes the global batch; each rank keeps the rows of its
+  coordinate over ``BATCH_AXES`` (data, fsdp_out, fsdp), as the
+  reference's batch sharding lays rows on devices.
 - ``_compute_loss`` runs the model with every floating master cast to the
   compute dtype at its use (the reference's ``cast_to_compute``), so each
   micro-batch's gradient is the gradient with respect to the fp32 master
-  through the cast;
-- the gradient-accumulation loop sums those gradients in
-  ``grad_accum_dtype`` into buffers of that dtype (autograd's own ``.grad``
-  would sum in fp32), and only after the sum divides by ``scale * gas`` in
-  fp32 (reference ``:993``);
-- with ``zero_quantized_gradients`` (qgZ) each micro-batch gradient takes
-  the int8 round trip through the quantize/dequantize kernels before it is
-  accumulated (reference ``:781-805``);
+  through the cast.
+- **Where the reduction sits.** As in the reference, each micro-batch's
+  gradient is reduced before it is accumulated: XLA reduces the gradient
+  of the global micro-batch inside the ``lax.scan`` of
+  ``_make_grads_phase`` (``engine.py:810-900``), so the scan carries
+  reduced gradients. Here the fp32 gradient of the local mean loss is
+  summed over the batch axes (all-reduce; stage 2 reduce-scatters the
+  sharded leaves, stage 3's gather reduce-scatters them in its backward)
+  and divided by their world, then cast to ``grad_accum_dtype`` and
+  summed over the micro-batches (autograd's own ``.grad`` would sum in
+  fp32); after the sum it divides by ``scale * gas`` in fp32
+  (reference ``:993``).
+- qgZ (``zero_quantized_gradients``): with replica axes (batch axes no
+  parameter is sharded over, ``runtime/zero/qgz.py``) only the other batch
+  axes are reduced per micro-batch, and the accumulated gradients are
+  mean-reduced over the replica axes with int8 on the wire
+  (``quantized_grad_sync``), as the reference's partial-manual phase does
+  (``engine.py:791``, ``wrap_grads_phase``). Without one, every reduced
+  micro-batch gradient takes the int8 round trip through the kernels
+  (``:781-805``), with the reference's warning.
+- ZeRO stages over the mesh's ``fsdp`` axis (``runtime/zero/
+  partition.py``): stage 1 keeps fp32 masters replicated and moments
+  sharded, each rank updates its block of a sharded leaf and the masters
+  are all-gathered; stage 2 also reduce-scatters the sharded leaves'
+  gradients; stage 3 holds masters and moments as blocks, the module
+  reads each sharded leaf through a parametrization that casts the block
+  to the compute dtype and all-gathers it (``partition.GatherParam``,
+  whose backward reduce-scatters; remat gathers again). Leaves under 2048
+  elements, or with no dimension the ZeRO world divides, stay replicated.
+  The loss, the global gradient norm and the overflow flag are reduced
+  over the ranks, so every rank takes the same skip decision.
 - ``_update`` is the reference's (``:1018-1057``): overflow check under
   fp16 or the non-finite guard, clipping by the global norm, the Adam
-  update, and on overflow the old parameters, optimizer state and step kept
-  while ``skipped_steps`` grows and the loss scale moves.
+  update, and on overflow the old parameters, optimizer state and step
+  kept while ``skipped_steps`` grows and the loss scale moves.
 
 JAX keeps the skip decision on the device with ``jnp.where``; eager
 PyTorch reads the overflow flag once per step, and only under fp16 or the
 guard, and then skips the update instead of computing and discarding it.
 Without them a step never waits for the device. The micro-step protocol
 (``forward``/``backward``/``step``), the async metric ring and the batch
-prefetcher are not ported yet (ROADMAP Queue 1).
+prefetcher are not ported yet (ROADMAP Queue 1 item 5).
 
-The memory tiers (reference ``engine.py:238-338,1199-1306``):
+The memory tiers (reference ``engine.py:238-338,1199-1306``), at a world
+of one rank:
 
 - ``offload_optimizer`` (ZeRO-Offload, ``cpu`` or ``nvme``): the module
   holds compute-dtype parameters on the card; the fp32 masters and moments
@@ -47,22 +79,30 @@ Both emit the ``engine/train_step`` span (``mode`` ``offload`` or
 
 import time
 import warnings
-from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.config.config import DeepSpeedTPUConfig
+from deepspeed_tpu_torch.comm import comm
+from deepspeed_tpu_torch.comm.comms_logging import get_comms_logger
+from deepspeed_tpu_torch.comm.mesh import (BATCH_AXES, Mesh, create_mesh,
+                                           get_data_parallel_world_size,
+                                           set_global_mesh)
+from deepspeed_tpu_torch.config.config import ITEM_DIST, DeepSpeedTPUConfig
 from deepspeed_tpu_torch.ops.cpu_adam import to_bf16
 from deepspeed_tpu_torch.ops.optimizers import build_optimizer
 from deepspeed_tpu_torch.ops.quant import dequantize_int8, quantize_int8
 from deepspeed_tpu_torch.runtime import precision
 from deepspeed_tpu_torch.runtime.lr_schedules import build_schedule, constant_lr
 from deepspeed_tpu_torch.runtime.staging import STAGING_ELEMS, Staging
-from deepspeed_tpu_torch.runtime.zero.qgz import MIN_QUANT_SIZE
+from deepspeed_tpu_torch.runtime.zero import partition
+from deepspeed_tpu_torch.runtime.zero.qgz import (MIN_QUANT_SIZE,
+                                                  quantized_grad_sync,
+                                                  replica_grad_axes)
 from deepspeed_tpu_torch.telemetry.tracer import get_tracer
 from deepspeed_tpu_torch.utils.device import resolve_device
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
                                              ThroughputTimer, TRAIN_BATCH_TIMER)
 
@@ -88,16 +128,31 @@ def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.T
             for k, v in batch.items()}
 
 
+QGZ_NO_REPLICA_MSG = (
+    "zero_quantized_gradients=true but the mesh has NO replica batch axis "
+    "(pure-fsdp ZeRO-3): there is no pure-DP all-reduce hop to compress, so "
+    "NO bytes are saved on the wire. Gradients still pay the int8 "
+    "round-trip quantization noise (reference-fidelity numerics). Either "
+    "add a replica axis (a 'data' mesh axis, or split fsdp via "
+    "mics_shard_size < world so 'fsdp_out' replicates) or disable "
+    "zero_quantized_gradients. See docs/parallelism.md#qgz.")
+
+
 class DeepSpeedTPUEngine:
     def __init__(self, model: torch.nn.Module, config, params=None,
                  loss_fn: Optional[Callable] = None,
                  lr_scheduler: Optional[Callable[[int], float]] = None,
-                 client_optimizer=None, device=None):
+                 client_optimizer=None, device=None,
+                 mesh: Optional[Mesh] = None):
         self.config = config if isinstance(config, DeepSpeedTPUConfig) \
             else DeepSpeedTPUConfig(config)
         config = self.config
         self.device = resolve_device(device)
-        self.dp_world_size = 1
+        # --- the mesh: one rank per process over torch.distributed --------
+        self.mesh = mesh if mesh is not None else \
+            create_mesh(config.mesh, device=self.device)
+        set_global_mesh(self.mesh)
+        self.dp_world_size = get_data_parallel_world_size(self.mesh)
         config.resolve_batch_sizes(self.dp_world_size)
         self.train_batch_size = config.train_batch_size
         self.micro_batch_size = config.train_micro_batch_size_per_gpu
@@ -105,7 +160,13 @@ class DeepSpeedTPUEngine:
         self.compute_dtype = config.precision_dtype
         self.zero_stage = config.zero_config.stage
         self.loss_fn = loss_fn
-        log_dist(f"engine: {config!r} device={self.device}", ranks=[0])
+        self.training = True
+        self._compiled = False
+        log_dist(f"engine: {config!r} mesh={dict(self.mesh.shape)} "
+                 f"device={self.device}", ranks=[0])
+        if config.comms_logger.enabled:
+            get_comms_logger().configure(enabled=True,
+                                         verbose=config.comms_logger.verbose)
         zc = config.zero_config
         self._offload = None          # the host optimizer of either tier
         self._param_offload = None    # the ZeRO-Infinity streamed trainer
@@ -121,25 +182,15 @@ class DeepSpeedTPUEngine:
                              f"got {zc.offload_optimizer.device!r}")
         tier = "param" if zc.offload_param.device != "none" else \
             "optimizer" if zc.offload_optimizer.device != "none" else None
+        if tier is not None and self.mesh.size > 1:
+            raise NotImplementedError(
+                f"offload_{tier} over {self.mesh.size} ranks is not ported "
+                f"yet ({ITEM_DIST}: the memory tiers at world > 1); the "
+                "tiers run at one rank")
         if tier is not None and client_optimizer is not None:
             raise ValueError(
                 f"offload_{tier} requires a config-typed optimizer (the "
                 "update runs in the fused host kernel, not a client optimizer)")
-        # qgZ on one card: no data-parallel reduction to put int8 on, so
-        # every micro-batch gradient takes the int8 round trip instead, the
-        # numerics of the reference's quantized-gradient collectives
-        # (reference engine.py:381-418, the no-replica-axis case)
-        self._quantized_gradients = bool(
-            config.zero_config.zero_quantized_gradients)
-        if self._quantized_gradients:
-            warnings.warn(
-                "qgZ: zero_quantized_gradients=true on one device: there is "
-                "no data-parallel all-reduce hop to compress, so NO bytes "
-                "are saved on the wire. Gradients still pay the int8 "
-                "round-trip quantization noise (reference-fidelity "
-                "numerics). Disable zero_quantized_gradients, or wait for "
-                "the distribution slice (ROADMAP Queue 1).",
-                UserWarning, stacklevel=3)
 
         # --- LR schedule ----------------------------------------------------
         if lr_scheduler is not None:
@@ -178,9 +229,25 @@ class DeepSpeedTPUEngine:
             named = [(n, p) for n, p in self.model.named_parameters()
                      if p.requires_grad]
             self._param_names: List[str] = [n for n, _ in named]
-            # the tensors gradients are taken against: the fp32 masters, or
-            # under the optimizer tier the compute-dtype shadows
+            # the tensors gradients are taken against: the fp32 masters (a
+            # stage-3 leaf's block), or under the optimizer tier the
+            # compute-dtype shadows
             self._masters: List[torch.Tensor] = [p for _, p in named]
+            del named
+        self._place_zero()
+        self._quantized_gradients = bool(zc.zero_quantized_gradients)
+        self._qgz_axes: Tuple[str, ...] = ()
+        if self._quantized_gradients:
+            self._qgz_axes = self._replica_axes
+            if self._qgz_axes:
+                log_dist("qgZ: int8-wire gradient reduction over replica "
+                         f"axes {self._qgz_axes} (hierarchical quantized "
+                         "reduce-scatter + regather)", ranks=[0])
+            else:
+                warnings.warn("qgZ: " + QGZ_NO_REPLICA_MSG, UserWarning,
+                              stacklevel=3)
+                logger.warning("qgZ: %s", QGZ_NO_REPLICA_MSG)
+        self._reduce_plan()
         if tier == "optimizer":
             # --- ZeRO-Offload: masters and moments in the host optimizer -----
             from deepspeed_tpu_torch.runtime.offload import HostOffloadOptimizer
@@ -206,7 +273,7 @@ class DeepSpeedTPUEngine:
             else:
                 self.optimizer = build_optimizer(opt_type, opt_params,
                                                  lr_schedule=self.lr_schedule)
-            self.optimizer.init(self._masters)
+            self.optimizer.init(self._opt_tensors())
 
         self.loss_scale = precision.init_loss_scale(config.fp16)
         self.step_count = 0           # applied updates (the reference's state.step)
@@ -224,6 +291,76 @@ class DeepSpeedTPUEngine:
             synchronize=config.wall_clock_breakdown)
 
     # ------------------------------------------------------------------
+    # ZeRO placement over the mesh
+    # ------------------------------------------------------------------
+    def _place_zero(self) -> None:
+        """Each leaf's param and optimizer-state spec, the dimension its
+        moments (and under stage 3 its master) are sharded along, and the
+        stage-3 parametrizations that gather a block before use."""
+        mesh, stage = self.mesh, self.zero_stage
+        self._zero_axes, self._zero_world = partition.zero_fsdp_axes(mesh)
+        self._batch_axes = tuple(a for a in BATCH_AXES if a in mesh.shape)
+        shapes = [tuple(p.shape) for p in self._masters]
+        specs = partition.leaf_specs(shapes, mesh, stage)
+        self._param_specs = specs["param"]
+        self._replica_axes = replica_grad_axes(mesh, self._batch_axes,
+                                               self._param_specs) \
+            if self._param_offload is None else ()
+        n = len(shapes)
+        self._opt_dim: List[Optional[int]] = [None] * n
+        self._param_dim: List[Optional[int]] = [None] * n
+        if self._zero_world <= 1 or stage < 1:
+            return
+        for i in range(n):
+            self._opt_dim[i] = partition.sharded_dim(specs["opt"][i],
+                                                     self._zero_axes)
+            if stage >= 3:
+                self._param_dim[i] = partition.sharded_dim(
+                    self._param_specs[i], self._zero_axes)
+        if stage < 3:
+            return
+        from torch.nn.utils import parametrize
+        for i, name in enumerate(self._param_names):
+            dim = self._param_dim[i]
+            if dim is None:
+                continue
+            owner, attr = name.rsplit(".", 1)
+            module = self.model.get_submodule(owner)
+            parametrize.register_parametrization(
+                module, attr, partition.ShardedParam(
+                    dim, self._zero_axes, mesh, self.compute_dtype),
+                unsafe=True)
+            self._masters[i] = module.parametrizations[attr].original
+
+    def _reduce_plan(self) -> None:
+        """Which axes each micro-batch's gradient is summed over, and which
+        leaves' gradients are held as blocks."""
+        mesh = self.mesh
+        self._micro_axes = mesh.live_axes(
+            [a for a in self._batch_axes if a not in self._qgz_axes])
+        self._micro_world = mesh.axis_world(self._micro_axes)
+        zero_reduced = not (set(mesh.live_axes(self._zero_axes))
+                            & set(self._qgz_axes))
+        self._grad_dim: List[Optional[int]] = [
+            self._param_dim[i] if self.zero_stage >= 3 else
+            self._opt_dim[i] if self.zero_stage == 2 and zero_reduced else
+            None for i in range(len(self._masters))]
+        self._sharded_grads = any(d is not None for d in self._grad_dim)
+
+    def _opt_tensors(self) -> List[torch.Tensor]:
+        """What the optimizer updates: each leaf's master, or this rank's
+        block of it where the moments are sharded (a view below stage 3)."""
+        out = []
+        for i, p in enumerate(self._masters):
+            d = self._opt_dim[i]
+            if d is None or self._param_dim[i] is not None:
+                out.append(p)
+            else:
+                out.append(partition.shard_of(p.data, d, self.mesh,
+                                              self._zero_axes))
+        return out
+
+    # ------------------------------------------------------------------
     # loss and gradients
     # ------------------------------------------------------------------
     def _compute_loss(self, batch) -> torch.Tensor:
@@ -236,17 +373,53 @@ class DeepSpeedTPUEngine:
 
     def _grads_one_micro(self, batch, scale: float):
         """Loss and the gradients of ``loss * scale`` with respect to the
-        fp32 masters (fp32 tensors). With qgZ every gradient of at least
-        ``MIN_QUANT_SIZE`` elements goes through the int8 kernels (rows are
-        its last axis) before it is accumulated."""
+        fp32 masters, each reduced over this micro-batch's axes. With qgZ
+        and no replica axis every gradient of at least ``MIN_QUANT_SIZE``
+        elements then takes the int8 round trip through the kernels (rows
+        are its last axis)."""
         loss = self._compute_loss(batch)
         grads = list(torch.autograd.grad(loss * scale, self._masters))
-        if self._quantized_gradients:
-            grads = [_int8_round_trip(g) for g in grads]
+        grads = self._reduce_micro(grads)
+        if self._quantized_gradients and not self._qgz_axes:
+            grads = [self._round_trip(g, d)
+                     for g, d in zip(grads, self._grad_dim)]
         return loss.detach(), grads
 
+    def _reduce_micro(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Sum each gradient of the local mean loss over the micro-batch
+        axes and divide by their world: the gradient of the mean over the
+        global micro-batch. Stage 2 reduce-scatters a sharded leaf into its
+        block (stage 3's gather already did in its backward), then sums the
+        block over the other axes."""
+        if self._micro_world <= 1:
+            return grads
+        zero = set(self._zero_axes)
+        out = []
+        for g, d in zip(grads, self._grad_dim):
+            axes = self._micro_axes
+            if d is not None:
+                if self.zero_stage == 2:
+                    g = partition.reduce_scatter_full(g, d, self._zero_axes)
+                axes = tuple(a for a in axes if a not in zero)
+            if axes:
+                g = comm.all_reduce(g, axes)
+            out.append(g / self._micro_world)
+        return out
+
+    def _round_trip(self, g: torch.Tensor, dim: Optional[int]):
+        """The int8 round trip of a reduced gradient, row by row over its
+        last axis. A block split along its last axis is gathered first, so
+        its rows are the full leaf's rows, then cut again."""
+        if dim is None or dim != g.dim() - 1:
+            return _int8_round_trip(g)
+        full = partition.gather_full(g, dim, self._zero_axes)
+        return partition.shard_of(_int8_round_trip(full), dim, self.mesh,
+                                  self._zero_axes).contiguous()
+
     def _grads_phase(self, stacked: Dict[str, torch.Tensor], scale: float):
-        """(mean loss, per-micro gradients summed in grad_accum_dtype)."""
+        """(mean loss over the ranks, per-micro gradients summed in
+        grad_accum_dtype; under qgZ with replica axes, then mean-reduced
+        over them with int8 on the wire)."""
         gas = self.gradient_accumulation_steps
         acc_dtype = self.config.grad_accum_dtype
         acc: Optional[List[torch.Tensor]] = None
@@ -261,29 +434,72 @@ class DeepSpeedTPUEngine:
                 for a, g in zip(acc, grads):
                     a.add_(g.to(acc_dtype))
             del grads
-        return loss_sum / gas, acc
+        loss = loss_sum / gas
+        if self._qgz_axes:            # a leaf at a time: each sum is freed
+            for i in range(len(acc)):
+                acc[i] = quantized_grad_sync([acc[i]], self._qgz_axes)[0]
+        if self.mesh.live_axes(self._batch_axes):
+            loss = comm.all_reduce(loss, self._batch_axes, comm.ReduceOp.AVG)
+        return loss, acc
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """``precision.global_grad_norm`` over the full leaves: the squared
+        sums of blocks held by several ranks are summed over the ZeRO axes
+        first (one all-reduce)."""
+        sq = [g.float().square().sum() for g in grads]
+        if self._sharded_grads:
+            idx = [i for i, d in enumerate(self._grad_dim) if d is not None]
+            red = comm.all_reduce(torch.stack([sq[i] for i in idx]),
+                                  self._zero_axes)
+            for k, i in enumerate(idx):
+                sq[i] = red[k]
+        if not sq:
+            return torch.zeros(())
+        return torch.stack(sq).sum().sqrt()
 
     def _update(self, grads: List[torch.Tensor]) -> StepOutput:
         """Overflow skip + dynamic loss scale + clipping + optimizer update
-        (reference ``engine.py:1018``)."""
+        (reference ``engine.py:1018``), on this rank's blocks."""
         fp16 = self.config.fp16
         overflow = False
         if fp16.enabled or self._guard_nonfinite:
-            overflow = bool(precision.has_inf_or_nan(grads))
+            flag = precision.has_inf_or_nan(grads)
+            if self.mesh.live_axes(self._batch_axes):
+                flag = comm.all_reduce(flag.float(), self._batch_axes,
+                                       comm.ReduceOp.MAX) > 0
+            overflow = bool(flag)
             if overflow:                  # the norm of the neutralised grads
                 grads = [torch.where(torch.isfinite(g), g, 0.0) for g in grads]
         clipped, grad_norm = precision.clip_by_global_norm(
-            grads, self.config.gradient_clipping)
+            grads, self.config.gradient_clipping, self._global_norm(grads))
         lr = float(self.lr_schedule(self.step_count))
         if overflow:
             self._skipped_steps += 1
         else:
-            self.optimizer.step(self._masters, clipped)
+            self._apply(clipped)
             self.step_count += 1
         self.loss_scale = precision.update_loss_scale(self.loss_scale,
                                                       overflow, fp16)
         return StepOutput(loss=None, grad_norm=grad_norm, lr=lr,
                           overflow=overflow)
+
+    def _apply(self, grads: List[torch.Tensor]) -> None:
+        """The optimizer step on this rank's blocks; then the blocks of
+        replicated masters whose moments are sharded are all-gathered."""
+        params = self._opt_tensors()
+        opt_grads = []
+        for i, g in enumerate(grads):
+            d = self._opt_dim[i]
+            if d is not None and self._grad_dim[i] is None:
+                g = partition.shard_of(g, d, self.mesh, self._zero_axes)
+            opt_grads.append(g)
+        self.optimizer.step(params, opt_grads)
+        with torch.no_grad():
+            for i, p in enumerate(params):
+                d = self._opt_dim[i]
+                if d is not None and self._param_dim[i] is None:
+                    self._masters[i].data.copy_(partition.gather_full(
+                        p.contiguous(), d, self._zero_axes))
 
     # ------------------------------------------------------------------
     # train_batch
@@ -312,11 +528,11 @@ class DeepSpeedTPUEngine:
             batch = self.stack_microbatches(data_iter, gas)
         elif gas == 1 and not stacked:
             batch = {k: v[None] for k, v in batch.items()}
-        device_batch = _to_device(batch, self.device)
-        for k, v in device_batch.items():
+        for k, v in batch.items():
             if v.shape[0] != gas:
                 raise ValueError(f"batch['{k}'] has {v.shape[0]} micro-batches, "
                                  f"gas is {gas}")
+        device_batch = _to_device(self._local_rows(batch, 1), self.device)
         step_timer = self.timers(TRAIN_BATCH_TIMER)
         self.tput_timer.start()
         step_timer.start()
@@ -340,6 +556,26 @@ class DeepSpeedTPUEngine:
         self._last_metrics = {"lr": out.lr, "grad_norm": out.grad_norm,
                               "loss": out.loss, "overflow": out.overflow}
         return loss
+
+    def _local_rows(self, batch: Dict[str, Any], dim: int) -> Dict[str, Any]:
+        """This rank's rows of a global batch along ``dim``: block c of
+        ``dp`` equal blocks, c its row-major coordinate over the batch
+        axes."""
+        dp = self.dp_world_size
+        if dp == 1:
+            return batch
+        c = self.mesh.axis_index(self._batch_axes)
+        out = {}
+        for k, v in batch.items():
+            rows = v.shape[dim]
+            if rows % dp:
+                raise ValueError(f"batch['{k}'] has {rows} rows, not "
+                                 f"divisible by the {dp} data-parallel ranks")
+            n = rows // dp
+            sl = [slice(None)] * v.ndim
+            sl[dim] = slice(c * n, (c + 1) * n)
+            out[k] = v[tuple(sl)]
+        return out
 
     # ------------------------------------------------------------------
     # the memory tiers
@@ -455,19 +691,24 @@ class DeepSpeedTPUEngine:
                 "between calls — use train_batch()")
         raise NotImplementedError(
             f"{api} (the micro-step protocol) is not ported yet (ROADMAP "
-            "Queue 1); use train_batch()")
+            "Queue 1 item 5: training carry-overs); use train_batch()")
+
+    @staticmethod
+    def _waits(api: str, item: str):
+        raise NotImplementedError(f"{api} is not ported yet (ROADMAP Queue 1 "
+                                  f"item {item})")
 
     def save_checkpoint(self, save_dir, tag=None, **kwargs):
         raise NotImplementedError(
             "save_checkpoint (checkpoint and resilience) is not ported yet "
-            "(ROADMAP Queue 1); the memory tiers' state round-trips through "
-            "engine.optimizer.state_dict() / load_state_dict()")
+            "(ROADMAP Queue 1 item 6); the memory tiers' state round-trips "
+            "through engine.optimizer.state_dict() / load_state_dict()")
 
     def load_checkpoint(self, load_dir, tag=None, **kwargs):
         raise NotImplementedError(
             "load_checkpoint (checkpoint and resilience) is not ported yet "
-            "(ROADMAP Queue 1); the memory tiers' state round-trips through "
-            "engine.optimizer.state_dict() / load_state_dict()")
+            "(ROADMAP Queue 1 item 6); the memory tiers' state round-trips "
+            "through engine.optimizer.state_dict() / load_state_dict()")
 
     def forward(self, batch):
         self._unported("forward()")
@@ -478,14 +719,97 @@ class DeepSpeedTPUEngine:
     def step(self):
         self._unported("step()")
 
+    def __call__(self, batch):
+        """The module call-through (``engine(batch)`` -> ``forward``)."""
+        return self.forward(batch)
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        # the micro-step protocol's count; train_batch leaves it at 0
+        return self._accum_count >= self.gradient_accumulation_steps
+
+    _accum_count = 0
+
+    # the reference's telemetry, data-efficiency and async-pipeline calls
+    # (engine.py:1341-1750)
+    def dump_trace(self, path=None, tail_s=None):
+        self._waits("dump_trace (the tracer's sinks)", "7: telemetry")
+
+    def trace_summary(self, prefix=None):
+        self._waits("trace_summary (the tracer's sinks)", "7: telemetry")
+
+    def memory_ledger(self):
+        self._waits("memory_ledger (telemetry/memory)", "7: telemetry")
+
+    def memory_forensics(self, error=None, **kwargs):
+        self._waits("memory_forensics (telemetry/memory)", "7: telemetry")
+
+    def dump_memory_report(self, path=None):
+        self._waits("dump_memory_report (telemetry/memory)", "7: telemetry")
+
+    def start_profile_trace(self, log_dir):
+        self._waits("start_profile_trace (profiling)", "7: profiling")
+
+    def stop_profile_trace(self):
+        self._waits("stop_profile_trace (profiling)", "7: profiling")
+
+    def set_custom_curriculum_learning_schedule(self, schedule_fn):
+        self._waits("set_custom_curriculum_learning_schedule (data_pipeline)",
+                    "7: data efficiency")
+
+    def curriculum_seqlen(self):
+        self._waits("curriculum_seqlen (data_pipeline)", "7: data efficiency")
+
+    def random_ltd_reserved_length(self):
+        self._waits("random_ltd_reserved_length (data_pipeline)",
+                    "7: data efficiency")
+
+    def flush_metrics(self):
+        self._waits("flush_metrics (the async step pipeline)",
+                    "5: training carry-overs")
+
+    def take_drained_metrics(self):
+        self._waits("take_drained_metrics (the async step pipeline)",
+                    "5: training carry-overs")
+
+    def requeue_drained_metrics(self, entries):
+        self._waits("requeue_drained_metrics (the async step pipeline)",
+                    "5: training carry-overs")
+
+    def configure_async_pipeline(self, enabled=None, **kwargs):
+        self._waits("configure_async_pipeline (the async step pipeline)",
+                    "5: training carry-overs")
+
     # ------------------------------------------------------------------
     # eval and introspection
     # ------------------------------------------------------------------
+    def compile(self, backend=None, **compile_kwargs):
+        """API parity with the reference's ``engine.compile()``: recorded,
+        nothing compiled (the step runs eagerly)."""
+        self._compiled = True
+        log_dist("engine.compile(): recorded; the train step runs eagerly",
+                 ranks=[0])
+        return self
+
+    def train(self, mode: bool = True):
+        """Module-mode parity (reference ``nn.Module.train/eval``):
+        tracked for API compatibility."""
+        self.training = bool(mode)
+        return self
+
+    def eval(self):
+        return self.train(False)
+
     def eval_batch(self, batch) -> torch.Tensor:
+        """The loss of a global batch [B, ...]: each rank's rows, the mean
+        over the ranks."""
         if self._param_offload is not None:
             self._unported("eval_batch()")
         with torch.no_grad():
-            return self._compute_loss(_to_device(batch, self.device))
+            loss = self._compute_loss(_to_device(self._local_rows(batch, 0),
+                                                 self.device))
+        if self.mesh.live_axes(self._batch_axes):
+            loss = comm.all_reduce(loss, self._batch_axes, comm.ReduceOp.AVG)
+        return loss
 
     def get_lr(self) -> List[float]:
         return [float(self.lr_schedule(self.step_count))]
@@ -501,12 +825,33 @@ class DeepSpeedTPUEngine:
     def skipped_steps(self) -> int:
         return self._skipped_steps
 
+    def zero_optimization_stage(self) -> int:
+        return self.zero_stage
+
+    def train_micro_batch_size_per_gpu(self) -> int:
+        return self.micro_batch_size
+
     def named_masters(self):
-        """(name, fp32 master) pairs, in the order gradients come; under
-        either memory tier the host optimizer's masters."""
+        """(name, full fp32 master) pairs, in the order gradients come;
+        under either memory tier the host optimizer's masters. Under stage
+        3 the blocks are gathered: every rank must call it."""
         if self._offload is not None:
             return list(zip(self._param_names, self._offload.masters()))
-        return list(zip(self._param_names, self._masters))
+        out = []
+        for name, p, d in zip(self._param_names, self._masters,
+                              self._param_dim):
+            if d is not None:
+                p = partition.gather_full(p.detach(), d, self._zero_axes)
+            out.append((name, p))
+        return out
 
     def module_state_dict(self) -> Dict[str, torch.Tensor]:
         return {n: p.detach() for n, p in self.named_masters()}
+
+    def get_params(self):
+        """The fp32 masters as the flax parameter tree (nested dicts of
+        tensors), as the reference's ``get_params`` returns its params."""
+        if self._param_offload is not None:
+            return self._param_offload.masters_tree()
+        from deepspeed_tpu_torch.models.convert import to_flax_tree
+        return to_flax_tree((n, p.detach()) for n, p in self.named_masters())

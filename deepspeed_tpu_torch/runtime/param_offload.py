@@ -440,6 +440,28 @@ class ParamOffloadTrainer:
         }
         return loss, norm
 
+    # --- checkpoint interop ----------------------------------------------------
+    @property
+    def treedef(self) -> List[str]:
+        """The tree's structure: the masters' dotted names, in order (the
+        reference's pytree treedef)."""
+        return list(self.names)
+
+    def masters_tree(self):
+        """The host fp32 masters as the flax parameter tree (numpy)."""
+        from deepspeed_tpu_torch.models.convert import to_flax_tree
+        return to_flax_tree(zip(self.names, self.opt.masters()))
+
+    def load_masters(self, params_tree, reset_moments: bool = False) -> None:
+        """Overwrite the masters from a flax parameter tree, then the
+        compute-dtype store."""
+        from deepspeed_tpu_torch.models.convert import _flax_leaf
+        self.opt.set_masters(
+            [torch.as_tensor(np.asarray(_flax_leaf(params_tree, n)),
+                             dtype=torch.float32) for n in self.names],
+            reset_moments=reset_moments)
+        self.sync_store()
+
     def close(self) -> None:
         """Unregister the page-locked store and slots and stop the I/O
         engine's threads."""

@@ -13,7 +13,7 @@ the master.
 """
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -72,12 +72,15 @@ def global_grad_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Returns (clipped grads, pre-clip global norm); the factor is
     ``min(1, max_norm / (norm + 1e-6))``. Clipping writes into ``grads``
-    (the engine owns them)."""
-    norm = global_grad_norm(grads)
+    (the engine owns them). ``norm`` is the global norm when the caller
+    took it (over shards held by several ranks)."""
+    if norm is None:
+        norm = global_grad_norm(grads)
     if max_norm <= 0:
         return list(grads), norm
     factor = torch.clamp(max_norm / (norm + 1e-6), max=1.0)

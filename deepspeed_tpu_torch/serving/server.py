@@ -235,7 +235,12 @@ class InferenceServer:
     engine, start a fresh server)."""
 
     def __init__(self, engine, config: Optional[ServingConfig] = None,
-                 monitor=None, chaos=None):
+                 monitor=None, membership=None, chaos=None):
+        if membership is not None:
+            raise NotImplementedError(
+                "membership= (resilience/membership.py, the lost-peer 503 "
+                "latch) is not ported yet (ROADMAP Queue 1 item 6: "
+                "checkpoint and resilience)")
         self.engine = engine
         self.config = config or ServingConfig()
         # deterministic fault injection for the serve tick (chaos drills);

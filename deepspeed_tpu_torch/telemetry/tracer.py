@@ -33,6 +33,11 @@ from deepspeed_tpu_torch.utils.logging import logger
 TRACE_ENV = "DSTPU_TRACE"
 TRACE_CAPACITY_ENV = "DSTPU_TRACE_CAPACITY"
 DEFAULT_CAPACITY = 65536
+#: env fallbacks for the process-identity header (``set_process_identity``
+#: is the programmatic form: ``comm.mesh.init_distributed`` stamps it at
+#: rendezvous; the env form covers launchers that know the rank first)
+TRACE_RANK_ENV = "DSTPU_TRACE_RANK"
+TRACE_WORLD_ENV = "DSTPU_TRACE_WORLD"
 
 #: synthetic tid range for per-request serving tracks — renders one Perfetto
 #: track per request uid. Real thread idents are pointer-sized (far above
@@ -109,6 +114,11 @@ class Tracer:
         self._epoch = time.monotonic()        # export ts origin
         self._lock = threading.Lock()         # export/config only, never emit
         self._cleared = 0                     # events discarded by clear()
+        try:
+            self._rank = int(os.environ.get(TRACE_RANK_ENV, 0))
+            self._world = int(os.environ.get(TRACE_WORLD_ENV, 1))
+        except ValueError:
+            self._rank, self._world = 0, 1
 
     # ------------------------------------------------------------------
     # configuration
@@ -126,6 +136,13 @@ class Tracer:
     def capacity(self) -> int:
         return self._events.maxlen
 
+    def set_process_identity(self, rank: int, world: int) -> None:
+        """Stamp this process's rank/world into every future dump header
+        (``comm.mesh.init_distributed`` calls this at rendezvous, never on
+        the hot path). Without it a dump reads as rank 0 of 1."""
+        self._rank = int(rank)
+        self._world = int(world)
+
     def process_identity(self) -> Dict[str, Any]:
         """The dump header: who emitted this trace and a FRESH monotonic↔
         wall anchor pair (same instant, both clocks) so a merger can place
@@ -133,6 +150,8 @@ class Tracer:
         dump time — anchors age badly; a dump-time pair bounds NTP drift to
         the run's tail, not its whole life."""
         return {
+            "rank": self._rank,
+            "world": self._world,
             "hostname": socket.gethostname(),
             "pid": os.getpid(),
             # one anchor pair, read back-to-back: wall_s - monotonic_s maps

@@ -314,11 +314,18 @@ def test_port_never_imports_jax_or_the_jax_package():
             "deepspeed_tpu_torch.serving.fleet_worker",
             "deepspeed_tpu_torch.telemetry.reqtrace",
             "deepspeed_tpu_torch.telemetry.crossrank"} <= scanned
+    # and distribution: comm/, the harness, ZeRO's placement and qgZ
+    assert {"deepspeed_tpu_torch.comm.mesh", "deepspeed_tpu_torch.comm.comm",
+            "deepspeed_tpu_torch.comm.comms_logging",
+            "deepspeed_tpu_torch.comm.compress",
+            "deepspeed_tpu_torch.comm.guard", "deepspeed_tpu_torch.testing",
+            "deepspeed_tpu_torch.runtime.zero.partition",
+            "deepspeed_tpu_torch.runtime.zero.qgz"} <= scanned
     n_modules = int(res.stdout.split()[0])
     assert n_modules == len(list(pkgutil.walk_packages(
         deepspeed_tpu_torch.__path__, "deepspeed_tpu_torch.")))
     files = list((REPO / "deepspeed_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_ranks.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []

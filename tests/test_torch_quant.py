@@ -400,13 +400,32 @@ def test_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="not fp8"):
         tfq.dequantize_fp8(torch.zeros(4, 8, dtype=torch.int8),
                            torch.ones(4, 1))
-    for fn, args in ((tq.quantized_all_gather, (x, "data")),
-                     (tq.quantized_psum_scatter, (x, "data")),
-                     (tq.all_to_all_quant_reduce, (x, "data")),
-                     (tq.quantized_psum, (x, ("data",))),
-                     (tq.quantized_all_to_all, (x, "data")),
-                     (tfq.quantized_all_gather_fp8, (x, "data")),
-                     (tfq.fp8_matmul, (x, x, x)),
+    # the quantized collectives run over the comm facade's global mesh
+    # (tests/test_torch_comm.py holds them against JAX across ranks): with
+    # none installed they refuse; at one rank each is the round trip
+    from deepspeed_tpu_torch.comm import mesh as tmesh
+    collectives = ((tq.quantized_all_gather, (x, "data")),
+                   (tq.quantized_psum_scatter, (x, "data")),
+                   (tq.all_to_all_quant_reduce, (x, "data")),
+                   (tq.quantized_psum, (x, ("data",))),
+                   (tq.quantized_all_to_all, (x, "data")),
+                   (tfq.quantized_all_gather_fp8, (x, "data")))
+    saved = tmesh.get_global_mesh()
+    tmesh.set_global_mesh(None)
+    try:
+        for fn, args in collectives:
+            with pytest.raises(RuntimeError, match="no global mesh"):
+                fn(*args)
+        tmesh.set_global_mesh(tmesh.Mesh({}, 0, "cpu"))
+        y = torch.randn(4, 8, generator=torch.Generator().manual_seed(0))
+        int8 = tq.dequantize_int8(*tq.quantize_int8(y), dtype=y.dtype)
+        fp8 = tfq.dequantize_fp8(*tfq.quantize_fp8(y), dtype=y.dtype)
+        for fn, args in collectives:
+            want = fp8 if fn is tfq.quantized_all_gather_fp8 else int8
+            assert torch.equal(fn(y, *args[1:]), want), fn.__name__
+    finally:
+        tmesh.set_global_mesh(saved)
+    for fn, args in ((tfq.fp8_matmul, (x, x, x)),
                      (tfq.fp8_gemm_quantize, (x, x)),
                      (tfq.fp8_gemm, (x, x, x, x))):
         with pytest.raises(NotImplementedError, match="not ported"):

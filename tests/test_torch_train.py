@@ -322,9 +322,13 @@ def test_qgz_round_trips_large_gradients_only(flax_params):
                                                   dtype=g.dtype)), name
             assert not torch.equal(g, q), name
     assert small == 2 * tcfg.num_layers + 1          # the norm scales
+    # qgZ parses at every stage now; its ZeRO++ sibling qwZ still raises
+    assert DeepSpeedTPUConfig({"zero_optimization": {
+        "stage": 2, "zero_quantized_gradients": True}}).zero_optimization_stage == 2
     with pytest.raises(NotImplementedError, match="distribution and memory tiers"):
         DeepSpeedTPUConfig({"zero_optimization": {
-            "stage": 2, "zero_quantized_gradients": True}})
+            "stage": 2, "zero_quantized_gradients": True,
+            "zero_quantized_weights": True}})
 
 
 def test_engine_surface(flax_params):
@@ -425,9 +429,11 @@ def test_config_errors_match_jax(raw):
 
 
 def test_config_refuses_unported_groups():
-    for raw, match in (({"zero_optimization": {"stage": 2}}, "distribution and memory"),
-                       ({"zero_optimization": {"stage": 1, "offload_optimizer":
-                                               {"device": "cpu"}}},
+    # stages 1-3 are read now; MiCS and hpZ still raise
+    for raw, match in (({"zero_optimization": {"stage": 3, "mics_shard_size": 2}},
+                        "distribution and memory"),
+                       ({"zero_optimization": {"stage": 1,
+                                               "zero_hpz_partition_size": 2}},
                         "distribution and memory"),
                        ({"async_pipeline": {"enabled": True}}, "not ported")):
         with pytest.raises(NotImplementedError, match=match):
