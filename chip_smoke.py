@@ -30,7 +30,11 @@ call, bit for bit) and times both, then drives the port's paths:
   ``reqtrace``, a retirement whose int8 prefix handoff the successor
   serves as hits) and the fleet's chaos drill over two ``fleet_worker``
   processes on the card (a replica killed mid-decode, no request lost,
-  the relaunch back in rotation);
+  the relaunch back in rotation); then MoE serving (``serve_moe``):
+  Qwen1.5-MoE-A2.7B at full width and depth and Mixtral-8x7B at full width
+  cut to 16 layers, the same 8 requests through ``MixtralPolicy`` /
+  ``Qwen2MoEPolicy`` and the paged kernel, auto against gather, layer 0's
+  gating on the card against the CPU's bit for bit;
 - quantization kernels: int8 and fp8 (e4m3, e5m2) quantize and dequantize
   held bit for bit against their plain versions over seeded and
   constructed rows (zeros, exact ties, an absmax that scales onto the
@@ -61,6 +65,15 @@ call, bit for bit) and times both, then drives the port's paths:
   with exact quantize/dequantize launches, step 1's synced gradients bit
   for bit against the plain codec, and the six quantized collectives at
   two ranks bit for bit against their plain versions;
+- MoE training: Mixtral-8x7B at full width cut to 2 layers with the
+  recipe on one rank (``train_moe``: exact flash launches, layer 0's
+  gating on the card against the CPU's bit for bit, the aux and z losses,
+  the choices dropped at capacity), then at ``expert=2`` on two gloo
+  processes (``train_moe_ranks``): against the one-rank run step by step,
+  replicated masters the same bytes on both ranks, half the expert state
+  a rank, the exchanges' bytes against the count from the shapes, and the
+  int8 combine (``quantized_dispatch``) with exact launches and step 1's
+  combine bit for bit the plain codec's;
 - evoformer attention: the five kernels against their plain versions in 15
   cases (fp32 and bf16, head dims 8 to 128, every bias combination, Lq !=
   Lk, groups of MSA rows with N not a multiple of the group) with mutants,
@@ -3315,17 +3328,20 @@ def check_finite(eng, finite):
 
 
 def run_engine(cfg, device, kv_num_blocks, prompt_lens, new_tokens,
-               prefill_buckets=(128, 256, 512), seed=SEED):
+               prefill_buckets=(128, 256, 512), seed=SEED, params=None):
     """Serve ``len(prompt_lens)`` seeded requests admitted together through
-    ``InferenceEngineV2`` (greedy), each to ``new_tokens`` tokens. Returns
-    the engine, the prompts, per-request outputs and the run's numbers."""
+    ``InferenceEngineV2`` (greedy), each to ``new_tokens`` tokens, over
+    ``params`` (by default Llama weights drawn from ``seed``). Returns the
+    engine, the prompts, per-request outputs and the run's numbers."""
     from deepspeed_tpu_torch.inference.v2.engine_v2 import (InferenceEngineV2,
                                                             V2EngineConfig)
     from deepspeed_tpu_torch.inference.v2.scheduler import SchedulerConfig
     from deepspeed_tpu_torch.models.convert import init_llama_params
     from deepspeed_tpu_torch.ops import build
 
-    params = init_llama_params(cfg, seed=seed, device=device)
+    if params is None:
+        params = init_llama_params(cfg, seed=seed, device=device)
+    vocab = getattr(cfg, "base", cfg).vocab_size
     eng = InferenceEngineV2(params, cfg, V2EngineConfig(
         kv_block_size=64, kv_num_blocks=kv_num_blocks,
         scheduler=SchedulerConfig(max_tokens_per_step=2048,
@@ -3335,9 +3351,9 @@ def run_engine(cfg, device, kv_num_blocks, prompt_lens, new_tokens,
     check_finite(eng, finite)
 
     rng = np.random.default_rng(seed)
-    eng.generate(rng.integers(0, cfg.vocab_size, 16).tolist(),
+    eng.generate(rng.integers(0, vocab, 16).tolist(),
                  max_new_tokens=2, uid=10_000)            # warm-up request
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+    prompts = [rng.integers(0, vocab, int(n)).tolist()
                for n in prompt_lens]
     chunks0 = eng.sched_ledger.chunks_total
     decode_ticks0 = eng.sched_ledger.decode_ticks
@@ -3347,7 +3363,7 @@ def run_engine(cfg, device, kv_num_blocks, prompt_lens, new_tokens,
     t0 = time.monotonic()
     for uid, p in enumerate(prompts):
         eng.admit(uid, p)
-    ttft, decode_s, decode_tokens = {}, 0.0, 0
+    ttft, done, decode_s, decode_tokens = {}, {}, 0.0, 0
     while eng.has_work():
         out = eng.step()
         now = time.monotonic()
@@ -3356,6 +3372,7 @@ def run_engine(cfg, device, kv_num_blocks, prompt_lens, new_tokens,
         for uid in out:
             ttft.setdefault(uid, now - t0)
             if len(eng.state.get(uid).generated) >= new_tokens:
+                done[uid] = now - t0
                 eng.finish(uid)
     outputs = eng.reap_finished()
     wall = time.monotonic() - t0
@@ -3366,6 +3383,9 @@ def run_engine(cfg, device, kv_num_blocks, prompt_lens, new_tokens,
              "decode_tokens": decode_tokens,
              "decode_tokens_per_s": decode_tokens / decode_s if decode_s else 0.0,
              "ttft_p50_s": float(np.median(list(ttft.values()))),
+             # time per output token after the first, per request
+             "tpot_p50_s": float(np.median([
+                 (done[u] - ttft[u]) / max(new_tokens - 1, 1) for u in done])),
              "prefill_chunks": eng.sched_ledger.chunks_total - chunks0,
              "decode_steps": eng.sched_ledger.decode_ticks - decode_ticks0,
              "launches": launches,
@@ -4310,6 +4330,148 @@ def phase_fleet_drill(dev, smi_line):
           "rejoined_after_s": rejoin_s,
           "phase_wall_s": time.monotonic() - phase_t0, "card": dev["kind"],
           "nvidia_smi": smi_line})
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: MoE serving (Qwen1.5-MoE-A2.7B, Mixtral-8x7B)
+# ---------------------------------------------------------------------------
+MIXTRAL_SERVE_LAYERS = 16   # of 32: all 32 take ~93 GB in bf16, 16 take ~47 GB
+MOE_SERVE_BLOCKS = 256      # each engine's KV pool, 64-token blocks
+
+
+def moe_serve_models():
+    """(label, config, depth note) of the two MoE serving models: the
+    published widths, random weights from the seed."""
+    import dataclasses
+    from deepspeed_tpu_torch.models.mixtral import MIXTRAL_8X7B
+    from deepspeed_tpu_torch.models.qwen2_moe import Qwen2MoEConfig
+    mix = dataclasses.replace(MIXTRAL_8X7B, base=dataclasses.replace(
+        MIXTRAL_8X7B.base, num_layers=MIXTRAL_SERVE_LAYERS))
+    return [("Qwen1.5-MoE-A2.7B", Qwen2MoEConfig(),
+             "24 layers (full depth), 60 experts top-4, shared expert"),
+            ("Mixtral-8x7B", mix,
+             f"{MIXTRAL_SERVE_LAYERS} of 32 layers (all 32 exceed the card "
+             "in bf16), 8 experts top-2")]
+
+
+class _FirstCall:
+    """Within the block ``module.name`` keeps its first call's arguments
+    and result (detached copies): a gate's first call is layer 0 of the
+    first forward."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        self.fn, self.args, self.out = getattr(self.module, self.name), None, \
+            None
+
+        def recording(*args):
+            out = self.fn(*args)
+            if self.args is None:
+                keep = (lambda t: t.detach().clone()
+                        if isinstance(t, torch.Tensor) else t)
+                self.args = [keep(a) for a in args]
+                self.out = [keep(t) for t in out]
+            return out
+        setattr(self.module, self.name, recording)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def _serve_gate_vs_cpu(rec) -> dict:
+    """The serving gate's first call again from the same logits on the
+    CPU: the chosen experts and their weights, bit for bit."""
+    logits, k, norm = rec.args
+    cpu_i, cpu_w = rec.fn(logits.cpu(), k, norm)
+    return {"tokens": int(logits.shape[0]),
+            "experts_equal": bool(torch.equal(cpu_i, rec.out[0].cpu())),
+            "weights_equal": bool(torch.equal(cpu_w, rec.out[1].cpu()))}
+
+
+def phase_serve_moe(dev, smi_line):
+    """The two MoE families through ``InferenceEngineV2`` on the card, one
+    after the other: the engine phase's 8 seeded prompts (100-500 tokens),
+    32 greedy tokens each, through the paged kernel (``MixtralPolicy`` /
+    ``Qwen2MoEPolicy``: the dense all-expert combine); the kernel against
+    the plain paged attention at one prefill and one decode step; layer 0's
+    gating on the card against the CPU's from the same logits, bit for
+    bit."""
+    from deepspeed_tpu_torch.inference.v2 import modules
+    from deepspeed_tpu_torch.models.convert import init_moe_params
+    rng = np.random.default_rng(SEED + 1)
+    lens = rng.integers(100, 501, ENGINE_REQUESTS)
+    path, rows = {}, []
+    for label, cfg, depth in moe_serve_models():
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        params = init_moe_params(cfg, seed=SEED, device="cuda")
+        n_params = sum(t.numel() for t in _leaves(params))
+        with _FirstCall(modules, "serve_route") as rec:
+            eng, prompts, outputs, st = run_engine(
+                cfg, torch.device("cuda"), kv_num_blocks=MOE_SERVE_BLOCKS,
+                prompt_lens=lens, new_tokens=NEW_TOKENS, params=params)
+        gating = _serve_gate_vs_cpu(rec)
+        layers = cfg.base.num_layers
+        want = layers * (st["prefill_chunks"] + st["decode_steps"])
+        got = st["launches"].get("paged_attention", 0)
+        cmp = []
+        for step, a, g in zip(("prefill", "decode"),
+                              prefill_decode_logits(eng, prompts[0], "auto"),
+                              prefill_decode_logits(eng, prompts[0],
+                                                    "gather")):
+            spread = (g.max() - g.min()).item()
+            cmp.append({"step": step,
+                        "max_abs_err": (a - g).abs().max().item(),
+                        "spread": spread, "tol": LOGITS_TOL * spread,
+                        "same_argmax": int(a.argmax()) == int(g.argmax()),
+                        "finite": bool(torch.isfinite(a).all())})
+        row = {"phase": "serve_moe", "model": f"{label} bf16, {depth}",
+               "params": n_params, "requests": st["requests"],
+               "tokens_generated": st["tokens"], "wall_s": st["wall_s"],
+               "ttft_p50_s": st["ttft_p50_s"], "tpot_p50_s": st["tpot_p50_s"],
+               "decode_tokens": st["decode_tokens"],
+               "decode_tokens_per_s": st["decode_tokens_per_s"],
+               "prefill_chunks": st["prefill_chunks"],
+               "decode_steps": st["decode_steps"], "launches": st["launches"],
+               "paged_launches_min": want, "vs_gather": cmp,
+               "gating_vs_cpu": gating,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "phase_s": time.monotonic() - t0, "card": dev["kind"],
+               "nvidia_smi": smi_line}
+        emit(row)
+        rows.append(row)
+        check(st["requests"] == ENGINE_REQUESTS,
+              f"{label}: served {st['requests']} requests")
+        check(all(len(v) == NEW_TOKENS for v in outputs.values()),
+              f"{label}: a request did not produce all its tokens")
+        check(st["logits_finite"], f"{label}: non-finite logits")
+        check(got >= want, f"{label}: paged_attention launched {got} times, "
+              f"expected >= {want} ({layers} layers x (chunks + decode "
+              "steps))")
+        for c in cmp:
+            check(c["finite"] and c["max_abs_err"] <= c["tol"],
+                  f"{label}: auto vs gather {c['step']} logits differ by "
+                  f"{c['max_abs_err']} (spread {c['spread']})")
+        check(gating["experts_equal"] and gating["weights_equal"],
+              f"{label}: layer 0's gating on the card differs from the "
+              f"CPU's: {gating}")
+        for n, k in st["launches"].items():
+            path[n] = path.get(n, 0) + k
+        del eng, params
+    _release()
+    return path
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 # ---------------------------------------------------------------------------
@@ -5418,6 +5580,456 @@ def phase_train_qgz_ranks(dev, smi_line, tmp):
 
 
 # ---------------------------------------------------------------------------
+# phase 8c: MoE training (Mixtral-8x7B) on one rank and over two expert ranks
+# ---------------------------------------------------------------------------
+MOE_TRAIN_LAYERS = 2         # of 32: 3.16 B parameters, ~51 GB at 16 B each
+MOE_TRAIN_STEPS = 2          # train_moe: steps after 1 warm-up
+EP = 2                       # train_moe_ranks' expert axis: 4 experts a rank
+# a rank's peak bytes a parameter: fp32 master 4, Adam's moments 8, a
+# micro-batch's fp32 gradient 4, the bf16 gradient sum 2; and its
+# activations at seq 2048 under remat (the fp32 logits and their softmax
+# lead), with the card's other tenants
+MOE_RANK_BYTES = 18
+MOE_RANK_ACTIVATIONS = 3 << 30
+MOE_QUANT_PER_COMBINE = 2    # int8 quantize (and dequantize) launches of one
+                             # quantized_psum over one axis: scatter + regather
+
+
+def moe_train_config(layers=MOE_TRAIN_LAYERS, model="8b", quantized=False):
+    """Mixtral-8x7B at its published width cut to ``layers`` layers, with
+    ``train_config()``'s recipe (seq 2048, micro 1, gas 2, AdamW 3e-4, bf16
+    with bf16 gradient sums, flash, remat); for the CPU tests the tiny
+    Mixtral in fp32 on the plain attention backend."""
+    import dataclasses
+    from deepspeed_tpu_torch.models.mixtral import (MIXTRAL_8X7B,
+                                                    TINY_MIXTRAL,
+                                                    MixtralConfig)
+    llama_cfg, ds_config = train_config()
+    if model == "tiny":
+        base = dataclasses.replace(TINY_MIXTRAL.base, dtype=torch.float32,
+                                   attention_backend="xla")
+        moe = dataclasses.replace(TINY_MIXTRAL.moe, dtype=torch.float32)
+    else:
+        base = dataclasses.replace(MIXTRAL_8X7B.base, max_seq_len=TRAIN_SEQ,
+                                   dtype=llama_cfg.dtype,
+                                   attention_backend="flash")
+        moe = MIXTRAL_8X7B.moe
+    base = dataclasses.replace(base, num_layers=layers, remat=True,
+                               remat_policy=llama_cfg.remat_policy)
+    moe = dataclasses.replace(moe, quantized_dispatch=quantized)
+    return MixtralConfig(base=base, moe=moe), ds_config
+
+
+def _moe_engine(cfg, ds_config, mesh=None):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.mixtral import MixtralForCausalLM
+    dev = _rank_device()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=MixtralForCausalLM(cfg, device=dev, seed=SEED),
+        config=ds_config, mesh=mesh, device=dev)
+    return engine
+
+
+def moe_params(cfg, ep=1) -> int:
+    """Parameters of the Mixtral ``cfg`` a rank holds over ``ep`` expert
+    ranks."""
+    b, m = cfg.base, cfg.moe
+    d, hd = b.hidden_size, b.head_dim_
+    attn = d * hd * (2 * b.num_heads + 2 * b.num_kv_heads) + 2 * d + d * \
+        m.num_experts
+    experts = 3 * m.num_experts * d * b.intermediate_size // ep
+    return 2 * b.vocab_size * d + d + b.num_layers * (attn + experts)
+
+
+def _moe_batch(cfg, model):
+    from deepspeed_tpu_torch.models.llama import random_tokens
+    return random_tokens(1, TRAIN_SEQ if model == "8b" else 64,
+                         vocab_size=cfg.base.vocab_size, seed=SEED,
+                         gas=TRAIN_GAS)
+
+
+def _gating_vs_cpu(rec, cfg) -> dict:
+    """The first gating ``rec`` kept (``sharded_moe.route``: layer 0 of
+    step 1's first micro-batch) against the same fp32 logits gated on the
+    CPU: ``dispatch`` and ``combine`` (the card's built from its route as
+    ``MOELayer`` builds it) bit for bit, the aux and z losses."""
+    from deepspeed_tpu_torch.moe.sharded_moe import combine_of, top_k_gating
+    logits, _, capacity, _ = rec.args
+    experts, slots, keep, weights, aux, z = rec.out
+    e = cfg.moe.num_experts
+    card = combine_of(experts, slots, keep, weights, capacity, 0, e).cpu()
+    d, c, cpu_aux, cpu_z = top_k_gating(logits.cpu(), cfg.moe, capacity)
+    t = logits.shape[0]
+    return {"tokens": t, "capacity": capacity,
+            "dispatch_equal": bool(torch.equal(d, card > 0)),
+            "combine_equal": bool(torch.equal(c, card)),
+            "aux_loss": float(aux), "z_loss": float(z),
+            "aux_z_equal": float(cpu_aux) == float(aux) and
+            float(cpu_z) == float(z),
+            "dropped_choices": t * cfg.moe.top_k - int(keep.sum())}
+
+
+def phase_train_moe(dev, smi_line):
+    """Mixtral-8x7B at full width, MOE_TRAIN_LAYERS layers, one rank:
+    1 + MOE_TRAIN_STEPS ``train_batch`` steps on one batch with the
+    recipe; finite losses that fall, exactly FLASH_PER_STEP x layers x gas
+    flash launches a step, layer 0's gating on the card equal to the CPU's
+    from the same logits bit for bit, the aux and z losses and the choices
+    dropped at capacity factor 1.25."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+    from deepspeed_tpu_torch.ops import build
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, ds_config = moe_train_config()
+    t0 = time.monotonic()
+    engine = _moe_engine(cfg, ds_config)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    batch = _moe_batch(cfg, "8b")
+    build.reset_launch_counts()        # the main path's run starts here
+    with _FirstCall(sharded_moe, "route") as rec:
+        losses, step_ms, per_step, norms = _train_steps(engine, batch,
+                                                        1 + MOE_TRAIN_STEPS)
+    launches = build.launch_counts()
+    gating = _gating_vs_cpu(rec, cfg)
+    want = {n: k * MOE_TRAIN_LAYERS * TRAIN_GAS
+            for n, k in FLASH_PER_STEP.items()}
+    timed = step_ms[1:]
+    mean_ms = sum(timed) / len(timed)
+    emit({"phase": "train_moe", "model": f"Mixtral-8x7B width, "
+          f"{MOE_TRAIN_LAYERS} of 32 layers, bf16, remat "
+          f"{cfg.base.remat_policy}, flash, one rank",
+          "params": moe_params(cfg), "seq": TRAIN_SEQ, "micro_batch": 1,
+          "gas": TRAIN_GAS, "init_s": init_s, "losses": losses,
+          "grad_norms": norms, "step_ms": step_ms, "step_ms_mean": mean_ms,
+          "tokens_per_s": TRAIN_GAS * TRAIN_SEQ / (mean_ms / 1e3),
+          "launches_per_step": per_step, "launches": launches,
+          "gating_vs_cpu": gating,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(all(s == want for s in per_step),
+          f"flash launches per step {per_step}, expected {want}")
+    check(gating["dispatch_equal"] and gating["combine_equal"],
+          f"layer 0's gating on the card differs from the CPU's: {gating}")
+    del engine, rec
+    _release()
+    return launches
+
+
+def _moe_state(engine) -> dict:
+    """fp32 masters and Adam's moments this rank holds, expert leaves
+    (its block) and the rest apart."""
+    from deepspeed_tpu_torch.moe.sharded_moe import moe_tensor_rules
+    opt = engine.optimizer
+    out = {"expert": 0, "replicated": 0}
+    for name, m, mu, nu in zip(engine._param_names, engine._masters, opt.mu,
+                               opt.nu):
+        n = (m.numel() + mu.numel() + nu.numel()) * 4
+        out["expert" if moe_tensor_rules(name, m) else "replicated"] += n
+    return out
+
+
+def _replicated_digests(engine) -> dict:
+    """sha1 of each leaf no rule shards (every rank's must be the same)."""
+    import hashlib
+    return {n: hashlib.sha1(m.detach().cpu().contiguous().numpy()
+                            .view(np.uint8)).hexdigest()
+            for n, m, e in zip(engine._param_names, engine._masters,
+                               engine._expert_dim) if e is None}
+
+
+def _expected_moe_comm(cfg, tokens, gas, quantized, w=EP):
+    """Bytes the facade records a step at ``expert=w`` and no data axis:
+    no dispatch exchange (no token axis); the combine's [T, D] in the
+    compute dtype once a layer and micro-batch, dense (all_reduce) or int8
+    (the codes and fp32 row scales of quantized_psum's all_to_all and
+    regather); the backward's expert-grad sums of the tokens [T, D] and
+    the kept weights [T, K] fp32. The remat recompute stops at the block's
+    last activation the backward reads (``torch.utils.checkpoint``'s early
+    stop), which is before the combine: its exchange runs once."""
+    t, d, k = tokens, cfg.base.hidden_size, cfg.moe.top_k
+    elt = torch.empty((), dtype=cfg.base.dtype).element_size()
+    calls = grads = cfg.base.num_layers * gas
+    out = {"moe_expert_grad/all_reduce": grads * (t * d * elt + t * k * 4)}
+    if quantized:
+        out["moe_combine/all_to_all"] = calls * (t * d + t * 4)
+        out["moe_combine/all_gather"] = calls * (t * d + t * 4) // w
+    else:
+        out["moe_combine/all_reduce"] = calls * t * d * elt
+    return out
+
+
+def moe_ranks_body():
+    """One rank of ``train_moe_ranks`` (spawned over gloo on the card): rank
+    0 first runs the one-rank reference alone (``train_moe``'s run: micro 1
+    x gas 2) and, for the tolerance, the same two sequences as one
+    micro-batch in both orders (micro 2 x gas 1: for an MoE this also
+    moves the capacity's token set and the aux loss's means, so it bounds
+    more than summation order); then both ranks run the recipe at
+    ``expert=2`` dense and with ``quantized_dispatch``. Rank 0 holds the
+    dense run against the reference: each step's loss and gradient norm
+    (step 1's, from the same weights, is the tight one) and the share of
+    its masters (the replicated leaves and its expert block) more than
+    ``MASTERS_ATOL_LR`` x lr apart. Every rank writes its losses,
+    norms, launches, comm bytes, its state by kind, digests of its
+    replicated masters and, with the int8 wire, step 1's layer-0 combine
+    against the same ``quantized_psum`` with the plain codec."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.comm.comms_logging import get_comms_logger
+    from deepspeed_tpu_torch.moe import sharded_moe
+    from deepspeed_tpu_torch.ops import build, quant
+    r = dist.get_rank()
+    model = os.environ.get(RANK_MODEL_ENV, "8b")
+    layers = int(os.environ.get("DSTPU_SMOKE_LAYERS", MOE_TRAIN_LAYERS))
+    gas = TRAIN_GAS
+    cfg0, _ = moe_train_config(layers, model)
+    batch = _moe_batch(cfg0, model)
+    merged = {k: v.reshape(1, gas * v.shape[1], -1) for k, v in batch.items()}
+    swapped = {k: v[::-1].reshape(1, gas * v.shape[1], -1)
+               for k, v in batch.items()}
+    atol = MASTERS_ATOL_LR * _recipe_lr(model)
+    out = {"rank": r, "layers": layers, "runs": {}}
+    ref = None
+    if r == 0:
+        runs = {}
+        for name, b, g in (("micro1_gas2", batch, gas),
+                           ("micro2_gas1", merged, 1),
+                           ("micro2_gas1_swapped", swapped, 1)):
+            cfg, ds = moe_train_config(layers, model)
+            ds.update(train_batch_size=gas, gradient_accumulation_steps=g)
+            _peak_reset()
+            engine = _moe_engine(cfg, ds, mesh=_world1_mesh())
+            losses, norms = [], []
+            for _ in range(RANKS_STEPS):
+                losses.append(engine.train_batch(batch=b, stacked=True).item())
+                norms.append(engine.get_global_grad_norm())
+            masters = [m.detach().cpu() for _, m in engine.named_masters()]
+            state = _moe_state(engine)
+            del engine
+            _release()
+            if ref is None:
+                ref = (losses, norms, masters, state, _peak())
+            else:
+                runs[name] = (losses, norms,
+                              _masters_apart(masters, ref[2], atol))
+            del masters
+        la, na = ref[0], ref[1]
+        # step by step: routing near capacity makes later steps drift far
+        # apart, so each step keeps its own tolerance
+        tol = {"loss": [2 * max(abs(la[i] - v[0][i]) for v in runs.values())
+                        for i in range(len(la))],
+               "grad_norm": [2 * max(abs(na[i] - v[1][i])
+                                     for v in runs.values())
+                             for i in range(len(na))],
+               "masters_share": 2 * max(v[2][0] for v in runs.values())}
+        out["reference"] = {
+            "losses_micro1_gas2": la, "grad_norms_micro1_gas2": na,
+            "state": ref[3], "peak_hbm": ref[4], "tolerance": tol,
+            "masters_atol": atol,
+            **{f"losses_{k}": v[0] for k, v in runs.items()},
+            **{f"grad_norms_{k}": v[1] for k, v in runs.items()},
+            **{f"masters_share_{k}": v[2][0] for k, v in runs.items()},
+            **{f"masters_max_abs_{k}": v[2][1] for k, v in runs.items()}}
+        del runs
+    dist.barrier()
+    comms = get_comms_logger()
+    comms.configure(enabled=True)
+    for label, quantized in (("dense", False), ("int8", True)):
+        cfg, ds = moe_train_config(layers, model, quantized)
+        ds.update(mesh={"expert": EP, "data": 1})
+        _peak_reset()
+        engine = _moe_engine(cfg, ds)
+        record = {}
+        combine = sharded_moe._quantized_expert_sum
+
+        def recording(x):           # step 1's first combine: layer 0
+            y = combine(x)
+            if "in" not in record:
+                record["in"], record["out"] = x.detach().clone(), \
+                    y.detach().clone()
+            return y
+
+        sharded_moe._quantized_expert_sum = recording
+        comms.reset()
+        try:
+            build.reset_launch_counts()     # the main path's run starts here
+            steps = _rank_steps(engine, batch, RANKS_STEPS, comms)
+            path = build.launch_counts()
+        finally:
+            sharded_moe._quantized_expert_sum = combine
+        run = {"steps": steps, "path": path, "state": _moe_state(engine),
+               "peak_hbm": _peak(), "digests": _replicated_digests(engine),
+               "expert_coord": engine.mesh.coords["expert"],
+               "expected_comm_per_step": _expected_moe_comm(
+                   cfg, batch["input_ids"].shape[-1], gas, quantized)}
+        if r == 0 and not quantized:
+            c = engine.mesh.coords["expert"]
+            got, want = [], []
+            for m, full, e in zip(engine._masters, ref[2],
+                                  engine._expert_dim):
+                if e is not None:
+                    n = m.shape[0]
+                    full = full[c * n:(c + 1) * n]
+                got.append(m.detach().cpu())
+                want.append(full)
+            run["masters_share"], run["masters_max_abs"] = _masters_apart(
+                got, want, atol)
+            run["loss_gaps"] = [abs(s["loss"] - a)
+                                for s, a in zip(steps, ref[0])]
+            run["grad_norm_gaps"] = [abs(s["grad_norm"] - a)
+                                     for s, a in zip(steps, ref[1])]
+            del got, want
+        del engine
+        _release()
+        if quantized:
+            with _Plain():
+                before = sum(build.launch_counts().values())
+                plain = quant.quantized_psum(record["in"], ("expert",))
+                run["plain_launches"] = sum(build.launch_counts().values()) \
+                    - before
+            run["combine_equal"] = bool(torch.equal(
+                plain.view(torch.int16) if plain.dtype == torch.bfloat16
+                else plain, record["out"].view(torch.int16)
+                if record["out"].dtype == torch.bfloat16 else record["out"]))
+            run["combine_shape"] = list(record["in"].shape)
+        out["runs"][label] = run
+    comms.configure(enabled=False)
+    with open(_rank_out(f"moe_ranks{r}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def check_moe_ranks(rows, layers, device="cuda", model="8b"):
+    """The ``moe_ranks_body`` results of every rank: (flash launches over
+    both runs, the int8 run's launches; on the CPU nothing launches, and
+    the tiny model's plain attention launches no flash kernel)."""
+    ref = rows[0]["reference"]
+    tol = ref["tolerance"]
+    flash = {n: k * layers * TRAIN_GAS if device == "cuda" and model == "8b"
+             else 0 for n, k in FLASH_PER_STEP.items()}
+    quant_want = MOE_QUANT_PER_COMBINE * layers * TRAIN_GAS
+    path, int8_path = {}, {}
+    d0 = rows[0]["runs"]["dense"]
+    for key in ("loss", "grad_norm"):
+        gaps = d0[f"{key}_gaps"]
+        check(all(g <= t for g, t in zip(gaps, tol[key])),
+              f"expert={EP}: each step's {key} {gaps} from one rank's, "
+              f"tolerance {tol[key]}")
+    check(d0["masters_share"] <= tol["masters_share"], f"expert={EP}: a "
+          f"share {d0['masters_share']} of rank 0's masters more than "
+          f"{ref['masters_atol']} from one rank's, tolerance "
+          f"{tol['masters_share']}")
+    for label in ("dense", "int8"):
+        r0 = rows[0]["runs"][label]
+        for row in rows:
+            run = row["runs"][label]
+            check([(s["loss"], s["grad_norm"]) for s in run["steps"]] ==
+                  [(s["loss"], s["grad_norm"]) for s in r0["steps"]],
+                  f"{label}: rank {row['rank']}'s losses or norms differ "
+                  "from rank 0's")
+            check(run["digests"] == r0["digests"], f"{label}: rank "
+                  f"{row['rank']}'s replicated masters differ from rank 0's")
+            check(2 * run["state"]["expert"] == ref["state"]["expert"],
+                  f"{label}: rank {row['rank']} holds {run['state']['expert']}"
+                  f" expert bytes, one rank {ref['state']['expert']}")
+            check(all(math.isfinite(s["loss"]) for s in run["steps"]),
+                  f"{label}: losses {[s['loss'] for s in run['steps']]}")
+            for s in run["steps"]:
+                got = {n: s["launches"].get(n, 0) for n in FLASH_PER_STEP}
+                check(got == flash, f"{label} rank {row['rank']} flash "
+                      f"launches {got}, expected {flash}")
+                q = {n: s["launches"].get(n, 0) for n in QGZ_KERNELS}
+                want = {n: quant_want if label == "int8" and
+                        device == "cuda" else 0 for n in QGZ_KERNELS}
+                check(q == want, f"{label} rank {row['rank']} int8 "
+                      f"launches {q}, expected {want}")
+                comm = {op: s["comm"].get(op, {}).get("bytes", 0)
+                        for op in run["expected_comm_per_step"]}
+                check(comm == run["expected_comm_per_step"],
+                      f"{label}: comm bytes {comm}, expected "
+                      f"{run['expected_comm_per_step']}")
+            for n in FLASH_PER_STEP:
+                path[n] = path.get(n, 0) + run["path"].get(n, 0)
+            if label == "int8":
+                check(run["combine_equal"], f"rank {row['rank']}: step 1's "
+                      "int8 combine differs from the plain codec's")
+                check(run["plain_launches"] == 0,
+                      "the plain codec launched kernels")
+                for n in QGZ_KERNELS:
+                    int8_path[n] = int8_path.get(n, 0) + run["path"].get(n, 0)
+    return path, int8_path
+
+
+def plan_moe_rank_layers():
+    """MOE_TRAIN_LAYERS when two ranks' peaks fit the card's free memory,
+    else 1 (depth is cut, never width)."""
+    _release()
+    free, _ = torch.cuda.mem_get_info()
+    for layers in (MOE_TRAIN_LAYERS, 1):
+        cfg_l, _ = moe_train_config(layers)
+        need = RANKS * (MOE_RANK_BYTES * moe_params(cfg_l, EP) +
+                        MOE_RANK_ACTIVATIONS)
+        if need <= free:
+            return layers, free, need
+    return 1, free, need
+
+
+def phase_train_moe_ranks(dev, smi_line, tmp):
+    """Two processes on the one card over gloo, mesh ``expert=2`` (each
+    rank 4 of the 8 experts): dense against the one-rank reference within
+    twice the distance of the same sequences batched otherwise, replicated
+    masters the same bytes on both ranks, half the expert state a rank;
+    then with ``quantized_dispatch``: exactly MOE_QUANT_PER_COMBINE x
+    layers x gas int8 quantize and dequantize launches a step (the remat
+    recompute stops before the combine), step 1's layer-0 combine bit for
+    bit the plain codec's; the combine and expert-grad bytes a step beside
+    the count from [T, D] and [T, K]."""
+    layers, free, need = plan_moe_rank_layers()
+    spawner = _host_side()
+    seconds = _spawn("moe_ranks_body", tmp,
+                     DSTPU_SMOKE_LAYERS=str(layers))
+    rows = _read_ranks("moe_ranks", tmp)
+    path, int8_path = check_moe_ranks(rows, layers)
+    cfg, _ = moe_train_config(layers)
+    c = cfg.moe.num_experts // EP * _capacity_of(cfg) * cfg.base.hidden_size
+    r0 = rows[0]
+    cut = "" if layers == MOE_TRAIN_LAYERS else \
+        f" (cut from {MOE_TRAIN_LAYERS}: two ranks did not fit)"
+    emit({"phase": "train_moe_ranks", "model": f"Mixtral-8x7B width, {layers} "
+          f"layers{cut}, bf16, flash, expert={EP} "
+          f"({cfg.moe.num_experts // EP} experts a rank) on one card over "
+          "gloo", "free_hbm": free,
+          "planned_peak": need, "seconds": seconds, "spawner_hbm": spawner,
+          "reference": r0["reference"],
+          "dense": {k: r0["runs"]["dense"][k] for k in (
+              "loss_gaps", "grad_norm_gaps", "masters_share",
+              "masters_max_abs", "state", "peak_hbm",
+              "expected_comm_per_step")},
+          "int8": {k: r0["runs"]["int8"][k] for k in (
+              "combine_equal", "combine_shape", "state", "peak_hbm",
+              "expected_comm_per_step")},
+          "per_rank_state": [{lab: row["runs"][lab]["state"]
+                              for lab in ("dense", "int8")} for row in rows],
+          "steps": {lab: [{"loss": s["loss"], "grad_norm": s["grad_norm"],
+                           "step_ms": s["step_ms"], "comm": s["comm"]}
+                          for s in r0["runs"][lab]["steps"]]
+                    for lab in ("dense", "int8")},
+          "dispatch_payload_bytes_if_token_axis": 2 * c,
+          "launches": path, "int8_launches": int8_path,
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    return path, int8_path
+
+
+def _capacity_of(cfg) -> int:
+    from deepspeed_tpu_torch.moe.sharded_moe import _capacity
+    m = cfg.moe
+    return _capacity(TRAIN_SEQ * m.top_k, m.num_experts, m.capacity_factor,
+                     m.min_capacity)
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the memory tiers (ZeRO-Offload, ZeRO-Infinity)
 # ---------------------------------------------------------------------------
 HOST_SOURCES = ("cpu_adam", "aio")  # g++ builds them beside the CUDA sources
@@ -5870,17 +6482,22 @@ ENTRY_NAMES = {n: f"{n}_kernel" for n in BIAS_ACT_KERNELS}
 # fused_bias_act_dropout; train_zero: stages 1-3 at one rank;
 # train_zero_ranks: stages 3 and 2 on two ranks; train_qgz_ranks: qgZ's
 # int8 wire on two ranks; quant_collectives: the six quantized collectives
-# at two ranks)
+# at two ranks; serve_moe: Qwen1.5-MoE-A2.7B and Mixtral-8x7B through
+# InferenceEngineV2; train_moe: Mixtral-8x7B on one rank; train_moe_ranks:
+# Mixtral-8x7B over two expert ranks, dense and int8; moe_int8: that run's
+# int8 combine)
 KERNEL_PATHS = {"paged_attention": ("serve", "serve_http", "disagg", "fleet",
-                                     "A1", "A2"),
+                                     "A1", "A2", "serve_moe"),
                 **{n: ("train", "train_offload", "train_param_offload",
-                       "train_zero", "train_zero_ranks", "train_qgz_ranks")
+                       "train_zero", "train_zero_ranks", "train_qgz_ranks",
+                       "train_moe", "train_moe_ranks")
                    for n in FLASH_PER_STEP},
                 "quantize_fp8": ("A1", "quant_collectives"),
                 "dequantize_fp8": ("A1", "quant_collectives"),
-                "quantize_int8": ("B", "train_qgz_ranks", "quant_collectives"),
+                "quantize_int8": ("B", "train_qgz_ranks", "quant_collectives",
+                                  "moe_int8"),
                 "dequantize_int8": ("B", "A2", "train_qgz_ranks",
-                                    "quant_collectives"),
+                                    "quant_collectives", "moe_int8"),
                 **{n: ("evoformer",) for n in EVO_KERNELS},
                 "rms_norm": ("R",), **{n: ("F",) for n in BIAS_ACT_KERNELS},
                 "sparse_attention": ("S1", "S2")}
@@ -5940,6 +6557,8 @@ def main() -> int:
         del eng                          # free the serving engine's 25 GB
         gc.collect()
         torch.cuda.empty_cache()
+        phase = "serve_moe"
+        serve_moe_launches = phase_serve_moe(dev, smi_line)
         phase = "zero_inference"
         zi = phase_zero_inference(dev, smi_line)
         torch.cuda.reset_peak_memory_stats()
@@ -5963,6 +6582,11 @@ def main() -> int:
             zero_ranks_launches = phase_train_zero_ranks(dev, smi_line, tmp)
             phase = "train_qgz_ranks"
             qgz_ranks_launches, coll_launches = phase_train_qgz_ranks(
+                dev, smi_line, tmp)
+            phase = "train_moe"
+            moe_launches = phase_train_moe(dev, smi_line)
+            phase = "train_moe_ranks"
+            moe_ranks_launches, moe_int8_launches = phase_train_moe_ranks(
                 dev, smi_line, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -5988,6 +6612,10 @@ def main() -> int:
                        "train_zero_ranks": zero_ranks_launches,
                        "train_qgz_ranks": qgz_ranks_launches,
                        "quant_collectives": coll_launches,
+                       "serve_moe": serve_moe_launches,
+                       "train_moe": moe_launches,
+                       "train_moe_ranks": moe_ranks_launches,
+                       "moe_int8": moe_int8_launches,
                        "evoformer": evo_launches, **sparse_launches,
                        "R": rms_launches, "F": bias_act_launches}
         launches_by_path = {

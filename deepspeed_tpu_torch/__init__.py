@@ -48,7 +48,14 @@ Ported so far:
   mesh=)`` trains over it. On the CPU: ``python -m pytest
   tests/test_torch_comm.py tests/test_torch_zero.py``; on the card,
   ``chip_smoke.py``'s ``train_zero``, ``train_zero_ranks`` and
-  ``train_qgz_ranks`` phases.
+  ``train_qgz_ranks`` phases;
+- MoE — ``moe/sharded_moe.py`` (top-k gating, ``MOELayer`` with expert
+  parallelism over the mesh's ``expert`` axis and the int8 dispatch wire),
+  ``models/mixtral.py`` and ``models/qwen2_moe.py`` (training and HF
+  interop), their serving policies (``inference/v2/modules.py``). On the
+  CPU: ``python -m pytest tests/test_torch_moe.py
+  tests/test_torch_moe_dist.py``; on the card, ``chip_smoke.py``'s
+  ``serve_moe``, ``train_moe`` and ``train_moe_ranks`` phases.
 
 Importing this package starts no work and touches no device: the
 reference's re-exports (``DeepSpeedTPUConfig``, ``DeepSpeedTPUEngine``,
@@ -104,7 +111,7 @@ def add_config_arguments(parser):
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, config: Any = None,
                config_params: Any = None, loss_fn: Optional[Callable] = None,
-               device=None, mesh=None):
+               device=None, mesh=None, tensor_rules: Optional[Callable] = None):
     """Build the training engine (reference ``deepspeed.initialize``;
     ``deepspeed_tpu/__init__.py:28``). Returns ``(engine, optimizer, None,
     lr_schedule)`` for a non-pipeline model.
@@ -120,7 +127,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     returned optimizer is then the host optimizer. ``mesh`` is a
     ``comm.mesh.Mesh`` over the started process group; by default the
     config's ``mesh`` group over every rank (one rank when
-    ``init_distributed`` was not called)."""
+    ``init_distributed`` was not called). ``tensor_rules(name, leaf) ->
+    spec | None`` places model-parallel leaves (``moe.sharded_moe.
+    moe_tensor_rules``, ``models.mixtral.mixtral_tensor_rules``: each rank
+    keeps its block of the experts over the mesh's ``expert`` axis; the
+    expert rules are the default on such a mesh)."""
     from deepspeed_tpu_torch.config.config import DeepSpeedTPUConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedTPUEngine
     if config is None and config_params is not None:
@@ -138,5 +149,6 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     engine = DeepSpeedTPUEngine(
         model, ds_config, params=model_parameters, loss_fn=loss_fn,
         lr_scheduler=lr_scheduler if callable(lr_scheduler) else None,
-        client_optimizer=optimizer, device=device, mesh=mesh)
+        client_optimizer=optimizer, device=device, mesh=mesh,
+        tensor_rules=tensor_rules)
     return engine, engine.optimizer, None, engine.lr_schedule

@@ -44,6 +44,8 @@ from deepspeed_tpu_torch.comm.mesh import (
     Mesh,
     create_mesh,
     get_data_parallel_world_size,
+    get_expert_parallel_group,
+    get_expert_parallel_rank,
     get_expert_parallel_world_size,
     get_global_mesh,
     get_model_parallel_world_size,
@@ -66,5 +68,6 @@ __all__ = [
     "create_mesh", "init_distributed", "get_global_mesh", "set_global_mesh",
     "get_data_parallel_world_size", "get_seq_data_parallel_world_size",
     "get_model_parallel_world_size", "get_expert_parallel_world_size",
+    "get_expert_parallel_group", "get_expert_parallel_rank",
     "get_sequence_parallel_world_size", "get_pipe_parallel_world_size",
 ]

@@ -28,8 +28,14 @@ rank), never a fallback from a failed NCCL start.
 ``quantized_all_reduce`` and ``quantized_reduce_scatter`` run
 ``comm/compress.py``'s codec and are recorded once each, with the logical
 and the wire bytes.
+
+``op_label(label)`` names the ops recorded inside it ``<label>/<op>``
+(kind ``<op>``), so a caller's collectives keep their own totals in the
+logger: the MoE layer's dispatch, combine and gate exchanges
+(``moe/sharded_moe.py``).
 """
 
+import contextlib
 import enum
 from typing import Optional, Sequence, Tuple
 
@@ -73,12 +79,28 @@ def _sync(x: torch.Tensor) -> None:
         torch.cuda.synchronize(x.device)
 
 
+_label: Optional[str] = None
+
+
+@contextlib.contextmanager
+def op_label(label: str):
+    """Record the ops run inside as ``<label>/<op>`` of kind ``<op>``."""
+    global _label
+    saved, _label = _label, label
+    try:
+        yield
+    finally:
+        _label = saved
+
+
 def _record(op_name: str, x: torch.Tensor, world: int, fn,
             nbytes: Optional[int] = None, wire_bytes: Optional[int] = None,
             kind: Optional[str] = None):
     """Run ``fn`` as the recorded op ``op_name`` on ``x``: listener,
     ``op_seq``, and the logger's timing or the tracer's instant."""
     note_comm_op(op_name)
+    if _label is not None:
+        op_name, kind = f"{_label}/{op_name}", kind or op_name
     logger_ = get_comms_logger()
     tracer = get_tracer()
     if not (logger_.enabled or tracer.enabled):

@@ -212,6 +212,19 @@ def get_expert_parallel_world_size(mesh: Mesh) -> int:
     return mesh.shape["expert"]
 
 
+def get_expert_parallel_group(mesh: Mesh):
+    """The process group over ``expert`` (None at an expert axis of one):
+    the ranks whose coordinates differ only there, in expert order (the
+    reference's expert-parallel group, utils/groups.py:117)."""
+    return mesh.group("expert")
+
+
+def get_expert_parallel_rank(mesh: Mesh) -> int:
+    """This rank's expert coordinate: its experts are block
+    ``coordinate`` of the experts' leading dim."""
+    return mesh.coords["expert"]
+
+
 def get_sequence_parallel_world_size(mesh: Mesh) -> int:
     return mesh.shape["sequence"]
 

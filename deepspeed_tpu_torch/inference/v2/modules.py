@@ -1,8 +1,16 @@
 """Inference v2 decode policies and their registry.
 
-Port of ``deepspeed_tpu/inference/v2/modules.py``, with ``LlamaPolicy`` only
-(llama / mistral / qwen2 / phi3 / gemma are ``LlamaConfig`` variants); the
-other architectures' policies come with later slices.
+Port of ``deepspeed_tpu/inference/v2/modules.py``, with ``LlamaPolicy``
+(llama / mistral / qwen2 / phi3 / gemma are ``LlamaConfig`` variants),
+``MixtralPolicy`` and ``Qwen2MoEPolicy`` (their trees from
+``models/convert.py``'s ``moe_params_from_jax`` / ``init_moe_params``);
+the other architectures' policies (bloom, gpt_neox, gpt2, gemma2, ...)
+wait for ROADMAP Queue 1 item 7.
+
+Serving MoE is the reference's dense all-expert combine
+(``_dense_moe_combine``): every expert runs on the step's tokens and each
+token sums its top-k experts' outputs; the top-k is the training gate's
+(``moe/sharded_moe.py``: float64 softmax rounded once, a stable sort).
 
 A policy is a class of static methods over the parameter tree; the generic
 paged serving loop (``generic_decode.py``) owns the KV cache, block tables
@@ -20,10 +28,14 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from deepspeed_tpu_torch.inference.v2.llama_decode import _mlp, _qkv, _rms
 from deepspeed_tpu_torch.models.llama import (LlamaConfig, rope_freqs,
                                               softcap_logits)
+from deepspeed_tpu_torch.models.mixtral import MixtralConfig
+from deepspeed_tpu_torch.models.qwen2_moe import Qwen2MoEConfig
+from deepspeed_tpu_torch.moe.sharded_moe import gate_probs
 
 DECODE_POLICIES: Dict[str, type] = {}
 _CONFIG_TO_POLICY: Dict[type, type] = {}
@@ -138,3 +150,101 @@ class LlamaPolicy:
             w = params["model"]["lm_head"]["kernel"]
         logits = x.float() @ w.float()
         return softcap_logits(logits, cfg.logits_soft_cap)
+
+
+def serve_route(logits, top_k: int, norm_topk_prob: bool = True):
+    """fp32 router logits [T, E] -> (the top-k experts [T, K], their
+    weights [T, K]): the training gate's probabilities and order."""
+    probs = gate_probs(logits)
+    topi = torch.sort(probs, dim=-1, descending=True,
+                      stable=True).indices[:, :top_k]
+    w = probs.gather(1, topi)
+    if norm_topk_prob:
+        w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+    return topi, w
+
+
+def _dense_moe_combine(moe, h2, top_k, dtype, norm_topk_prob=True):
+    """Dense all-expert compute + top-k combine (serving-side MoE, the
+    training dispatch when no token drops). With ``norm_topk_prob`` the
+    kept probs are renormalized to sum to 1 (GShard/Mixtral); HF Qwen2-MoE
+    runs with it off."""
+    topi, w = serve_route(h2.float() @ moe["gate"]["wg"]["kernel"].float(),
+                          top_k, norm_topk_prob)
+    ex = moe["experts"]
+    g = torch.einsum("td,edf->etf", h2, ex["w_gate"].to(dtype))
+    u = torch.einsum("td,edf->etf", h2, ex["w_up"].to(dtype))
+    eo = torch.einsum("etf,efd->etd", F.silu(g) * u,
+                      ex["w_down"].to(dtype))                  # [E, T, D]
+    t_idx = torch.arange(h2.shape[0], device=h2.device)[:, None]
+    picked = eo[topi, t_idx]                                   # [T, K, D]
+    return torch.einsum("tk,tkd->td", w.to(dtype), picked)
+
+
+class _MoEPolicy:
+    """Llama attention over the MoE tree (``params["model"]["layer_{i}"]``)
+    and the dense MoE combine; ``mlp`` adds a family's extra terms."""
+
+    @staticmethod
+    def cache_spec(cfg) -> KVCacheSpec:
+        b = cfg.base
+        return KVCacheSpec(b.num_layers, b.num_kv_heads, b.head_dim_,
+                           b.max_seq_len, b.dtype, b.sliding_window)
+
+    @staticmethod
+    def embed(params, tokens, positions, cfg):
+        return params["model"]["embed"]["embedding"].to(cfg.base.dtype)[tokens]
+
+    @classmethod
+    def block(cls, params, i, x, attend, positions, cfg):
+        base = cfg.base
+        dtype = base.dtype
+        lp = params["model"][f"layer_{i}"]
+        cos, sin = _rope_tables(base.head_dim_, base.max_seq_len,
+                                base.rope_theta, x.device)
+        h = _rms(x, lp["attn_norm"]["scale"], base.rms_norm_eps)
+        q, k, v = _qkv(lp, h, dtype)
+        q = _rope_rows(q, cos, sin, positions)
+        k = _rope_rows(k, cos, sin, positions)
+        attn = attend(q, k, v)
+        x = x + torch.einsum("thk,hkd->td", attn,
+                             lp["attn"]["wo"]["kernel"].to(dtype))
+        h2 = _rms(x, lp["mlp_norm"]["scale"], base.rms_norm_eps)
+        return cls.mlp(lp, x, h2, cfg)
+
+    @staticmethod
+    def mlp(lp, x, h2, cfg):
+        return x + _dense_moe_combine(lp["moe"], h2, cfg.moe.top_k,
+                                      cfg.base.dtype, cfg.moe.norm_topk_prob)
+
+    @staticmethod
+    def unembed(params, x, cfg):
+        x = _rms(x, params["model"]["final_norm"]["scale"],
+                 cfg.base.rms_norm_eps)
+        return x.float() @ params["model"]["lm_head"]["kernel"].float()
+
+
+@register_policy("mixtral", MixtralConfig)
+class MixtralPolicy(_MoEPolicy):
+    """reference: model_implementations/mixtral. Serving MoE runs every
+    expert densely on the (small) token batch and combines the top-k gate
+    weights: the training dispatch when no token is dropped."""
+
+
+@register_policy("qwen2_moe", Qwen2MoEConfig)
+class Qwen2MoEPolicy(_MoEPolicy):
+    """reference: model_implementations/qwen_v2_moe — Mixtral serving plus
+    a dense shared expert whose output is scaled by a per-token sigmoid
+    gate."""
+
+    @staticmethod
+    def mlp(lp, x, h2, cfg):
+        dtype = cfg.base.dtype
+        moe_out = _dense_moe_combine(lp["moe"], h2, cfg.moe.top_k, dtype,
+                                     cfg.moe.norm_topk_prob)
+        se = lp["shared_expert"]
+        g = F.silu(h2 @ se["w_gate"]["kernel"].to(dtype))
+        u = h2 @ se["w_up"]["kernel"].to(dtype)
+        shared = (g * u) @ se["w_down"]["kernel"].to(dtype)
+        gate = torch.sigmoid((h2 @ se["gate"]["kernel"].to(dtype)).float())
+        return x + moe_out + shared * gate.to(dtype)

@@ -11,10 +11,19 @@ reference reads in fp32 stays fp32: the norm scales, and the head
 (``lm_head`` or, when tied, the embedding, which the embed step casts to
 ``cfg.dtype`` at lookup), which the reference multiplies in fp32.
 
-Training: ``load_flax_params`` fills the training ``LlamaForCausalLM``
-(whose parameter names are the flax paths joined by dots; it draws its own
-seeded weights on its device) from the flax tree as fp32 masters;
-``to_flax_tree`` is its inverse, for parameters or gradients.
+MoE serving: ``moe_params_from_jax`` and ``init_moe_params`` build the
+tree of ``MixtralPolicy`` and ``Qwen2MoEPolicy``: ``{"model": ...}`` over
+the flax layout of the JAX package's ``MixtralForCausalLM`` /
+``Qwen2MoEForCausalLM`` (no ``model`` level there: ``embed``,
+``layer_{i}/{attn,attn_norm,mlp_norm,moe,shared_expert}``, ``final_norm``,
+``lm_head``), the layer weights in ``cfg.base.dtype``, the norm scales,
+the router ``wg`` and the head in fp32 (``moe_param_shapes``).
+
+Training: ``load_flax_params`` fills the training ``LlamaForCausalLM``,
+``MixtralForCausalLM`` or ``Qwen2MoEForCausalLM`` (whose parameter names
+are the flax paths joined by dots; each draws its own seeded weights on its
+device) from the flax tree as fp32 masters; ``to_flax_tree`` is its
+inverse, for parameters or gradients.
 """
 
 from typing import Any, Dict, Iterable, Mapping, Tuple
@@ -135,6 +144,99 @@ def init_llama_params(cfg: LlamaConfig, seed: int = 0,
         layer["mlp_norm"] = {"scale": ones(d)}
         model[f"layer_{i}"] = layer
     return {"model": model}
+
+
+# ---------------------------------------------------------------------------
+# the MoE models' serving trees (Mixtral, Qwen2-MoE)
+# ---------------------------------------------------------------------------
+def moe_param_shapes(cfg) -> Dict[str, Tuple[Tuple[int, ...], str, int]]:
+    """Every leaf of a ``MixtralConfig`` or ``Qwen2MoEConfig`` model's flax
+    tree, by its ``/`` path: (shape, kind, fan-in). The kind says what the
+    serving tree keeps it in: ``fp32`` (norm scales, the router, the head)
+    or ``model`` (``cfg.base.dtype``: the embedding, which the embed step
+    casts at lookup, and every layer weight, which the reference casts at
+    each use)."""
+    b = cfg.base
+    d, hd, h, hkv = b.hidden_size, b.head_dim_, b.num_heads, b.num_kv_heads
+    e = cfg.moe.num_experts
+    f = getattr(cfg, "moe_intermediate_size", b.intermediate_size)
+    shapes = {"embed/embedding": ((b.vocab_size, d), "model", d),
+              "final_norm/scale": ((d,), "fp32", 0),
+              "lm_head/kernel": ((d, b.vocab_size), "fp32", d)}
+    for i in range(b.num_layers):
+        p = f"layer_{i}/"
+        for name, shape, fan in (("wq", (d, h, hd), d), ("wk", (d, hkv, hd), d),
+                                 ("wv", (d, hkv, hd), d),
+                                 ("wo", (h, hd, d), h * hd)):
+            shapes[f"{p}attn/{name}/kernel"] = (shape, "model", fan)
+            if b.attention_bias and name != "wo":
+                shapes[f"{p}attn/{name}/bias"] = (shape[1:], "model", 0)
+        shapes[f"{p}attn_norm/scale"] = ((d,), "fp32", 0)
+        shapes[f"{p}mlp_norm/scale"] = ((d,), "fp32", 0)
+        shapes[f"{p}moe/gate/wg/kernel"] = ((d, e), "fp32", d)
+        shapes[f"{p}moe/experts/w_gate"] = ((e, d, f), "model", d)
+        shapes[f"{p}moe/experts/w_up"] = ((e, d, f), "model", d)
+        shapes[f"{p}moe/experts/w_down"] = ((e, f, d), "model", f)
+        fs = getattr(cfg, "shared_expert_intermediate_size", None)
+        if fs is not None:
+            q = f"{p}shared_expert/"
+            shapes[q + "w_gate/kernel"] = ((d, fs), "model", d)
+            shapes[q + "w_up/kernel"] = ((d, fs), "model", d)
+            shapes[q + "w_down/kernel"] = ((fs, d), "model", fs)
+            shapes[q + "gate/kernel"] = ((d, 1), "model", d)
+    return shapes
+
+
+def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        *keys, leaf = path.split("/")
+        node = out
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def moe_params_from_jax(tree: Mapping, cfg, device=None) -> Dict[str, Any]:
+    """The flax tree of the JAX package's ``MixtralForCausalLM`` or
+    ``Qwen2MoEForCausalLM`` (``init(...)["params"]``, numpy leaves; or an
+    ``convert_hf_*`` tree) -> the port's serving tree ``{"model": <the same
+    layout>}`` on ``device``, each leaf in its ``moe_param_shapes`` kind."""
+    dev = resolve_device(device)
+    kinds = {"model": cfg.base.dtype, "fp32": torch.float32}
+    flat = {}
+    for path, (shape, kind, _) in moe_param_shapes(cfg).items():
+        arr = _flax_leaf(tree, path.replace("/", "."))
+        if tuple(np.shape(arr)) != tuple(shape):
+            raise ValueError(f"{path}: expected shape {shape}, got "
+                             f"{np.shape(arr)}")
+        flat[path] = _to_tensor(arr, kinds[kind], dev)
+    return {"model": _nest(flat)}
+
+
+def init_moe_params(cfg, seed: int = 0, device=None) -> Dict[str, Any]:
+    """Seeded random weights of an MoE model in the port's serving tree,
+    made directly on ``device`` in their ``moe_param_shapes`` kinds (never
+    a full fp32 copy on the host: Qwen1.5-MoE-A2.7B is 29 GB in bf16).
+    Kernels are normal with std ``1/sqrt(fan_in)``, the embedding with std
+    ``1/sqrt(hidden)``, biases zero, norm scales one; the draws come from a
+    ``torch.Generator`` on ``device``, as ``init_llama_params``' do."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    kinds = {"model": cfg.base.dtype, "fp32": torch.float32}
+    flat = {}
+    for path, (shape, kind, fan_in) in moe_param_shapes(cfg).items():
+        dt = kinds[kind]
+        if path.endswith("norm/scale"):
+            flat[path] = torch.ones(shape, device=dev, dtype=dt)
+        elif path.endswith("/bias"):
+            flat[path] = torch.zeros(shape, device=dev, dtype=dt)
+        else:
+            t = torch.randn(shape, generator=gen, device=dev, dtype=dt)
+            flat[path] = t.mul_(1.0 / float(np.sqrt(fan_in)))
+    return {"model": _nest(flat)}
 
 
 def params_device(params: Mapping) -> torch.device:

@@ -5,6 +5,7 @@ Port of ``deepspeed_tpu/models/llama.py``: ``LlamaConfig`` (with a torch
 training model as ``nn.Module``s — ``RMSNorm``, ``apply_rope``, the plain
 attention backend ``_xla_attention``, ``_dispatch_attention`` (``flash``
 runs the CUDA flash kernels), ``LlamaAttention``, ``LlamaMLP``,
+``AttentionBlock`` (the attention half the MoE blocks share),
 ``LlamaBlock``, ``LMHead``, ``LlamaModel`` and ``LlamaForCausalLM`` with
 the dense next-token loss, plus ``random_tokens``.
 
@@ -271,7 +272,11 @@ class LlamaMLP(nn.Module):
         return self.w_down(act * up, dt, compute_dtype)
 
 
-class LlamaBlock(nn.Module):
+class AttentionBlock(nn.Module):
+    """A block's attention half and its MLP norm: ``attend`` gives
+    ``x + attn(attn_norm(x))``; the subclass adds its MLP (``LlamaMLP``
+    here, the MoE layer in ``models/mixtral.py``)."""
+
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
         norm = functools.partial(RMSNorm, cfg.hidden_size, cfg.rms_norm_eps,
@@ -279,11 +284,19 @@ class LlamaBlock(nn.Module):
         self.attn_norm = norm()
         self.attn = LlamaAttention(cfg, device)
         self.mlp_norm = norm()
+
+    def attend(self, x, positions, segment_ids, rope, compute_dtype=None):
+        return x + self.attn(self.attn_norm(x, compute_dtype), positions,
+                             segment_ids, rope, compute_dtype)
+
+
+class LlamaBlock(AttentionBlock):
+    def __init__(self, cfg: LlamaConfig, device):
+        super().__init__(cfg, device)
         self.mlp = LlamaMLP(cfg, device)
 
     def forward(self, x, positions, segment_ids, rope, compute_dtype=None):
-        h = x + self.attn(self.attn_norm(x, compute_dtype), positions,
-                          segment_ids, rope, compute_dtype)
+        h = self.attend(x, positions, segment_ids, rope, compute_dtype)
         return h + self.mlp(self.mlp_norm(h, compute_dtype), compute_dtype)
 
 

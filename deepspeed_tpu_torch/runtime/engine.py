@@ -45,6 +45,18 @@ on a mesh of the same shape.
   elements, or with no dimension the ZeRO world divides, stay replicated.
   The loss, the global gradient norm and the overflow flag are reduced
   over the ranks, so every rank takes the same skip decision.
+- The expert axis (MoE, ZeRO stages 0-1): ``tensor_rules`` (by default
+  ``moe_tensor_rules`` on a mesh with ``expert`` > 1) place each stacked
+  expert leaf's leading dim over ``expert``, and the engine keeps this
+  rank's block of it. Its gradient, like every other, takes the mean over
+  the batch axes alone; the leaves no rule shards come out the same bytes
+  on every expert rank without any reduction over ``expert``
+  (``moe/sharded_moe.py`` places the layer's collectives and their
+  backward so). The global norm sums an expert leaf's squares over
+  ``expert`` once; under qgZ the gradient phase gates and dispatches over
+  the batch axes outside the replica axes (``sharded_moe.token_axes``).
+  A noisy gate raises: the reference's engine hands the model only a
+  dropout rng stream.
 - ``_update`` is the reference's (``:1018-1057``): overflow check under
   fp16 or the non-finite guard, clipping by the global norm, the Adam
   update, and on overflow the old parameters, optimizer state and step
@@ -77,6 +89,7 @@ Both emit the ``engine/train_step`` span (``mode`` ``offload`` or
 ``param_offload``) and keep each phase's seconds in ``phase_seconds``.
 """
 
+import contextlib
 import time
 import warnings
 from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
@@ -90,6 +103,7 @@ from deepspeed_tpu_torch.comm.mesh import (BATCH_AXES, Mesh, create_mesh,
                                            get_data_parallel_world_size,
                                            set_global_mesh)
 from deepspeed_tpu_torch.config.config import ITEM_DIST, DeepSpeedTPUConfig
+from deepspeed_tpu_torch.moe.sharded_moe import token_axes
 from deepspeed_tpu_torch.ops.cpu_adam import to_bf16
 from deepspeed_tpu_torch.ops.optimizers import build_optimizer
 from deepspeed_tpu_torch.ops.quant import dequantize_int8, quantize_int8
@@ -143,7 +157,8 @@ class DeepSpeedTPUEngine:
                  loss_fn: Optional[Callable] = None,
                  lr_scheduler: Optional[Callable[[int], float]] = None,
                  client_optimizer=None, device=None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None,
+                 tensor_rules: Optional[Callable] = None):
         self.config = config if isinstance(config, DeepSpeedTPUConfig) \
             else DeepSpeedTPUConfig(config)
         config = self.config
@@ -160,6 +175,13 @@ class DeepSpeedTPUEngine:
         self.compute_dtype = config.precision_dtype
         self.zero_stage = config.zero_config.stage
         self.loss_fn = loss_fn
+        # model-parallel placement rules (the expert rules by default on an
+        # expert axis, as moe_tensor_rules shards the expert leaves)
+        if tensor_rules is None and self.mesh.shape["expert"] > 1:
+            from deepspeed_tpu_torch.moe.sharded_moe import moe_tensor_rules
+            tensor_rules = moe_tensor_rules
+        self.tensor_rules = tensor_rules
+        self._refuse_noisy_gating(model)
         self.training = True
         self._compiled = False
         log_dist(f"engine: {config!r} mesh={dict(self.mesh.shape)} "
@@ -293,16 +315,43 @@ class DeepSpeedTPUEngine:
     # ------------------------------------------------------------------
     # ZeRO placement over the mesh
     # ------------------------------------------------------------------
+    @staticmethod
+    def _refuse_noisy_gating(model) -> None:
+        """The reference's engine hands the model only a ``dropout`` rng
+        stream (``engine.py:80-92``), so a noisy gate, which draws from a
+        ``gating`` stream, fails there; the port refuses it here."""
+        from deepspeed_tpu_torch.moe.sharded_moe import moe_layers
+        for layer in moe_layers(model):
+            if layer.cfg.noisy_gate_policy:
+                raise NotImplementedError(
+                    f"noisy_gate_policy={layer.cfg.noisy_gate_policy!r} "
+                    "through train_batch: the reference's engine passes the "
+                    "model only a dropout rng stream (engine.py:80-92), none "
+                    "for the gate; call the model with a generator instead")
+
     def _place_zero(self) -> None:
-        """Each leaf's param and optimizer-state spec, the dimension its
-        moments (and under stage 3 its master) are sharded along, and the
-        stage-3 parametrizations that gather a block before use."""
+        """Each leaf's param and optimizer-state spec (layered on its
+        tensor rule), the dimension its moments (and under stage 3 its
+        master) are sharded along, the stage-3 parametrizations that gather
+        a block before use, and each expert leaf cut to this rank's block
+        of the ``expert`` axis."""
         mesh, stage = self.mesh, self.zero_stage
         self._zero_axes, self._zero_world = partition.zero_fsdp_axes(mesh)
         self._batch_axes = tuple(a for a in BATCH_AXES if a in mesh.shape)
-        shapes = [tuple(p.shape) for p in self._masters]
-        specs = partition.leaf_specs(shapes, mesh, stage)
+        shapes = {n: tuple(p.shape)
+                  for n, p in zip(self._param_names, self._masters)}
+        specs = partition.leaf_specs(shapes, mesh, stage, self.tensor_rules)
         self._param_specs = specs["param"]
+        self._expert_dim: List[Optional[int]] = [
+            partition.sharded_dim(sp, ("expert",))
+            if mesh.shape["expert"] > 1 else None
+            for sp in self._param_specs]
+        with torch.no_grad():
+            for i, d in enumerate(self._expert_dim):
+                if d is not None:
+                    p = self._masters[i]
+                    p.data = partition.shard_of(p.data, d, mesh,
+                                                ("expert",)).clone()
         self._replica_axes = replica_grad_axes(mesh, self._batch_axes,
                                                self._param_specs) \
             if self._param_offload is None else ()
@@ -424,9 +473,13 @@ class DeepSpeedTPUEngine:
         acc_dtype = self.config.grad_accum_dtype
         acc: Optional[List[torch.Tensor]] = None
         loss_sum = torch.zeros((), device=self.device)
+        # under qgZ the phase is manual over the replica axes: an MoE layer
+        # gates and dispatches over the other batch axes only
         for i in range(gas):
-            loss, grads = self._grads_one_micro(
-                {k: v[i] for k, v in stacked.items()}, scale)
+            with (token_axes(self._micro_axes) if self._qgz_axes
+                  else contextlib.nullcontext()):
+                loss, grads = self._grads_one_micro(
+                    {k: v[i] for k, v in stacked.items()}, scale)
             loss_sum += loss
             if acc is None:           # 0 + g: the first sum is the cast itself
                 acc = [g.to(acc_dtype) for g in grads]
@@ -444,13 +497,16 @@ class DeepSpeedTPUEngine:
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """``precision.global_grad_norm`` over the full leaves: the squared
-        sums of blocks held by several ranks are summed over the ZeRO axes
-        first (one all-reduce)."""
+        sums of blocks held by several ranks are summed over the ZeRO axes,
+        and an expert leaf's over ``expert``, first (one all-reduce each);
+        a replicated leaf counts once."""
         sq = [g.float().square().sum() for g in grads]
-        if self._sharded_grads:
-            idx = [i for i, d in enumerate(self._grad_dim) if d is not None]
-            red = comm.all_reduce(torch.stack([sq[i] for i in idx]),
-                                  self._zero_axes)
+        for dims, axes in ((self._grad_dim, self._zero_axes),
+                           (self._expert_dim, ("expert",))):
+            idx = [i for i, d in enumerate(dims) if d is not None]
+            if not idx:
+                continue
+            red = comm.all_reduce(torch.stack([sq[i] for i in idx]), axes)
             for k, i in enumerate(idx):
                 sq[i] = red[k]
         if not sq:
@@ -464,8 +520,9 @@ class DeepSpeedTPUEngine:
         overflow = False
         if fp16.enabled or self._guard_nonfinite:
             flag = precision.has_inf_or_nan(grads)
-            if self.mesh.live_axes(self._batch_axes):
-                flag = comm.all_reduce(flag.float(), self._batch_axes,
+            axes = self.mesh.live_axes(self._batch_axes + ("expert",))
+            if axes:
+                flag = comm.all_reduce(flag.float(), axes,
                                        comm.ReduceOp.MAX) > 0
             overflow = bool(flag)
             if overflow:                  # the norm of the neutralised grads
@@ -838,10 +895,12 @@ class DeepSpeedTPUEngine:
         if self._offload is not None:
             return list(zip(self._param_names, self._offload.masters()))
         out = []
-        for name, p, d in zip(self._param_names, self._masters,
-                              self._param_dim):
+        for name, p, d, e in zip(self._param_names, self._masters,
+                                 self._param_dim, self._expert_dim):
             if d is not None:
                 p = partition.gather_full(p.detach(), d, self._zero_axes)
+            if e is not None:
+                p = partition.gather_full(p.detach(), e, ("expert",))
             out.append((name, p))
         return out
 

@@ -35,7 +35,7 @@ again only after the copy out of it has finished.
 
 Supported models: ``LlamaForCausalLM`` with ``scan_layers=False``.
 Unsupported configs raise at engine init; the MoE block stack raises "not
-ported" (ROADMAP Queue 1: MoE).
+ported" (ROADMAP Queue 1 item 4: MoE, its remainder).
 """
 
 import dataclasses
@@ -66,8 +66,9 @@ def validate_param_offload(config, model) -> None:
     cfg = getattr(model, "cfg", None)
     if cfg is not None and hasattr(cfg, "base") and hasattr(cfg, "moe"):
         raise NotImplementedError(
-            "offload_param over the MoE block stack (MixtralBlock) is not "
-            "ported yet (ROADMAP Queue 1: MoE)")
+            "offload_param over the MoE block stack (MixtralBlock, "
+            "Qwen2MoEBlock) is not ported yet (ROADMAP Queue 1 item 4: MoE "
+            "(the MoE block stack under offload_param))")
     if cfg is None or not hasattr(cfg, "num_layers"):
         raise ValueError(
             "offload_param needs a layered model exposing .cfg.num_layers "

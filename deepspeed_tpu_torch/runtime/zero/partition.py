@@ -17,13 +17,15 @@ with explicit collectives over the mesh's process groups:
 ``shard_of`` takes this rank's block of a full leaf, ``gather_full`` puts
 the members' blocks back together, ``reduce_scatter_full`` sums a full
 gradient over the members into this rank's block, each along the one
-dimension a spec shards. MiCS and hpZ's secondary specs
-(``secondary_partition_spec``, ``build_secondary_shardings``) are not
-ported yet (ROADMAP Queue 1 item 2), nor are tensor-parallel rules.
+dimension a spec shards. ``build_param_specs`` takes model-parallel
+``tensor_rules``, of which the expert rules are ported (the expert axis,
+ROADMAP Queue 1 item 4); MiCS and hpZ's secondary specs
+(``secondary_partition_spec``, ``build_secondary_shardings``) and the
+tensor-parallel rules are not yet (item 2).
 """
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -219,16 +221,41 @@ class ShardedParam(torch.nn.Module):
         return shard_of(full, self.dim, self.mesh, self.axes).clone()
 
 
-def leaf_specs(shapes: Sequence[Tuple[int, ...]], mesh: Mesh, stage: int
-               ) -> Dict[str, list]:
-    """Per leaf: the param spec and the optimizer-state spec over the mesh
-    (the reference's ``build_param_shardings`` /
-    ``build_opt_state_shardings`` without tensor rules)."""
+def build_param_specs(params, mesh: Mesh, stage: int,
+                      tensor_rules: Optional[Callable] = None,
+                      min_shard_size: int = DEFAULT_MIN_SHARD_SIZE
+                      ) -> Dict[str, Spec]:
+    """The reference's ``build_param_shardings`` (``partition.py:154``) on
+    the port's spec: ``params`` maps a parameter name (dotted, as
+    ``named_parameters`` gives it) to a tensor or a shape; each leaf's spec
+    is ``tensor_rules(name, leaf)`` (model-parallel rules such as
+    ``moe_tensor_rules``: an expert leaf takes ``("expert", None, None)``)
+    with the ZeRO ``stage``'s fsdp placement layered on its unused
+    dimensions."""
     fsdp_axes, fsdp_size = zero_fsdp_axes(mesh)
-    params = [param_partition_spec(s, stage, fsdp_size,
-                                   axis_sizes=dict(mesh.shape),
-                                   fsdp_axes=fsdp_axes) for s in shapes]
+    axis_sizes = dict(mesh.shape)
+    out = {}
+    for name, leaf in params.items():
+        shape = tuple(leaf) if isinstance(leaf, (tuple, list, torch.Size)) \
+            else tuple(leaf.shape)
+        tspec = tensor_rules(name, leaf) if tensor_rules else None
+        out[name] = param_partition_spec(shape, stage, fsdp_size,
+                                         tensor_spec=tspec,
+                                         min_shard_size=min_shard_size,
+                                         axis_sizes=axis_sizes,
+                                         fsdp_axes=fsdp_axes)
+    return out
+
+
+def leaf_specs(shapes: Dict[str, Tuple[int, ...]], mesh: Mesh, stage: int,
+               tensor_rules: Optional[Callable] = None) -> Dict[str, list]:
+    """Per leaf of ``shapes`` (name -> shape, in order): the param spec
+    (``build_param_specs``) and the optimizer-state spec over the mesh
+    (the reference's ``build_opt_state_shardings``)."""
+    fsdp_axes, fsdp_size = zero_fsdp_axes(mesh)
+    params = list(build_param_specs(shapes, mesh, stage, tensor_rules)
+                  .values())
     spec_of = optimizer_state_spec_fn(params, max(stage, 0), fsdp_size,
                                       fsdp_axes=fsdp_axes)
     return {"param": params,
-            "opt": [spec_of(p, s) for p, s in zip(params, shapes)]}
+            "opt": [spec_of(p, s) for p, s in zip(params, shapes.values())]}

@@ -321,6 +321,12 @@ def test_port_never_imports_jax_or_the_jax_package():
             "deepspeed_tpu_torch.comm.guard", "deepspeed_tpu_torch.testing",
             "deepspeed_tpu_torch.runtime.zero.partition",
             "deepspeed_tpu_torch.runtime.zero.qgz"} <= scanned
+    # and MoE: the layer, the two families, their HF helpers and policies
+    assert {"deepspeed_tpu_torch.moe", "deepspeed_tpu_torch.moe.sharded_moe",
+            "deepspeed_tpu_torch.models.mixtral",
+            "deepspeed_tpu_torch.models.qwen2_moe",
+            "deepspeed_tpu_torch.models.families",
+            "deepspeed_tpu_torch.inference.v2.modules"} <= scanned
     n_modules = int(res.stdout.split()[0])
     assert n_modules == len(list(pkgutil.walk_packages(
         deepspeed_tpu_torch.__path__, "deepspeed_tpu_torch.")))

@@ -280,7 +280,8 @@ REFUSED = [
     ({"mesh": {"dcn_axes": ["data"]}}, "dcn_axes"),
     ({"mesh": {"tensor": 2}}, "tensor-parallel"),
     ({"mesh": {"sequence": 2}}, "item 3: sequence parallel"),
-    ({"mesh": {"expert": 2}}, "item 4: MoE"),
+    ({"mesh": {"expert": 2}, "zero_optimization": {"stage": 2}},
+     "item 4: MoE"),
     ({"mesh": {"pipe": 2}}, "item 7"),
 ]
 
