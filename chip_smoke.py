@@ -74,6 +74,21 @@ call, bit for bit) and times both, then drives the port's paths:
   a rank, the exchanges' bytes against the count from the shapes, and the
   int8 combine (``quantized_dispatch``) with exact launches and step 1's
   combine bit for bit the plain codec's;
+- sequence parallelism (``train_sp``): Llama-3-8B at full width cut to 2
+  layers, one sequence of 8192 tokens (4096 if two ranks would not fit)
+  over ``sequence=2``, two gloo processes on the card (the flash kernels
+  timed at the ring's blocks and Ulysses' gathered sequence beside the
+  other flash timings, early in the run): the striped
+  and contiguous flash rings and Ulysses against their plain versions at a
+  rank's shard, forward and backward, with the ring's last step dropped
+  as a mutant; then Ulysses, the striped ring, the contiguous ring and the
+  striped ring with the chunked loss, two steps each, step 1 against the
+  one-rank flash run on the same weights and tokens, a planted fault
+  (every rank rotating with local positions) outside that tolerance,
+  exact flash launches per rank and the ``sequence/*`` bytes a step equal
+  to the count from the shapes; ``train_chunked_loss``: the training
+  recipe with ``loss_chunk_size=1024`` against the dense loss (step 1's
+  loss and norm, exact launches, peak HBM of each);
 - evoformer attention: the five kernels against their plain versions in 15
   cases (fp32 and bf16, head dims 8 to 128, every bias combination, Lq !=
   Lk, groups of MSA rows with N not a multiple of the group) with mutants,
@@ -714,16 +729,24 @@ def phase_kernel_parity():
 # phase 3b: the flash-attention kernels vs their plain mirrors
 # ---------------------------------------------------------------------------
 def _flash_inputs(gen, b, s, h, hkv, d, dtype, sk=None, seg=False):
-    """Seeded (q, k, v, dO) on the card, and [B,S] segment ids when asked."""
+    """Seeded (q, k, v, dO) on the card, and sorted segment ids when asked:
+    ``seg=True`` one [B,S] set that queries and keys share, ``"pair"`` a
+    ``(q_ids, k_ids)`` pair of two draws (the ring's: the key half rode
+    from another rank)."""
     sk = sk or s
     q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
     k = torch.randn(b, sk, hkv, d, generator=gen, device="cuda").to(dtype)
     v = torch.randn(b, sk, hkv, d, generator=gen, device="cuda").to(dtype)
     do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
-    segs = None
-    if seg:
-        segs = torch.sort(torch.randint(0, 3, (b, s), generator=gen,
+
+    def ids(n):
+        return torch.sort(torch.randint(0, 3, (b, n), generator=gen,
                                         device="cuda"), dim=1).values
+    segs = None
+    if seg == "pair":
+        segs = (ids(s), ids(sk))
+    elif seg:
+        segs = ids(s)
     return (q, k, v, do), segs
 
 
@@ -781,13 +804,14 @@ def _one_key_row_count(shape, opts, segs):
         hi = np.minimum(hi, i - opts.get("causal_shift", 0))
     if opts.get("window") is not None:
         lo = np.maximum(lo, i - opts["window"] + 1)
+    q_ids, k_ids = segs if isinstance(segs, tuple) else (segs, segs)
     rows = 0
     for bi in range(b):
         first, last = lo, hi
-        if segs is not None:
-            ids = segs[bi].cpu().numpy()
-            first = np.maximum(lo, np.searchsorted(ids, ids, side="left"))
-            last = np.minimum(hi, np.searchsorted(ids, ids, side="right") - 1)
+        if segs is not None:       # sorted key ids: a query's keys are one run
+            qi, ki = q_ids[bi].cpu().numpy(), k_ids[bi].cpu().numpy()
+            first = np.maximum(lo, np.searchsorted(ki, qi, side="left"))
+            last = np.minimum(hi, np.searchsorted(ki, qi, side="right") - 1)
         rows += int((last == first).sum())
     return rows * h
 
@@ -833,6 +857,12 @@ def _off_by_one(opts):
 
 def _segments_dropped(args, segs, opts, res, want):
     return _flash_plain_all(args, None, opts, res)
+
+
+def _pair_swapped(args, segs, opts, res, want):
+    """The ring's segment pair read the other way round: queries take the
+    key block's ids and keys the queries'."""
+    return _flash_plain_all(args, (segs[1], segs[0]), opts, res)
 
 
 def _kv_per_query_head(args, res, segs, opts, head_of, fold):
@@ -958,6 +988,20 @@ FLASH_CASES = [
      {"mask_off_by_one": (_changed_opts(_off_by_one), ANY),
       "kv_head_mod": (_kv_head_mod, ANY),
       "late_tile_dropped": (_late_tile_dropped, FLASH_OUTPUTS), **DQ_TILE}),
+    # the flash ring's blocks at train_sp's shape (a rank's 4096 of 8192
+    # tokens): a striped step from a later rank (causal_shift=1, row 0 has
+    # no live key) and a contiguous ring's earlier step (full), each with a
+    # (q_ids, k_ids) pair whose key half rode from another rank
+    ("ring_block", dict(b=1, s=4096, h=32, hkv=8, d=128,
+                        dtype=torch.bfloat16, seg="pair"),
+     dict(causal=True, causal_shift=1),
+     {"mask_off_by_one": (_changed_opts(_off_by_one), ANY),
+      "pair_swapped": (_pair_swapped, ANY)}),
+    ("ring_full", dict(b=1, s=4096, h=32, hkv=8, d=128,
+                       dtype=torch.bfloat16, seg="pair"),
+     dict(causal=False),
+     {"pair_swapped": (_pair_swapped, ANY),
+      "segment_mask_dropped": (_segments_dropped, ANY)}),
 ]
 
 
@@ -967,17 +1011,20 @@ def _json_ratio(x):
     return x if math.isfinite(x) else 1e30
 
 
-def run_flash_cases(gen):
-    """Every FLASH_CASES case: the three kernels against the plain mirrors
-    (each output within its per-row tolerance, finite), and each mutant of
-    the plain version outside the tolerance on the outputs it names (on at
-    least one when it names ``any``), and a second backward on the same
-    inputs repeating dQ, dK and dV bit for bit. Returns the rows; raises
-    PhaseError on any failure. The ``gpu`` test runs this too."""
+def run_flash_cases(gen, names=None):
+    """Every FLASH_CASES case (or those ``names`` lists): the three kernels
+    against the plain mirrors (each output within its per-row tolerance,
+    finite), and each mutant of the plain version outside the tolerance on
+    the outputs it names (on at least one when it names ``any``), and a
+    second backward on the same inputs repeating dQ, dK and dV bit for bit.
+    Returns the rows; raises PhaseError on any failure. The ``gpu`` tests
+    run this too."""
     from deepspeed_tpu_torch.ops import build
     from deepspeed_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
     rows = []
     for name, shape, opts, mutants in FLASH_CASES:
+        if names is not None and name not in names:
+            continue
         args, segs = _flash_inputs(gen, **shape)
         q, k, v, do = args
         before = build.launch_counts()
@@ -1112,13 +1159,14 @@ def _per_call_ms(durations_us, iters):
 def _kernel_device_ms(fn, names, iters=10):
     """Mean device time per call of each named CUDA kernel inside ``fn``;
     a name that matches no kernel event raises. A window whose event count
-    of some name is not a multiple of ``iters`` lost events and is taken
-    again (up to PROFILE_TRIES windows)."""
+    of some name is not a positive multiple of ``iters`` lost events and is
+    taken again (up to PROFILE_TRIES windows; a window late in a long run
+    has delivered events of none of the named kernels)."""
     for _ in range(PROFILE_TRIES):
         events = _device_events(fn, iters)
         mine = {n: [e.time_range.elapsed_us() for e in events if n in e.name]
                 for n in names}
-        if all(len(t) % iters == 0 for t in mine.values()):
+        if all(t and len(t) % iters == 0 for t in mine.values()):
             break
     for n, t in mine.items():
         check(t, f"the profiler saw no kernel whose name holds {n!r}")
@@ -4972,9 +5020,9 @@ ZERO_STEPS = 3                     # train_zero: steps after 1 warm-up
 RANKS = 2                          # processes of the two-rank phases, one card
 RANKS_STEPS = 2                    # train_batch steps of each two-rank run
 RANKS_TIMEOUT = 420                # seconds one spawned two-rank job may take
-# depth of the two-rank runs: the recipe's, cut only if gloo's host copies
-# make full width too slow (width is never cut)
-RANKS_LAYERS = TRAIN_LAYERS
+# depth of the two-rank runs: cut from the recipe's 4 layers to 2 to keep
+# the smoke inside its time limit beside train_sp (width is never cut)
+RANKS_LAYERS = 2
 RANKS_BATCH = 4                    # sequences a step: micro 1 x gas 2 x 2 ranks
 # a master "moved apart" from the reference's when the two differ by more
 # than this share of one AdamW step (lr): a step moves each weight by about
@@ -6032,6 +6080,508 @@ def _capacity_of(cfg) -> int:
 # ---------------------------------------------------------------------------
 # phase 9: the memory tiers (ZeRO-Offload, ZeRO-Infinity)
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# sequence parallelism: train_sp and train_chunked_loss
+# ---------------------------------------------------------------------------
+SP = 2                             # train_sp's sequence ranks, one card
+SP_VARIANTS = ("ulysses", "ring", "ring_contiguous", "ring_chunked_loss")
+SP_FAULT = "ulysses_local_positions"   # the planted fault: rope at arange(S_l)
+SP_LAYERS = 2                      # of 32: 1.49 B parameters, ~30 GB a rank
+SP_SEQ = 8192                      # tokens a step, over the SP ranks
+SP_SEQ_CUT = 4096                  # if SP_SEQ does not fit beside two ranks
+SP_STEPS = 2                       # train_batch steps of each variant
+SP_LOSS_CHUNK = 1024               # train_chunked_loss and ring_chunked_loss
+SP_TIMEOUT = 900                   # seconds the spawned pair may take
+# a rank's bytes a parameter at its peak (fp32 master, Adam's two moments,
+# the fp32 gradient, its bf16 accumulator and the bf16 casts of the
+# weights) and the fp32 [S_l, V] copies of the dense loss (logits, their
+# log-softmax, its gradient): the plan of SP_SEQ against the free memory
+SP_STATE_BYTES = 20
+SP_LOGIT_COPIES = 3
+# step 1's loss and gradient norm, each variant against the one-rank run
+# on the same weights and tokens (absolute loss, relative norm): four times
+# the largest distance of the four variants measured on an H100 80GB HBM3
+# at 700 W (loss 8.2e-5 for both rings and the chunked loss, norm 3.9e-5
+# relative for the chunked loss, 1.7e-5 for the contiguous ring); the
+# planted fault landed at 7.2e-3 and 1.4e-3 (PERF.md)
+SP_LOSS_TOL = 4e-4
+SP_NORM_TOL = 2e-4
+# train_chunked_loss: the chunked loss against the dense one, step 1
+CHUNK_LOSS_REL = 1e-4
+CHUNK_NORM_REL = 1e-3
+
+
+def sp_train_config(variant, seq, layers=SP_LAYERS):
+    """``train_config()``'s Llama-3-8B recipe (bf16, remat, AdamW 3e-4) at
+    ``layers`` layers, one sequence of ``seq`` tokens a step (micro-batch
+    1, gas 1), for a train_sp variant: ``one_rank`` (the flash backend on
+    one rank, the reference), Ulysses or the ring over ``SP`` sequence
+    ranks, the last with the chunked loss."""
+    import dataclasses
+    cfg, ds = train_config()
+    backend = "flash" if variant == "one_rank" else \
+        "ulysses" if variant.startswith("ulysses") else "ring"
+    cfg = dataclasses.replace(
+        cfg, num_layers=layers, max_seq_len=seq, attention_backend=backend,
+        loss_chunk_size=SP_LOSS_CHUNK if variant == "ring_chunked_loss"
+        else None)
+    ds.update(train_batch_size=1, gradient_accumulation_steps=1,
+              mesh={"data": 1, "sequence": 1 if variant == "one_rank"
+                    else SP})
+    return cfg, ds
+
+
+def sp_batch(cfg, seq, local_positions=False):
+    """The seeded sequence of ``seq`` tokens; with ``local_positions`` (the
+    planted fault) positions ``arange(seq / SP)`` on every rank's block."""
+    from deepspeed_tpu_torch.models.llama import random_tokens
+    batch = random_tokens(1, seq, vocab_size=cfg.vocab_size, seed=SEED)
+    if local_positions:
+        batch["positions"] = np.tile(np.arange(seq // SP, dtype=np.int32),
+                                     SP)[None]
+    return batch
+
+
+def sp_flash_per_step(variant, layers, sp, rank, gas=1, remat=True):
+    """The flash launches of one train_sp step on sequence rank ``rank``:
+    a layer's attention runs once in the forward and again in the remat
+    recompute (the recompute reruns the whole block: the last tensor the
+    backward needs is w_down's input), and once backward. Ulysses runs one
+    block over the gathered sequence; the striped ring ``sp`` blocks; the
+    contiguous causal ring ``rank + 1`` (the diagonal and the earlier
+    ranks' blocks)."""
+    blocks = 1 if variant == "ulysses" else \
+        rank + 1 if variant == "ring_contiguous" else sp
+    n = layers * gas * blocks
+    return {"flash_fwd": n * (2 if remat else 1), "flash_dq": n,
+            "flash_dkv": n}
+
+
+def sp_comm_bytes_per_step(variant, layers, sp, b, s_l, h, hkv, d, elem,
+                           gas=1):
+    """The comms logger's ``sequence/*`` bytes of one train_sp step on
+    every rank (an op's bytes are its input's): q/out ``Q`` and k/v ``KV``
+    bytes of a rank's shard, the ring's fp32 dK/dV accumulators ``KV32``.
+    Ulysses: the q, k, v and output all-to-alls in the forward, the
+    recompute and the backward, 3 (2Q + 2KV) a layer. Ring: ``sp - 1`` K/V
+    hops in the forward and the recompute (the last hop, which would only
+    bring K/V home, is skipped), ``sp - 1`` again and ``sp`` dK/dV hops in
+    the backward; striped, the three stripes and the unstripe, 3 (2Q +
+    2KV) a layer. The loss's token count: one fp32 a micro-batch."""
+    q = b * s_l * h * d * elem
+    kv = b * s_l * hkv * d * elem
+    kv32 = b * s_l * hkv * d * 4
+    n = layers * gas
+    out = {"sequence/loss/all_reduce": 4 * gas}
+    if variant == "ulysses":
+        out["sequence/ulysses/all_to_all"] = n * 3 * (2 * q + 2 * kv)
+        return out
+    hops = 2 * kv * (sp - 1)
+    out["sequence/ring/ppermute"] = n * (3 * hops + 2 * sp * kv32)
+    if variant != "ring_contiguous":
+        out["sequence/stripe/all_to_all"] = n * 3 * (2 * q + 2 * kv)
+    return out
+
+
+class _PlainFlash(torch.autograd.Function):
+    """Causal attention through the flash kernels' plain mirrors, forward
+    and backward: Ulysses' plain version on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        from deepspeed_tpu_torch.ops.flash_attention import flash_fwd_plain
+        out, lse = flash_fwd_plain(q, k, v, causal=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from deepspeed_tpu_torch.ops.flash_attention import flash_bwd_plain
+        return flash_bwd_plain(*ctx.saved_tensors[:5], do.contiguous(),
+                               causal=True)
+
+
+def _sp_case(fn, args, do):
+    """(out, dq, dk, dv) of ``fn`` on fresh leaves of ``args``."""
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    out = fn(*leaves)
+    out.backward(do)
+    return [out.detach()] + [x.grad for x in leaves]
+
+
+def sp_attention_checks(s_l, device="cuda"):
+    """On this rank of the sequence ranks, at a rank's shard of train_sp's
+    attention (B=1, S_l, H=32, Hkv=8, d=128, causal, bf16): the striped and
+    the contiguous flash rings and Ulysses through the kernels against the
+    same calls through the plain mirrors (``impl="interpret"``; Ulysses
+    with a custom attention over ``flash_fwd_plain`` / ``flash_bwd_plain``),
+    forward and backward. Each row of out, dQ, dK and dV within BF16_ULPS
+    ulps of its largest |plain| value for each ring block its result may
+    sum (a block's result carries the kernel's difference, and the combine
+    and the accumulators add them: ``sp`` for the rings, one for Ulysses);
+    the dQ row of global position 0, whose one live key makes its exact dQ
+    0, within twice ``_dq_one_key_rows``' rounding bound (each side is
+    within one of 0); and the plain striped ring with its last step dropped
+    outside the tolerance."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.sequence import ring, ulysses
+    r, sp = dist.get_rank(), dist.get_world_size()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 11)
+    h, hkv, d, s = 32, 8, 128, s_l * sp
+
+    def shard(*shape):
+        x = torch.randn(1, s, *shape, generator=gen, device=device)
+        return x[:, r * s_l:(r + 1) * s_l].to(torch.bfloat16).contiguous()
+    q, k, v, do = shard(h, d), shard(hkv, d), shard(hkv, d), shard(h, d)
+    # rank 0's local causal mask gives row 0 one key, as the global one does
+    one, bound = _dq_one_key_rows((q, k, v, do), None, {"causal": True})
+    with ring.default_impl(None):
+        cases = {
+            "ring_striped": (
+                lambda *a: ring.ring_attention(*a, impl="flash"),
+                lambda *a: ring.ring_attention(*a, impl="interpret"), sp),
+            "ring_contiguous": (
+                lambda *a: ring.ring_attention(*a, impl="flash_contiguous"),
+                lambda *a: ring.ring_attention(
+                    *a, impl="interpret_contiguous"), sp),
+            "ulysses": (ulysses.ulysses_attention,
+                        lambda *a: ulysses.ulysses_attention(
+                            *a, attn_fn=_PlainFlash.apply), 1)}
+        out = {}
+        for name, (kernel, plain, blocks) in cases.items():
+            got = _sp_case(kernel, (q, k, v), do)
+            want = _sp_case(plain, (q, k, v), do)
+            tols = [blocks * _row_tol(w) for w in want]
+            if r == 0:
+                tols[1] = torch.where(one[..., None], 2 * bound[..., None],
+                                      tols[1])
+            out[name] = {
+                "blocks": blocks,
+                "err_over_tol": {n: _err_ratio(g, w, t) for n, g, w, t in
+                                 zip(("out", "dq", "dk", "dv"), got, want,
+                                     tols)},
+                "max_abs_err": {n: _max_err(g, w, n) for n, g, w in
+                                zip(("out", "dq", "dk", "dv"), got, want)},
+                "finite": all(bool(torch.isfinite(g).all()) for g in got)}
+            if name == "ring_striped":
+                step_block = ring.step_block
+                last = (r + 1) % sp        # the block of the ring's last step
+                ring.step_block = lambda mode, src, idx: (
+                    None if src == last else step_block(mode, src, idx))
+                try:
+                    mutant = _sp_case(plain, (q, k, v), do)
+                finally:
+                    ring.step_block = step_block
+                out[name]["last_step_dropped"] = _err_ratio(
+                    mutant[0], want[0], tols[0])
+            del got, want
+    return out
+
+
+def sp_checks_body():
+    """One rank of the gpu test's ring and Ulysses checks (``$DSTPU_SMOKE_SEQ``
+    tokens over the ranks); writes ``sp_checks{r}.json``."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm.mesh import create_mesh, set_global_mesh
+    from deepspeed_tpu_torch.config.config import MeshConfig
+    r, w = dist.get_rank(), dist.get_world_size()
+    set_global_mesh(create_mesh(MeshConfig(data=1, sequence=w),
+                                device=_rank_device()))
+    checks = sp_attention_checks(int(os.environ["DSTPU_SMOKE_SEQ"]) // w,
+                                 _rank_device())
+    with open(_rank_out(f"sp_checks{r}.json"), "w") as f:
+        json.dump(checks, f)
+
+
+def check_sp_attention(checks):
+    for name, c in checks.items():
+        check(c["finite"], f"{name}: a non-finite output")
+        for n, ratio in c["err_over_tol"].items():
+            check(ratio <= 1.0, f"{name}: {n} kernel vs plain at {ratio} "
+                  "times its tolerance")
+        if "last_step_dropped" in c:
+            check(c["last_step_dropped"] > 1.0, f"{name}: the ring with its "
+                  "last step dropped lands within the tolerance "
+                  f"({c['last_step_dropped']})")
+
+
+def sp_ranks_body():
+    """One rank of ``train_sp`` (spawned over gloo on the card): the ring
+    and Ulysses checks at a rank's shard (``sp_attention_checks``), then
+    each SP_VARIANTS run, SP_STEPS steps on the one seeded sequence of
+    ``$DSTPU_SMOKE_SEQ`` tokens, and the planted fault one step: each
+    step's loss, gradient norm, launches, the comms logger's bytes and
+    seconds of each op and the step's host ms, and the run's peak HBM."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm.comms_logging import get_comms_logger
+    from deepspeed_tpu_torch.comm.mesh import create_mesh, set_global_mesh
+    from deepspeed_tpu_torch.config.config import MeshConfig
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.sequence import ring
+    r = dist.get_rank()
+    seq = int(os.environ["DSTPU_SMOKE_SEQ"])
+    set_global_mesh(create_mesh(MeshConfig(data=1, sequence=SP),
+                                device=_rank_device()))
+    _peak_reset()
+    out = {"rank": r, "seq": seq,
+           "checks": sp_attention_checks(seq // SP, _rank_device()),
+           "checks_peak_hbm": _peak(), "runs": {}}
+    _release()
+    comms = get_comms_logger()
+    comms.configure(enabled=True)
+    for variant in SP_VARIANTS + (SP_FAULT,):
+        cfg, ds = sp_train_config(variant, seq)
+        _peak_reset()
+        engine = _engine(cfg, ds)
+        batch = sp_batch(cfg, seq, local_positions=variant == SP_FAULT)
+        comms.reset()
+        impl = "flash_contiguous" if variant == "ring_contiguous" else None
+        with ring.default_impl(impl):
+            build.reset_launch_counts()   # the main path's run starts here
+            steps = _rank_steps(engine, batch,
+                                1 if variant == SP_FAULT else SP_STEPS, comms)
+            path = build.launch_counts()
+        out["runs"][variant] = {"steps": steps, "path": path,
+                                "peak_hbm": _peak()}
+        del engine
+        _release()
+    comms.configure(enabled=False)
+    with open(_rank_out(f"sp_ranks{r}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def plan_sp_seq():
+    """SP_SEQ when two ranks' planned peaks fit the card's free memory,
+    else SP_SEQ_CUT (the sequence is cut, never the width)."""
+    _release()
+    free, _ = torch.cuda.mem_get_info()
+    cfg, _ = sp_train_config("ulysses", SP_SEQ)
+    params = llama_params(cfg, SP_LAYERS)
+    for seq in (SP_SEQ, SP_SEQ_CUT):
+        need = SP * (SP_STATE_BYTES * params + SP_LOGIT_COPIES * 4 *
+                     seq // SP * cfg.vocab_size)
+        if need <= free:
+            return seq, free, need
+    return SP_SEQ_CUT, free, need
+
+
+def phase_sp_flash_timing(dev, smi_line, seq=SP_SEQ):
+    """The flash kernels by the profiler's device time at train_sp's
+    blocks: the ring's striped block from a later rank (S_l = seq / SP,
+    causal, causal_shift 1), a full block (the contiguous ring's earlier
+    step) and Ulysses' gathered sequence (S = seq, H / SP heads, causal),
+    each beside its bound. Run beside the other flash timings, early in
+    the smoke."""
+    from deepspeed_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 12)
+    s_l = seq // SP
+    shapes = {"ring_block_shift1": (s_l, 32, 8, dict(causal=True,
+                                                     causal_shift=1)),
+              "ring_block_full": (s_l, 32, 8, dict(causal=False)),
+              "ulysses_local": (seq, 32 // SP, 8 // SP, dict(causal=True))}
+    names = {"flash_fwd": "flash_fwd_kernel", "flash_dq": "flash_dq_kernel",
+             "flash_dkv": "flash_dkv_kernel"}
+    rows = {}
+    for label, (s, h, hkv, opts) in shapes.items():
+        (q, k, v, do), _ = _flash_inputs(gen, 1, s, h, hkv, 128,
+                                         torch.bfloat16)
+        out, lse = flash_fwd(q, k, v, **opts)
+        ms = _kernel_device_ms(lambda: flash_fwd(q, k, v, **opts),
+                               [names["flash_fwd"]], iters=10)
+        ms.update(_kernel_device_ms(
+            lambda: flash_bwd(q, k, v, out, lse, do, **opts),
+            [names["flash_dq"], names["flash_dkv"]], iters=10))
+        _, fwd_b, dq_b, dkv_b = _flash_work(1, s, h, hkv, 128, 2)
+        pairs = h * (s * s if not opts["causal"] else
+                     s * (s + 1) // 2 - opts.get("causal_shift", 0) * s)
+        mm = 2 * pairs * 128
+        bounds = {"flash_fwd": _bound(2 * mm, fwd_b),
+                  "flash_dq": _bound(3 * mm, dq_b),
+                  "flash_dkv": _bound(4 * mm, dkv_b)}
+        rows[label] = {n: {"ms": ms[e], "bound_ms": bounds[n][0],
+                           "bound_by": bounds[n][1],
+                           "share_of_bound": bounds[n][0] / ms[e]}
+                       for n, e in names.items()}
+        del q, k, v, do, out, lse
+    emit({"phase": "train_sp_flash_timing", "seq": seq, "sp": SP,
+          "blocks": rows, "card": dev["kind"], "nvidia_smi": smi_line,
+          "notes": "profiler device time of each kernel's entry; bounds "
+                   "count the live (row, key) pairs of the block's mask"})
+    return rows
+
+
+def _sp_reference(seq):
+    """The one-rank run (the flash backend on this process's card) of the
+    train_sp recipe on the same weights and sequence: step 1's loss and
+    gradient norm, its host ms and peak HBM; its memory freed after."""
+    cfg, ds = sp_train_config("one_rank", seq)
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    engine = _engine(cfg, ds, mesh=_world1_mesh())
+    t0 = time.monotonic()
+    loss = engine.train_batch(batch=sp_batch(cfg, seq)).item()
+    ms = (time.monotonic() - t0) * 1e3
+    ref = {"loss": loss, "grad_norm": engine.get_global_grad_norm(),
+           "step_ms": ms, "peak_hbm": torch.cuda.max_memory_allocated()}
+    del engine
+    _release()
+    return ref
+
+
+def check_sp_ranks(rows, ref, seq, layers=SP_LAYERS):
+    """Every rank's train_sp results against the one-rank run ``ref`` and
+    the formulas; returns (flash launches over the variants, each
+    variant's step-1 gaps, the fault's)."""
+    from deepspeed_tpu_torch.models.llama import LLAMA3_8B
+    cfg = LLAMA3_8B
+    gaps, path = {}, {}
+    for variant in SP_VARIANTS + (SP_FAULT,):
+        first = rows[0]["runs"][variant]["steps"][0]
+        gaps[variant] = {
+            "loss": abs(first["loss"] - ref["loss"]),
+            "grad_norm_rel": abs(first["grad_norm"] - ref["grad_norm"])
+            / ref["grad_norm"]}
+    for row in rows:
+        r = row["rank"]
+        check_sp_attention(row["checks"])
+        for variant in SP_VARIANTS:
+            run = row["runs"][variant]
+            r0 = rows[0]["runs"][variant]["steps"]
+            check([(s["loss"], s["grad_norm"]) for s in run["steps"]] ==
+                  [(s["loss"], s["grad_norm"]) for s in r0],
+                  f"{variant}: rank {r}'s losses or norms differ from "
+                  "rank 0's")
+            check(all(math.isfinite(s["loss"]) for s in run["steps"]),
+                  f"{variant}: losses {[s['loss'] for s in run['steps']]}")
+            want = sp_flash_per_step(variant, layers, SP, r)
+            want_b = sp_comm_bytes_per_step(
+                variant, layers, SP, 1, seq // SP, cfg.num_heads,
+                cfg.num_kv_heads, cfg.head_dim_, 2)
+            for s in run["steps"]:
+                got = {n: s["launches"].get(n, 0) for n in FLASH_PER_STEP}
+                check(got == want, f"{variant} rank {r}: flash launches "
+                      f"{got} a step, expected {want}")
+                got_b = {op: t["bytes"] for op, t in s["comm"].items()
+                         if op.startswith("sequence/") and t["count"]}
+                check(got_b == want_b, f"{variant} rank {r}: sequence/* "
+                      f"bytes {got_b} a step, expected {want_b}")
+            for n in FLASH_PER_STEP:
+                path[n] = path.get(n, 0) + run["path"].get(n, 0)
+    for variant in SP_VARIANTS:
+        g = gaps[variant]
+        check(g["loss"] <= SP_LOSS_TOL and g["grad_norm_rel"] <= SP_NORM_TOL,
+              f"{variant}: step 1 {g} from the one-rank run, tolerance "
+              f"{SP_LOSS_TOL} / {SP_NORM_TOL}")
+    g = gaps[SP_FAULT]
+    check(g["loss"] > SP_LOSS_TOL or g["grad_norm_rel"] > SP_NORM_TOL,
+          f"the planted fault ({SP_FAULT}) lands within the tolerance: {g}")
+    return path, gaps
+
+
+def _sp_step_rows(run):
+    rows = []
+    for s in run["steps"]:
+        comm_s = sum(t["seconds"] for t in s["comm"].values())
+        seq_s = sum(t["seconds"] for op, t in s["comm"].items()
+                    if op.startswith("sequence/"))
+        rows.append({"loss": s["loss"], "grad_norm": s["grad_norm"],
+                     "step_ms": s["step_ms"],
+                     "exchange_share": comm_s * 1e3 / s["step_ms"],
+                     "sequence_share": seq_s * 1e3 / s["step_ms"],
+                     "comm": {op: {k: t[k] for k in ("count", "bytes",
+                                                     "seconds")}
+                              for op, t in s["comm"].items() if t["count"]}})
+    return rows
+
+
+def phase_train_sp(dev, smi_line, tmp):
+    """Llama-3-8B at full width, SP_LAYERS layers, one sequence of SP_SEQ
+    tokens (SP_SEQ_CUT if two ranks would not fit) over SP sequence ranks:
+    two processes on the one card over gloo. The one-rank reference (flash
+    backend) on this process; then each rank: the ring and Ulysses against their
+    plain versions, and the four variants (Ulysses, the striped ring, the
+    contiguous ring, the striped ring with the chunked loss), SP_STEPS
+    steps each, and the planted fault one step. Gates: step 1's loss and
+    gradient norm within SP_LOSS_TOL / SP_NORM_TOL of the one-rank run and
+    the fault outside; every rank's losses and norms equal; the flash
+    launches and the ``sequence/*`` bytes of every step equal to
+    ``sp_flash_per_step`` and ``sp_comm_bytes_per_step``."""
+    seq, free, need = plan_sp_seq()
+    ref = _sp_reference(seq)
+    spawner = _host_side()
+    seconds = _spawn("sp_ranks_body", tmp, timeout=SP_TIMEOUT,
+                     DSTPU_SMOKE_SEQ=str(seq))
+    rows = _read_ranks("sp_ranks", tmp)
+    path, gaps = check_sp_ranks(rows, ref, seq)
+    cut = "" if seq == SP_SEQ else \
+        f" (cut from {SP_SEQ}: two ranks did not fit)"
+    emit({"phase": "train_sp", "model": f"LLAMA3_8B width, {SP_LAYERS} "
+          f"layers, bf16, remat, {seq} tokens{cut} over sequence={SP} on "
+          "one card (gloo)", "free_hbm": free, "planned_peak": need,
+          "seconds": seconds, "spawner_hbm": spawner, "reference": ref,
+          "step1_gaps": gaps,
+          "tolerance": {"loss": SP_LOSS_TOL, "grad_norm_rel": SP_NORM_TOL},
+          "checks": [row["checks"] for row in rows],
+          "checks_peak_hbm": [row["checks_peak_hbm"] for row in rows],
+          "variants": {v: {"peak_hbm": [row["runs"][v]["peak_hbm"]
+                                        for row in rows],
+                           "launches_per_step_by_rank": [
+                               {n: row["runs"][v]["steps"][0]["launches"]
+                                .get(n, 0) for n in FLASH_PER_STEP}
+                               for row in rows],
+                           "steps": _sp_step_rows(rows[0]["runs"][v])}
+                       for v in SP_VARIANTS + (SP_FAULT,)},
+          "launches": path, "card": dev["kind"], "nvidia_smi": smi_line})
+    return path
+
+
+def phase_train_chunked_loss(batch, dev, smi_line):
+    """The training recipe (TRAIN_LAYERS layers, seq TRAIN_SEQ, gas
+    TRAIN_GAS) with the dense loss and with ``loss_chunk_size`` =
+    SP_LOSS_CHUNK, one step each from the same seeded weights: step 1's
+    loss within CHUNK_LOSS_REL and gradient norm within CHUNK_NORM_REL of
+    the dense run's, the chunked run's flash launches exact, and each run's
+    peak HBM."""
+    import dataclasses
+    from deepspeed_tpu_torch.ops import build
+    rows, path = {}, {}
+    for label, chunk in (("dense", None), ("chunked", SP_LOSS_CHUNK)):
+        cfg, ds = train_config()
+        cfg = dataclasses.replace(cfg, loss_chunk_size=chunk)
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        engine = _engine(cfg, ds, mesh=_world1_mesh())
+        build.reset_launch_counts()      # the main path's run starts here
+        losses, step_ms, per_step, norms = _train_steps(engine, batch, 1)
+        path = build.launch_counts()
+        rows[label] = {"loss": losses[0], "grad_norm": norms[0],
+                       "step_ms": step_ms[0], "launches": per_step[0],
+                       "peak_hbm": torch.cuda.max_memory_allocated()}
+        del engine
+    _release()
+    d, c = rows["dense"], rows["chunked"]
+    gaps = {"loss_rel": abs(c["loss"] - d["loss"]) / abs(d["loss"]),
+            "grad_norm_rel": abs(c["grad_norm"] - d["grad_norm"])
+            / d["grad_norm"]}
+    want = {n: k * TRAIN_LAYERS * TRAIN_GAS for n, k in FLASH_PER_STEP.items()}
+    emit({"phase": "train_chunked_loss", "model": f"LLAMA3_8B width, "
+          f"{TRAIN_LAYERS} layers, bf16, remat, flash, seq {TRAIN_SEQ}, gas "
+          f"{TRAIN_GAS}", "loss_chunk_size": SP_LOSS_CHUNK, **rows,
+          "gaps": gaps, "tolerance": {"loss_rel": CHUNK_LOSS_REL,
+                                      "grad_norm_rel": CHUNK_NORM_REL},
+          "peak_saved": d["peak_hbm"] - c["peak_hbm"],
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    check(math.isfinite(c["loss"]), f"chunked loss {c['loss']}")
+    check(gaps["loss_rel"] <= CHUNK_LOSS_REL and
+          gaps["grad_norm_rel"] <= CHUNK_NORM_REL,
+          f"chunked vs dense step 1: {gaps}")
+    check(c["launches"] == want, f"chunked flash launches {c['launches']}, "
+          f"expected {want}")
+    return path
+
+
 HOST_SOURCES = ("cpu_adam", "aio")  # g++ builds them beside the CUDA sources
 PARITY_STEPS = 2                   # train_batch steps of each parity engine
 OFFLOAD_STEPS = 2                  # timed steps after 1 warm-up, optimizer tier
@@ -6485,12 +7035,14 @@ ENTRY_NAMES = {n: f"{n}_kernel" for n in BIAS_ACT_KERNELS}
 # at two ranks; serve_moe: Qwen1.5-MoE-A2.7B and Mixtral-8x7B through
 # InferenceEngineV2; train_moe: Mixtral-8x7B on one rank; train_moe_ranks:
 # Mixtral-8x7B over two expert ranks, dense and int8; moe_int8: that run's
-# int8 combine)
+# int8 combine; train_sp: Llama-3-8B over two sequence ranks, Ulysses and
+# the ring; train_chunked_loss: the recipe with the chunked loss)
 KERNEL_PATHS = {"paged_attention": ("serve", "serve_http", "disagg", "fleet",
                                      "A1", "A2", "serve_moe"),
                 **{n: ("train", "train_offload", "train_param_offload",
                        "train_zero", "train_zero_ranks", "train_qgz_ranks",
-                       "train_moe", "train_moe_ranks")
+                       "train_moe", "train_moe_ranks", "train_sp",
+                       "train_chunked_loss")
                    for n in FLASH_PER_STEP},
                 "quantize_fp8": ("A1", "quant_collectives"),
                 "dequantize_fp8": ("A1", "quant_collectives"),
@@ -6519,6 +7071,8 @@ def main() -> int:
         worst, timing = phase_kernel_parity()
         phase = "flash_parity"
         flash_worst, flash_timing = phase_flash_parity()
+        phase = "train_sp_flash_timing"
+        phase_sp_flash_timing(dev, smi_line)
         phase = "quant_parity"
         quant_worst = phase_quant_parity()
         phase = "quant_timing"
@@ -6588,8 +7142,12 @@ def main() -> int:
             phase = "train_moe_ranks"
             moe_ranks_launches, moe_int8_launches = phase_train_moe_ranks(
                 dev, smi_line, tmp)
+            phase = "train_sp"
+            sp_launches = phase_train_sp(dev, smi_line, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+        phase = "train_chunked_loss"
+        chunked_launches = phase_train_chunked_loss(batch, dev, smi_line)
         phase = "train_offload_parity"
         phase_train_offload_parity(batch, dev, smi_line)
         phase = "train_offload"
@@ -6616,6 +7174,8 @@ def main() -> int:
                        "train_moe": moe_launches,
                        "train_moe_ranks": moe_ranks_launches,
                        "moe_int8": moe_int8_launches,
+                       "train_sp": sp_launches,
+                       "train_chunked_loss": chunked_launches,
                        "evoformer": evo_launches, **sparse_launches,
                        "R": rms_launches, "F": bias_act_launches}
         launches_by_path = {

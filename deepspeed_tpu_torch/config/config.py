@@ -10,11 +10,11 @@ their ROADMAP Queue 1 item instead of being parsed and ignored: any
 top-level group the training path does not read, and inside the read
 groups MiCS (``mics_shard_size``), hpZ (``zero_hpz_partition_size > 1``),
 qwZ (``zero_quantized_weights``), ``comm_compression``, a mesh with
-``fsdp_outer``, ``tensor``, ``sequence`` or ``pipe`` above 1, or with
-``dcn_axes`` (item 2 "distribution and memory tiers", item 3 "sequence
-parallel"), and an ``expert`` axis above 1 at ZeRO stages 2-3 or with a
-memory tier (item 4 "MoE"'s remainder; the expert axis runs at stages
-0-1). A comms-logger op filter
+``fsdp_outer``, ``tensor`` or ``pipe`` above 1, or with ``dcn_axes`` (item
+2 "distribution and memory tiers"), qgZ over a ``sequence`` axis above 1
+(item 3 "sequence parallel"), and an ``expert`` axis above 1 at ZeRO
+stages 2-3 or with a memory tier (item 4 "MoE"'s remainder; the expert
+axis runs at stages 0-1). A comms-logger op filter
 (``prof_all`` false, ``prof_ops``) is refused too: no logger applies it.
 ZeRO stages 0-3 are read; the memory tiers, ``offload_optimizer`` and
 ``offload_param`` with ``cpu`` or ``nvme``, run at a world of one rank
@@ -41,6 +41,7 @@ _READ_KEYS = frozenset({
 # the Queue 1 items refusals name (ROADMAP.md)
 ITEM_DIST = "ROADMAP Queue 1 item 2: distribution and memory tiers"
 ITEM_MOE = "ROADMAP Queue 1 item 4: MoE"
+ITEM_SEQ = "ROADMAP Queue 1 item 3: sequence parallel"
 
 
 def _from_dict(cls, raw: Optional[Dict[str, Any]]):
@@ -246,14 +247,17 @@ class DeepSpeedTPUConfig:
                 f"compression) is not ported yet ({ITEM_DIST})")
         for axis, item in (("fsdp_outer", ITEM_DIST),
                            ("tensor", ITEM_DIST + " (tensor-parallel rules)"),
-                           ("sequence", "ROADMAP Queue 1 item 3: sequence "
-                                        "parallel"),
                            ("pipe", "ROADMAP Queue 1 item 7: the pipeline "
                                     "engine")):
             if getattr(mesh, axis) != 1:
                 raise NotImplementedError(
                     f"mesh.{axis}={getattr(mesh, axis)} is not ported yet "
                     f"({item})")
+        if mesh.sequence != 1 and zc.zero_quantized_gradients:
+            raise NotImplementedError(
+                f"zero_quantized_gradients at mesh.sequence={mesh.sequence} "
+                f"is not ported yet ({ITEM_SEQ}: qgZ's int8 wire over "
+                "sequence ranks, whose gradients are sums, not means)")
         if mesh.expert != 1:
             if zc.stage >= 2:
                 raise NotImplementedError(

@@ -20,10 +20,18 @@ cast. Remat is ``torch.utils.checkpoint`` (non-reentrant) per block.
 and ``LlamaForCausalLM.loss_of`` are the pieces the whole forward is made
 of, and the entry points of the parameter tier's layer-group stream.
 
-Not ported yet: the ``ulysses`` and ``ring`` backends (ROADMAP Queue 1,
-sequence parallel), the chunked loss (``loss_chunk_size``, with
-``sequence/cross_entropy.py``) and the scanned-layer tree
-(``scan_layers``).
+**Sequence parallelism.** The ``ulysses`` and ``ring`` backends
+(``sequence/``) run over the global mesh's ``sequence`` axis: each rank
+holds a contiguous shard of the sequence, so the engine hands the model
+global ``positions`` and next-token ``labels`` / ``loss_mask`` built over
+the whole sequence before the cut, and the loss divides this rank's sum
+by the token count summed over ``sequence`` (the ranks' losses add up to
+the global mean, as the JAX model's one global program computes it). The
+rank-local backends (``flash``, ``xla``) refuse a sequence axis: they
+would attend within the shard. The chunked loss (``loss_chunk_size``)
+runs ``sequence/cross_entropy.py``'s ``chunked_ce_sum``.
+
+Not ported yet: the scanned-layer tree (``scan_layers``).
 """
 
 import dataclasses
@@ -56,12 +64,16 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
-    attention_backend: str = "xla"     # xla | flash (ulysses | ring: later)
+    attention_backend: str = "xla"     # xla | flash | ulysses | ring
     remat: bool = False
     remat_policy: str = "nothing_saveable"
     scan_layers: bool = False           # not ported: raises when set
     logits_soft_cap: Optional[float] = None
-    loss_chunk_size: Optional[int] = None   # not ported: raises when set
+    # fuse the lm-head matmul with softmax-CE per token chunk so the fp32
+    # [B*S, V] logits never materialize (sequence/cross_entropy.py). None:
+    # the dense loss
+    loss_chunk_size: Optional[int] = None
+    loss_chunk_unroll: bool = False     # JAX: unroll its chunk scan; one loop here
     # llama-family arch knobs (mistral/qwen2/phi3 are llama variants):
     attention_bias: bool = False          # qwen2: bias on q/k/v projections
     sliding_window: Optional[int] = None  # mistral: attend to last W tokens only
@@ -194,20 +206,52 @@ def _xla_attention(q, k, v, causal: bool = True, segment_ids=None,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def sequence_world() -> int:
+    """The global mesh's ``sequence`` axis size (1 without a mesh)."""
+    from deepspeed_tpu_torch.comm.mesh import get_global_mesh
+    mesh = get_global_mesh()
+    return mesh.shape["sequence"] if mesh is not None else 1
+
+
 def _dispatch_attention(backend: str, q, k, v, causal=True, segment_ids=None,
                         window=None):
+    sp = sequence_world()
+    if backend in ("xla", "flash") and sp > 1:
+        raise NotImplementedError(
+            f"attention backend '{backend}' at mesh.sequence={sp}: each rank "
+            "holds a shard of the sequence and this backend would attend "
+            "within it (the JAX package's one program gathers it); use "
+            "'ulysses' or 'ring'")
     if window is not None and backend != "flash":
-        return _xla_attention(q, k, v, causal, segment_ids, window=window)
+        if sp == 1:
+            return _xla_attention(q, k, v, causal, segment_ids, window=window)
+        if backend == "ring":
+            raise NotImplementedError(
+                "sliding_window with the ring backend over sequence ranks: "
+                "the JAX package runs plain attention over the global array, "
+                "which no rank holds here; use 'ulysses' (the windowed flash "
+                "kernels on the gathered sequence)")
     if backend == "xla":
         return _xla_attention(q, k, v, causal, segment_ids)
     if backend == "flash":
         from deepspeed_tpu_torch.ops.flash_attention import flash_attention_auto
         return flash_attention_auto(q, k, v, causal=causal, window=window,
                                     segment_ids=segment_ids)
-    if backend in ("ulysses", "ring"):
-        raise NotImplementedError(
-            f"attention backend '{backend}' is not ported yet (ROADMAP "
-            "Queue 1: sequence parallel); use 'flash' or 'xla'")
+    if backend == "ulysses":
+        from deepspeed_tpu_torch.sequence.ulysses import ulysses_attention
+        return ulysses_attention(q, k, v, causal=causal,
+                                 segment_ids=segment_ids, window=window)
+    if backend == "ring":
+        if segment_ids is not None and not q.is_cuda:
+            # the plain ring body has no segment carry; only the flash ring
+            # (CUDA tensors) masks packed sequences — never drop the mask
+            raise NotImplementedError(
+                "packed-sequence segment_ids with the ring backend need the "
+                "flash ring (CUDA tensors); on CPU use 'ulysses'/'flash'/"
+                "'xla'")
+        from deepspeed_tpu_torch.sequence.ring import ring_attention
+        return ring_attention(q, k, v, causal=causal,
+                              segment_ids=segment_ids)
     raise ValueError(f"unknown attention backend '{backend}'")
 
 
@@ -358,9 +402,16 @@ class LlamaModel(nn.Module):
 
     @staticmethod
     def positions_of(input_ids, positions=None) -> torch.Tensor:
+        """``positions`` or the default: ``arange(S)``, offset by this
+        rank's start of the sequence over the mesh's ``sequence`` axis."""
         if positions is None:
-            positions = torch.arange(input_ids.shape[1],
-                                     device=input_ids.device).expand_as(input_ids)
+            s = input_ids.shape[1]
+            start = 0
+            if sequence_world() > 1:
+                from deepspeed_tpu_torch.comm.mesh import get_global_mesh
+                start = get_global_mesh().axis_index("sequence") * s
+            positions = (start + torch.arange(
+                s, device=input_ids.device)).expand_as(input_ids)
         return positions.long()
 
     def embed_tokens(self, input_ids, table) -> torch.Tensor:
@@ -398,12 +449,19 @@ class LlamaModel(nn.Module):
         return softcap_logits(logits, cfg.logits_soft_cap)
 
     def forward(self, input_ids, positions=None, segment_ids=None,
-                compute_dtype=None):
+                compute_dtype=None, return_hidden=False):
+        """fp32 logits, or with ``return_hidden`` (the chunked loss) the
+        final-normed hidden states and the head's weights: the tied table
+        ``[V, D]`` or ``lm_head.kernel`` ``[D, V]``."""
         positions = self.positions_of(input_ids, positions)
         table = self.table(compute_dtype)
         x = self.embed_tokens(input_ids, table)
         x = self.run_blocks(self.layers(), x, positions, segment_ids,
                             compute_dtype)
+        if return_hidden:
+            head = table if self.cfg.tie_embeddings else \
+                _cast(self.lm_head.kernel, compute_dtype)
+            return self.final_norm(x, compute_dtype), head
         return self.head(x, table, compute_dtype)
 
 
@@ -415,11 +473,6 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
-        if cfg.loss_chunk_size:
-            raise NotImplementedError(
-                "loss_chunk_size (the chunked loss of "
-                "sequence/cross_entropy.py) is not ported yet (ROADMAP "
-                "Queue 1); use the dense loss")
         self.cfg = cfg
         self.model = LlamaModel(cfg, resolve_device(device))
         self.reset_parameters(seed)
@@ -450,6 +503,8 @@ class LlamaForCausalLM(nn.Module):
                           compute_dtype=compute_dtype)
 
     def forward(self, batch, compute_dtype=None):
+        if self.cfg.loss_chunk_size:
+            return self._chunked_loss(batch, compute_dtype)
         return self.loss_of(self.logits(batch, compute_dtype), batch)
 
     @staticmethod
@@ -458,6 +513,7 @@ class LlamaForCausalLM(nn.Module):
         input_ids = batch["input_ids"]
         labels = batch.get("labels")
         if labels is None:
+            _labels_needed()
             labels = input_ids[:, 1:]
             logits = logits[:, :-1]
             mask = batch.get("loss_mask")
@@ -467,7 +523,56 @@ class LlamaForCausalLM(nn.Module):
         logp = torch.log_softmax(logits.float(), dim=-1)
         ll = logp.gather(-1, labels.long()[..., None])[..., 0]
         mask = mask.float()
-        return -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+        return -(ll * mask).sum() / token_count(mask.sum())
+
+    def _chunked_loss(self, batch, compute_dtype=None):
+        """The dense loss's value through ``chunked_ce_sum``: the head
+        matmul and the CE fused per token chunk. Labels and mask are
+        aligned to all S positions (the last masked out in the next-token
+        case), as the JAX model aligns them."""
+        from deepspeed_tpu_torch.sequence.cross_entropy import chunked_ce_sum
+        cfg = self.cfg
+        input_ids = batch["input_ids"]
+        labels = batch.get("labels")
+        if labels is None:
+            _labels_needed()
+            labels = F.pad(input_ids[:, 1:], (0, 1))
+            mask = batch.get("loss_mask")
+            mask = mask[:, 1:] if mask is not None else \
+                torch.ones_like(input_ids[:, 1:])
+            mask = F.pad(mask, (0, 1))
+        else:
+            mask = batch.get("loss_mask", torch.ones_like(labels))
+        hidden, head = self.model(input_ids, positions=batch.get("positions"),
+                                  segment_ids=batch.get("segment_ids"),
+                                  compute_dtype=compute_dtype,
+                                  return_hidden=True)
+        kw = {"embedding": head} if cfg.tie_embeddings else {"kernel": head}
+        total, count = chunked_ce_sum(
+            hidden, labels, mask, chunk_size=cfg.loss_chunk_size,
+            soft_cap=cfg.logits_soft_cap, compute_dtype=cfg.dtype, **kw)
+        return total / token_count(count)
+
+
+def _labels_needed() -> None:
+    sp = sequence_world()
+    if sp > 1:
+        raise ValueError(
+            f"at mesh.sequence={sp} the next-token labels and loss mask must "
+            "be built over the whole sequence before it is cut (the engine "
+            "passes 'labels' and 'loss_mask'); a shard lacks the next rank's "
+            "first token")
+
+
+def token_count(count: torch.Tensor) -> torch.Tensor:
+    """The loss's denominator: this rank's masked token count, summed over
+    the mesh's ``sequence`` axis (its ranks hold one sequence), at least
+    one."""
+    if sequence_world() > 1:
+        from deepspeed_tpu_torch.comm import comm
+        with comm.op_label("sequence/loss"):
+            count = comm.all_reduce(count.detach().float(), "sequence")
+    return count.clamp_min(1.0)
 
 
 def random_tokens(batch_size: int, seq_len: int, vocab_size: int = 512,

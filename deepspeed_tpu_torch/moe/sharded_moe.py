@@ -274,6 +274,18 @@ def _live_token_axes(mesh) -> Tuple[str, ...]:
                           else BATCH_AXES)
 
 
+def refuse_sequence_axis(mesh) -> None:
+    """An MoE layer at ``mesh.sequence > 1`` raises: its token axes are the
+    batch axes, and its capacity ranking runs over the global token order,
+    which a sequence shard would reorder."""
+    if mesh is not None and mesh.shape["sequence"] > 1:
+        raise NotImplementedError(
+            f"an MoE layer at mesh.sequence={mesh.shape['sequence']} is not "
+            "ported yet (ROADMAP Queue 1 item 4: MoE under sequence "
+            "parallelism; the layer gates over the batch axes' global token "
+            "order, which a sequence shard reorders)")
+
+
 def _all_reduce(x, axes, label):
     from deepspeed_tpu_torch.comm import comm
     with comm.op_label(label):
@@ -402,6 +414,7 @@ class MOELayer(nn.Module):
         b, s, d = x.shape
         tokens = x.reshape(b * s, d)
         mesh = get_global_mesh()
+        refuse_sequence_axis(mesh)
         tok_axes = _live_token_axes(mesh) if mesh is not None else ()
         first, count = self._expert_share(mesh)
         ep = count < cfg.num_experts

@@ -57,6 +57,19 @@ on a mesh of the same shape.
   the batch axes outside the replica axes (``sharded_moe.token_axes``).
   A noisy gate raises: the reference's engine hands the model only a
   dropout rng stream.
+- The sequence axis (``mesh.sequence`` > 1, the ``ulysses`` and ``ring``
+  backends): before the cut, the global batch gains next-token ``labels``
+  and ``loss_mask`` aligned to all S positions (the last one masked, as
+  the reference's chunked loss aligns them) and global ``positions``; each
+  rank keeps its rows over the batch axes and its contiguous block of the
+  sequence. A rank's loss is its masked sum over the token count summed
+  over ``sequence`` (``models/llama.py::token_count``), so the sequence
+  ranks' losses add up to the global mean. Each gradient is therefore
+  summed over ``sequence`` in the same all-reduce that sums it over the
+  batch axes, and divided by the batch axes' world only; the reported loss
+  is summed over ``sequence``, then averaged over the batch axes. ZeRO
+  shards over the fsdp axes only: sequence ranks hold replicas, as in the
+  reference (``runtime/zero/partition.py:16-19``).
 - ``_update`` is the reference's (``:1018-1057``): overflow check under
   fp16 or the non-finite guard, clipping by the global norm, the Adam
   update, and on overflow the old parameters, optimizer state and step
@@ -142,6 +155,28 @@ def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.T
             for k, v in batch.items()}
 
 
+def sequence_batch(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A global LM batch (leaves ``[..., S]``) with the next-token
+    ``labels`` and ``loss_mask`` aligned to all S positions (the last one
+    masked out; a given ``loss_mask`` shifted as the dense loss shifts it)
+    and ``positions`` ``arange(S)``, for a cut over sequence ranks. Given
+    ``labels`` are kept as they are."""
+    out = {k: v if isinstance(v, torch.Tensor)
+           else torch.from_numpy(np.ascontiguousarray(v))
+           for k, v in batch.items()}
+    ids = out["input_ids"]
+    if "labels" not in out:
+        out["labels"] = torch.nn.functional.pad(ids[..., 1:], (0, 1))
+        mask = out.get("loss_mask")
+        mask = mask[..., 1:] if mask is not None else \
+            torch.ones_like(ids[..., 1:])
+        out["loss_mask"] = torch.nn.functional.pad(mask.float(), (0, 1))
+    if "positions" not in out:
+        out["positions"] = torch.arange(
+            ids.shape[-1], dtype=torch.int32).expand(ids.shape).contiguous()
+    return out
+
+
 QGZ_NO_REPLICA_MSG = (
     "zero_quantized_gradients=true but the mesh has NO replica batch axis "
     "(pure-fsdp ZeRO-3): there is no pure-DP all-reduce hop to compress, so "
@@ -182,6 +217,12 @@ class DeepSpeedTPUEngine:
             tensor_rules = moe_tensor_rules
         self.tensor_rules = tensor_rules
         self._refuse_noisy_gating(model)
+        self._seq_axes = self.mesh.live_axes(("sequence",))
+        if self._seq_axes:
+            from deepspeed_tpu_torch.moe.sharded_moe import (
+                moe_layers, refuse_sequence_axis)
+            if moe_layers(model):
+                refuse_sequence_axis(self.mesh)
         self.training = True
         self._compiled = False
         log_dist(f"engine: {config!r} mesh={dict(self.mesh.shape)} "
@@ -439,21 +480,24 @@ class DeepSpeedTPUEngine:
         axes and divide by their world: the gradient of the mean over the
         global micro-batch. Stage 2 reduce-scatters a sharded leaf into its
         block (stage 3's gather already did in its backward), then sums the
-        block over the other axes."""
-        if self._micro_world <= 1:
+        block over the other axes. Over ``sequence`` the gradients are
+        summed, in the same all-reduce. ``grads`` is reduced in place, a
+        leaf at a time, so one extra leaf is alive at once."""
+        if self._micro_world <= 1 and not self._seq_axes:
             return grads
         zero = set(self._zero_axes)
-        out = []
-        for g, d in zip(grads, self._grad_dim):
+        for i, d in enumerate(self._grad_dim):
+            g = grads[i]
             axes = self._micro_axes
             if d is not None:
                 if self.zero_stage == 2:
                     g = partition.reduce_scatter_full(g, d, self._zero_axes)
                 axes = tuple(a for a in axes if a not in zero)
+            axes = self.mesh.live_axes(axes + self._seq_axes)
             if axes:
                 g = comm.all_reduce(g, axes)
-            out.append(g / self._micro_world)
-        return out
+            grads[i] = g / self._micro_world if self._micro_world > 1 else g
+        return grads
 
     def _round_trip(self, g: torch.Tensor, dim: Optional[int]):
         """The int8 round trip of a reduced gradient, row by row over its
@@ -491,9 +535,16 @@ class DeepSpeedTPUEngine:
         if self._qgz_axes:            # a leaf at a time: each sum is freed
             for i in range(len(acc)):
                 acc[i] = quantized_grad_sync([acc[i]], self._qgz_axes)[0]
+        return self._global_loss(loss), acc
+
+    def _global_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """This rank's loss summed over ``sequence`` (its ranks' losses are
+        parts of one mean), then averaged over the batch axes."""
+        if self._seq_axes:
+            loss = comm.all_reduce(loss, self._seq_axes)
         if self.mesh.live_axes(self._batch_axes):
             loss = comm.all_reduce(loss, self._batch_axes, comm.ReduceOp.AVG)
-        return loss, acc
+        return loss
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """``precision.global_grad_norm`` over the full leaves: the squared
@@ -617,21 +668,28 @@ class DeepSpeedTPUEngine:
     def _local_rows(self, batch: Dict[str, Any], dim: int) -> Dict[str, Any]:
         """This rank's rows of a global batch along ``dim``: block c of
         ``dp`` equal blocks, c its row-major coordinate over the batch
-        axes."""
-        dp = self.dp_world_size
-        if dp == 1:
-            return batch
-        c = self.mesh.axis_index(self._batch_axes)
-        out = {}
-        for k, v in batch.items():
-            rows = v.shape[dim]
-            if rows % dp:
-                raise ValueError(f"batch['{k}'] has {rows} rows, not "
-                                 f"divisible by the {dp} data-parallel ranks")
-            n = rows // dp
-            sl = [slice(None)] * v.ndim
-            sl[dim] = slice(c * n, (c + 1) * n)
-            out[k] = v[tuple(sl)]
+        axes; over a sequence axis, first the global labels, mask and
+        positions (``sequence_batch``), then this rank's block of dim
+        ``dim + 1``."""
+        out = dict(batch)
+        if self._seq_axes:
+            out = sequence_batch(out)
+        for axes, world, d, what in (
+                (self._batch_axes, self.dp_world_size, dim, "rows"),
+                (self._seq_axes, self.mesh.axis_world(self._seq_axes),
+                 dim + 1, "positions")):
+            if world == 1:
+                continue
+            c = self.mesh.axis_index(axes)
+            for k, v in out.items():
+                n = v.shape[d]
+                if n % world:
+                    raise ValueError(f"batch['{k}'] has {n} {what} on dim "
+                                     f"{d}, not divisible by {world} ranks "
+                                     f"over {axes}")
+                sl = [slice(None)] * v.ndim
+                sl[d] = slice(c * (n // world), (c + 1) * (n // world))
+                out[k] = v[tuple(sl)]
         return out
 
     # ------------------------------------------------------------------
@@ -864,9 +922,7 @@ class DeepSpeedTPUEngine:
         with torch.no_grad():
             loss = self._compute_loss(_to_device(self._local_rows(batch, 0),
                                                  self.device))
-        if self.mesh.live_axes(self._batch_axes):
-            loss = comm.all_reduce(loss, self._batch_axes, comm.ReduceOp.AVG)
-        return loss
+        return self._global_loss(loss)
 
     def get_lr(self) -> List[float]:
         return [float(self.lr_schedule(self.step_count))]

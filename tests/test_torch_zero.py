@@ -279,7 +279,9 @@ REFUSED = [
     ({"mesh": {"fsdp_outer": 2}}, "fsdp_outer"),
     ({"mesh": {"dcn_axes": ["data"]}}, "dcn_axes"),
     ({"mesh": {"tensor": 2}}, "tensor-parallel"),
-    ({"mesh": {"sequence": 2}}, "item 3: sequence parallel"),
+    ({"mesh": {"sequence": 2},
+      "zero_optimization": {"zero_quantized_gradients": True}},
+     "item 3: sequence parallel"),
     ({"mesh": {"expert": 2}, "zero_optimization": {"stage": 2}},
      "item 4: MoE"),
     ({"mesh": {"pipe": 2}}, "item 7"),
