@@ -130,6 +130,8 @@ that line, as does a machine with no CUDA device or a directory without the
 package. Imports nothing of JAX.
 """
 
+import concurrent.futures
+import contextlib
 import functools
 import gc
 import itertools
@@ -167,8 +169,29 @@ LOSS_REL, GRAD_NORM_REL, ATTN_GRAD_REL = 1e-4, 1e-3, 0.05
 FLASH_PER_STEP = {"flash_fwd": 2, "flash_dq": 1, "flash_dkv": 1}  # per layer x micro
 
 
+_T0 = time.monotonic()
+_PHASE_SECONDS = {}                  # phase line -> seconds since the last line
+_LAST_LINE = [_T0]
+# every line also goes to this file (gitignored), opened by main(): it keeps
+# the whole run where a caller keeps only the output's end
+LINES_PATH = os.path.join("chiprun_out", "chip_smoke.jsonl")
+_LINES = []
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line; a phase's line also records the seconds since
+    the previous one under its phase name (``phase_seconds``)."""
+    if "phase" in obj:
+        now = time.monotonic()
+        name = obj["phase"]
+        _PHASE_SECONDS[name] = _PHASE_SECONDS.get(name, 0.0) + now - \
+            _LAST_LINE[0]
+        _LAST_LINE[0] = now
+    line = json.dumps(obj)
+    print(line, flush=True)
+    for f in _LINES:
+        f.write(line + "\n")
+        f.flush()
 
 
 class PhaseError(RuntimeError):
@@ -295,18 +318,21 @@ QUANT_PLAN_CHECKS = [(n, d, r, dt) for n, d in ((64, 128), (8, 4096),
                      for r in (0, 1) for dt in (torch.float32, torch.bfloat16)]
 
 
-def _sass_counts(library, entries, ops):
-    """{demangled entry: {op: count}} of ``ops`` in each entry of
-    ``library`` whose name holds one of ``entries`` (``cuobjdump
-    --dump-sass``, from nvcc's folder)."""
-    import os
+def _dump_sass(library) -> str:
+    """``cuobjdump --dump-sass`` of ``library`` (from nvcc's folder)."""
     from deepspeed_tpu_torch.ops import build
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     res = subprocess.run([tool, "--dump-sass", str(library)],
                          capture_output=True, text=True, timeout=300)
     check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-400:]}")
+    return res.stdout
+
+
+def _sass_counts(sass, entries, ops):
+    """{demangled entry: {op: count}} of ``ops`` in each entry of the
+    dumped ``sass`` whose name holds one of ``entries``."""
     counts, cur = {}, None
-    for line in res.stdout.splitlines():
+    for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = m.group(1) if any(n in m.group(1) for n in entries) else None
@@ -346,8 +372,14 @@ def phase_build(kernels):
                       "entries": [{"kernel": k, "registers": r, "spill_stores": s}
                                   for k, r, s in zip(_demangle(entries), regs,
                                                      spills)]}
-    sass = {label: _sass_counts(results[lib].path, entries, ops)
+    # one dump a library, all at once (each takes seconds)
+    libs = sorted({lib for lib, _, _, _ in SASS_CHECKS.values()})
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        dumps = dict(zip(libs, pool.map(
+            lambda lib: _dump_sass(results[lib].path), libs)))
+    sass = {label: _sass_counts(dumps[lib], entries, ops)
             for label, (lib, entries, ops, _) in SASS_CHECKS.items()}
+    del dumps
     smem = {f"d{d}_rows{rows}_{name}": dynamic_smem_bytes(d, rows, dt)
             for d in (32, 64, 128) for rows in (4, 8, 32)
             for name, dt in kv_dtypes.items()}
@@ -1272,7 +1304,10 @@ QUANT_SHAPES = [(4099, 64), (1000, 128), (37, 4096), (9, 14336), (3, 128256),
                 (1, 130), (70001, 64), (2200, 1000)]
 QUANT_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 QUANT_KERNELS = ("quantize_int8", "dequantize_int8", "quantize_fp8",
-                 "dequantize_fp8")
+                 "dequantize_fp8", "quantize_int8_scaled")
+# the given-scale int8 encode's faults: a product with the reciprocal
+# scale, ties rounded away from 0, the next row's scale
+SCALED_FAULTS = ("reciprocal_multiply", "round_half_away", "scale_row_shift")
 # the path shapes timed: one w_gate of A1 in groups of 64, and the lm_head
 # gradient of the qgZ training step
 QUANT_TIMING_SHAPES = {"A1_w_gate": (917504, 64), "B_lm_head": (4096, 128256)}
@@ -1609,9 +1644,61 @@ def run_quant_cases(seed=SEED, device="cuda"):
     return rows
 
 
+def _scaled_mutant(x, scales, fault):
+    """The plain given-scale encode with one of SCALED_FAULTS."""
+    x2d, sc = x.float(), scales.float()
+    if fault == "scale_row_shift":
+        sc = sc.roll(1, 0)
+    v = x2d * (1.0 / sc) if fault == "reciprocal_multiply" else x2d / sc
+    if fault == "round_half_away":
+        v = torch.nextafter(v, 2.0 * v)
+    return torch.clamp(torch.round(v), -127, 127).to(torch.int8)
+
+
+def run_quant_scaled_cases(seed=SEED, device="cuda"):
+    """``quantize_int8_scaled`` on every int8 case of ``quant_cases`` (the
+    special rows included) against its plain version bit for bit, and on a
+    view one row in, with given scales: each row's own scale, every odd
+    row's times 1.5 (a wider row's, as qwZ's max over a row's pieces
+    gives). Each of SCALED_FAULTS must change a code in some case.
+    Returns (rows, largest |kernel - plain| code distance)."""
+    from deepspeed_tpu_torch.ops.quant import (quantize_int8_plain,
+                                               quantize_int8_scaled,
+                                               quantize_int8_scaled_plain)
+    rows, worst = [], 0.0
+    caught = dict.fromkeys(SCALED_FAULTS, 0)
+    for name, xnp, fmt, dname, special in quant_cases(seed):
+        if fmt != "int8":
+            continue
+        x = torch.from_numpy(xnp).to(device=device, dtype=QUANT_DTYPES[dname])
+        scales = quantize_int8_plain(x)[1].clone()
+        scales[1::2] *= 1.5
+        q_k = quantize_int8_scaled(x, scales)
+        q_p = quantize_int8_scaled_plain(x, scales)
+        row = {"case": name, "dtype": dname, "codes_differ": _differs(q_k, q_p)}
+        if x.shape[0] >= 2:
+            row["view_differ"] = _differs(
+                quantize_int8_scaled(x[1:], scales[1:]),
+                quantize_int8_scaled_plain(x[1:], scales[1:]))
+        worst = max(worst, (q_k.float() - q_p.float()).abs().max().item())
+        for fault in SCALED_FAULTS:
+            caught[fault] += _differs(_scaled_mutant(x, scales, fault), q_p)
+        check(row["codes_differ"] == 0 and row.get("view_differ", 0) == 0,
+              f"quantize_int8_scaled {dname} {name}: {row} codes differ "
+              "from the plain version")
+        rows.append(row)
+    for fault, n in caught.items():
+        check(n > 0, f"quantize_int8_scaled: mutant {fault} gives the plain "
+              "version's codes in every case")
+    emit({"phase": "quant_scaled_parity", "cases": len(rows),
+          "bit_identical": True, "mutants_caught": caught})
+    return rows, worst
+
+
 def phase_quant_parity():
     rows = run_quant_cases()
     worst = {k: 0.0 for k in QUANT_KERNELS}
+    worst["quantize_int8_scaled"] = run_quant_scaled_cases()[1]
     for row in rows:
         q = "quantize_int8" if row["fmt"] == "int8" else "quantize_fp8"
         worst[q] = max(worst[q], row["max_abs_err"])
@@ -1744,8 +1831,13 @@ def phase_quant_timing(dev, smi_line):
         del x, codes
         torch.cuda.empty_cache()
     widths = _qgz_width_timing(gen)
+    qwz = _qwz_kernel_timing(train_config()[0])
     emit({"phase": "quant_timing", "shapes": {k: list(v) for k, v in
                                               QUANT_TIMING_SHAPES.items()},
+          "qwz_block_shapes": {k: list(v) for k, v in qwz_timing_shapes(
+              train_config()[0]).items()},
+          "qwz_kernels": {k: {w: {**r, "share_of_bound": r["bound_ms"] / r["ms"]}
+                              for w, r in v.items()} for k, v in qwz.items()},
           "input": "fp32; dequantize to bf16 at A1_w_gate, fp32 at B_lm_head",
           "quantize_int8_qgz_widths": widths,
           "elements_differing_from_plain": parity,
@@ -1756,9 +1848,11 @@ def phase_quant_timing(dev, smi_line):
     # the kernels line: each kernel at the shape of its main path
     path_shape = {"quantize_fp8": "A1_w_gate", "dequantize_fp8": "A1_w_gate",
                   "quantize_int8": "B_lm_head", "dequantize_int8": "B_lm_head"}
-    return {k: {key: out[k][w][key] for key in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            for k, w in path_shape.items()}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {**{k: {key: out[k][w][key] for key in keys}
+               for k, w in path_shape.items()},
+            "quantize_int8_scaled": {key: qwz["quantize_int8_scaled"][
+                "lm_head_block"][key] for key in keys}}
 
 
 # ---------------------------------------------------------------------------
@@ -5018,23 +5112,33 @@ def phase_train_qgz(batch, plain_norm1, dev, smi_line):
 # ---------------------------------------------------------------------------
 ZERO_STEPS = 3                     # train_zero: steps after 1 warm-up
 RANKS = 2                          # processes of the two-rank phases, one card
-RANKS_STEPS = 2                    # train_batch steps of each two-rank run
+# train_batch steps of each two-rank run: cut from 2 to 1 to keep the
+# smoke inside its time limit beside train_zeropp_ranks
+RANKS_STEPS = 1
 RANKS_TIMEOUT = 420                # seconds one spawned two-rank job may take
 # depth of the two-rank runs: cut from the recipe's 4 layers to 2 to keep
-# the smoke inside its time limit beside train_sp (width is never cut)
-RANKS_LAYERS = 2
+# the smoke inside its time limit beside train_sp, and to 1 beside
+# train_zeropp_ranks (width is never cut)
+RANKS_LAYERS = 1
 RANKS_BATCH = 4                    # sequences a step: micro 1 x gas 2 x 2 ranks
+# the stages train_zero_ranks runs: stage 2 only since train_zeropp_ranks,
+# whose MiCS variant runs stage 3 over the same fsdp=2 groups (the same
+# gathers and reduce-scatters) under the same gates; the rank body runs 3
+# and 2 unless told (the CPU test runs both)
+ZERO_RANKS_STAGES = (2,)
+ZERO_STAGES_ENV = "DSTPU_SMOKE_ZERO_STAGES"
 # a master "moved apart" from the reference's when the two differ by more
 # than this share of one AdamW step (lr): a step moves each weight by about
 # lr, so a gradient whose sign flips in another summation order moves it
 # ~2 lr, while the rest agree to rounding; the check counts such elements
 MASTERS_ATOL_LR = 0.1
-QGZ_RANKS_STEPS = 2                # train_qgz_ranks: steps after the first
+QGZ_RANKS_STEPS = 0                # train_qgz_ranks: steps after the first
+#                                    (2 before train_zeropp_ranks)
 # its depth: two ranks with the whole fp32 state (12 bytes a parameter) and
 # a step's activations peak at ~36 GB each at 4 layers, which with the
 # spawning process's blocks does not fit the 80 GB card; 2 layers leave
 # ~8 GB a rank (width is never cut)
-QGZ_RANKS_LAYERS = 2
+QGZ_RANKS_LAYERS = 1                # (2 before train_zeropp_ranks: the time)
 RANK_OUT_ENV = "DSTPU_SMOKE_OUT"   # where a spawned rank writes its rows
 RANK_MODEL_ENV = "DSTPU_SMOKE_MODEL"   # "8b" (the recipe) or "tiny" (tests)
 RANK_DEVICE_ENV = "DSTPU_SMOKE_DEVICE"  # "cuda" (the card) or "cpu" (tests)
@@ -5221,20 +5325,129 @@ def _recipe_lr(model) -> float:
 
 
 def _masters_apart(got, want, atol):
-    """(share of elements more than ``atol`` apart, largest distance)."""
+    """(share of elements more than ``atol`` apart, largest distance), a
+    leaf at a time on this rank's device: the same numbers as on the host
+    (a difference, its magnitude and a comparison round nothing), where a
+    billion fp32 elements take ~10 s of a rank's two host threads."""
+    dev = _rank_device()
     n = apart = 0
     worst = 0.0
     for a, b in zip(got, want):
-        d = (a - b).abs()
+        d = (a.to(dev) - b.to(dev)).abs()
         n += d.numel()
         apart += int((d > atol).sum())
         worst = max(worst, float(d.max()))
+        del d
     return apart / n, worst
+
+
+def _save_masters(masters, stem) -> None:
+    """Each fp32 master of ``masters`` to the ranks' folder, one ``.npy`` a
+    leaf, for ``_blocks_apart`` on every rank."""
+    for i, m in enumerate(masters):
+        np.save(_rank_out(f"{stem}{i}.npy"), m.cpu().numpy())
+
+
+def _remove_masters(stem) -> None:
+    folder = os.environ[RANK_OUT_ENV]
+    for name in os.listdir(folder):
+        if name.startswith(stem) and name.endswith(".npy"):
+            os.remove(os.path.join(folder, name))
+
+
+def _blocks_apart(engine, stem, atol):
+    """``_masters_apart`` of the engine's masters against those
+    ``_save_masters`` wrote, with no gather: each rank compares the blocks
+    it holds, on its device, the first rank of those holding a block
+    counts it, and the counts and the largest distance are reduced over
+    the ranks (the same numbers: the counted blocks tile every leaf once,
+    which the element count checks). Every rank must call it."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm.mesh import MESH_AXES
+    from deepspeed_tpu_torch.runtime.zero import partition
+    mesh, dev = engine.mesh, _rank_device()
+    n = apart = 0
+    worst = 0.0
+    for i, (m, d, e) in enumerate(zip(engine._masters, engine._param_dim,
+                                      engine._expert_dim)):
+        check(e is None, "_blocks_apart: an expert leaf")
+        held = tuple(engine._block_axes) if d is not None else ()
+        if mesh.axis_index(tuple(a for a in MESH_AXES if a not in held)):
+            continue                   # a rank before this one counts it
+        want = torch.from_numpy(np.load(_rank_out(f"{stem}{i}.npy"),
+                                        mmap_mode="c"))
+        if d is not None:
+            want = partition.shard_of(want, d, mesh, held)
+        check(want.shape == m.shape, f"_blocks_apart: leaf {i}'s block "
+              f"{tuple(m.shape)}, the reference's {tuple(want.shape)}")
+        diff = (m.detach() - want.to(dev)).abs()
+        n += diff.numel()
+        apart += int((diff > atol).sum())
+        worst = max(worst, float(diff.max()))
+        del want, diff
+    counts = torch.tensor([n, apart], dtype=torch.int64)
+    dist.all_reduce(counts)
+    largest = torch.tensor([worst], dtype=torch.float64)
+    dist.all_reduce(largest, op=dist.ReduceOp.MAX)
+    total = sum(math.prod(s) for s in engine._full_shapes.values())
+    check(int(counts[0]) == total, f"_blocks_apart counted {int(counts[0])} "
+          f"elements of {total}")
+    return int(counts[1]) / total, float(largest[0])
 
 
 def _world1_mesh():
     from deepspeed_tpu_torch.comm.mesh import MESH_AXES, Mesh
     return Mesh({a: 1 for a in MESH_AXES}, 0, torch.device(_rank_device()))
+
+
+def stage0_orders(batch, layers, model, rows, steps):
+    """The stage-0 reference on this rank alone (a one-rank mesh) in three
+    summation orders over the same ``rows`` sequences a step: micro ``rows
+    / gas`` x gas (the reference), micro 1 x ``rows``, and micro 1 x
+    ``rows`` with each micro-batch's sequences reversed; ``steps`` steps
+    each. Returns ((losses, norms, masters) of the reference, its summary
+    with the tolerance: twice the larger distance of the other two
+    orders). The masters stay on this rank's device."""
+    gas = batch["input_ids"].shape[0]
+    atol = MASTERS_ATOL_LR * _recipe_lr(model)
+    flat = {k: v.reshape(gas * v.shape[1], 1, -1) for k, v in batch.items()}
+    swapped = {k: v[:, ::-1].reshape(gas * v.shape[1], 1, -1)
+               for k, v in batch.items()}
+    micro = rows // gas
+    runs = {}
+    for name, b, g in ((f"micro{micro}_gas{gas}", batch, gas),
+                       (f"micro1_gas{rows}", flat, rows),
+                       (f"micro1_gas{rows}_swapped", swapped, rows)):
+        cfg, ds = _zero_recipe(0, layers, model)
+        ds.update(train_batch_size=rows, gradient_accumulation_steps=g)
+        engine = _engine(cfg, ds, mesh=_world1_mesh())
+        losses, norms = [], []
+        for _ in range(steps):
+            losses.append(engine.train_batch(batch=b).item())
+            norms.append(engine.get_global_grad_norm())
+        # kept on the card (15 GB at 1 layer beside a free card): the
+        # comparisons below and the caller's need no host round trip
+        runs[name] = (losses, norms, [m.detach().clone() for _, m
+                                      in engine.named_masters()])
+        del engine
+        _release()
+    la, na, ma = runs.pop(f"micro{micro}_gas{gas}")
+    apart = {k: _masters_apart(mb, ma, atol) for k, (_, _, mb)
+             in runs.items()}
+    tol = {"loss": 2 * max(abs(a - b) for lb, _, _ in runs.values()
+                           for a, b in zip(la, lb)),
+           "grad_norm": 2 * max(abs(a - b) for _, nb, _ in runs.values()
+                                for a, b in zip(na, nb)),
+           "masters_share": 2 * max(s for s, _ in apart.values())}
+    summary = {
+        f"losses_micro{micro}_gas{gas}": la,
+        f"grad_norms_micro{micro}_gas{gas}": na,
+        "tolerance": tol, "masters_atol": atol,
+        **{f"losses_{k}": v[0] for k, v in runs.items()},
+        **{f"grad_norms_{k}": v[1] for k, v in runs.items()},
+        **{f"masters_share_{k}": s for k, (s, _) in apart.items()},
+        **{f"masters_max_abs_{k}": m for k, (_, m) in apart.items()}}
+    return (la, na, ma), summary
 
 
 def zero_ranks_body():
@@ -5251,7 +5464,8 @@ def zero_ranks_body():
     notice the scale), and the share of master elements more than
     ``MASTERS_ATOL_LR`` x lr from the reference's (summation order flips
     the sign of a few near-zero gradients, each such element ~2 lr away,
-    so a largest distance cannot tell a fault from those flips)."""
+    so a largest distance cannot tell a fault from those flips).
+    ``$DSTPU_SMOKE_ZERO_STAGES`` (default ``3,2``) names the stages run."""
     import torch.distributed as dist
     from deepspeed_tpu_torch.comm.comms_logging import get_comms_logger
     from deepspeed_tpu_torch.models.llama import random_tokens
@@ -5264,49 +5478,17 @@ def zero_ranks_body():
     batch = random_tokens(RANKS_BATCH // gas, TRAIN_SEQ if model == "8b"
                           else 64, vocab_size=cfg0.vocab_size, seed=SEED,
                           gas=gas)
-    flat = {k: v.reshape(gas * v.shape[1], 1, -1) for k, v in batch.items()}
-    swapped = {k: v[:, ::-1].reshape(gas * v.shape[1], 1, -1)
-               for k, v in batch.items()}
     atol = MASTERS_ATOL_LR * _recipe_lr(model)
-    ref, tol = None, None
+    ref = None
     if r == 0:
-        runs = {}
-        for name, b, g in (("micro2_gas2", batch, gas),
-                           ("micro1_gas4", flat, 2 * gas),
-                           ("micro1_gas4_swapped", swapped, 2 * gas)):
-            cfg, ds = _zero_recipe(0, layers, model)
-            ds.update(train_batch_size=RANKS_BATCH,
-                      gradient_accumulation_steps=g)
-            engine = _engine(cfg, ds, mesh=_world1_mesh())
-            losses, norms = [], []
-            for _ in range(RANKS_STEPS):
-                losses.append(engine.train_batch(batch=b).item())
-                norms.append(engine.get_global_grad_norm())
-            runs[name] = (losses, norms, [m.detach().cpu() for _, m
-                                          in engine.named_masters()])
-            del engine
-            _release()
-        la, na, ma = runs.pop("micro2_gas2")
-        apart = {k: _masters_apart(mb, ma, atol) for k, (_, _, mb)
-                 in runs.items()}
-        tol = {"loss": 2 * max(abs(a - b) for lb, _, _ in runs.values()
-                               for a, b in zip(la, lb)),
-               "grad_norm": 2 * max(abs(a - b) for _, nb, _ in runs.values()
-                                    for a, b in zip(na, nb)),
-               "masters_share": 2 * max(s for s, _ in apart.values())}
-        ref = (la, na, ma)
-        out["reference"] = {
-            "losses_micro2_gas2": la, "grad_norms_micro2_gas2": na,
-            "tolerance": tol, "masters_atol": atol,
-            **{f"losses_{k}": v[0] for k, v in runs.items()},
-            **{f"grad_norms_{k}": v[1] for k, v in runs.items()},
-            **{f"masters_share_{k}": s for k, (s, _) in apart.items()},
-            **{f"masters_max_abs_{k}": m for k, (_, m) in apart.items()}}
-        del runs
+        ref, out["reference"] = stage0_orders(batch, layers, model,
+                                              RANKS_BATCH, RANKS_STEPS)
     dist.barrier()
     comms = get_comms_logger()
     comms.configure(enabled=True)
-    for stage in (3, 2):
+    stages = [int(x) for x in
+              os.environ.get(ZERO_STAGES_ENV, "3,2").split(",")]
+    for stage in stages:
         cfg, ds = _zero_recipe(stage, layers, model)
         ds.update(train_batch_size=RANKS_BATCH, mesh={"fsdp": RANKS,
                                                       "data": 1})
@@ -5318,9 +5500,9 @@ def zero_ranks_body():
                "peak_hbm": _peak(),
                "expected_comm_per_step": _expected_comm(engine, stage, gas),
                "opt_dims": engine._opt_dim, "param_dims": engine._param_dim}
-        # every rank reads them (a stage-3 master is gathered); rank 0 keeps
-        masters = [m.detach().cpu() for _, m in engine.named_masters()
-                   if r == 0]
+        # every rank reads them (a stage-3 master is gathered); rank 0
+        # compares them on its device
+        masters = [m.detach() for _, m in engine.named_masters() if r == 0]
         if r == 0:
             run["masters_share"], run["masters_max_abs"] = _masters_apart(
                 masters, ref[2], atol)
@@ -5336,22 +5518,23 @@ def zero_ranks_body():
         json.dump(out, f)
 
 
-def _read_ranks(stem, tmp):
+def _read_ranks(stem, tmp, world=RANKS):
     rows = []
-    for r in range(RANKS):
+    for r in range(world):
         with open(os.path.join(tmp, f"{stem}{r}.json")) as f:
             rows.append(json.load(f))
     return rows
 
 
-def _spawn(body, tmp, device="cuda", timeout=RANKS_TIMEOUT, **env):
-    """Run ``body`` of this file in RANKS processes over gloo (on the card
-    unless ``device`` says otherwise); the seconds it took."""
+def _spawn(body, tmp, device="cuda", timeout=RANKS_TIMEOUT, world=RANKS,
+           **env):
+    """Run ``body`` of this file in ``world`` processes over gloo (on the
+    card unless ``device`` says otherwise); the seconds it took."""
     from deepspeed_tpu_torch.testing import run_distributed
     t0 = time.monotonic()
     # the ranks share one card: segments that grow in place leave no
     # reserved-but-unusable blocks between them
-    run_distributed(f"chip_smoke:{body}", RANKS, timeout=timeout,
+    run_distributed(f"chip_smoke:{body}", world, timeout=timeout,
                     env={RANK_OUT_ENV: tmp, RANK_DEVICE_ENV: device,
                          "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True",
                          **env},
@@ -5367,26 +5550,75 @@ def _host_side(dev_type="cuda") -> dict:
             "reserved": torch.cuda.memory_reserved()}
 
 
-def phase_train_zero_ranks(dev, smi_line, tmp):
-    """Two processes on the one card over gloo (named: NCCL refuses two
-    ranks on one device), spawned through ``testing.run_distributed``:
-    Llama-3-8B at full width, RANKS_LAYERS layers, stage 3 then stage 2 at
-    fsdp=2, RANKS_STEPS steps each; losses, gradient norms and the share
-    of masters apart within twice the distance of stage-0 runs that differ
-    only in summation order, every rank's losses and norms equal; each
-    rank's fp32 masters + moments, peak HBM, and the all_gather /
-    reduce_scatter bytes a step beside the count from the leaves' shapes;
-    exact flash launches a step."""
+BODIES_ENV = "DSTPU_SMOKE_BODIES"
+# the two-rank phases' bodies, run in turn by one spawned pair
+# (``phase_train_ranks``): one process start and card context for all four
+TWO_RANK_BODIES = ("zero_ranks_body", "qgz_ranks_body", "moe_ranks_body",
+                   "sp_ranks_body")
+
+
+def ranks_bodies():
+    """Rank bodies of this file in turn in one spawned world, as
+    ``$DSTPU_SMOKE_BODIES`` (comma-separated) names them; each body's
+    seconds to ``<body>_seconds<rank>.json`` in the ranks' folder."""
+    import torch.distributed as dist
+    for name in os.environ[BODIES_ENV].split(","):
+        t = time.monotonic()
+        globals()[name]()
+        _release()
+        dist.barrier()
+        with open(_rank_out(f"{name}_seconds{dist.get_rank()}.json"),
+                  "w") as f:
+            json.dump(time.monotonic() - t, f)
+
+
+def _body_seconds(tmp, body) -> float:
+    with open(os.path.join(tmp, f"{body}_seconds0.json")) as f:
+        return json.load(f)
+
+
+def phase_train_ranks(tmp) -> dict:
+    """The two-rank phases' bodies (TWO_RANK_BODIES) in one pair of
+    processes on the card over gloo, after planning the MoE depth and the
+    sequence length on the card's free memory; the phases that follow
+    (``train_zero_ranks`` to ``train_sp``) read and gate their rows."""
     _release()
     spawner = _host_side()
-    seconds = _spawn("zero_ranks_body", tmp)
+    moe = plan_moe_rank_layers()
+    sp = plan_sp_seq()
+    seconds = _spawn("ranks_bodies", tmp,
+                     timeout=3 * RANKS_TIMEOUT + SP_TIMEOUT,
+                     **{BODIES_ENV: ",".join(TWO_RANK_BODIES),
+                        ZERO_STAGES_ENV: ",".join(
+                            str(k) for k in ZERO_RANKS_STAGES),
+                        MOE_LAYERS_ENV: str(moe[0]),
+                        "DSTPU_SMOKE_SEQ": str(sp[0])})
+    emit({"phase": "train_ranks", "seconds": seconds,
+          "bodies": {b: _body_seconds(tmp, b) for b in TWO_RANK_BODIES}})
+    return {"spawner_hbm": spawner, "moe": moe, "sp": sp}
+
+
+def phase_train_zero_ranks(dev, smi_line, tmp, spawn):
+    """Two processes on the one card over gloo (named: NCCL refuses two
+    ranks on one device), spawned through ``testing.run_distributed``:
+    Llama-3-8B at full width, RANKS_LAYERS layers, the stages of
+    ZERO_RANKS_STAGES at fsdp=2, RANKS_STEPS steps each; losses, gradient
+    norms and the share of masters apart within twice the distance of
+    stage-0 runs that differ only in summation order, every rank's losses
+    and norms equal; each
+    rank's fp32 masters + moments, peak HBM, and the all_gather /
+    reduce_scatter bytes a step beside the count from the leaves' shapes;
+    exact flash launches a step. The rows of ``phase_train_ranks``."""
+    stages = [str(k) for k in ZERO_RANKS_STAGES]
+    seconds = _body_seconds(tmp, "zero_ranks_body")
+    spawner = spawn["spawner_hbm"]
     rows = _read_ranks("zero_ranks", tmp)
     ref = rows[0]["reference"]
     tol = ref["tolerance"]
     want = {n: k * RANKS_LAYERS * TRAIN_GAS for n, k in FLASH_PER_STEP.items()}
     path = {n: 0 for n in FLASH_PER_STEP}
     summary = {}
-    for stage in ("3", "2"):
+    for stage in stages:
         r0 = rows[0]["runs"][stage]
         per_rank = [{"masters": row["runs"][stage]["masters"],
                      "moments": row["runs"][stage]["moments"],
@@ -5432,18 +5664,21 @@ def phase_train_zero_ranks(dev, smi_line, tmp):
                       f"launches {got}, expected {want}")
                 for n in FLASH_PER_STEP:
                     path[n] += got[n]
-    s3 = summary["3"]["per_rank"][0]
+    stage0 = 12 * llama_params(_zero_recipe(0)[0], RANKS_LAYERS)
     emit({"phase": "train_zero_ranks", "model": f"LLAMA3_8B width, "
           f"{RANKS_LAYERS} layers (depth cut from 32 for gloo's host copies)"
           f", bf16, flash, {RANKS} ranks on one card over gloo",
           "reference": ref, "stages": summary, "seconds": seconds,
           "spawner_hbm": spawner,
-          "stage3_state_share_of_stage0": (s3["masters"] + s3["moments"]) / (
-              12 * llama_params(_zero_recipe(0)[0], RANKS_LAYERS)),
+          "state_share_of_stage0": {
+              k: (v["per_rank"][0]["masters"] + v["per_rank"][0]["moments"])
+              / stage0 for k, v in summary.items()},
           "launches": path, "card": dev["kind"], "nvidia_smi": smi_line})
-    check(s3["masters"] + s3["moments"] < 0.55 * 12 * llama_params(
-        _zero_recipe(0)[0], RANKS_LAYERS),
-          f"stage 3 holds {s3['masters'] + s3['moments']} bytes a rank")
+    for k, v in summary.items():
+        held = v["per_rank"][0]["masters"] + v["per_rank"][0]["moments"]
+        # stage 3 shards the masters too (half); stages 1-2 the moments
+        check(held < (0.55 if k == "3" else 0.7) * stage0,
+              f"stage {k} holds {held} bytes a rank of stage 0's {stage0}")
     return path
 
 
@@ -5507,6 +5742,7 @@ def qgz_ranks_body():
     cfg, ds = _zero_recipe(0, layers, model, zero_quantized_gradients=True)
     ds.update(train_batch_size=RANKS_BATCH, mesh={"data": RANKS})
     ds["optimizer"]["params"]["lr"] = LOW_LR
+    _peak_reset()
     engine = _engine(cfg, ds)
     batch = random_tokens(RANKS_BATCH // TRAIN_GAS, TRAIN_SEQ if model == "8b"
                           else 64, vocab_size=cfg.vocab_size, seed=SEED,
@@ -5572,7 +5808,7 @@ def qgz_ranks_body():
         json.dump(out, f)
 
 
-def phase_train_qgz_ranks(dev, smi_line, tmp):
+def phase_train_qgz_ranks(dev, smi_line, tmp, spawn):
     """Two processes on the card over gloo, mesh data=2 with
     ``zero_quantized_gradients``: the step's gradient sync is
     ``quantized_all_reduce`` through the int8 kernels, exactly 2 quantize
@@ -5580,10 +5816,9 @@ def phase_train_qgz_ranks(dev, smi_line, tmp):
     MIN_QUANT_SIZE and the wire test; step 1's synced gradients bit for bit
     those of the plain codec on the same inputs; the six quantized
     collectives once at world 2, bit for bit against their plain
-    versions."""
-    _release()
-    spawner = _host_side()
-    seconds = _spawn("qgz_ranks_body", tmp)
+    versions. The rows of ``phase_train_ranks``."""
+    seconds = _body_seconds(tmp, "qgz_ranks_body")
+    spawner = spawn["spawner_hbm"]
     rows = _read_ranks("qgz_ranks", tmp)
     want_flash = {n: k * QGZ_RANKS_LAYERS * TRAIN_GAS
                   for n, k in FLASH_PER_STEP.items()}
@@ -5625,6 +5860,756 @@ def phase_train_qgz_ranks(dev, smi_line, tmp):
           "collectives_launches": coll_path, "card": dev["kind"],
           "nvidia_smi": smi_line})
     return path, coll_path
+
+
+# ---------------------------------------------------------------------------
+# phase 8b': the hierarchical ZeRO world and the replica-axis wire over four
+# ranks (MiCS, ZeRO++ hpZ and qwZ, comm_compression, sparse gradients)
+# ---------------------------------------------------------------------------
+ZPP_RANKS = 4                      # train_zeropp_ranks' processes, one card
+ZPP_VARIANTS = ("mics", "hpz", "hpz_qwz", "mics_compress")
+ZPP_STEPS = 2                      # train_batch steps of each variant
+ZPP_TIMEOUT = 900                  # seconds the spawned four may take
+ZPP_BATCH = 8                      # sequences a step: micro 1 x gas 2 x 4
+# depth: 1 layer of 32 (width is never cut). On the H100 at 1 layer the
+# ranks peaked at 10.5 (hpz) to 17.6 GB (mics_compress) each beside a
+# 0.55 GB spawner, 83.4 GB free (PERF.md); a second layer's 218 M
+# parameters add ~2.6 GB a rank of MiCS state and error feedback, ~81 GB
+# for the four: no margin on the card, and none in the time limit
+ZPP_LAYERS = 1
+ZPP_QWZ = "hpz_qwz"
+# hpz_qwz against hpz and mics_compress against mics, relative, step 1
+# and step 2 (``zeropp_gaps``): int8 weights move the loss and the norm,
+# the int8 wire the norm, and the loss from step 2 on (step 1's is the same
+# bits). Each limit is about four times the sound gap read at that step
+# (8b: ``chip_smoke.py --zeropp-faults`` on the H100, the same gaps as the
+# smoke's runs to the bit; tiny: the larger of its readings on the CPU
+# and on the card, whose random weights differ, printed by ``pytest -s
+# tests/test_torch_zeropp_card.py``). The planted faults' readings are
+# the upper ones: at step 1 (8b) the missing fsdp_out sum moves the norm
+# 0.29, a bucket summed 0.077, the fp8 wire 5.2e-4; one scale a block
+# (1.1e-4) stays inside, and the bit-for-bit gate on the blocks is what
+# catches it (PERF.md)
+ZPP_GAP_LIMITS = {
+    "8b": {"qwz_loss_rel": [1e-4, 6.4e-3], "qwz_norm_rel": [2.3e-4, 3.6e-3],
+           "compress_loss_rel": [0.0, 1.4e-2],
+           "compress_norm_rel": [3.2e-4, 6.2e-3]},
+    "tiny": {"qwz_loss_rel": [8.4e-4, 1.2e-3],
+             "qwz_norm_rel": [2.8e-3, 2.7e-3],
+             "compress_loss_rel": [0.0, 3e-5],
+             "compress_norm_rel": [2.6e-4, 3.7e-4]}}
+# planted faults of ``chip_smoke.py --zeropp-faults`` (never in the default
+# run), ZPP_STEPS steps each: the upper readings of ZPP_GAP_LIMITS
+ZPP_FAULTS = ("hpz_qwz_block_scale", "hpz_qwz_no_second_hop",
+              "mics_compress_bucket_summed", "mics_compress_fp8")
+ZPP_FAULTS_ENV = "DSTPU_SMOKE_ZPP_FAULTS"
+ZPP_REF_STEM = "zeropp_reference_master"   # the reference's masters, a leaf a file
+# a rank's masters and moments over stage 0's 12 bytes a parameter: MiCS
+# shards them over fsdp (half), hpZ over fsdp_out x fsdp (a quarter); the
+# few leaves no axis divides stay whole
+ZPP_STATE_SHARE = {"mics": 0.55, "hpz": 0.3}
+
+
+def zeropp_config(variant, layers, model="8b"):
+    """The training recipe at stage 3 over ``mesh.fsdp`` = ZPP_RANKS, which
+    the engine splits into fsdp_out 2 x fsdp 2: MiCS (``mics``,
+    ``mics_compress``: + ``comm_compression`` int8 with error feedback in
+    4 MiB buckets, and ``sparse_gradients``) or hpZ (``hpz``, ``hpz_qwz``:
+    + ``zero_quantized_weights``). A planted fault's variant is the one
+    its name starts with (``mics_compress_fp8``: the wire at fp8)."""
+    cfg, ds = _zero_recipe(3, layers, model)
+    ds.update(train_batch_size=ZPP_BATCH, mesh={"fsdp": ZPP_RANKS, "data": 1})
+    zero = ds["zero_optimization"]
+    if variant.startswith("mics"):
+        zero["mics_shard_size"] = 2
+    else:
+        zero["zero_hpz_partition_size"] = 2
+    if variant.startswith(ZPP_QWZ):
+        zero["zero_quantized_weights"] = True
+    if variant.startswith("mics_compress"):
+        ds["comm_compression"] = {"enabled": True}
+        ds["sparse_gradients"] = True
+    if variant == "mics_compress_fp8":
+        ds["comm_compression"]["wire_dtype"] = "fp8"
+    return cfg, ds
+
+
+@contextlib.contextmanager
+def zeropp_fault(name, engine):
+    """Plant a fault of ZPP_FAULTS for one run, then remove it:
+    ``hpz_qwz_block_scale``: qwZ codes on one scale a block (its largest
+    row's) in place of one a row; ``hpz_qwz_no_second_hop``: qwZ's
+    backward keeps this rank's piece of the secondary block's gradient, no
+    sum over fsdp_out; ``mics_compress_bucket_summed``: the last bucket's
+    all-reduce summed over fsdp_out, not averaged."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.ops.quant import quantize_int8_scaled
+    from deepspeed_tpu_torch.runtime.zero import partition
+    saved = []
+    if name == "hpz_qwz_block_scale":
+        codes_of = partition.qwz_codes
+
+        def block_scale(block, dim, row_axes):
+            _, scales = codes_of(block, dim, row_axes)
+            scales = scales.amax().expand_as(scales).contiguous()
+            return quantize_int8_scaled(block, scales), scales
+        saved.append((partition, "qwz_codes", codes_of))
+        partition.qwz_codes = block_scale
+    elif name == "hpz_qwz_no_second_hop":
+        def backward(ctx, g):
+            return (partition.shard_of(g, ctx.dim, engine.mesh, ctx.axes)
+                    .contiguous(), None, None, None)
+        saved.append((partition.QwzHop, "backward",
+                      partition.QwzHop.__dict__["backward"]))
+        partition.QwzHop.backward = staticmethod(backward)
+    elif name == "mics_compress_bucket_summed":
+        reduce, calls = comm.quantized_all_reduce, [0]
+        n = len(engine._comm_compress.buckets)
+        world = engine.mesh.axis_world(engine._wire_axes)
+
+        def summed(*args, **kwargs):
+            out, err = reduce(*args, **kwargs)
+            calls[0] += 1
+            return (out * world if calls[0] % n == 0 else out), err
+        saved.append((comm, "quantized_all_reduce", reduce))
+        comm.quantized_all_reduce = summed
+    try:
+        yield
+    finally:
+        for obj, attr, value in saved:
+            setattr(obj, attr, value)
+
+
+def _qwz_leaves(engine):
+    """(index, name, dim) of the leaves qwZ quantizes: hpZ's sharded
+    leaves of two or more dimensions."""
+    return [(i, engine._param_names[i], pz.dim) for i, pz
+            in engine._hpz_leaves if engine._masters[i].dim() >= 2]
+
+
+def _qwz_round_trips(engine):
+    """Per quantized leaf, this rank's secondary block of the plain int8
+    round trip of the gathered full compute-dtype leaf (what the hop must
+    give bit for bit), and of the planted fault: each primary block's rows
+    quantized on their own scales (a leaf cut along its last axis holds
+    pieces of rows)."""
+    from deepspeed_tpu_torch.ops.quant import (dequantize_plain,
+                                               quantize_int8_plain)
+    from deepspeed_tpu_torch.runtime.zero import partition
+    mesh, cdt = engine.mesh, engine.compute_dtype
+    want, fault = {}, {}
+    for i, name, d in _qwz_leaves(engine):
+        full = partition.gather_full(engine._masters[i].detach().to(cdt), d,
+                                     engine._block_axes)
+        rt = dequantize_plain(*quantize_int8_plain(full), dtype=cdt)
+        want[name] = partition.shard_of(rt, d, mesh, ("fsdp",)).clone()
+        pieces = full.chunk(ZPP_RANKS, dim=d) if d == full.dim() - 1 \
+            else (full,)
+        bad = torch.cat([dequantize_plain(*quantize_int8_plain(p), dtype=cdt)
+                         for p in pieces], dim=d)
+        fault[name] = partition.shard_of(bad, d, mesh, ("fsdp",)).clone()
+        del full, rt, bad
+    return want, fault
+
+
+@contextlib.contextmanager
+def _secondary_capture(engine):
+    """While active, the secondary blocks the engine's hpZ hop makes for
+    its first micro-batch, by leaf name: ``partition.QwzHop.apply`` and
+    ``GatherParam.apply`` under the hop's label are wrapped (called in
+    the order of ``engine._hpz_leaves``)."""
+    from deepspeed_tpu_torch.runtime.zero import partition
+    names = [engine._param_names[i] for i, _ in engine._hpz_leaves]
+    hop, gather = partition.QwzHop.apply, partition.GatherParam.apply
+    got = {}
+
+    def keep(out):
+        if len(got) < len(names):
+            got[names[len(got)]] = out.detach().clone()
+        return out
+
+    def qwz(*args):
+        return keep(hop(*args))
+
+    def gather_param(block, dim, axes, label=None):
+        out = gather(block, dim, axes, label)
+        return keep(out) if label == partition.HPZ_LABEL else out
+
+    partition.QwzHop.apply = staticmethod(qwz)
+    partition.GatherParam.apply = staticmethod(gather_param)
+    try:
+        yield got
+    finally:
+        del partition.QwzHop.apply, partition.GatherParam.apply
+
+
+class _EFCapture:
+    """Wraps ``comm.compress.ef_step`` to keep, for each step it is armed
+    for, the step's first call with a residual (the first bucket's worker
+    step): its input, residual, codes, scales and new residual."""
+
+    def __init__(self):
+        from deepspeed_tpu_torch.comm import compress
+        self.compress, self.orig = compress, compress.ef_step
+        self.armed, self.got = False, []
+        compress.ef_step = self
+
+    def __call__(self, x, error, wire_dtype="int8", chunk=256):
+        out = self.orig(x, error, wire_dtype, chunk)
+        if self.armed and error is not None:
+            self.got.append((x.clone(), error.clone(), *out, chunk))
+            self.armed = False
+        return out
+
+    def restore(self):
+        self.compress.ef_step = self.orig
+
+
+def _ef_invariant(got) -> dict:
+    """``new_error == comp - codes * scale`` rounded once (``comp = x +
+    error``; the product and the difference exact in float64), bit for
+    bit, and its distance from ``comp - dequantize_int8(codes, scales)``
+    (the kernel's fp32 product, rounded twice); the residual it started
+    from (``residual_max_abs``: 0 on the first step)."""
+    from deepspeed_tpu_torch.ops.quant import dequantize_int8
+    x, error, codes, scales, new_error, chunk = got
+    comp = x + error
+    exact = (comp.double() - (codes.reshape(-1, chunk).double()
+                              * scales.reshape(-1, 1).double()).reshape(-1)
+             ).float()
+    deq = dequantize_int8(codes.reshape(-1, chunk), scales.reshape(-1, 1),
+                          dtype=torch.float32).reshape(-1)
+    return {"elements": new_error.numel(),
+            "differ": _differs(new_error, exact),
+            "residual_max_abs": error.abs().max().item(),
+            "max_abs_vs_two_roundings": (new_error - (comp - deq)).abs()
+            .max().item()}
+
+
+def sparse_wins(engine, path, k_tokens) -> bool:
+    """The engine's sparse-wire rule for leaf ``path`` (reference
+    ``_sparse_wire_policy``): ``k (d + 1) world < v d`` on the whole leaf,
+    ``k = min(v, k_tokens)``."""
+    v, d = engine._full_shapes[path]
+    world = engine.mesh.axis_world(engine._wire_axes)
+    return min(v, k_tokens) * (d + 1) * world < v * d
+
+
+def expected_zeropp_comm(engine, gas: int, k_tokens: int = 0,
+                         remat: bool = True) -> dict:
+    """The comms logger's bytes a step per op (labels included), from the
+    leaves' shapes: under hpZ the hop over ``fsdp_out`` (``hpz/...``: the
+    primary block in the compute dtype, or int8 codes and fp32 row scales
+    under qwZ, a scale all-reduce where a block holds pieces of rows; its
+    backward the secondary block), the ``fsdp`` gathers of each use (twice
+    a micro-batch for a layer's leaf under remat) and reduce-scatters of
+    the full compute-dtype gradient; the per-micro-batch fp32 all-reduce
+    over the batch axes the ZeRO axes leave (MiCS's ``fsdp_out`` unless
+    it is a wire axis) and of the replicated leaves; each step's loss and
+    norm all-reduces; ``comm_compression``'s buckets and the embedding's
+    sparse gather (the dense block's bytes) where ``sparse_wins`` at
+    ``k_tokens``, else its full-precision mean in the accumulation
+    dtype."""
+    mesh = engine.mesh
+    cdt = torch.empty((), dtype=engine.compute_dtype).element_size()
+    adt = torch.empty((), dtype=engine.config.grad_accum_dtype).element_size()
+    hpz, qwz = bool(engine._hpz_leaves), engine._quantized_weights
+    hop_world = mesh.shape["fsdp_out"] * mesh.shape["fsdp"] if hpz \
+        else mesh.shape["fsdp"]
+    micro_left = mesh.live_axes([a for a in engine._micro_axes
+                                 if a not in engine._zero_axes])
+    e = {}
+
+    def add(op, n):
+        e[op] = e.get(op, 0) + n
+
+    sharded = 0
+    for i, name in enumerate(engine._param_names):
+        shape = engine._full_shapes[engine._paths[i]]
+        full = math.prod(shape)
+        d = engine._param_dim[i]
+        if d is None:
+            if engine._micro_axes:
+                add("all_reduce", full * 4 * gas)
+            if engine._wire_axes and engine._comm_compress is not None and \
+                    not any(engine._paths[i] in b.paths
+                            for b in engine._comm_compress.buckets):
+                add("all_reduce", full * adt)
+            continue
+        sharded += 1
+        uses = 2 if remat and ".layer_" in name else 1
+        sec = full // mesh.shape["fsdp"]
+        if hpz:
+            block = full // hop_world
+            if qwz and len(shape) >= 2:
+                rows = block // (shape[-1] // (hop_world if d == len(shape) - 1
+                                               else 1))
+                add("hpz/all_gather", block * gas)
+                add("hpz/all_reduce" if d == len(shape) - 1
+                    else "hpz/all_gather", rows * 4 * gas)
+            else:
+                add("hpz/all_gather", block * cdt * gas)
+            add("hpz/reduce_scatter", sec * cdt * gas)
+        add("all_gather", sec * cdt * uses * gas)
+        add("reduce_scatter", full * cdt * gas)
+        if micro_left:
+            add("all_reduce", sec * 4 * gas)
+    add("all_reduce", 4 + 4 * sharded)
+    comp = engine._comm_compress
+    if comp is not None:
+        add("quantized_all_reduce", sum(b.logical_bytes for b in comp.buckets))
+    for p in engine._sparse_grad_paths:
+        add("sparse_all_gather" if sparse_wins(engine, p, k_tokens)
+            else "all_reduce",
+            math.prod(engine._full_shapes[p]) // mesh.shape["fsdp"] * adt)
+    return e
+
+
+def expected_zeropp_launches(engine, variant, layers, gas, on_card) -> dict:
+    """Kernel launches a step on one rank: the flash kernels of the
+    recipe (none for the tiny model's plain backend), qwZ's int8 codes,
+    given-scale codes (blocks cut along their last axis) and dequantize a
+    quantized leaf and micro-batch, and two quantize and two dequantize
+    launches a bucket (the worker and the server step, each dequantized)
+    under ``comm_compression``; none of the int8 kernels on the CPU."""
+    flash = on_card and engine.model.cfg.attention_backend == "flash"
+    out = {n: (k * layers * gas if flash else 0)
+           for n, k in FLASH_PER_STEP.items()}
+    q = qs = dq = 0
+    if variant == ZPP_QWZ:
+        leaves = _qwz_leaves(engine)
+        q = dq = len(leaves) * gas
+        qs = sum(d == engine._masters[i].dim() - 1
+                 for i, _, d in leaves) * gas
+    if engine._comm_compress is not None:
+        q += 2 * len(engine._comm_compress.buckets)
+        dq += 2 * len(engine._comm_compress.buckets)
+    if not on_card:
+        q = qs = dq = 0
+    return {**out, "quantize_int8": q, "quantize_int8_scaled": qs,
+            "dequantize_int8": dq}
+
+
+
+def _zeropp_run(variant, layers, model, batch, ref, comms, on_card):
+    """One variant of ``train_zeropp_ranks`` on this rank (see
+    ``zeropp_ranks_body``); a planted fault of ZPP_FAULTS records its
+    losses and norms only. ``seconds``: the engine's
+    build, the plain round trips, the steps, the masters' readback."""
+    import torch.distributed as dist
+    r = dist.get_rank()
+    gas = TRAIN_GAS
+    cfg, ds = zeropp_config(variant, layers, model)
+    _peak_reset()
+    t = time.monotonic()
+    engine = _engine(cfg, ds)
+    seconds = {"build": time.monotonic() - t}
+    if variant in ZPP_FAULTS:
+        t = time.monotonic()
+        with zeropp_fault(variant, engine):
+            steps = _rank_steps(engine, batch, ZPP_STEPS, comms)
+        seconds["steps"] = time.monotonic() - t
+        del engine
+        _release()
+        return {"steps": steps, "seconds": seconds}
+    # the sparse wire's k: this rank's stacked [gas, 1, S] batch
+    k_tokens = engine._batch_token_count(
+        {k: torch.as_tensor(v[:, :1]) for k, v in batch.items()})
+    run = {**_state_bytes(engine),
+           "held": sum(m.numel() for m in engine._masters),
+           "params": sum(math.prod(s) for s in engine._full_shapes.values()),
+           "wire_axes": list(engine._wire_axes),
+           "zero_axes": list(engine._zero_axes),
+           "mesh": {a: engine.mesh.shape[a] for a in ("fsdp_out", "fsdp")},
+           "expected_comm_per_step": expected_zeropp_comm(engine, gas,
+                                                          k_tokens),
+           "expected_launches_per_step": expected_zeropp_launches(
+               engine, variant, layers, gas, on_card)}
+    t = time.monotonic()
+    want_copy = fault_copy = None
+    if variant == ZPP_QWZ:
+        want_copy, fault_copy = _qwz_round_trips(engine)
+    seconds["round_trips"] = time.monotonic() - t
+    capture = _EFCapture() if engine._comm_compress is not None else None
+    comms.reset()
+    steps, got_copy = [], {}
+    t = time.monotonic()
+    for k in range(ZPP_STEPS):
+        if capture is not None:
+            capture.armed = True
+        with (_secondary_capture(engine) if want_copy is not None and k == 0
+              else contextlib.nullcontext({})) as got:
+            steps += _rank_steps(engine, batch, 1, comms)
+        got_copy.update(got)
+    seconds["steps"] = time.monotonic() - t
+    if capture is not None:
+        capture.restore()
+        run["ef_invariant"] = [_ef_invariant(g) for g in capture.got]
+        # each step starts from the residual the last one left, bit for bit
+        run["ef_carried_differ"] = [_differs(b[1], a[4]) for a, b
+                                    in zip(capture.got, capture.got[1:])]
+        comp = engine._comm_compress
+        recs = comms.timed_records.get("quantized_all_reduce", [])
+        run["buckets"] = comp.bucket_summaries()
+        run["bucket_records"] = [[int(rec[0]), int(rec[3])] for rec in recs]
+        run["sparse_records"] = [
+            [int(rec[0]), int(rec[3])]
+            for rec in comms.timed_records.get("sparse_all_gather", [])]
+        # k rows of int32 indices and values in the accumulation dtype
+        d = cfg.hidden_size
+        adt = torch.empty((), dtype=engine.config.grad_accum_dtype
+                          ).element_size()
+        run["sparse_k"] = k_tokens
+        run["sparse_wire_expected"] = [
+            min(math.prod(engine._full_shapes[p]) // d
+                // engine.mesh.shape["fsdp"], k_tokens) * (4 + d * adt)
+            for p in engine._sparse_grad_paths
+            if sparse_wins(engine, p, k_tokens)]
+        del capture
+    if want_copy is not None:
+        run["qwz_leaves"] = len(want_copy)
+        run["qwz_last_axis_leaves"] = sum(
+            d == engine._masters[i].dim() - 1
+            for i, _, d in _qwz_leaves(engine))
+        run["qwz_copy_differ"] = {
+            n: _differs(got_copy[n], w) if n in got_copy else -1
+            for n, w in want_copy.items()}
+        run["qwz_fault_differ"] = sum(_differs(got_copy[n], w)
+                                      for n, w in fault_copy.items()
+                                      if n in got_copy)
+        del want_copy, fault_copy
+    del got_copy
+    run["steps"] = steps
+    run["peak_hbm"] = _peak()
+    t = time.monotonic()
+    if variant in ("mics", "hpz"):
+        run["masters_share"], run["masters_max_abs"] = _blocks_apart(
+            engine, ZPP_REF_STEM, MASTERS_ATOL_LR * _recipe_lr(model))
+    seconds["masters"] = time.monotonic() - t
+    if r == 0:
+        run["loss_gap"] = max(abs(s["loss"] - a)
+                              for s, a in zip(steps, ref[0]))
+        run["grad_norm_gap"] = max(abs(s["grad_norm"] - a)
+                                   for s, a in zip(steps, ref[1]))
+    run["seconds"] = seconds
+    del engine
+    _release()
+    return run
+
+
+def zeropp_ranks_body():
+    """One rank of ``train_zeropp_ranks`` (four processes over gloo on the
+    card): rank 0 first runs the stage-0 reference alone in three
+    summation orders (``stage0_orders``) and writes its masters to the
+    ranks' folder (``_save_masters``); then every rank runs the
+    variants, ZPP_STEPS steps each, recording losses, norms, launches and
+    the comms logger's bytes a step, peak HBM, state bytes, and: under
+    qwZ each quantized leaf's first secondary block bit for bit against
+    the plain round trip of the gathered leaf (and the planted
+    local-row-scale fault against it), under ``comm_compression`` each
+    bucket's recorded bytes and wire bytes and the first bucket's
+    error-feedback step of every step (``_ef_invariant``) with the
+    residual carried from one step to the next; and the share of masters
+    apart from the reference's (MiCS and hpZ, ``_blocks_apart``). With
+    ``$DSTPU_SMOKE_ZPP_FAULTS`` = 1 the planted faults of ZPP_FAULTS
+    follow."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm.comms_logging import get_comms_logger
+    from deepspeed_tpu_torch.models.llama import random_tokens
+    r = dist.get_rank()
+    model = os.environ.get(RANK_MODEL_ENV, "8b")
+    layers = int(os.environ.get("DSTPU_SMOKE_LAYERS", ZPP_LAYERS))
+    faults = ZPP_FAULTS if os.environ.get(ZPP_FAULTS_ENV) == "1" else ()
+    gas = TRAIN_GAS
+    cfg0, _ = _zero_recipe(0, layers, model)
+    batch = random_tokens(ZPP_BATCH // gas, TRAIN_SEQ if model == "8b"
+                          else 64, vocab_size=cfg0.vocab_size, seed=SEED,
+                          gas=gas)
+    on_card = _rank_device() == "cuda"
+    out = {"rank": r, "runs": {}, "layers": layers, "model": model}
+    ref = None
+    t = time.monotonic()
+    if r == 0:
+        ref, out["reference"] = stage0_orders(batch, layers, model,
+                                              ZPP_BATCH, ZPP_STEPS)
+        _save_masters(ref[2], ZPP_REF_STEM)
+        ref = ref[:2]
+        _release()
+    dist.barrier()
+    out["reference_seconds"] = time.monotonic() - t
+    comms = get_comms_logger()
+    comms.configure(enabled=True)
+    for variant in ZPP_VARIANTS + faults:
+        out["runs"][variant] = _zeropp_run(variant, layers, model, batch,
+                                           ref, comms, on_card)
+    comms.configure(enabled=False)
+    dist.barrier()                     # every rank has read the reference
+    if r == 0:
+        _remove_masters(ZPP_REF_STEM)
+    with open(_rank_out(f"zeropp_ranks{r}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def zeropp_gaps(runs) -> dict:
+    """Per step, relative: hpz_qwz's loss and norm against hpz's,
+    mics_compress's against mics'; and each planted fault's present in
+    ``runs`` against the variant it plants into."""
+
+    def rel(a, b, key):
+        return [abs(x[key] - y[key]) / abs(y[key])
+                for x, y in zip(runs[a]["steps"], runs[b]["steps"])]
+
+    gaps = {"qwz_loss_rel": rel(ZPP_QWZ, "hpz", "loss"),
+            "qwz_norm_rel": rel(ZPP_QWZ, "hpz", "grad_norm"),
+            "compress_loss_rel": rel("mics_compress", "mics", "loss"),
+            "compress_norm_rel": rel("mics_compress", "mics", "grad_norm")}
+    for f in ZPP_FAULTS:
+        if f in runs:
+            base = "hpz" if f.startswith(ZPP_QWZ) else "mics"
+            gaps[f] = {"loss_rel": rel(f, base, "loss"),
+                       "norm_rel": rel(f, base, "grad_norm")}
+    return gaps
+
+
+def check_zeropp_ranks(rows, on_card=True) -> dict:
+    """The gates of ``train_zeropp_ranks`` on every rank's rows; returns
+    the launches of the path summed over ranks, variants and steps, and
+    the gaps of ``zeropp_gaps``."""
+    ref = rows[0]["reference"]
+    tol = ref["tolerance"]
+    path = {}
+    for variant in ZPP_VARIANTS:
+        r0 = rows[0]["runs"][variant]
+        for row in rows:
+            run = row["runs"][variant]
+            check(len(run["steps"]) == ZPP_STEPS,
+                  f"{variant}: {len(run['steps'])} steps, not {ZPP_STEPS}")
+            check([(s["loss"], s["grad_norm"]) for s in run["steps"]] ==
+                  [(s["loss"], s["grad_norm"]) for s in r0["steps"]],
+                  f"{variant}: rank {row['rank']}'s losses or gradient norms "
+                  "differ from rank 0's")
+            check(run["mesh"] == {"fsdp_out": 2, "fsdp": 2},
+                  f"{variant}: the engine split fsdp into {run['mesh']}")
+            share = (run["masters"] + run["moments"]) / (12 * run["params"])
+            lim = ZPP_STATE_SHARE[variant.split("_")[0]]
+            check(share < lim, f"{variant} rank {row['rank']}: masters and "
+                  f"moments {share} of stage 0's, limit {lim}")
+            for k, s in enumerate(run["steps"]):
+                got = {op: int(t["bytes"]) for op, t in s["comm"].items()
+                       if t["count"]}
+                check(got == run["expected_comm_per_step"],
+                      f"{variant} rank {row['rank']} step {k}: comm bytes "
+                      f"{got}, expected {run['expected_comm_per_step']}")
+                want = run["expected_launches_per_step"]
+                launched = {n: s["launches"].get(n, 0) for n in want}
+                check(launched == want, f"{variant} rank {row['rank']} step "
+                      f"{k}: launches {launched}, expected {want}")
+                for n, c in launched.items():
+                    path[n] = path.get(n, 0) + c
+            if variant == ZPP_QWZ:
+                differ = run["qwz_copy_differ"]
+                check(run["qwz_leaves"] > 0 and not any(differ.values()),
+                      f"qwZ rank {row['rank']}: secondary blocks differ from "
+                      f"the plain round trip of the gathered leaf (-1: not "
+                      f"captured): {differ}")
+                check(run["qwz_last_axis_leaves"] > 0 and
+                      run["qwz_fault_differ"] > 0,
+                      f"qwZ rank {row['rank']}: the local-row-scale fault "
+                      "gives the same blocks, so the gate cannot catch it")
+            if variant == "mics_compress":
+                buckets = run["buckets"]
+                want = [[b["bytes"], b["wire_bytes"]] for b in buckets]
+                check(run["bucket_records"] == want * ZPP_STEPS,
+                      f"rank {row['rank']}: bucket records "
+                      f"{run['bucket_records'][:4]}..., plan {want[:4]}...")
+                check([rec[1] for rec in run["sparse_records"]] ==
+                      run["sparse_wire_expected"] * ZPP_STEPS,
+                      f"rank {row['rank']}: sparse gathers "
+                      f"{run['sparse_records']}, wire expected "
+                      f"{run['sparse_wire_expected']}")
+                inv = run["ef_invariant"]
+                check(len(inv) == ZPP_STEPS and all(
+                    i["elements"] > 0 and i["differ"] == 0 for i in inv),
+                      f"rank {row['rank']}: error feedback {inv}")
+                # the engine starts from zero residuals; every later step
+                # from the last one's, which is not zero
+                check(inv[0]["residual_max_abs"] == 0.0 and all(
+                    i["residual_max_abs"] > 0 for i in inv[1:]) and
+                      run["ef_carried_differ"] == [0] * (ZPP_STEPS - 1),
+                      f"rank {row['rank']}: error-feedback residuals not "
+                      f"carried: {run['ef_carried_differ']}, {inv}")
+        if variant in ("mics", "hpz"):
+            check(r0["masters_share"] <= tol["masters_share"],
+                  f"{variant}: a share {r0['masters_share']} of the masters "
+                  f"more than {ref['masters_atol']} from the stage-0 run's, "
+                  f"tolerance {tol['masters_share']}")
+            check(r0["loss_gap"] <= tol["loss"], f"{variant}: losses "
+                  f"{r0['loss_gap']} from stage 0, tolerance {tol['loss']}")
+            check(r0["grad_norm_gap"] <= tol["grad_norm"],
+                  f"{variant}: gradient norms {r0['grad_norm_gap']} from "
+                  f"stage 0, tolerance {tol['grad_norm']}")
+    gaps = zeropp_gaps(rows[0]["runs"])
+    # the wire does not touch the forward: step 1's loss limit is 0
+    for key, lim in ZPP_GAP_LIMITS[rows[0]["model"]].items():
+        check(all(g <= m for g, m in zip(gaps[key], lim)),
+              f"{key}: gaps {gaps[key]} a step, limits {lim}")
+    return path, gaps
+
+
+def _exchange_share(run) -> list:
+    """Per step: the comms logger's seconds over the step's."""
+    return [sum(t["seconds"] for t in s["comm"].values())
+            / (s["step_ms"] / 1e3) for s in run["steps"]]
+
+
+def phase_train_zeropp_ranks(dev, smi_line, tmp, faults=False):
+    """Four processes on the one card over gloo, spawned through
+    ``testing.run_distributed``: Llama-3-8B at full width, ``mesh.fsdp`` =
+    4 split by the engine into fsdp_out 2 x fsdp 2, stage 3, the training
+    recipe, ZPP_STEPS steps of each variant (``zeropp_config``), against
+    the stage-0 reference in three summation orders on rank 0. Gates
+    (``check_zeropp_ranks``): MiCS and hpZ within twice the orders'
+    distance (loss, norm, share of masters apart after the last step);
+    qwZ's secondary blocks bit for bit the plain round trip of the
+    gathered leaf, a planted local-row-scale fault outside it, each step
+    within ZPP_GAP_LIMITS of hpZ; ``comm_compression``'s step-1 loss the
+    same bits as MiCS's, each step's norm within ZPP_GAP_LIMITS, one
+    quantized all-reduce a bucket of the plan's bytes and wire bytes, the
+    embedding's sparse gather of ``k (d + 1)`` 4-byte words, the first
+    bucket's error-feedback step exact on every step and step 2 starting
+    from step 1's residual; every rank's losses and norms equal; every
+    op's bytes a step and every kernel's launches a step as reckoned.
+    ``faults``: the planted faults of ZPP_FAULTS follow, and their gaps
+    are reported (never gated)."""
+    _release()
+    spawner = _host_side()
+    free, total = torch.cuda.mem_get_info()
+    env = {"DSTPU_SMOKE_LAYERS": str(ZPP_LAYERS)}
+    if faults:
+        env[ZPP_FAULTS_ENV] = "1"
+    seconds = _spawn("zeropp_ranks_body", tmp, timeout=ZPP_TIMEOUT,
+                     world=ZPP_RANKS, **env)
+    rows = _read_ranks("zeropp_ranks", tmp, world=ZPP_RANKS)
+    runs = rows[0]["runs"]
+    # the readings first: a gate that fails still leaves them
+    emit({"phase": "train_zeropp_ranks_readings", "seconds": seconds,
+          "reference_seconds": rows[0]["reference_seconds"],
+          "gaps": zeropp_gaps(runs),
+          "variants": {v: {"seconds": r["seconds"],
+                           "losses": [s["loss"] for s in r["steps"]],
+                           "grad_norms": [s["grad_norm"] for s in r["steps"]],
+                           "step_ms": [s["step_ms"] for s in r["steps"]],
+                           "peak_hbm": [row["runs"][v].get("peak_hbm")
+                                        for row in rows]}
+                       for v, r in runs.items()}})
+    path, gaps = check_zeropp_ranks(rows)
+    check(runs["mics_compress"]["sparse_wire_expected"],
+          "mics_compress: the embedding's gradient did not take the sparse "
+          f"wire at k = {runs['mics_compress']['sparse_k']}")
+    emit({"phase": "train_zeropp_ranks", "model": f"LLAMA3_8B width, "
+          f"{ZPP_LAYERS} layer of 32, bf16, flash, remat, stage 3, fsdp=4 "
+          f"split into fsdp_out=2 x fsdp=2, {ZPP_RANKS} ranks on one card "
+          "over gloo", "free_hbm": free, "seconds": seconds,
+          "spawner_hbm": spawner, "reference": rows[0]["reference"],
+          "reference_seconds": rows[0]["reference_seconds"],
+          "gaps": gaps, "gap_limits": ZPP_GAP_LIMITS["8b"],
+          "variants": {v: {
+              "losses": [s["loss"] for s in runs[v]["steps"]],
+              "grad_norms": [s["grad_norm"] for s in runs[v]["steps"]],
+              "step_ms": [s["step_ms"] for s in runs[v]["steps"]],
+              "exchange_share": _exchange_share(runs[v]),
+              "seconds": runs[v]["seconds"],
+              **({"peak_hbm": [row["runs"][v]["peak_hbm"] for row in rows],
+                  "masters": runs[v]["masters"],
+                  "moments": runs[v]["moments"],
+                  "comm_per_step": runs[v]["steps"][-1]["comm"],
+                  "launches_per_step": runs[v]["expected_launches_per_step"]}
+                 if v in ZPP_VARIANTS else {}),
+              **{k: runs[v][k] for k in (
+                  "masters_share", "masters_max_abs", "loss_gap",
+                  "grad_norm_gap", "qwz_leaves", "qwz_last_axis_leaves",
+                  "qwz_fault_differ", "ef_invariant", "ef_carried_differ",
+                  "sparse_k", "sparse_records") if k in runs[v]},
+              **({"buckets": len(runs[v]["buckets"])}
+                 if "buckets" in runs[v] else {})}
+              for v in runs},
+          "launches": path, "card": dev["kind"], "nvidia_smi": smi_line})
+    return path
+
+
+# qwZ's primary blocks at fsdp_out 2 x fsdp 2 (a quarter of each leaf): the
+# head cut along its last axis (given-scale codes), the embedding along its
+# first, and the gathered secondary blocks the dequantize writes
+def qwz_timing_shapes(cfg):
+    v, d = cfg.vocab_size, cfg.hidden_size
+    return {"lm_head_block": (d, v // ZPP_RANKS),
+            "embed_block": (v // ZPP_RANKS, d),
+            "lm_head_secondary": (d, v // 2),
+            "embed_secondary": (v // 2, d)}
+
+
+def _qwz_kernel_timing(cfg) -> dict:
+    """``quantize_int8``, ``quantize_int8_scaled`` and ``dequantize_int8``
+    at qwZ's bf16 block shapes (``qwz_timing_shapes``): profiler device
+    time of the exact entries, the plain version's, the bytes bound; each
+    output bit for bit the plain version's."""
+    from deepspeed_tpu_torch.ops.quant import (dequantize_int8,
+                                               dequantize_plain,
+                                               quantize_int8,
+                                               quantize_int8_plain,
+                                               quantize_int8_scaled,
+                                               quantize_int8_scaled_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    shapes = qwz_timing_shapes(cfg)
+    out = {}
+    bf = torch.bfloat16
+    for where in ("lm_head_block", "embed_block"):
+        n, d = shapes[where]
+        x = torch.randn(n, d, generator=gen, device="cuda").to(bf)
+        q, s = quantize_int8(x)
+        q_p, s_p = quantize_int8_plain(x)
+        check(_differs(q, q_p) + _differs(s, s_p) == 0,
+              f"quantize_int8 at qwZ's {where} {[n, d]} differs from plain")
+        calls = [("quantize_int8", lambda: quantize_int8(x),
+                  lambda: quantize_int8_plain(x), x.numel() * 3 + n * 4)]
+        if where == "lm_head_block":
+            g = s * 1.5                    # a wider row's scale, as qwZ's max
+            qs = quantize_int8_scaled(x, g)
+            check(_differs(qs, quantize_int8_scaled_plain(x, g)) == 0,
+                  f"quantize_int8_scaled at {where} differs from plain")
+            calls.append(("quantize_int8_scaled",
+                          lambda: quantize_int8_scaled(x, g),
+                          lambda: quantize_int8_scaled_plain(x, g),
+                          x.numel() * 3 + n * 4))
+        for name, fn, plain, nbytes in calls:
+            bound_ms, bound_by = _quant_bound(nbytes)
+            ms, entries = _stem_entries_ms(fn, name, iters=20)
+            out.setdefault(name, {})[where] = {
+                "ms": ms, "entries": entries, "plain_ms": time_ms(plain, 3),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, "bytes": nbytes}
+        del x, q, s, q_p, s_p
+    for where in ("lm_head_secondary", "embed_secondary"):
+        n, d = shapes[where]
+        q = torch.randint(-127, 128, (n, d), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand(n, 1, generator=gen, device="cuda") * 1e-3
+        check(_differs(dequantize_int8(q, s, bf),
+                       dequantize_plain(q, s, bf)) == 0,
+              f"dequantize_int8 at qwZ's {where} differs from plain")
+        nbytes = q.numel() * 3 + n * 4
+        bound_ms, bound_by = _quant_bound(nbytes)
+        ms, entries = _stem_entries_ms(lambda: dequantize_int8(q, s, bf),
+                                       "dequantize_int8", iters=20)
+        out.setdefault("dequantize_int8", {})[where] = {
+            "ms": ms, "entries": entries,
+            "plain_ms": time_ms(lambda: dequantize_plain(q, s, bf), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bytes": nbytes}
+        del q, s
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5831,7 +6816,8 @@ def moe_ranks_body():
     from deepspeed_tpu_torch.ops import build, quant
     r = dist.get_rank()
     model = os.environ.get(RANK_MODEL_ENV, "8b")
-    layers = int(os.environ.get("DSTPU_SMOKE_LAYERS", MOE_TRAIN_LAYERS))
+    layers = int(os.environ.get(MOE_LAYERS_ENV, os.environ.get(
+        "DSTPU_SMOKE_LAYERS", MOE_TRAIN_LAYERS)))
     gas = TRAIN_GAS
     cfg0, _ = moe_train_config(layers, model)
     batch = _moe_batch(cfg0, model)
@@ -5854,7 +6840,9 @@ def moe_ranks_body():
             for _ in range(RANKS_STEPS):
                 losses.append(engine.train_batch(batch=b, stacked=True).item())
                 norms.append(engine.get_global_grad_norm())
-            masters = [m.detach().cpu() for _, m in engine.named_masters()]
+            # kept on the card (7 GB a set at 1 layer): the comparisons
+            # need no host round trip
+            masters = [m.detach().clone() for _, m in engine.named_masters()]
             state = _moe_state(engine)
             del engine
             _release()
@@ -5921,7 +6909,7 @@ def moe_ranks_body():
                 if e is not None:
                     n = m.shape[0]
                     full = full[c * n:(c + 1) * n]
-                got.append(m.detach().cpu())
+                got.append(m.detach())
                 want.append(full)
             run["masters_share"], run["masters_max_abs"] = _masters_apart(
                 got, want, atol)
@@ -6010,12 +6998,18 @@ def check_moe_ranks(rows, layers, device="cuda", model="8b"):
     return path, int8_path
 
 
+# train_moe_ranks' depth: cut from MOE_TRAIN_LAYERS to 1 to keep the smoke
+# inside its time limit beside train_zeropp_ranks (width is never cut)
+MOE_RANK_LAYERS = 1
+MOE_LAYERS_ENV = "DSTPU_SMOKE_MOE_LAYERS"   # else $DSTPU_SMOKE_LAYERS
+
+
 def plan_moe_rank_layers():
-    """MOE_TRAIN_LAYERS when two ranks' peaks fit the card's free memory,
+    """MOE_RANK_LAYERS when two ranks' peaks fit the card's free memory,
     else 1 (depth is cut, never width)."""
     _release()
     free, _ = torch.cuda.mem_get_info()
-    for layers in (MOE_TRAIN_LAYERS, 1):
+    for layers in (MOE_RANK_LAYERS, 1):
         cfg_l, _ = moe_train_config(layers)
         need = RANKS * (MOE_RANK_BYTES * moe_params(cfg_l, EP) +
                         MOE_RANK_ACTIVATIONS)
@@ -6024,7 +7018,7 @@ def plan_moe_rank_layers():
     return 1, free, need
 
 
-def phase_train_moe_ranks(dev, smi_line, tmp):
+def phase_train_moe_ranks(dev, smi_line, tmp, spawn):
     """Two processes on the one card over gloo, mesh ``expert=2`` (each
     rank 4 of the 8 experts): dense against the one-rank reference within
     twice the distance of the same sequences batched otherwise, replicated
@@ -6033,18 +7027,19 @@ def phase_train_moe_ranks(dev, smi_line, tmp):
     layers x gas int8 quantize and dequantize launches a step (the remat
     recompute stops before the combine), step 1's layer-0 combine bit for
     bit the plain codec's; the combine and expert-grad bytes a step beside
-    the count from [T, D] and [T, K]."""
-    layers, free, need = plan_moe_rank_layers()
-    spawner = _host_side()
-    seconds = _spawn("moe_ranks_body", tmp,
-                     DSTPU_SMOKE_LAYERS=str(layers))
+    the count from [T, D] and [T, K]. The rows of ``phase_train_ranks``."""
+    layers, free, need = spawn["moe"]
+    spawner = spawn["spawner_hbm"]
+    seconds = _body_seconds(tmp, "moe_ranks_body")
     rows = _read_ranks("moe_ranks", tmp)
     path, int8_path = check_moe_ranks(rows, layers)
     cfg, _ = moe_train_config(layers)
     c = cfg.moe.num_experts // EP * _capacity_of(cfg) * cfg.base.hidden_size
     r0 = rows[0]
-    cut = "" if layers == MOE_TRAIN_LAYERS else \
-        f" (cut from {MOE_TRAIN_LAYERS}: two ranks did not fit)"
+    cut = f" (cut from {MOE_TRAIN_LAYERS} for the time limit)" \
+        if layers == MOE_RANK_LAYERS < MOE_TRAIN_LAYERS else \
+        f" (cut from {MOE_RANK_LAYERS}: two ranks did not fit)" \
+        if layers < MOE_RANK_LAYERS else ""
     emit({"phase": "train_moe_ranks", "model": f"Mixtral-8x7B width, {layers} "
           f"layers{cut}, bf16, flash, expert={EP} "
           f"({cfg.moe.num_experts // EP} experts a rank) on one card over "
@@ -6086,10 +7081,13 @@ def _capacity_of(cfg) -> int:
 SP = 2                             # train_sp's sequence ranks, one card
 SP_VARIANTS = ("ulysses", "ring", "ring_contiguous", "ring_chunked_loss")
 SP_FAULT = "ulysses_local_positions"   # the planted fault: rope at arange(S_l)
-SP_LAYERS = 2                      # of 32: 1.49 B parameters, ~30 GB a rank
+# of 32: 1.27 B parameters (cut from 2 beside train_zeropp_ranks, for the
+# smoke's time limit)
+SP_LAYERS = 1
 SP_SEQ = 8192                      # tokens a step, over the SP ranks
 SP_SEQ_CUT = 4096                  # if SP_SEQ does not fit beside two ranks
-SP_STEPS = 2                       # train_batch steps of each variant
+SP_STEPS = 1                       # train_batch steps of each variant
+#                                    (2 before train_zeropp_ranks)
 SP_LOSS_CHUNK = 1024               # train_chunked_loss and ring_chunked_loss
 SP_TIMEOUT = 900                   # seconds the spawned pair may take
 # a rank's bytes a parameter at its peak (fp32 master, Adam's two moments,
@@ -6496,7 +7494,7 @@ def _sp_step_rows(run):
     return rows
 
 
-def phase_train_sp(dev, smi_line, tmp):
+def phase_train_sp(dev, smi_line, tmp, spawn):
     """Llama-3-8B at full width, SP_LAYERS layers, one sequence of SP_SEQ
     tokens (SP_SEQ_CUT if two ranks would not fit) over SP sequence ranks:
     two processes on the one card over gloo. The one-rank reference (flash
@@ -6507,12 +7505,12 @@ def phase_train_sp(dev, smi_line, tmp):
     gradient norm within SP_LOSS_TOL / SP_NORM_TOL of the one-rank run and
     the fault outside; every rank's losses and norms equal; the flash
     launches and the ``sequence/*`` bytes of every step equal to
-    ``sp_flash_per_step`` and ``sp_comm_bytes_per_step``."""
-    seq, free, need = plan_sp_seq()
+    ``sp_flash_per_step`` and ``sp_comm_bytes_per_step``. The rows of
+    ``phase_train_ranks``; the reference runs here, after the ranks."""
+    seq, free, need = spawn["sp"]
+    spawner = spawn["spawner_hbm"]
+    seconds = _body_seconds(tmp, "sp_ranks_body")
     ref = _sp_reference(seq)
-    spawner = _host_side()
-    seconds = _spawn("sp_ranks_body", tmp, timeout=SP_TIMEOUT,
-                     DSTPU_SMOKE_SEQ=str(seq))
     rows = _read_ranks("sp_ranks", tmp)
     path, gaps = check_sp_ranks(rows, ref, seq)
     cut = "" if seq == SP_SEQ else \
@@ -6602,6 +7600,11 @@ CARD_SLACK = 8 << 20
 # host bytes a parameter: the fp32 master and two Adam moments; the
 # parameter tier adds its bf16 store and the fp32 gradient accumulators
 HOST_BYTES = {"optimizer": 12, "param": 18}
+# the tiers' timed runs go no deeper than this (the host held 25 and 15
+# layers): each layer's host state is allocated and touched at init (~24 s
+# at those depths) and streamed every step; cut for the smoke's time limit
+# (width is never cut)
+TIER_LAYERS = {"optimizer": 12, "param": 8}
 ADAM_BYTES = 28                    # the fused host Adam: reads p, g, m, v; writes p, m, v
 # flash launches per layer and micro-batch under the parameter tier: the
 # stream's forward, the group's forward and remat's recompute; one backward
@@ -6661,24 +7664,28 @@ def settled_mem_available():
 
 
 def plan_depth(tier, cfg):
-    """The deepest depth up to the model's whose host state, times
+    """The deepest depth up to TIER_LAYERS[tier] whose host state, times
     HOST_MARGIN, fits in MemAvailable; emits the reading on its own line."""
     avail, settle_s = settled_mem_available()
     per = HOST_BYTES[tier]
-    depth = max((n for n in range(1, cfg.num_layers + 1)
-                 if per * llama_params(cfg, n) * HOST_MARGIN <= avail),
-                default=0)
+    fits = max((n for n in range(1, cfg.num_layers + 1)
+                if per * llama_params(cfg, n) * HOST_MARGIN <= avail),
+               default=0)
+    depth = min(fits, TIER_LAYERS[tier])
     need = per * llama_params(cfg, cfg.num_layers)
     row = {"phase": f"host_memory_{tier}", "mem_available_bytes": avail,
            "settle_s": settle_s, "rss_bytes": host_memory()["rss"],
            "cores": os.cpu_count(), "host_bytes_per_param": per,
            "host_bytes_full_depth": need, "margin": HOST_MARGIN,
-           "layers": depth, "full_depth": cfg.num_layers,
-           "cut": depth < cfg.num_layers}
+           "layers_that_fit": fits, "layers": depth,
+           "full_depth": cfg.num_layers, "cut": depth < cfg.num_layers}
     if row["cut"]:
         row["reason"] = (f"{cfg.num_layers} layers need {need / 1e9:.1f} GB of "
                          f"host state, x{HOST_MARGIN} > MemAvailable "
-                         f"{avail / 1e9:.1f} GB; {depth} layers fit")
+                         f"{avail / 1e9:.1f} GB; {fits} layers fit"
+                         if fits < TIER_LAYERS[tier] else
+                         f"{fits} layers fit; cut to {depth} for the time "
+                         "limit")
     emit(row)
     check(depth >= 1, f"not one layer fits in {avail} bytes of host memory")
     return depth
@@ -6724,19 +7731,22 @@ def _host_masters(engine):
     return [stage.to_host(m) for _, m in engine.named_masters()]
 
 
-def _masters_gap(got, want):
+def _masters_gap(got, want, device="cuda"):
     """Over every element: the largest |got - want| / (MASTERS_ATOL +
     MASTERS_RTOL |want|), the share of elements where that exceeds 1, and
-    the largest |got - want|."""
+    the largest |got - want|; a leaf at a time on ``device``: the same
+    numbers as on the host (elementwise fp32 arithmetic, comparisons, a
+    count and maxima), in a fraction of the host's time."""
     worst, over, n, gap = 0.0, 0, 0, 0.0
     for a, b in zip(got, want):
+        a, b = a.to(device), b.to(device)
         d = (a - b).abs()
         r = d / (MASTERS_ATOL + MASTERS_RTOL * b.abs())
         worst = max(worst, float(r.max()))
         over += int((r > 1.0).sum())
         n += r.numel()
         gap = max(gap, float(d.max()))
-        del d, r
+        del a, b, d, r
     return {"over_tol": worst, "share_over_tol": over / n, "max_abs": gap}
 
 
@@ -6872,8 +7882,8 @@ def _tier_summary(rows, n_params, tier):
 
 def phase_train_offload(batch, dev, smi_line):
     """Llama-3-8B with ``offload_optimizer`` cpu (ratio 0.0), the recipe
-    otherwise as ``train_config``, at full depth or the deepest the host
-    RAM holds: 1 warm-up and OFFLOAD_STEPS timed steps whose loss falls at
+    otherwise as ``train_config``, at the deepest the host RAM holds up to
+    TIER_LAYERS: 1 warm-up and OFFLOAD_STEPS timed steps whose loss falls at
     every step, exact flash launches, no fp32 state on the card."""
     import dataclasses
     from deepspeed_tpu_torch.ops import build
@@ -6936,7 +7946,7 @@ def phase_train_offload(batch, dev, smi_line):
 def phase_train_param_offload(batch, opt_peak, dev, smi_line):
     """bench.py's 8b tiers as written: ``offload_param`` cpu with
     ``layers_per_group`` 4 and ``offload_optimizer`` cpu (ratio 0.0), at
-    full depth or the deepest the host RAM holds: 1 warm-up and
+    the deepest the host RAM holds up to TIER_LAYERS: 1 warm-up and
     PARAM_OFFLOAD_STEPS timed steps, the loss falls, exact flash launches,
     and a peak HBM far below the optimizer tier's."""
     import dataclasses
@@ -7000,6 +8010,7 @@ KERNEL_TABLE = {
     "flash_dkv": ("flash_attention",
                   "deepspeed_tpu/ops/pallas/flash_attention.py:279"),
     "quantize_int8": ("quant", "deepspeed_tpu/ops/pallas/quant.py:22"),
+    "quantize_int8_scaled": ("quant", "deepspeed_tpu/ops/pallas/quant.py:22"),
     "dequantize_int8": ("quant", "deepspeed_tpu/ops/pallas/quant.py:31"),
     "quantize_fp8": ("quant", "deepspeed_tpu/ops/pallas/fp_quant.py:29"),
     "dequantize_fp8": ("quant", "deepspeed_tpu/ops/pallas/fp_quant.py:37"),
@@ -7035,30 +8046,57 @@ ENTRY_NAMES = {n: f"{n}_kernel" for n in BIAS_ACT_KERNELS}
 # at two ranks; serve_moe: Qwen1.5-MoE-A2.7B and Mixtral-8x7B through
 # InferenceEngineV2; train_moe: Mixtral-8x7B on one rank; train_moe_ranks:
 # Mixtral-8x7B over two expert ranks, dense and int8; moe_int8: that run's
-# int8 combine; train_sp: Llama-3-8B over two sequence ranks, Ulysses and
+# int8 combine; train_zeropp_ranks: Llama-3-8B over four ranks, MiCS, hpZ,
+# qwZ and comm_compression; train_sp: Llama-3-8B over two sequence ranks, Ulysses and
 # the ring; train_chunked_loss: the recipe with the chunked loss)
 KERNEL_PATHS = {"paged_attention": ("serve", "serve_http", "disagg", "fleet",
                                      "A1", "A2", "serve_moe"),
                 **{n: ("train", "train_offload", "train_param_offload",
                        "train_zero", "train_zero_ranks", "train_qgz_ranks",
-                       "train_moe", "train_moe_ranks", "train_sp",
-                       "train_chunked_loss")
+                       "train_zeropp_ranks", "train_moe", "train_moe_ranks",
+                       "train_sp", "train_chunked_loss")
                    for n in FLASH_PER_STEP},
                 "quantize_fp8": ("A1", "quant_collectives"),
                 "dequantize_fp8": ("A1", "quant_collectives"),
                 "quantize_int8": ("B", "train_qgz_ranks", "quant_collectives",
-                                  "moe_int8"),
+                                  "moe_int8", "train_zeropp_ranks"),
+                "quantize_int8_scaled": ("train_zeropp_ranks",),
                 "dequantize_int8": ("B", "A2", "train_qgz_ranks",
-                                    "quant_collectives", "moe_int8"),
+                                    "quant_collectives", "moe_int8",
+                                    "train_zeropp_ranks"),
                 **{n: ("evoformer",) for n in EVO_KERNELS},
                 "rms_norm": ("R",), **{n: ("F",) for n in BIAS_ACT_KERNELS},
                 "sparse_attention": ("S1", "S2")}
 
 
-def main() -> int:
+def zeropp_faults_main(dev, smi_line) -> int:
+    """``--zeropp-faults``: the flash and quant libraries built, then
+    ``train_zeropp_ranks`` with its planted faults (ZPP_FAULTS) after the
+    variants, for the readings its gap limits stand on. Not the smoke:
+    its last line is the phase's gaps."""
+    from deepspeed_tpu_torch.ops import build
+    build.build(["flash_attention", "quant"])
+    tmp = tempfile.mkdtemp(prefix="dstpu-ranks-")
+    try:
+        phase_train_zeropp_ranks(dev, smi_line, tmp, faults=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(smi_line, flush=True)
+    return 0
+
+
+def main(argv=()) -> int:
     phase = "device"
     try:
         dev, smi_line = phase_device()
+        os.makedirs(os.path.dirname(LINES_PATH), exist_ok=True)
+        _LINES.append(open(LINES_PATH, "w"))
+        if "--zeropp-faults" in argv:
+            phase = "train_zeropp_ranks"
+            import deepspeed_tpu_torch  # noqa: F401
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            return zeropp_faults_main(dev, smi_line)
         phase = "import"
         import deepspeed_tpu_torch  # noqa: F401  (the package of this repo)
         torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 stays fp32
@@ -7130,20 +8168,25 @@ def main() -> int:
         _release()
         phase = "train_zero"
         zero_launches = phase_train_zero(batch, dev, smi_line)
+        phase = "train_moe"
+        moe_launches = phase_train_moe(dev, smi_line)
         tmp = tempfile.mkdtemp(prefix="dstpu-ranks-")
         try:
+            phase = "train_ranks"
+            spawn = phase_train_ranks(tmp)
             phase = "train_zero_ranks"
-            zero_ranks_launches = phase_train_zero_ranks(dev, smi_line, tmp)
+            zero_ranks_launches = phase_train_zero_ranks(dev, smi_line, tmp,
+                                                         spawn)
             phase = "train_qgz_ranks"
             qgz_ranks_launches, coll_launches = phase_train_qgz_ranks(
-                dev, smi_line, tmp)
-            phase = "train_moe"
-            moe_launches = phase_train_moe(dev, smi_line)
+                dev, smi_line, tmp, spawn)
             phase = "train_moe_ranks"
             moe_ranks_launches, moe_int8_launches = phase_train_moe_ranks(
-                dev, smi_line, tmp)
+                dev, smi_line, tmp, spawn)
             phase = "train_sp"
-            sp_launches = phase_train_sp(dev, smi_line, tmp)
+            sp_launches = phase_train_sp(dev, smi_line, tmp, spawn)
+            phase = "train_zeropp_ranks"
+            zeropp_launches = phase_train_zeropp_ranks(dev, smi_line, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         phase = "train_chunked_loss"
@@ -7169,6 +8212,7 @@ def main() -> int:
                        "train_zero": zero_launches,
                        "train_zero_ranks": zero_ranks_launches,
                        "train_qgz_ranks": qgz_ranks_launches,
+                       "train_zeropp_ranks": zeropp_launches,
                        "quant_collectives": coll_launches,
                        "serve_moe": serve_moe_launches,
                        "train_moe": moe_launches,
@@ -7208,6 +8252,9 @@ def main() -> int:
                      "launches_by_path": launches_by_path[name],
                      "build_s": build_s, "registers": registers, "ok": True,
                      **numbers[name]})
+    emit({"phase": "phase_seconds",
+          "seconds": {k: round(v, 1) for k, v in _PHASE_SECONDS.items()},
+          "total": round(time.monotonic() - _T0, 1)})
     emit({"kernels": rows})
     print(smi_line, flush=True)
     emit({"ok": True, "device": dev})
@@ -7215,4 +8262,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,7 +1,8 @@
 """Communication on ``torch.distributed``: the named-axis mesh, the
 collective facade, the quantized collectives, comm-volume logging and the
-commguard (port of ``deepspeed_tpu/comm``). ``comm_compression``'s
-bucketed ``GradCompressor`` is not ported yet (ROADMAP Queue 1 item 2)."""
+commguard, and ``comm_compression``'s bucketed error-feedback gradient sync
+(``compress.GradCompressor``) (port of ``deepspeed_tpu/comm``;
+``compressed.py`` is not ported yet, ROADMAP Queue 1 item 2)."""
 
 from deepspeed_tpu_torch.comm.comm import (
     ReduceOp,
@@ -21,7 +22,12 @@ from deepspeed_tpu_torch.comm.comms_logging import (
     canonical_op_kind,
     get_comms_logger,
 )
-from deepspeed_tpu_torch.comm.compress import TensorEF
+from deepspeed_tpu_torch.comm.compress import (
+    CommCompressionConfig,
+    CommCompressState,
+    GradCompressor,
+    TensorEF,
+)
 from deepspeed_tpu_torch.comm.guard import (
     COMM_FAULT_EXIT_CODE,
     CommFaultError,
@@ -60,7 +66,8 @@ __all__ = [
     "ReduceOp", "all_reduce", "all_gather", "reduce_scatter", "all_to_all",
     "ppermute", "quantized_all_reduce", "quantized_reduce_scatter",
     "broadcast_one_to_all", "barrier", "device_broadcast", "CommsLogger",
-    "canonical_op_kind", "TensorEF", "get_comms_logger",
+    "canonical_op_kind", "CommCompressionConfig", "CommCompressState",
+    "GradCompressor", "TensorEF", "get_comms_logger",
     "COMM_FAULT_EXIT_CODE", "CommFaultError", "CommGuard", "CommGuardConfig",
     "CommInitError", "CommOutcome", "CommPeerLostError", "CommWedgeError",
     "bounded_init", "classify_exception", "comm_trace_tail", "note_comm_op",

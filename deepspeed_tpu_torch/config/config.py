@@ -8,17 +8,19 @@ group are ignored, as the reference's models ignore them.
 Options the port does not carry yet raise ``NotImplementedError`` naming
 their ROADMAP Queue 1 item instead of being parsed and ignored: any
 top-level group the training path does not read, and inside the read
-groups MiCS (``mics_shard_size``), hpZ (``zero_hpz_partition_size > 1``),
-qwZ (``zero_quantized_weights``), ``comm_compression``, a mesh with
-``fsdp_outer``, ``tensor`` or ``pipe`` above 1, or with ``dcn_axes`` (item
-2 "distribution and memory tiers"), qgZ over a ``sequence`` axis above 1
-(item 3 "sequence parallel"), and an ``expert`` axis above 1 at ZeRO
-stages 2-3 or with a memory tier (item 4 "MoE"'s remainder; the expert
-axis runs at stages 0-1). A comms-logger op filter
-(``prof_all`` false, ``prof_ops``) is refused too: no logger applies it.
-ZeRO stages 0-3 are read; the memory tiers, ``offload_optimizer`` and
-``offload_param`` with ``cpu`` or ``nvme``, run at a world of one rank
-(the engine refuses them at more).
+groups a mesh with ``tensor`` or ``pipe`` above 1, or with ``dcn_axes``
+(item 2 "distribution and memory tiers"), qgZ, ``comm_compression`` or
+``sparse_gradients`` over a ``sequence`` axis above 1 (item 3 "sequence
+parallel"), and an ``expert`` axis above 1 at ZeRO stages 2-3 or with a
+memory tier (item 4 "MoE"'s remainder; the expert axis runs at stages
+0-1). A comms-logger op filter (``prof_all`` false, ``prof_ops``) is
+refused too: no logger applies it. ZeRO stages 0-3 are read, with the
+hierarchical world (MiCS ``mics_shard_size``, ZeRO++ hpZ
+``zero_hpz_partition_size`` and qwZ ``zero_quantized_weights``, a mesh
+``fsdp_outer``), ``comm_compression`` (``comm/compress.py``'s
+``CommCompressionConfig``) and ``sparse_gradients``; the memory tiers,
+``offload_optimizer`` and ``offload_param`` with ``cpu`` or ``nvme``, run
+at a world of one rank (the engine refuses them at more).
 """
 
 import dataclasses
@@ -36,6 +38,7 @@ _READ_KEYS = frozenset({
     C.GRADIENT_ACCUMULATION_STEPS, C.OPTIMIZER, C.SCHEDULER, C.FP16, C.BF16,
     C.BF16_LEGACY, C.ZERO_OPTIMIZATION, C.GRADIENT_CLIPPING, C.STEPS_PER_PRINT,
     C.WALL_CLOCK_BREAKDOWN, C.DATA_TYPES, C.MESH, C.COMMS_LOGGER,
+    C.COMM_COMPRESSION, C.SPARSE_GRADIENTS,
 })
 
 # the Queue 1 items refusals name (ROADMAP.md)
@@ -98,8 +101,9 @@ class ZeroConfig:
     data-parallel step), the memory tiers (``offload_optimizer``,
     ``offload_param``) at one rank, and ``zero_quantized_gradients`` (qgZ:
     int8 on the wire over replica axes, else the int8 round trip of every
-    micro-batch gradient). MiCS, hpZ and qwZ raise (ROADMAP Queue 1 item
-    2). ``sub_group_size`` is parsed with the reference's default; as in
+    micro-batch gradient), and the hierarchical world the engine builds
+    from ``mics_shard_size`` (MiCS), ``zero_hpz_partition_size`` (hpZ)
+    and ``zero_quantized_weights`` (qwZ). ``sub_group_size`` is parsed with the reference's default; as in
     the JAX package, the host optimizer's sub-groups are 4 leaves
     (``runtime/offload.py``)."""
     stage: int = 0
@@ -212,6 +216,12 @@ class DeepSpeedTPUConfig:
         self.mesh = _from_dict(MeshConfig, self._raw.get(C.MESH))
         self.comms_logger = _from_dict(CommsLoggerConfig,
                                        self._raw.get(C.COMMS_LOGGER))
+        # reference: get_sparse_gradients_enabled (runtime/config.py:247)
+        self.sparse_gradients_enabled: bool = bool(
+            self._raw.get(C.SPARSE_GRADIENTS, False))
+        from deepspeed_tpu_torch.comm.compress import CommCompressionConfig
+        self.comm_compression = CommCompressionConfig.from_dict(
+            self._raw.get(C.COMM_COMPRESSION))
         self.gradient_clipping: float = float(
             self._raw.get(C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT))
         self.steps_per_print: int = int(
@@ -230,34 +240,26 @@ class DeepSpeedTPUConfig:
 
     def _refuse_unported(self) -> None:
         zc, mesh = self.zero_config, self.mesh
-        if zc.mics_shard_size is not None and zc.mics_shard_size > 0:
-            raise NotImplementedError(
-                f"mics_shard_size (MiCS) is not ported yet ({ITEM_DIST})")
-        if int(zc.zero_hpz_partition_size or 1) > 1:
-            raise NotImplementedError(
-                "zero_hpz_partition_size > 1 (ZeRO++ hpZ) is not ported yet "
-                f"({ITEM_DIST})")
-        if zc.zero_quantized_weights:
-            raise NotImplementedError(
-                "zero_quantized_weights (ZeRO++ qwZ) is not ported yet "
-                f"({ITEM_DIST})")
-        if C.COMM_COMPRESSION in self._raw:
-            raise NotImplementedError(
-                "comm_compression (bucketed error-feedback gradient "
-                f"compression) is not ported yet ({ITEM_DIST})")
-        for axis, item in (("fsdp_outer", ITEM_DIST),
-                           ("tensor", ITEM_DIST + " (tensor-parallel rules)"),
+        for axis, item in (("tensor", ITEM_DIST + " (tensor-parallel rules)"),
                            ("pipe", "ROADMAP Queue 1 item 7: the pipeline "
                                     "engine")):
             if getattr(mesh, axis) != 1:
                 raise NotImplementedError(
                     f"mesh.{axis}={getattr(mesh, axis)} is not ported yet "
                     f"({item})")
-        if mesh.sequence != 1 and zc.zero_quantized_gradients:
-            raise NotImplementedError(
-                f"zero_quantized_gradients at mesh.sequence={mesh.sequence} "
-                f"is not ported yet ({ITEM_SEQ}: qgZ's int8 wire over "
-                "sequence ranks, whose gradients are sums, not means)")
+        if mesh.sequence != 1:
+            for on, what in ((zc.zero_quantized_gradients,
+                              "zero_quantized_gradients"),
+                             (self.comm_compression.enabled,
+                              "comm_compression"),
+                             (self.sparse_gradients_enabled,
+                              "sparse_gradients")):
+                if on:
+                    raise NotImplementedError(
+                        f"{what} at mesh.sequence={mesh.sequence} is not "
+                        f"ported yet ({ITEM_SEQ}: the replica-axis wire over "
+                        "sequence ranks, whose gradients are sums, not "
+                        "means)")
         if mesh.expert != 1:
             if zc.stage >= 2:
                 raise NotImplementedError(

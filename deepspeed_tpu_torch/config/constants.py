@@ -24,7 +24,9 @@ BF16_LEGACY = "bfloat16"
 RESILIENCE = "resilience"                 # only its step guard is read
 MESH = "mesh"                             # named-axis process mesh
 COMMS_LOGGER = "comms_logger"             # comm volume/bandwidth logging
-COMM_COMPRESSION = "comm_compression"     # refused: not ported yet
+COMM_COMPRESSION = "comm_compression"     # quantized error-feedback
+#                                           gradient buckets (comm/compress.py)
+SPARSE_GRADIENTS = "sparse_gradients"     # sparse embedding gradients
 SERVING = "serving"                       # serving group (admission,
 #                                           degradation ladder, host KV
 #                                           offload tier, fault isolation;

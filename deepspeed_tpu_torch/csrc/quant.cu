@@ -4,6 +4,8 @@
 // Replaces four TPU kernels, all launched through `rowwise_pallas_op`
 // (deepspeed_tpu/ops/pallas/quant.py):
 //   `_quant_kernel`        quant.py        -> quantize_int8_{warp,block,cluster}
+//                                             (+ quantize_int8_scaled, its
+//                                             encode step on given scales)
 //   `_dequant_kernel`      quant.py        -> dequantize_int8
 //   `_fp8_quant_kernel`    fp_quant.py     -> quantize_fp8_{warp,block}
 //   `_fp8_dequant_kernel`  fp_quant.py     -> dequantize_fp8
@@ -620,6 +622,21 @@ __device__ __forceinline__ void dequant_flat(
     out[i] = from_float<TO>(Codec<CODE>::decode(q[i]) * s[i / d]);
 }
 
+// The int8 encode of rows whose scales are given (ZeRO++ qwZ: a block cut
+// along its last axis holds pieces of rows whose scale is the whole row's,
+// runtime/zero/partition.py::qwz_codes): q = clip(rint(x / s[row])), the
+// `_quant_kernel`'s encode step. Elementwise over the flat array, each
+// element read and written once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+quantize_int8_scaled(const T* __restrict__ x, const float* __restrict__ s,
+                     int8_t* __restrict__ q, int64_t total, int d) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += stride)
+    q[i] = Codec<kInt8>::encode(to_float(x[i]) / s[i / d]);
+}
+
 template <typename TO>
 __global__ void __launch_bounds__(kThreads)
 dequantize_int8(const int8_t* q, const float* s, TO* out, int64_t total, int d) {
@@ -892,6 +909,16 @@ cudaError_t launch_dequant(const void* q, const float* s, void* out, int64_t n, 
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_int8_scaled(const void* x, const float* s, int8_t* q,
+                               int64_t n, int d, cudaStream_t st) {
+  const int64_t total = n * d;
+  const int64_t g = grid_for(total, kThreads, 16);
+  quantize_int8_scaled<T><<<dim3((unsigned)g), kThreads, 0, st>>>(
+      static_cast<const T*>(x), s, q, total, d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x [n, d] row-major in `in_dtype` (0 float32, 1 bfloat16, 2 float16) ->
@@ -920,6 +947,20 @@ extern "C" int dstt_quant_plan(const void* x, const void* q, long long n, int d,
                      pl.path, pl.threads, pl.per, pl.rows, pl.cluster, pl.seg};
   for (int i = 0; i < 12; ++i) out[i] = f[i];
   return 0;
+}
+
+// x [n, d] in `in_dtype` (as above) and fp32 scales s [n] -> int8 codes
+// q [n, d] = clip(rint(x / s[row]), -127, 127).
+extern "C" int dstt_quantize_int8_scaled(const void* x, const float* s, void* q,
+                                         long long n, int d, int in_dtype,
+                                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  auto* qt = static_cast<int8_t*>(q);
+  if (in_dtype == kF32) return (int)launch_int8_scaled<float>(x, s, qt, n, d, st);
+  if (in_dtype == kBF16) return (int)launch_int8_scaled<__nv_bfloat16>(x, s, qt, n, d, st);
+  if (in_dtype == kF16) return (int)launch_int8_scaled<__half>(x, s, qt, n, d, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // codes q [n, d] and scales s [n] -> out [n, d] in `out_dtype` (as above).

@@ -17,6 +17,12 @@ splits a call into 16-byte chunks and scalar elements and which instance
 (a warp, a block or a thread-block cluster per row) runs it, from the
 shape and the pointers' alignment (``quant_plan`` in csrc/quant.cu).
 
+``quantize_int8_scaled`` (csrc/quant.cu's ``quantize_int8_scaled``) makes
+the codes of rows whose fp32 scales are given: qwZ's rows of a leaf cut
+along its last axis, whose scale is the whole row's (``runtime/zero/
+partition.py::qwz_codes``); it is the ``_quant_kernel``'s encode step,
+``clip(round(x / scale))``, and counted under its own name.
+
 ``quantize_int8_plain`` and ``dequantize_int8_plain`` compute the
 reference's function with the reference's rounding points (the scale as
 ``absmax`` times the fp32 reciprocal of 127, which is what XLA makes of
@@ -78,6 +84,17 @@ def quantize_int8_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = row_scales(x2d, INT8_MAX)
     q = torch.clamp(torch.round(x2d / scale), -INT8_MAX, INT8_MAX)
     return q.to(torch.int8).reshape(shape), scale.reshape(*shape[:-1], 1)
+
+
+def quantize_int8_scaled_plain(x: torch.Tensor, scales: torch.Tensor
+                               ) -> torch.Tensor:
+    """What ``quantize_int8_scaled`` computes: x [..., D] and fp32 scales
+    [..., 1] -> int8 codes ``clip(round(x / scale), -127, 127)``."""
+    d = x.shape[-1]
+    q = torch.clamp(torch.round(x.reshape(-1, d).float()
+                                / scales.reshape(-1, 1).float()),
+                    -INT8_MAX, INT8_MAX)
+    return q.to(torch.int8).reshape(x.shape)
 
 
 def dequantize_plain(q: torch.Tensor, scales: torch.Tensor,
@@ -223,6 +240,8 @@ def _library() -> ctypes.CDLL:
         lib.dstt_dequantize_rows.restype = ctypes.c_int
         lib.dstt_quant_plan.argtypes = [p, p, ll, i, i, p]
         lib.dstt_quant_plan.restype = ctypes.c_int
+        lib.dstt_quantize_int8_scaled.argtypes = [p, p, p, ll, i, i, p]
+        lib.dstt_quantize_int8_scaled.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -260,6 +279,34 @@ def quantize_rows_cuda(x: torch.Tensor, code: int, name: str
     _raise_on(err, name)
     build.count_launch(name)
     return q, s
+
+
+def quantize_int8_scaled_cuda(x: torch.Tensor, scales: torch.Tensor
+                              ) -> torch.Tensor:
+    """Launch ``quantize_int8_scaled`` on x [..., D] (fp32, bf16 or fp16)
+    with fp32 scales [..., 1]; counted as ``quantize_int8_scaled``."""
+    _check(x.device.type == "cuda" and scales.device == x.device,
+           f"x on {x.device}, scales on {scales.device}")
+    _check(x.dtype in _DTYPES, f"dtype {x.dtype} (float32, bfloat16, float16)")
+    _check(scales.dtype == torch.float32, f"scales {scales.dtype} (float32)")
+    _check(x.dim() >= 1 and x.shape[-1] > 0, "x needs a last axis of D > 0")
+    d = x.shape[-1]
+    x2d = x.reshape(-1, d).contiguous()
+    s = scales.reshape(-1).contiguous()
+    n = x2d.shape[0]
+    _check(s.numel() == n, f"{s.numel()} scales for {n} rows")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if n == 0:
+        return q
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dstt_quantize_int8_scaled(x2d.data_ptr(), s.data_ptr(),
+                                            q.data_ptr(), n, d,
+                                            _DTYPES[x.dtype], stream)
+    _raise_on(err, "quantize_int8_scaled")
+    build.count_launch("quantize_int8_scaled")
+    return q
 
 
 def quant_plan_of_library(x_ptr: int, q_ptr: int, n: int, d: int,
@@ -317,6 +364,15 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if on_card(x, "quantize_int8"):
         return quantize_rows_cuda(x, CODE_INT8, "quantize_int8")
     return quantize_int8_plain(x)
+
+
+def quantize_int8_scaled(x: torch.Tensor, scales: torch.Tensor
+                         ) -> torch.Tensor:
+    """x [..., D] and fp32 scales [..., 1] -> int8 codes per row: the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if on_card(x, "quantize_int8_scaled"):
+        return quantize_int8_scaled_cuda(x, scales)
+    return quantize_int8_scaled_plain(x, scales)
 
 
 def dequantize_int8(q: torch.Tensor, scales: torch.Tensor,

@@ -45,6 +45,31 @@ on a mesh of the same shape.
   elements, or with no dimension the ZeRO world divides, stay replicated.
   The loss, the global gradient norm and the overflow flag are reduced
   over the ranks, so every rank takes the same skip decision.
+- The hierarchical world (reference ``engine.py:160-190``): MiCS
+  (``mics_shard_size``) and ZeRO++ hpZ (``zero_hpz_partition_size``)
+  split an explicit ``mesh.fsdp`` into ``fsdp_outer = fsdp / inner`` x
+  ``fsdp = inner``. Under MiCS every ZeRO spec shards over ``fsdp`` only,
+  so ``fsdp_out`` is a replica axis: its gradients are summed by the
+  per-micro-batch all-reduce, beside the reduce-scatter over ``fsdp``.
+  Under hpZ at stage 3 masters and moments stay blocks of the whole world;
+  each micro-batch gathers every sharded leaf's compute-dtype block over
+  ``fsdp_out`` once (``_compute_copy``: the secondary block; with qwZ,
+  ``zero_quantized_weights``, as int8 codes and per-row scales,
+  ``partition.QwzHop``), the layers gather that block over ``fsdp`` at
+  each use (and again in remat's recompute), and the backward
+  reduce-scatters over ``fsdp``, then over ``fsdp_out``. Below stage 3
+  hpZ only splits the world, as in the reference.
+- The replica-axis wire (the ``wire`` axes: the replica axes when qgZ,
+  ``sparse_gradients`` or ``comm_compression`` is on): their reduction
+  waits for the summed micro-batches. ``sparse_gradients``: an embedding
+  leaf (2-D, >= 512 rows, ``embed`` in its path; off for tied embeddings)
+  goes over the sparse (indices, values) wire where that is smaller
+  (``runtime/sparse_tensor.py``), the rest int8 under qgZ or a
+  full-precision mean. ``comm_compression``: the gradients in buckets, one
+  ``quantized_all_reduce`` each with error feedback (``comm/compress.py``,
+  the residuals in ``optimizer.state.error_feedback``); it supersedes qgZ,
+  is off under the memory tiers and without a replica axis, and emits the
+  ``comm/overlap`` spans.
 - The expert axis (MoE, ZeRO stages 0-1): ``tensor_rules`` (by default
   ``moe_tensor_rules`` on a mesh with ``expert`` > 1) place each stacked
   expert leaf's leading dim over ``expert``, and the engine keeps this
@@ -103,6 +128,7 @@ Both emit the ``engine/train_step`` span (``mode`` ``offload`` or
 """
 
 import contextlib
+import math
 import time
 import warnings
 from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
@@ -127,7 +153,7 @@ from deepspeed_tpu_torch.runtime.zero import partition
 from deepspeed_tpu_torch.runtime.zero.qgz import (MIN_QUANT_SIZE,
                                                   quantized_grad_sync,
                                                   replica_grad_axes)
-from deepspeed_tpu_torch.telemetry.tracer import get_tracer
+from deepspeed_tpu_torch.telemetry.tracer import COMM_OVERLAP_TID, get_tracer
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
@@ -186,6 +212,14 @@ QGZ_NO_REPLICA_MSG = (
     "mics_shard_size < world so 'fsdp_out' replicates) or disable "
     "zero_quantized_gradients. See docs/parallelism.md#qgz.")
 
+COMPRESS_NO_REPLICA_MSG = (
+    "comm_compression enabled but the mesh has NO replica batch axis "
+    "(pure-fsdp ZeRO-3): there is no pure-DP all-reduce hop to compress, so "
+    "NO bytes are saved on the wire — the group is ignored. Add a replica "
+    "axis (a 'data' mesh axis, or split fsdp via mics_shard_size < world so "
+    "'fsdp_out' replicates). See docs/performance.md#wire-compression--"
+    "overlap.")
+
 
 class DeepSpeedTPUEngine:
     def __init__(self, model: torch.nn.Module, config, params=None,
@@ -198,10 +232,36 @@ class DeepSpeedTPUEngine:
             else DeepSpeedTPUConfig(config)
         config = self.config
         self.device = resolve_device(device)
+        # --- the hierarchical ZeRO world (MiCS / ZeRO++ hpZ) -------------
+        zc = config.zero_config
+        self._mics = zc.mics_shard_size is not None and zc.mics_shard_size > 0
+        self._hpz = int(zc.zero_hpz_partition_size or 1)
+        if self._mics and self._hpz > 1:
+            raise ValueError(
+                "mics_shard_size and zero_hpz_partition_size are mutually "
+                "exclusive: MiCS already replicates across shard groups, so an "
+                "hpZ secondary shard would be a no-op")
+        inner = zc.mics_shard_size if self._mics else (
+            self._hpz if self._hpz > 1 else 0)
+        if inner and mesh is None:
+            if config.mesh.fsdp == -1:
+                raise ValueError("MiCS/hpZ needs an explicit mesh.fsdp size "
+                                 "to split")
+            if config.mesh.fsdp_outer == 1 and config.mesh.fsdp > inner:
+                if config.mesh.fsdp % inner:
+                    raise ValueError(f"fsdp={config.mesh.fsdp} not divisible "
+                                     f"by shard group {inner}")
+                config.mesh.fsdp_outer = config.mesh.fsdp // inner
+                config.mesh.fsdp = inner
         # --- the mesh: one rank per process over torch.distributed --------
         self.mesh = mesh if mesh is not None else \
             create_mesh(config.mesh, device=self.device)
         set_global_mesh(self.mesh)
+        if inner and self.mesh.shape["fsdp"] != inner \
+                and self.mesh.shape["fsdp_out"] == 1:
+            log_dist(f"MiCS/hpZ shard group {inner} != mesh fsdp "
+                     f"{self.mesh.shape['fsdp']}; using mesh layout as-is",
+                     ranks=[0])
         self.dp_world_size = get_data_parallel_world_size(self.mesh)
         config.resolve_batch_sizes(self.dp_world_size)
         self.train_batch_size = config.train_batch_size
@@ -230,7 +290,6 @@ class DeepSpeedTPUEngine:
         if config.comms_logger.enabled:
             get_comms_logger().configure(enabled=True,
                                          verbose=config.comms_logger.verbose)
-        zc = config.zero_config
         self._offload = None          # the host optimizer of either tier
         self._param_offload = None    # the ZeRO-Infinity streamed trainer
         self.phase_seconds: Dict[str, float] = {}
@@ -298,6 +357,12 @@ class DeepSpeedTPUEngine:
             self._masters: List[torch.Tensor] = [p for _, p in named]
             del named
         self._place_zero()
+        self._quantized_weights = bool(zc.zero_quantized_weights)
+        if self._quantized_weights and not self._hpz_leaves:
+            log_dist("zero_quantized_weights (qwZ) takes effect on the hpZ "
+                     "secondary gather; set zero_hpz_partition_size > 1 — "
+                     "ignored", ranks=[0])
+            self._quantized_weights = False
         self._quantized_gradients = bool(zc.zero_quantized_gradients)
         self._qgz_axes: Tuple[str, ...] = ()
         if self._quantized_gradients:
@@ -310,6 +375,11 @@ class DeepSpeedTPUEngine:
                 warnings.warn("qgZ: " + QGZ_NO_REPLICA_MSG, UserWarning,
                               stacklevel=3)
                 logger.warning("qgZ: %s", QGZ_NO_REPLICA_MSG)
+        self._setup_sparse_gradients(model)
+        self._setup_comm_compression(tier)
+        self._wire_axes: Tuple[str, ...] = (
+            self._replica_axes if self._comm_compress is not None
+            else self._qgz_axes or self._sparse_grad_axes)
         self._reduce_plan()
         if tier == "optimizer":
             # --- ZeRO-Offload: masters and moments in the host optimizer -----
@@ -336,6 +406,14 @@ class DeepSpeedTPUEngine:
             else:
                 self.optimizer = build_optimizer(opt_type, opt_params,
                                                  lr_schedule=self.lr_schedule)
+            if self._comm_compress is not None:
+                # the residuals ride the optimizer's state, beside the moments
+                from deepspeed_tpu_torch.comm.compress import (
+                    with_error_feedback)
+                comp = self._comm_compress
+                self.optimizer = with_error_feedback(
+                    self.optimizer,
+                    lambda: comp.zero_error_feedback(self.device))
             self.optimizer.init(self._opt_tensors())
 
         self.loss_scale = precision.init_loss_scale(config.fp16)
@@ -372,16 +450,23 @@ class DeepSpeedTPUEngine:
 
     def _place_zero(self) -> None:
         """Each leaf's param and optimizer-state spec (layered on its
-        tensor rule), the dimension its moments (and under stage 3 its
-        master) are sharded along, the stage-3 parametrizations that gather
-        a block before use, and each expert leaf cut to this rank's block
-        of the ``expert`` axis."""
+        tensor rule; over ``fsdp`` only under MiCS), the dimension its
+        moments (and under stage 3 its master) are sharded along, the
+        stage-3 parametrizations that gather a block before use (under hpZ
+        from the secondary block, ``_compute_copy``), and each expert leaf
+        cut to this rank's block of the ``expert`` axis."""
         mesh, stage = self.mesh, self.zero_stage
-        self._zero_axes, self._zero_world = partition.zero_fsdp_axes(mesh)
+        self._zero_axes, self._zero_world = partition.zero_fsdp_axes(
+            mesh, mics=self._mics)
         self._batch_axes = tuple(a for a in BATCH_AXES if a in mesh.shape)
         shapes = {n: tuple(p.shape)
                   for n, p in zip(self._param_names, self._masters)}
-        specs = partition.leaf_specs(shapes, mesh, stage, self.tensor_rules)
+        # the reference's tree paths, for the wire policies' rules
+        self._paths = [n.replace(".", "/") for n in self._param_names]
+        self._full_shapes = {self._paths[i]: s
+                             for i, s in enumerate(shapes.values())}
+        specs = partition.leaf_specs(shapes, mesh, stage, self.tensor_rules,
+                                     mics=self._mics)
         self._param_specs = specs["param"]
         self._expert_dim: List[Optional[int]] = [
             partition.sharded_dim(sp, ("expert",))
@@ -399,6 +484,11 @@ class DeepSpeedTPUEngine:
         n = len(shapes)
         self._opt_dim: List[Optional[int]] = [None] * n
         self._param_dim: List[Optional[int]] = [None] * n
+        # hpZ at stage 3: (leaf, its parametrization) of every sharded leaf
+        self._hpz_leaves: List[Tuple[int, Any]] = []
+        hpz = self._hpz > 1 and stage >= 3 and mesh.shape["fsdp_out"] > 1
+        self._block_axes = partition.HPZ_BLOCK_AXES if hpz \
+            else self._zero_axes
         if self._zero_world <= 1 or stage < 1:
             return
         for i in range(n):
@@ -416,21 +506,147 @@ class DeepSpeedTPUEngine:
                 continue
             owner, attr = name.rsplit(".", 1)
             module = self.model.get_submodule(owner)
-            parametrize.register_parametrization(
-                module, attr, partition.ShardedParam(
-                    dim, self._zero_axes, mesh, self.compute_dtype),
-                unsafe=True)
+            sharded = partition.ShardedParam(
+                dim, ("fsdp",) if hpz else self._zero_axes, mesh,
+                self.compute_dtype, block_axes=self._block_axes,
+                secondary=hpz)
+            parametrize.register_parametrization(module, attr, sharded,
+                                                 unsafe=True)
             self._masters[i] = module.parametrizations[attr].original
+            if hpz:
+                self._hpz_leaves.append((i, sharded))
+
+    @contextlib.contextmanager
+    def _compute_copy(self):
+        """hpZ: this micro-batch's secondary blocks (reference
+        ``_hpz_constrain``, ``engine.py:741-764``): each sharded leaf's
+        compute-dtype block gathered over ``fsdp_out`` once, its backward a
+        reduce-scatter over ``fsdp_out``; under qwZ a leaf of two or more
+        dimensions goes as int8 codes and per-row scales
+        (``partition.QwzHop``, straight-through). Set on the
+        parametrizations for the forward, the recompute and the backward,
+        cleared after."""
+        if not self._hpz_leaves:
+            yield
+            return
+        try:
+            for i, pz in self._hpz_leaves:
+                block = self._masters[i].to(self.compute_dtype)
+                if self._quantized_weights and block.dim() >= 2:
+                    sec = partition.QwzHop.apply(
+                        block, pz.dim, ("fsdp_out",), self._zero_axes)
+                else:
+                    sec = partition.GatherParam.apply(
+                        block, pz.dim, ("fsdp_out",), partition.HPZ_LABEL)
+                pz.secondary = sec
+            yield
+        finally:
+            for _, pz in self._hpz_leaves:
+                pz.secondary = None
+
+    def _setup_sparse_gradients(self, model) -> None:
+        """The embedding leaves whose gradients go over the sparse wire
+        (reference ``engine.py:455-492``): 2-D, at least 512 rows, ``embed``
+        in the path; none when the model ties its embeddings (the head's
+        gradient is dense over the vocabulary)."""
+        self.sparse_gradients_enabled = self.config.sparse_gradients_enabled
+        self._sparse_grad_axes: Tuple[str, ...] = ()
+        self._sparse_grad_paths: Tuple[str, ...] = ()
+        if not self.sparse_gradients_enabled:
+            return
+        mcfg = getattr(model, "cfg", None)
+        tied = bool(getattr(mcfg, "tie_embeddings", False) or
+                    getattr(mcfg, "tie_word_embeddings", False))
+        axes = self._replica_axes
+        paths = () if tied else tuple(
+            p for p, shape in self._full_shapes.items()
+            if len(shape) == 2 and shape[0] >= 512 and "embed" in p.lower())
+        if axes and paths:
+            self._sparse_grad_axes = axes
+            self._sparse_grad_paths = paths
+            log_dist(f"sparse_gradients: sparse wire reduction over {axes} "
+                     f"for {len(paths)} embedding leaves (top-k rows = batch "
+                     "tokens — exact for lookup-only embedding grads)",
+                     ranks=[0])
+        else:
+            log_dist("sparse_gradients: "
+                     + ("model ties its embeddings (dense head grads) — "
+                        if tied else
+                        "no replica batch axis or no embedding-like leaf — ")
+                     + "gradients reduce densely", ranks=[0])
+
+    def _setup_comm_compression(self, tier) -> None:
+        """``comm_compression`` (reference ``engine.py:495-575``): the
+        bucket plan over the replica axes, on the gradients this rank
+        reduces (a block where ZeRO shards it), in the reference's
+        tree-flatten order, the sparse embedding leaves left out. It owns
+        the wire: qgZ defers to it."""
+        ccfg = self.config.comm_compression
+        self._comm_compress = None
+        self._overlap_meta: List[Dict[str, Any]] = []
+        self._overlap_wire_total = 0
+        self._new_ef = ()
+        if not ccfg.enabled:
+            return
+        if tier is not None:
+            log_dist("comm_compression: disabled — offload tiers run a "
+                     "host-synchronous optimizer step whose reductions keep "
+                     "today's wire format", ranks=[0])
+            return
+        if not self._replica_axes:
+            warnings.warn(COMPRESS_NO_REPLICA_MSG, UserWarning, stacklevel=4)
+            logger.warning(COMPRESS_NO_REPLICA_MSG)
+            return
+        from deepspeed_tpu_torch.comm.compress import GradCompressor
+        comp = GradCompressor(ccfg, self._replica_axes, self.mesh)
+        acc_dtype = self.config.grad_accum_dtype
+        comp.build([(self._paths[i], self._reduced_shape(i), acc_dtype)
+                    for i in range(len(self._masters))],
+                   itemsize=torch.empty((), dtype=acc_dtype).element_size(),
+                   exclude_paths=self._sparse_grad_paths,
+                   full_sizes={p: math.prod(s) for p, s
+                               in self._full_shapes.items()})
+        if not comp.buckets:
+            log_dist("comm_compression: no leaf meets min_size "
+                     f"({ccfg.min_size}) — nothing to compress", ranks=[0])
+            return
+        self._comm_compress = comp
+        self._overlap_meta = comp.bucket_summaries() if ccfg.overlap else []
+        self._overlap_wire_total = max(
+            sum(b["wire_bytes"] for b in self._overlap_meta), 1)
+        if self._quantized_gradients:
+            log_dist("comm_compression supersedes zero_quantized_gradients "
+                     "on the replica axes (one compression layer owns the "
+                     "wire)", ranks=[0])
+            self._qgz_axes = ()
+            self._quantized_gradients = False
+        log_dist(f"comm_compression: {len(comp.buckets)} bucket(s) over "
+                 f"{self._replica_axes} (wire={ccfg.wire_dtype}, "
+                 f"chunk={ccfg.chunk}, error_feedback="
+                 f"{'on' if comp.ef_enabled() else 'off'}, overlap="
+                 f"{'per-bucket' if ccfg.overlap else 'fused'})", ranks=[0])
+
+    def _reduced_shape(self, i: int) -> Tuple[int, ...]:
+        """The shape of leaf ``i``'s gradient as the wire reduces it: the
+        block at stage 3 (or stage 2 where the ZeRO axes are reduced per
+        micro-batch), else the leaf."""
+        shape = list(self._masters[i].shape)
+        if self.zero_stage == 2 and self._opt_dim[i] is not None and not (
+                set(self.mesh.live_axes(self._zero_axes))
+                & set(self._replica_axes)):
+            shape[self._opt_dim[i]] //= self._zero_world
+        return tuple(shape)
 
     def _reduce_plan(self) -> None:
-        """Which axes each micro-batch's gradient is summed over, and which
-        leaves' gradients are held as blocks."""
+        """Which axes each micro-batch's gradient is summed over (the batch
+        axes outside the wire axes, whose reduction waits for the summed
+        micro-batches), and which leaves' gradients are held as blocks."""
         mesh = self.mesh
         self._micro_axes = mesh.live_axes(
-            [a for a in self._batch_axes if a not in self._qgz_axes])
+            [a for a in self._batch_axes if a not in self._wire_axes])
         self._micro_world = mesh.axis_world(self._micro_axes)
         zero_reduced = not (set(mesh.live_axes(self._zero_axes))
-                            & set(self._qgz_axes))
+                            & set(self._wire_axes))
         self._grad_dim: List[Optional[int]] = [
             self._param_dim[i] if self.zero_stage >= 3 else
             self._opt_dim[i] if self.zero_stage == 2 and zero_reduced else
@@ -467,8 +683,9 @@ class DeepSpeedTPUEngine:
         and no replica axis every gradient of at least ``MIN_QUANT_SIZE``
         elements then takes the int8 round trip through the kernels (rows
         are its last axis)."""
-        loss = self._compute_loss(batch)
-        grads = list(torch.autograd.grad(loss * scale, self._masters))
+        with self._compute_copy():
+            loss = self._compute_loss(batch)
+            grads = list(torch.autograd.grad(loss * scale, self._masters))
         grads = self._reduce_micro(grads)
         if self._quantized_gradients and not self._qgz_axes:
             grads = [self._round_trip(g, d)
@@ -505,22 +722,23 @@ class DeepSpeedTPUEngine:
         its rows are the full leaf's rows, then cut again."""
         if dim is None or dim != g.dim() - 1:
             return _int8_round_trip(g)
-        full = partition.gather_full(g, dim, self._zero_axes)
+        full = partition.gather_full(g, dim, self._block_axes)
         return partition.shard_of(_int8_round_trip(full), dim, self.mesh,
-                                  self._zero_axes).contiguous()
+                                  self._block_axes).contiguous()
 
     def _grads_phase(self, stacked: Dict[str, torch.Tensor], scale: float):
         """(mean loss over the ranks, per-micro gradients summed in
-        grad_accum_dtype; under qgZ with replica axes, then mean-reduced
-        over them with int8 on the wire)."""
+        grad_accum_dtype; with wire axes, then mean-reduced over them:
+        ``comm_compression``'s buckets, or per leaf sparse, int8 (qgZ) or
+        in full precision)."""
         gas = self.gradient_accumulation_steps
         acc_dtype = self.config.grad_accum_dtype
         acc: Optional[List[torch.Tensor]] = None
         loss_sum = torch.zeros((), device=self.device)
-        # under qgZ the phase is manual over the replica axes: an MoE layer
-        # gates and dispatches over the other batch axes only
+        # with wire axes the phase is manual over them: an MoE layer gates
+        # and dispatches over the other batch axes only
         for i in range(gas):
-            with (token_axes(self._micro_axes) if self._qgz_axes
+            with (token_axes(self._micro_axes) if self._wire_axes
                   else contextlib.nullcontext()):
                 loss, grads = self._grads_one_micro(
                     {k: v[i] for k, v in stacked.items()}, scale)
@@ -532,10 +750,99 @@ class DeepSpeedTPUEngine:
                     a.add_(g.to(acc_dtype))
             del grads
         loss = loss_sum / gas
-        if self._qgz_axes:            # a leaf at a time: each sum is freed
+        if self._comm_compress is not None:
+            sync = self._comm_compress.make_sync_fn(
+                fallback_leaf_sync=self._make_grad_sync(self._replica_axes))
+            ef = self.optimizer.state.error_feedback
+            reduced, self._new_ef = sync(dict(zip(self._paths, acc)),
+                                         stacked, ef)
+            acc = [reduced.pop(p) for p in self._paths]
+            del reduced
+        elif self._wire_axes:         # a leaf at a time: each sum is freed
+            sync = self._make_grad_sync(self._wire_axes)
             for i in range(len(acc)):
-                acc[i] = quantized_grad_sync([acc[i]], self._qgz_axes)[0]
+                acc[i] = sync(self._paths[i], acc[i], stacked)
         return self._global_loss(loss), acc
+
+    def _batch_token_count(self, stacked: Dict[str, torch.Tensor]) -> int:
+        """k for the sparse wire (reference ``engine.py:872-881``): the
+        tokens of the batch the replica group's member reduces, the
+        largest integer leaf of the stacked [gas, micro, ...] batch; a
+        lookup-only embedding gradient touches at most one row per token.
+        A rank holds its rows over every batch axis, the reference's
+        manual region those over the wire axes only, so this rank's count
+        is multiplied by the world of the other batch axes (whose members'
+        gradients the per-micro-batch reduction already summed)."""
+        local = max((v.numel() for v in stacked.values()
+                     if not v.is_floating_point()
+                     and v.dtype != torch.bool), default=0)
+        return local * self._micro_world
+
+    def _sparse_wire_policy(self, axes):
+        """The sparse-embedding wire rule (reference ``engine.py:883-911``),
+        shared by the per-leaf sync and ``comm_compression``'s fallback:
+        ``fn(path, g, k_tokens) -> reduced | None`` (None: not a leaf that
+        gains, the caller's dense policy applies), or None without sparse
+        leaves. The win test is the reference's on the whole leaf,
+        ``k (d + 1) world < v d`` with ``k = min(v, k_tokens)``; a rank's
+        block keeps ``min(its rows, k_tokens)`` rows, every row it can
+        touch."""
+        if not self._sparse_grad_paths or not axes:
+            return None
+        from deepspeed_tpu_torch.runtime.sparse_tensor import sparse_grad_sync
+        sparse_paths = set(self._sparse_grad_paths)
+        world = self.mesh.axis_world(axes)
+
+        def leaf_rule(p, g, k_tokens):
+            if p not in sparse_paths or not k_tokens:
+                return None
+            v, d = self._full_shapes[p]
+            k = min(v, k_tokens)
+            if k * (d + 1) * world < v * d:
+                return sparse_grad_sync(g, axes, min(g.shape[0], k_tokens))
+            return None
+
+        return leaf_rule
+
+    def _make_grad_sync(self, axes):
+        """The per-leaf wire policy (reference ``engine.py:913-957``):
+        ``fn(path, g, batch)`` sends embedding leaves over the sparse wire
+        (``_sparse_wire_policy``), the rest int8 (qgZ) or as a
+        full-precision mean. Under ``comm_compression`` (qgZ off) it is
+        the sync of the leaves outside every bucket."""
+        sparse_rule = self._sparse_wire_policy(axes)
+        qgz_on = bool(self._qgz_axes)
+
+        def leaf_sync(path, g, batch):
+            if sparse_rule is not None:
+                out = sparse_rule(path, g, self._batch_token_count(batch))
+                if out is not None:
+                    return out
+            if qgz_on:
+                return quantized_grad_sync([g], axes)[0]
+            return comm.all_reduce(g, axes, comm.ReduceOp.AVG)
+
+        return leaf_sync
+
+    def _emit_overlap_spans(self, t0: float, t1: float) -> None:
+        """Per-bucket ``comm/overlap`` spans on the ``COMM_OVERLAP_TID``
+        track (reference ``engine.py:1319-1340``): the step's window [t0,
+        t1] divided over the buckets in proportion to their wire bytes. The
+        split is synthetic, as the reference's is: the port's buckets run
+        one after another after the backward, so the spans say how the
+        window would divide, not when each bucket ran."""
+        comp = self._comm_compress
+        window = max(t1 - t0, 0.0)
+        end = t0
+        tracer = get_tracer()
+        for b in self._overlap_meta:
+            dur = window * (b["wire_bytes"] / self._overlap_wire_total)
+            end += dur
+            tracer.complete("comm/overlap", dur, cat="comm", end_ts=end,
+                            tid=COMM_OVERLAP_TID, bucket=b["index"],
+                            bytes=b["bytes"], wire_bytes=b["wire_bytes"],
+                            world=comp.world, op="quantized_all_reduce",
+                            step=self.global_steps)
 
     def _global_loss(self, loss: torch.Tensor) -> torch.Tensor:
         """This rank's loss summed over ``sequence`` (its ranks' losses are
@@ -586,6 +893,11 @@ class DeepSpeedTPUEngine:
         else:
             self._apply(clipped)
             self.step_count += 1
+            if self._comm_compress is not None and self._new_ef:
+                # an overflow keeps the old residuals, as it keeps the moments
+                self.optimizer.state = self.optimizer.state._replace(
+                    error_feedback=self._new_ef)
+        self._new_ef = ()
         self.loss_scale = precision.update_loss_scale(self.loss_scale,
                                                       overflow, fp16)
         return StepOutput(loss=None, grad_norm=grad_norm, lr=lr,
@@ -649,12 +961,16 @@ class DeepSpeedTPUEngine:
         elif self._offload is not None:
             out = self._offload_step(device_batch)
         else:
+            overlap = self._comm_compress is not None and get_tracer().enabled
+            t0 = time.monotonic()
             scale = self.loss_scale.scale
             loss, acc = self._grads_phase(device_batch, scale)
             # unscale + average over gas in fp32, after the sum
             grads = [a.float().div_(scale * gas) for a in acc]
             del acc
             out = self._update(grads)._replace(loss=loss)
+            if overlap:
+                self._emit_overlap_spans(t0, time.monotonic())
         loss = out.loss
         step_timer.stop()
         self.tput_timer.stop(global_step=True)
@@ -919,7 +1235,7 @@ class DeepSpeedTPUEngine:
         over the ranks."""
         if self._param_offload is not None:
             self._unported("eval_batch()")
-        with torch.no_grad():
+        with torch.no_grad(), self._compute_copy():
             loss = self._compute_loss(_to_device(self._local_rows(batch, 0),
                                                  self.device))
         return self._global_loss(loss)
@@ -954,7 +1270,7 @@ class DeepSpeedTPUEngine:
         for name, p, d, e in zip(self._param_names, self._masters,
                                  self._param_dim, self._expert_dim):
             if d is not None:
-                p = partition.gather_full(p.detach(), d, self._zero_axes)
+                p = partition.gather_full(p.detach(), d, self._block_axes)
             if e is not None:
                 p = partition.gather_full(p.detach(), e, ("expert",))
             out.append((name, p))

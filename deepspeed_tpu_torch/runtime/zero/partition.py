@@ -14,16 +14,34 @@ with explicit collectives over the mesh's process groups:
   stage 2 - + gradients reduce-scattered into the shard
   stage 3 - + parameters sharded over (fsdp_out, fsdp) (FSDP)
 
+Hierarchical variants split the ZeRO world into ``fsdp_out`` x ``fsdp``
+(reference ``partition.py:21-30``):
+
+- **MiCS** (``mics=True``): every spec shards over the inner ``fsdp`` axis
+  only, replicated across ``fsdp_out`` (``zero_fsdp_axes``), so
+  ``fsdp_out`` is a replica axis whose gradients are summed by all-reduce.
+- **ZeRO++ hpZ**: masters and moments keep the (fsdp_out, fsdp) block,
+  and the compute copy takes the secondary spec (``secondary_partition_
+  spec``: ``fsdp`` only). The engine gathers each leaf's block over
+  ``fsdp_out`` once a micro-batch (``GatherParam`` with the ``hpz`` label,
+  or ``QwzHop``: int8 codes and per-row scales, qwZ) and ``ShardedParam``
+  gathers that secondary block over ``fsdp`` at each use. For the first
+  hop to be a gather over ``fsdp_out``, a block's index along its
+  dimension is fsdp-major, ``f * fsdp_out + o`` (``HPZ_BLOCK_AXES``): the
+  secondary block ``f`` is then the primary blocks of the ``fsdp_out``
+  members that share ``f``. The reference's primary layout is o-major;
+  the full leaf, its moments and every result are the same.
+
 ``shard_of`` takes this rank's block of a full leaf, ``gather_full`` puts
 the members' blocks back together, ``reduce_scatter_full`` sums a full
 gradient over the members into this rank's block, each along the one
-dimension a spec shards. ``build_param_specs`` takes model-parallel
-``tensor_rules``, of which the expert rules are ported (the expert axis,
-ROADMAP Queue 1 item 4); MiCS and hpZ's secondary specs
-(``secondary_partition_spec``, ``build_secondary_shardings``) and the
-tensor-parallel rules are not yet (item 2).
+dimension a spec shards, the block index row-major over the axes in the
+order given. ``build_param_specs`` takes model-parallel ``tensor_rules``,
+of which the expert rules are ported (the expert axis, ROADMAP Queue 1
+item 4); the tensor-parallel rules are not yet (item 2).
 """
 
+import contextlib
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -31,6 +49,11 @@ import torch
 
 from deepspeed_tpu_torch.comm.mesh import FSDP_AXES, Mesh
 from deepspeed_tpu_torch.utils.logging import logger
+
+#: the axis order of an hpZ stage-3 block's index (fsdp-major)
+HPZ_BLOCK_AXES = ("fsdp", "fsdp_out")
+#: the comms logger's label of the hpZ hop over ``fsdp_out``
+HPZ_LABEL = "hpz"
 
 # Minimum leaf size worth sharding; tiny leaves (biases, norms) stay
 # replicated (the reference's stage-3 persistence threshold)
@@ -121,7 +144,8 @@ def optimizer_state_spec_fn(param_specs, stage: int, fsdp_size: int,
 
 def zero_fsdp_axes(mesh: Mesh, mics: bool = False
                    ) -> Tuple[Sequence[str], int]:
-    """(axes, world) the ZeRO policy shards over."""
+    """(axes, world) the ZeRO policy shards over: the full hierarchical
+    world, or the inner ``fsdp`` axis only under MiCS."""
     if mics:
         return ("fsdp",), mesh.shape["fsdp"]
     axes = tuple(a for a in FSDP_AXES if a in mesh.shape)
@@ -170,69 +194,174 @@ def shard_of(full: torch.Tensor, dim: int, mesh: Mesh,
     return full.narrow(dim, mesh.axis_index(axes) * n, n)
 
 
+def _hops(mesh: Mesh, axes: Sequence[str]) -> Tuple[Tuple[str, ...], ...]:
+    """How a block index row-major over ``axes`` is gathered: one group
+    when the live axes come in mesh order (the group's member order), else
+    one axis at a time from the innermost."""
+    axes = tuple(axes)
+    live = mesh.live_axes(axes)
+    if tuple(a for a in axes if a in live) == live:
+        return (axes,)
+    return tuple((a,) for a in reversed(axes))
+
+
 def gather_full(shard: torch.Tensor, dim: int, axes: Sequence[str]
                 ) -> torch.Tensor:
-    """The members' blocks of a leaf concatenated along ``dim``."""
+    """The members' blocks of a leaf concatenated along ``dim``, block
+    ``axis_index(axes)`` from each member."""
     from deepspeed_tpu_torch.comm import comm
-    return comm.all_gather(shard, tuple(axes), axis=dim, tiled=True)
+    for hop in _hops(comm._mesh(), axes):
+        shard = comm.all_gather(shard, hop, axis=dim, tiled=True)
+    return shard
 
 
 def reduce_scatter_full(full: torch.Tensor, dim: int, axes: Sequence[str]
                         ) -> torch.Tensor:
-    """The sum of the members' ``full`` tensors, this rank's block along
-    ``dim``."""
+    """The sum of the members' ``full`` tensors, this rank's block
+    (``axis_index(axes)``) along ``dim``."""
     from deepspeed_tpu_torch.comm import comm
-    return comm.reduce_scatter(full, tuple(axes), scatter_dimension=dim)
+    for hop in reversed(_hops(comm._mesh(), axes)):
+        full = comm.reduce_scatter(full, hop, scatter_dimension=dim)
+    return full
 
 
 class GatherParam(torch.autograd.Function):
     """Stage 3's compute copy: the members' compute-dtype blocks gathered
     along ``dim`` before use; the backward reduce-scatters the full
     gradient (summed over the members) into this rank's block. Under remat
-    the recompute gathers again."""
+    the recompute gathers again. ``label`` names both in the comms logger
+    (``comm.op_label``)."""
 
     @staticmethod
-    def forward(ctx, shard, dim, axes):
-        ctx.dim, ctx.axes = dim, axes
-        return gather_full(shard, dim, axes)
+    def forward(ctx, shard, dim, axes, label=None):
+        from deepspeed_tpu_torch.comm import comm
+        ctx.dim, ctx.axes, ctx.label = dim, axes, label
+        with comm.op_label(label) if label else contextlib.nullcontext():
+            return gather_full(shard, dim, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter_full(g.contiguous(), ctx.dim, ctx.axes), \
-            None, None
+        from deepspeed_tpu_torch.comm import comm
+        with comm.op_label(ctx.label) if ctx.label \
+                else contextlib.nullcontext():
+            g = reduce_scatter_full(g.contiguous(), ctx.dim, ctx.axes)
+        return g, None, None, None
+
+
+def qwz_codes(block: torch.Tensor, dim: int, row_axes: Sequence[str]):
+    """qwZ's int8 codes and fp32 scales of a compute-dtype block, the
+    scale of each row that of the whole leaf's row (``_qwz_regather``'s
+    ``max |leaf|`` over the last axis): ``quantize_int8`` gives the block's
+    own rows' scales; a block cut along its last axis holds pieces of the
+    rows, so their scales take the max over ``row_axes`` (the members
+    holding the other pieces) and the codes are made again with it
+    (``quantize_int8_scaled``). The map from absmax to scale is monotone,
+    so the max of the pieces' scales is the row's scale."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.ops.quant import (quantize_int8,
+                                               quantize_int8_scaled)
+    codes, scales = quantize_int8(block)
+    if dim == block.dim() - 1 and comm.group_of(row_axes)[1] > 1:
+        scales = comm.all_reduce(scales, tuple(row_axes), comm.ReduceOp.MAX)
+        codes = quantize_int8_scaled(block, scales)
+    return codes, scales
+
+
+class QwzHop(torch.autograd.Function):
+    """ZeRO++ qwZ's hop (reference ``_qwz_regather``, ``engine.py:96-122``;
+    quantized-weights all-gather, ``partition_parameters.py:761``): the
+    primary block goes over ``axes`` as int8 codes (``qwz_codes``) and
+    fp32 per-row scales (gathered along ``dim`` unless ``dim`` is the last
+    axis, where every member holds the same scales), and is dequantized to
+    its dtype. The gradient is straight through: the identity on the
+    gathered block, then the hop's reduce-scatter into this rank's block.
+    Both are recorded under the ``hpz`` label."""
+
+    @staticmethod
+    def forward(ctx, block, dim, axes, row_axes):
+        from deepspeed_tpu_torch.comm import comm
+        from deepspeed_tpu_torch.ops.quant import dequantize_int8
+        ctx.dim, ctx.axes = dim, axes
+        with comm.op_label(HPZ_LABEL):
+            codes, scales = qwz_codes(block, dim, row_axes)
+            codes = comm.all_gather(codes, axes, axis=dim, tiled=True)
+            if dim != block.dim() - 1:
+                scales = comm.all_gather(scales, axes, axis=dim, tiled=True)
+        return dequantize_int8(codes, scales, dtype=block.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        from deepspeed_tpu_torch.comm import comm
+        with comm.op_label(HPZ_LABEL):
+            g = reduce_scatter_full(g.contiguous(), ctx.dim, ctx.axes)
+        return g, None, None, None
 
 
 class ShardedParam(torch.nn.Module):
     """A parametrization (``torch.nn.utils.parametrize``) whose original is
-    this rank's fp32 block of a stage-3 leaf: reading the parameter casts
-    the block to the compute dtype and gathers the full leaf."""
+    this rank's fp32 block of a stage-3 leaf (block ``axis_index
+    (block_axes)`` of the leaf): reading the parameter casts the block to
+    the compute dtype and gathers the full leaf over ``axes``. Under hpZ
+    (``secondary=True``) it gathers ``self.secondary`` instead, the block
+    the engine made for this micro-batch (reading it without one raises)."""
 
     def __init__(self, dim: int, axes: Sequence[str], mesh: Mesh,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype,
+                 block_axes: Optional[Sequence[str]] = None,
+                 secondary: bool = False):
         super().__init__()
         self.dim, self.axes, self.mesh = dim, tuple(axes), mesh
+        self.block_axes = tuple(block_axes or axes)
         self.compute_dtype = compute_dtype
+        self.uses_secondary = secondary
+        self.secondary: Optional[torch.Tensor] = None
 
     def forward(self, shard):
-        return GatherParam.apply(shard.to(self.compute_dtype), self.dim,
-                                 self.axes)
+        if not self.uses_secondary:
+            return GatherParam.apply(shard.to(self.compute_dtype), self.dim,
+                                     self.axes)
+        if self.secondary is None:
+            raise RuntimeError("hpZ: the parameter was read outside the "
+                               "engine's compute copy (no secondary block)")
+        return GatherParam.apply(self.secondary, self.dim, self.axes)
 
     def right_inverse(self, full):
-        return shard_of(full, self.dim, self.mesh, self.axes).clone()
+        return shard_of(full, self.dim, self.mesh, self.block_axes).clone()
+
+
+def secondary_partition_spec(spec: Spec) -> Spec:
+    """ZeRO++ hpZ's secondary spec (reference ``partition.py:187-200``):
+    a dimension sharded over the hierarchical world shards over the inner
+    ``fsdp`` axis only, so the compute copy is replicated across
+    ``fsdp_out``."""
+    def fix(entry):
+        if isinstance(entry, (tuple, list)) and "fsdp" in entry:
+            rest = tuple(a for a in entry if a not in FSDP_AXES)
+            return rest + ("fsdp",) if rest else "fsdp"
+        if entry in FSDP_AXES:
+            return "fsdp"
+        return entry
+    return tuple(fix(e) for e in spec)
+
+
+def build_secondary_specs(param_specs: Sequence[Spec]) -> list:
+    """hpZ's compute-copy specs from the primary param specs (the
+    reference's ``build_secondary_shardings``)."""
+    return [secondary_partition_spec(s) for s in param_specs]
 
 
 def build_param_specs(params, mesh: Mesh, stage: int,
                       tensor_rules: Optional[Callable] = None,
-                      min_shard_size: int = DEFAULT_MIN_SHARD_SIZE
-                      ) -> Dict[str, Spec]:
+                      min_shard_size: int = DEFAULT_MIN_SHARD_SIZE,
+                      mics: bool = False) -> Dict[str, Spec]:
     """The reference's ``build_param_shardings`` (``partition.py:154``) on
     the port's spec: ``params`` maps a parameter name (dotted, as
     ``named_parameters`` gives it) to a tensor or a shape; each leaf's spec
     is ``tensor_rules(name, leaf)`` (model-parallel rules such as
     ``moe_tensor_rules``: an expert leaf takes ``("expert", None, None)``)
     with the ZeRO ``stage``'s fsdp placement layered on its unused
-    dimensions."""
-    fsdp_axes, fsdp_size = zero_fsdp_axes(mesh)
+    dimensions (``mics``: over the inner ``fsdp`` axis only)."""
+    fsdp_axes, fsdp_size = zero_fsdp_axes(mesh, mics=mics)
     axis_sizes = dict(mesh.shape)
     out = {}
     for name, leaf in params.items():
@@ -248,13 +377,15 @@ def build_param_specs(params, mesh: Mesh, stage: int,
 
 
 def leaf_specs(shapes: Dict[str, Tuple[int, ...]], mesh: Mesh, stage: int,
-               tensor_rules: Optional[Callable] = None) -> Dict[str, list]:
+               tensor_rules: Optional[Callable] = None,
+               mics: bool = False) -> Dict[str, list]:
     """Per leaf of ``shapes`` (name -> shape, in order): the param spec
     (``build_param_specs``) and the optimizer-state spec over the mesh
-    (the reference's ``build_opt_state_shardings``)."""
-    fsdp_axes, fsdp_size = zero_fsdp_axes(mesh)
-    params = list(build_param_specs(shapes, mesh, stage, tensor_rules)
-                  .values())
+    (the reference's ``build_opt_state_shardings``; ``mics``: over the
+    inner ``fsdp`` axis only)."""
+    fsdp_axes, fsdp_size = zero_fsdp_axes(mesh, mics=mics)
+    params = list(build_param_specs(shapes, mesh, stage, tensor_rules,
+                                    mics=mics).values())
     spec_of = optimizer_state_spec_fn(params, max(stage, 0), fsdp_size,
                                       fsdp_axes=fsdp_axes)
     return {"param": params,

@@ -45,6 +45,12 @@ TRACE_WORLD_ENV = "DSTPU_TRACE_WORLD"
 REQUEST_TID_BASE = 1_000_000
 REQUEST_TID_SPAN = 10_000_000
 
+#: synthetic track of the engine's ``comm/overlap`` bucket spans
+#: (``comm_compression``; below the request window, the same no-collision
+#: argument): spans off the main track read as overlapped work, not step
+#: cost.
+COMM_OVERLAP_TID = 900_000
+
 
 def request_tid(uid: int) -> int:
     """Synthetic per-request track id (stable for a given uid)."""
@@ -271,6 +277,8 @@ class Tracer:
             if tid not in seen_tids:
                 if tid in thread_names:
                     seen_tids[tid] = thread_names[tid]
+                elif tid == COMM_OVERLAP_TID:
+                    seen_tids[tid] = "comm-overlap"
                 elif REQUEST_TID_BASE <= tid < REQUEST_TID_BASE + \
                         REQUEST_TID_SPAN:
                     seen_tids[tid] = f"request-{tid - REQUEST_TID_BASE}"

@@ -334,12 +334,17 @@ def test_port_never_imports_jax_or_the_jax_package():
             "deepspeed_tpu_torch.sequence.ulysses",
             "deepspeed_tpu_torch.sequence.layer",
             "deepspeed_tpu_torch.sequence.cross_entropy"} <= scanned
+    # and the hierarchical ZeRO world's and the replica wire's modules
+    assert {"deepspeed_tpu_torch.runtime.sparse_tensor",
+            "deepspeed_tpu_torch.runtime.zero.tiling",
+            "deepspeed_tpu_torch.comm.compress"} <= scanned
     n_modules = int(res.stdout.split()[0])
     assert n_modules == len(list(pkgutil.walk_packages(
         deepspeed_tpu_torch.__path__, "deepspeed_tpu_torch.")))
     files = list((REPO / "deepspeed_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_ranks.py",
-              REPO / "tests" / "torch_sp_ranks.py"]
+              REPO / "tests" / "torch_sp_ranks.py",
+              REPO / "tests" / "torch_zeropp_ranks.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []

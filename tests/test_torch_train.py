@@ -319,13 +319,12 @@ def test_qgz_round_trips_large_gradients_only(flax_params):
                                                   dtype=g.dtype)), name
             assert not torch.equal(g, q), name
     assert small == 2 * tcfg.num_layers + 1          # the norm scales
-    # qgZ parses at every stage now; its ZeRO++ sibling qwZ still raises
+    # qgZ parses at every stage now, and so does its ZeRO++ sibling qwZ
     assert DeepSpeedTPUConfig({"zero_optimization": {
         "stage": 2, "zero_quantized_gradients": True}}).zero_optimization_stage == 2
-    with pytest.raises(NotImplementedError, match="distribution and memory tiers"):
-        DeepSpeedTPUConfig({"zero_optimization": {
-            "stage": 2, "zero_quantized_gradients": True,
-            "zero_quantized_weights": True}})
+    assert DeepSpeedTPUConfig({"zero_optimization": {
+        "stage": 2, "zero_quantized_gradients": True,
+        "zero_quantized_weights": True}}).zero_config.zero_quantized_weights
 
 
 def test_engine_surface(flax_params):
@@ -426,15 +425,19 @@ def test_config_errors_match_jax(raw):
 
 
 def test_config_refuses_unported_groups():
-    # stages 1-3 are read now; MiCS and hpZ still raise
-    for raw, match in (({"zero_optimization": {"stage": 3, "mics_shard_size": 2}},
+    # stages 1-3 are read now, MiCS and hpZ too; a tensor axis still raises
+    for raw, match in (({"zero_optimization": {"stage": 3, "mics_shard_size": 2},
+                         "mesh": {"tensor": 2}},
                         "distribution and memory"),
                        ({"zero_optimization": {"stage": 1,
-                                               "zero_hpz_partition_size": 2}},
+                                               "zero_hpz_partition_size": 2},
+                         "mesh": {"dcn_axes": ["data"]}},
                         "distribution and memory"),
                        ({"async_pipeline": {"enabled": True}}, "not ported")):
         with pytest.raises(NotImplementedError, match=match):
             DeepSpeedTPUConfig(raw)
+    assert DeepSpeedTPUConfig({"zero_optimization": {
+        "stage": 3, "mics_shard_size": 2}}).zero_config.mics_shard_size == 2
     # the memory tiers are read at stage 0, with the JAX package's defaults
     tiers = {"zero_optimization": {"stage": 0,
                                    "offload_optimizer": {"device": "cpu"},
