@@ -982,6 +982,19 @@ FLASH_CASES = [
       "kv_head_mod": (_kv_head_mod, ANY),
       "dkv_rep_minus_1": (_dkv_rep_minus_1, ("dk", "dv")),
       "late_tile_dropped": (_late_tile_dropped, FLASH_OUTPUTS), **DQ_TILE}),
+    # a tensor rank's heads (32/2 and 8/2): train_tp_ranks' shape, and
+    # infer_tp_ranks' (two prompts of 512); half the heads is another grid
+    ("tp_rank", dict(b=1, s=2048, h=16, hkv=4, d=128, dtype=torch.bfloat16),
+     dict(causal=True),
+     {"mask_off_by_one": (_changed_opts(_off_by_one), ANY),
+      "kv_head_mod": (_kv_head_mod, ANY),
+      "dkv_rep_minus_1": (_dkv_rep_minus_1, ("dk", "dv")),
+      "late_tile_dropped": (_late_tile_dropped, FLASH_OUTPUTS), **DQ_TILE}),
+    ("tp_serve", dict(b=2, s=512, h=16, hkv=4, d=128, dtype=torch.bfloat16),
+     dict(causal=True),
+     {"mask_off_by_one": (_changed_opts(_off_by_one), ANY),
+      "kv_head_mod": (_kv_head_mod, ANY),
+      "late_tile_dropped": (_late_tile_dropped, FLASH_OUTPUTS)}),
     ("unaligned_gqa", dict(b=2, s=300, h=8, hkv=2, d=128, dtype=torch.bfloat16),
      dict(causal=True),
      {"kv_head_mod": (_kv_head_mod, ANY),
@@ -5358,7 +5371,8 @@ def _remove_masters(stem) -> None:
 def _blocks_apart(engine, stem, atol):
     """``_masters_apart`` of the engine's masters against those
     ``_save_masters`` wrote, with no gather: each rank compares the blocks
-    it holds, on its device, the first rank of those holding a block
+    it holds (of a tensor-parallel leaf, its ZeRO block of its tensor
+    block), on its device, the first rank of those holding a block
     counts it, and the counts and the largest distance are reduced over
     the ranks (the same numbers: the counted blocks tile every leaf once,
     which the element count checks). Every rank must call it."""
@@ -5368,14 +5382,19 @@ def _blocks_apart(engine, stem, atol):
     mesh, dev = engine.mesh, _rank_device()
     n = apart = 0
     worst = 0.0
-    for i, (m, d, e) in enumerate(zip(engine._masters, engine._param_dim,
-                                      engine._expert_dim)):
+    for i, (m, d, e, t) in enumerate(zip(engine._masters, engine._param_dim,
+                                         engine._expert_dim,
+                                         engine._tensor_dim)):
         check(e is None, "_blocks_apart: an expert leaf")
         held = tuple(engine._block_axes) if d is not None else ()
-        if mesh.axis_index(tuple(a for a in MESH_AXES if a not in held)):
+        tensor = ("tensor",) if t is not None else ()
+        if mesh.axis_index(tuple(a for a in MESH_AXES
+                                 if a not in held + tensor)):
             continue                   # a rank before this one counts it
         want = torch.from_numpy(np.load(_rank_out(f"{stem}{i}.npy"),
                                         mmap_mode="c"))
+        if t is not None:              # this rank's tensor block first
+            want = partition.shard_of(want, t, mesh, tensor)
         if d is not None:
             want = partition.shard_of(want, d, mesh, held)
         check(want.shape == m.shape, f"_blocks_apart: leaf {i}'s block "
@@ -5552,9 +5571,9 @@ def _host_side(dev_type="cuda") -> dict:
 
 BODIES_ENV = "DSTPU_SMOKE_BODIES"
 # the two-rank phases' bodies, run in turn by one spawned pair
-# (``phase_train_ranks``): one process start and card context for all four
+# (``phase_train_ranks``): one process start and card context for all five
 TWO_RANK_BODIES = ("zero_ranks_body", "qgz_ranks_body", "moe_ranks_body",
-                   "sp_ranks_body")
+                   "sp_ranks_body", "tp_infer_body")
 
 
 def ranks_bodies():
@@ -5587,7 +5606,7 @@ def phase_train_ranks(tmp) -> dict:
     moe = plan_moe_rank_layers()
     sp = plan_sp_seq()
     seconds = _spawn("ranks_bodies", tmp,
-                     timeout=3 * RANKS_TIMEOUT + SP_TIMEOUT,
+                     timeout=3 * RANKS_TIMEOUT + SP_TIMEOUT + TP_TIMEOUT,
                      **{BODIES_ENV: ",".join(TWO_RANK_BODIES),
                         ZERO_STAGES_ENV: ",".join(
                             str(k) for k in ZERO_RANKS_STAGES),
@@ -5903,6 +5922,7 @@ ZPP_GAP_LIMITS = {
 ZPP_FAULTS = ("hpz_qwz_block_scale", "hpz_qwz_no_second_hop",
               "mics_compress_bucket_summed", "mics_compress_fp8")
 ZPP_FAULTS_ENV = "DSTPU_SMOKE_ZPP_FAULTS"
+ZPP_VARIANTS_ENV = "DSTPU_SMOKE_ZPP_VARIANTS"   # a subset (the card tests)
 ZPP_REF_STEM = "zeropp_reference_master"   # the reference's masters, a leaf a file
 # a rank's masters and moments over stage 0's 12 bytes a parameter: MiCS
 # shards them over fsdp (half), hpZ over fsdp_out x fsdp (a quarter); the
@@ -6310,9 +6330,12 @@ def zeropp_ranks_body():
     bucket's recorded bytes and wire bytes and the first bucket's
     error-feedback step of every step (``_ef_invariant``) with the
     residual carried from one step to the next; and the share of masters
-    apart from the reference's (MiCS and hpZ, ``_blocks_apart``). With
-    ``$DSTPU_SMOKE_ZPP_FAULTS`` = 1 the planted faults of ZPP_FAULTS
-    follow."""
+    apart from the reference's (MiCS and hpZ, ``_blocks_apart``); then
+    ``tp_zero3`` (``_tp_run``: fsdp 2 x tensor 2, the ``train_tp_ranks``
+    line). ``$DSTPU_SMOKE_ZPP_VARIANTS`` names a subset of the variants.
+    With ``$DSTPU_SMOKE_ZPP_FAULTS`` = 1 the planted faults of ZPP_FAULTS
+    follow; with ``$DSTPU_SMOKE_TP_FAULTS`` = 1 those of TP_TRAIN_FAULTS
+    in ``tp_zero3``."""
     import torch.distributed as dist
     from deepspeed_tpu_torch.comm.comms_logging import get_comms_logger
     from deepspeed_tpu_torch.models.llama import random_tokens
@@ -6339,9 +6362,18 @@ def zeropp_ranks_body():
     out["reference_seconds"] = time.monotonic() - t
     comms = get_comms_logger()
     comms.configure(enabled=True)
-    for variant in ZPP_VARIANTS + faults:
-        out["runs"][variant] = _zeropp_run(variant, layers, model, batch,
-                                           ref, comms, on_card)
+    variants = os.environ.get(ZPP_VARIANTS_ENV)
+    variants = tuple(variants.split(",")) if variants else \
+        ZPP_VARIANTS + TP_VARIANTS
+    for variant in variants + faults:
+        run = _tp_run if variant in TP_VARIANTS else _zeropp_run
+        out["runs"][variant] = run(variant, layers, model, batch, ref, comms,
+                                   on_card)
+    if os.environ.get(TP_FAULTS_ENV) == "1":
+        for fault in TP_TRAIN_FAULTS:
+            out["runs"][f"tp_zero3_{fault}"] = _tp_run(
+                "tp_zero3", layers, model, batch, ref, comms, on_card,
+                fault=fault)
     comms.configure(enabled=False)
     dist.barrier()                     # every rank has read the reference
     if r == 0:
@@ -6494,7 +6526,7 @@ def phase_train_zeropp_ranks(dev, smi_line, tmp, faults=False):
     # the readings first: a gate that fails still leaves them
     emit({"phase": "train_zeropp_ranks_readings", "seconds": seconds,
           "reference_seconds": rows[0]["reference_seconds"],
-          "gaps": zeropp_gaps(runs),
+          "gaps": zeropp_gaps(runs), "tp_gaps": tp_train_gaps(runs),
           "variants": {v: {"seconds": r["seconds"],
                            "losses": [s["loss"] for s in r["steps"]],
                            "grad_norms": [s["grad_norm"] for s in r["steps"]],
@@ -6503,6 +6535,7 @@ def phase_train_zeropp_ranks(dev, smi_line, tmp, faults=False):
                                         for row in rows]}
                        for v, r in runs.items()}})
     path, gaps = check_zeropp_ranks(rows)
+    tp_path = check_tp_ranks(rows)
     check(runs["mics_compress"]["sparse_wire_expected"],
           "mics_compress: the embedding's gradient did not take the sparse "
           f"wire at k = {runs['mics_compress']['sparse_k']}")
@@ -6534,6 +6567,549 @@ def phase_train_zeropp_ranks(dev, smi_line, tmp, faults=False):
                  if "buckets" in runs[v] else {})}
               for v in runs},
           "launches": path, "card": dev["kind"], "nvidia_smi": smi_line})
+    tp = runs["tp_zero3"]
+    emit({"phase": "train_tp_ranks", "model": f"LLAMA3_8B width, "
+          f"{ZPP_LAYERS} layer of 32, bf16, flash, remat, stage 3, fsdp=2 x "
+          f"tensor={TP}, {ZPP_RANKS} ranks on one card over gloo",
+          "limits": TP_TRAIN_LIMITS["8b"],
+          "losses": [s_["loss"] for s_ in tp["steps"]],
+          "grad_norms": [s_["grad_norm"] for s_ in tp["steps"]],
+          "step_ms": [s_["step_ms"] for s_ in tp["steps"]],
+          "exchange_share": _exchange_share(tp),
+          **{k: tp[k] for k in ("masters_share", "masters_max_abs",
+                                "loss_gap", "grad_norm_gap", "masters",
+                                "moments", "seconds")},
+          "peak_hbm": [row["runs"]["tp_zero3"]["peak_hbm"] for row in rows],
+          "comm_per_step": tp["steps"][-1]["comm"],
+          "launches_per_step": tp["expected_launches_per_step"],
+          "launches": tp_path, "card": dev["kind"], "nvidia_smi": smi_line})
+    return path, tp_path
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: infer_tp_ranks (the gloo pair) and train_tp_ranks
+# (the four-process spawn of train_zeropp_ranks)
+# ---------------------------------------------------------------------------
+TP = 2                             # tensor ranks of both phases, one card
+TP_PROMPTS, TP_PROMPT_LEN = 2, 512   # infer_tp_ranks' batch (tiny: 64)
+# the planted faults of infer_tp_ranks (``--tp-faults``, never in the
+# default run; always in the CPU test): every rank serving the other
+# rank's kv heads, and layer 0's wo all-reduce dropped
+TP_FAULTS = ("kv_wrong_rank", "wo_reduce_dropped")
+TP_FAULTS_ENV = "DSTPU_SMOKE_TP_FAULTS"
+# the training faults (``--tp-faults`` and the CPU tests, never in the
+# default run): the norm summing every leaf's square over tensor, and
+# layer 0's copy-to-tensor backward dropped
+TP_TRAIN_FAULTS = ("norm_all_tensor", "copy_dropped")
+# train_tp_ranks' gate against the stage-0 reference: each step's loss
+# and norm (absolute) and the share of masters apart after the last step,
+# about four times the sound reading. The TP forward rounds each
+# row-parallel sum of two bf16 partials, which no summation order of the
+# reference does, so the orders' distance is no limit for it. 8b on the
+# H100: 1.9e-4, 1.683e-4, 0.003537, the same bits in every run; the
+# planted faults (``--tp-faults``) read a norm gap of 3.49e-3
+# (norm_all_tensor) and 0.167 / 0.702 / 0.113 (copy_dropped). Tiny: the
+# larger of the CPU's and the card's (card: 1.43e-6, 4.77e-5, 0.00135).
+TP_TRAIN_LIMITS = {"8b": {"loss": 8e-4, "grad_norm": 7e-4,
+                          "masters_share": 0.015},
+                   "tiny": {"loss": 6e-6, "grad_norm": 2e-4,
+                            "masters_share": 0.0054}}
+TP_VARIANTS = ("tp_zero3",)        # train_tp_ranks' variant of the four
+TP_TIMEOUT = 300                   # seconds tp_infer_body may add to the pair
+# the serving gate: the TP logits against the one-rank logits (fp32,
+# relative L2, and the share of rows whose argmax moves), about four times
+# the sound reading (8b on the H100: 0.0200 and 0.0566, ``--tp-faults``,
+# whose planted faults read 1.15-1.41 and 1.0; tiny: the CPU's fp32
+# reading, 6.7e-7 and 0)
+TP_LOGITS_LIMITS = {"8b": {"rel_l2": 0.08, "argmax_moved": 0.23},
+                    "tiny": {"rel_l2": 4e-6, "argmax_moved": 0.0}}
+
+
+@contextlib.contextmanager
+def default_dtype(dtype):
+    """Parameters made inside are ``dtype``: the serving model built at
+    its compute dtype (Llama-3-8B's fp32 tree would take 32 GB a rank)."""
+    saved = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(saved)
+
+
+def tp_serving_cfg(model="8b"):
+    """Llama-3-8B at full width and depth on the flash backend in bf16;
+    the tiny model in fp32 on the plain backend for the CPU tests."""
+    import dataclasses
+    from deepspeed_tpu_torch.models.llama import LLAMA3_8B, TINY_LLAMA
+    if model == "tiny":
+        return dataclasses.replace(TINY_LLAMA, dtype=torch.float32,
+                                   attention_backend="xla")
+    return dataclasses.replace(LLAMA3_8B, dtype=torch.bfloat16,
+                               attention_backend="flash")
+
+
+def tp_prompts(cfg, model="8b"):
+    """TP_PROMPTS seeded prompts; the first row opens with ids at the
+    vocabulary blocks' edges (0, the last of block 0, the first and last
+    of block 1), which the vocab-parallel lookup's mask must keep."""
+    from deepspeed_tpu_torch.models.llama import random_tokens
+    s = TP_PROMPT_LEN if model == "8b" else 64
+    batch = random_tokens(TP_PROMPTS, s, cfg.vocab_size, seed=SEED + 20)
+    v = cfg.vocab_size
+    batch["input_ids"][0, :4] = [0, v // TP - 1, v // TP, v - 1]
+    return batch
+
+
+def tp_logit_gaps(got, want) -> dict:
+    """fp32 relative L2 of ``got`` against ``want`` and the share of rows
+    whose argmax moves."""
+    got, want = got.float(), want.float()
+    return {"rel_l2": ((got - want).norm() / want.norm()).item(),
+            "argmax_moved": (got.argmax(-1) != want.argmax(-1)
+                             ).float().mean().item()}
+
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+def expected_tp_infer_comm(cfg, b, s, elem) -> dict:
+    """The comms logger's bytes of one TP forward a rank: the embedding's
+    sum and two row-parallel sums a layer of ``[b, s, D]`` in the hidden
+    dtype (``elem`` bytes), and the head's fp32 vocabulary block
+    gathered."""
+    d = cfg.hidden_size
+    return {"tensor/embed/all_reduce": b * s * d * elem,
+            "tensor/reduce/all_reduce": 2 * cfg.num_layers * b * s * d * elem,
+            "tensor/gather/all_gather": b * s * (cfg.vocab_size // TP) * 4}
+
+
+def _swap_kv_blocks(sd, tp=TP):
+    """The full tree with each wk/wv kernel's head blocks in reverse rank
+    order: each rank's cut holds another rank's kv heads."""
+    out = dict(sd)
+    for n, v in sd.items():
+        if n.endswith((".wk.kernel", ".wv.kernel")):
+            out[n] = torch.cat(v.chunk(tp, dim=1)[::-1], dim=1)
+    return out
+
+
+@contextlib.contextmanager
+def tp_fault(name, model=None, engine=None):
+    """Plant a fault of TP_FAULTS / TP_TRAIN_FAULTS for one run:
+    ``wo_reduce_dropped`` / ``copy_dropped``: layer 0's attention without
+    its row-parallel sum / its copy-to-tensor (whose backward sums dX);
+    ``norm_all_tensor``: the engine's norm sums every leaf's square over
+    ``tensor``. ``kv_wrong_rank`` is planted in the weights
+    (``_swap_kv_blocks``)."""
+    from deepspeed_tpu_torch.models import llama
+    saved = []
+    if name in ("wo_reduce_dropped", "copy_dropped"):
+        fn = "reduce_from_tensor" if name == "wo_reduce_dropped" \
+            else "copy_to_tensor"
+        orig = getattr(llama, fn)
+        inside = [False]
+        attn = model.model.layer_0.attn
+        saved.append(attn.register_forward_pre_hook(
+            lambda *_: inside.__setitem__(0, True)))
+        saved.append(attn.register_forward_hook(
+            lambda *_: inside.__setitem__(0, False)))
+        setattr(llama, fn, lambda x, *a, **k: x if inside[0]
+                else orig(x, *a, **k))
+        saved.append(lambda: setattr(llama, fn, orig))
+    elif name == "norm_all_tensor":
+        orig_norm = engine._global_norm
+
+        def norm(grads):
+            kept = engine._tensor_dim
+            engine._tensor_dim = [0] * len(kept)
+            try:
+                return orig_norm(grads)
+            finally:
+                engine._tensor_dim = kept
+        engine._global_norm = norm
+        saved.append(lambda: delattr(engine, "_global_norm"))
+    elif name not in (None, "kv_wrong_rank"):
+        raise ValueError(f"unknown TP fault {name!r}")
+    try:
+        yield
+    finally:
+        for undo in reversed(saved):
+            undo() if callable(undo) else undo.remove()
+
+
+def tp_infer_body():
+    """One rank of ``infer_tp_ranks`` (the gloo pair): rank 0 first serves
+    the one-rank logits of Llama-3-8B (full width and depth, flash, bf16,
+    random weights from SEED) on TP_PROMPTS prompts of TP_PROMPT_LEN
+    tokens and keeps them; then both ranks build the same full model, call
+    ``deepspeed_tpu_torch.init_inference(model, config={"dtype": ...,
+    "tensor_parallel": {"tp_size": TP}}, params=state_dict)`` (AutoTP
+    resolves the rules and cuts this rank's blocks) and run one
+    ``forward``: the logits' digest, the flash launches, the comms
+    logger's bytes, the seconds and peak HBM; rank 0 the gaps to the
+    one-rank logits. With ``$DSTPU_SMOKE_TP_FAULTS`` = 1 the planted
+    faults of TP_FAULTS follow."""
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm.comms_logging import get_comms_logger
+    from deepspeed_tpu_torch.comm.mesh import set_global_mesh
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import build
+    r = dist.get_rank()
+    model = os.environ.get(RANK_MODEL_ENV, "8b")
+    dev = _rank_device()
+    cfg = tp_serving_cfg(model)
+    batch = tp_prompts(cfg, model)
+    faults = TP_FAULTS if os.environ.get(TP_FAULTS_ENV) == "1" else ()
+    out = {"rank": r, "model": model, "runs": {}}
+    ref = None
+    set_global_mesh(None)
+    if r == 0:
+        t = time.monotonic()
+        with default_dtype(cfg.dtype):
+            m = LlamaForCausalLM(cfg, device=dev, seed=SEED)
+        with torch.no_grad():
+            ref = m.logits({"input_ids": torch.from_numpy(
+                batch["input_ids"]).to(dev)})
+        out["reference_seconds"] = time.monotonic() - t
+        del m
+        _release()
+    dist.barrier()
+    comms = get_comms_logger()
+    comms.configure(enabled=True)
+    for fault in (None,) + faults:
+        _peak_reset()
+        t = time.monotonic()
+        with default_dtype(cfg.dtype):
+            m = LlamaForCausalLM(cfg, device=dev, seed=SEED)
+        out["params"] = sum(p.numel() for p in m.parameters())
+        sd = m.state_dict()
+        if fault == "kv_wrong_rank":
+            sd = _swap_kv_blocks(sd)
+        eng = deepspeed_tpu_torch.init_inference(
+            m, config={"dtype": "bf16" if model == "8b" else "fp32",
+                       "tensor_parallel": {"tp_size": TP}},
+            params=sd, device=dev)
+        del sd
+        _release()
+        built = time.monotonic() - t
+        held = sum(p.numel() for p in m.parameters())
+        comms.reset()
+        before = build.launch_counts()
+        t = time.monotonic()
+        with tp_fault(fault, m):
+            logits = eng.forward(batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.monotonic() - t
+        after = build.launch_counts()
+        run = {"build_seconds": built, "forward_seconds": seconds,
+               "held": held, "shape": list(logits.shape),
+               "finite": bool(torch.isfinite(logits).all()),
+               "launches": {n: after.get(n, 0) - before.get(n, 0)
+                            for n in FLASH_PER_STEP},
+               "comm": {op: {k: v[k] for k in ("count", "bytes", "seconds")}
+                        for op, v in comms.per_op_totals().items()},
+               "peak_hbm": _peak(), "digest": _digest(logits)}
+        if r == 0:
+            run.update(tp_logit_gaps(logits, ref))
+        out["runs"][fault or "sound"] = run
+        del eng, m, logits
+        set_global_mesh(None)
+        _release()
+    comms.configure(enabled=False)
+    out["expected_comm"] = expected_tp_infer_comm(
+        cfg, TP_PROMPTS, batch["input_ids"].shape[1],
+        torch.empty((), dtype=cfg.dtype).element_size())
+    with open(_rank_out(f"tp_infer{r}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def check_tp_infer(rows, flash: bool = True) -> dict:
+    """The gates of ``infer_tp_ranks``: finite logits of the whole
+    vocabulary, bit-identical on both ranks; rank 0's gaps to the
+    one-rank logits within TP_LOGITS_LIMITS and every planted fault's
+    outside; num_layers flash forwards a rank (none on the plain
+    backend); each rank's ``tensor/*`` bytes as ``expected_tp_infer_comm``
+    reckons them; each rank holds half of the sharded leaves. Returns the
+    launches summed over the ranks' sound runs."""
+    model = rows[0]["model"]
+    cfg = tp_serving_cfg(model)
+    lim = TP_LOGITS_LIMITS[model]
+    sound = [row["runs"]["sound"] for row in rows]
+    s0 = sound[0]
+    check(all(s["finite"] for s in sound) and s0["shape"][-1] ==
+          cfg.vocab_size, f"TP logits not finite or not the whole "
+          f"vocabulary: {s0['shape']}")
+    check(len({s["digest"] for s in sound}) == 1,
+          "the tensor ranks' logits differ")
+    for k in lim:
+        check(s0[k] <= lim[k], f"TP logits {k} {s0[k]} against the one-rank "
+              f"logits, limit {lim[k]}")
+    for f, run in rows[0]["runs"].items():
+        if f != "sound":
+            check(any(run[k] > lim[k] for k in lim), f"planted fault {f}: "
+                  f"{ {k: run[k] for k in lim} } inside the limits {lim}")
+    want_fwd = cfg.num_layers if flash else 0
+    path = {n: 0 for n in FLASH_PER_STEP}
+    for row, s in zip(rows, sound):
+        check(s["launches"] == {"flash_fwd": want_fwd, "flash_dq": 0,
+                                "flash_dkv": 0},
+              f"rank {row['rank']}: flash launches {s['launches']}, want "
+              f"{want_fwd} forwards")
+        got = {op: int(v["bytes"]) for op, v in s["comm"].items()
+               if op.startswith("tensor/") and v["count"]}
+        check(got == row["expected_comm"], f"rank {row['rank']}: tensor "
+              f"bytes {got}, reckoned {row['expected_comm']}")
+        check(s["held"] < 0.55 * row["params"], f"rank {row['rank']} holds "
+              f"{s['held']} of {row['params']} parameters")
+        for n, c in s["launches"].items():
+            path[n] += c
+    return path
+
+
+def phase_infer_tp_ranks(dev, smi_line, tmp):
+    """Rows of ``tp_infer_body`` (run in the gloo pair of
+    ``phase_train_ranks``), gated by ``check_tp_infer``."""
+    seconds = _body_seconds(tmp, "tp_infer_body")
+    rows = _read_ranks("tp_infer", tmp)
+    r0 = rows[0]["runs"]
+    # the readings first: a gate that fails still leaves them
+    emit({"phase": "infer_tp_ranks_readings",
+          "gaps": {f: {k: r.get(k) for k in ("rel_l2", "argmax_moved")}
+                   for f, r in r0.items()}})
+    path = check_tp_infer(rows)
+    emit({"phase": "infer_tp_ranks", "model": "LLAMA3_8B full width and "
+          f"depth, bf16, flash, init_inference tp_size={TP} (AutoTP) over "
+          f"gloo on one card, {TP_PROMPTS} prompts x {TP_PROMPT_LEN}",
+          "seconds": seconds,
+          "reference_seconds": rows[0].get("reference_seconds"),
+          "limits": TP_LOGITS_LIMITS["8b"],
+          "runs": {f: {k: r[k] for k in (
+              "rel_l2", "argmax_moved", "forward_seconds", "build_seconds",
+              "launches", "peak_hbm", "held") if k in r}
+              for f, r in r0.items()},
+          "peak_hbm": [row["runs"]["sound"]["peak_hbm"] for row in rows],
+          "comm": r0["sound"]["comm"], "expected_comm":
+          rows[0]["expected_comm"], "launches": path, "card": dev["kind"],
+          "nvidia_smi": smi_line})
+    return path
+
+
+def tp_train_config(layers, model="8b"):
+    """The training recipe at stage 3 over ``fsdp`` 2 x ``tensor`` 2 on
+    ZPP_BATCH sequences a step (micro 2 x gas 2 x 2 batch ranks: the
+    global batch of the phase's other variants)."""
+    cfg, ds = _zero_recipe(3, layers, model)
+    ds.update(train_batch_size=ZPP_BATCH,
+              mesh={"fsdp": ZPP_RANKS // TP, "tensor": TP, "data": 1})
+    return cfg, ds
+
+
+def expected_tp_comm(engine, gas: int, rows: int, seq: int,
+                     remat: bool = True) -> dict:
+    """The comms logger's bytes a step a rank at ``fsdp`` x ``tensor``,
+    stage 3, from the shapes. A micro-batch of ``rows`` x ``seq`` tokens
+    sums the embedding's rows (``tensor/embed``) and two row-parallel
+    outputs a layer (``tensor/reduce``; remat's recompute sums the
+    attention's again and stops before the MLP's, whose output no
+    backward needs) in the hidden dtype, sums dX over ``tensor`` before the column-parallel
+    products in the backward (``tensor/copy``: two a layer and the
+    head's), and takes the vocab-parallel loss's max, sum and target over
+    the next-token positions in fp32 (``tensor/vocab_ce``); the ZeRO
+    gathers and reduce-scatters of each sharded leaf's tensor block over
+    ``fsdp`` in the compute dtype (twice a micro-batch for a layer's leaf
+    under remat), the replicated leaves' fp32 all-reduce over ``fsdp``,
+    and each step's loss and norm all-reduces (the norm's over ``fsdp``
+    and over ``tensor``)."""
+    cfg = engine.model.cfg
+    cdt = torch.empty((), dtype=engine.compute_dtype).element_size()
+    hdt = torch.empty((), dtype=cfg.dtype).element_size()
+    fs = engine.mesh.shape["fsdp"]
+    hidden = rows * seq * cfg.hidden_size * hdt
+    layers = cfg.num_layers
+    e = {"tensor/embed/all_reduce": hidden * gas,
+         "tensor/reduce/all_reduce": (3 if remat else 2) * layers * hidden
+         * gas,
+         "tensor/copy/all_reduce": (2 * layers + 1) * hidden * gas,
+         "tensor/vocab_ce/all_reduce": 3 * rows * (seq - 1) * 4 * gas}
+    ag = rs = ar = sharded = 0
+    for i, name in enumerate(engine._param_names):
+        n = engine._masters[i].numel()        # this rank's block
+        if engine._param_dim[i] is None:
+            ar += n * 4 * gas
+            continue
+        sharded += 1
+        uses = 2 if remat and ".layer_" in name else 1
+        ag += n * cdt * uses * gas
+        rs += n * fs * cdt * gas
+    tensor_sharded = sum(d is not None for d in engine._tensor_dim)
+    e.update({"all_gather": ag, "reduce_scatter": rs,
+              "all_reduce": ar + 4 + 4 * sharded + 4 * tensor_sharded})
+    return e
+
+
+def _replicated_digest(engine) -> str:
+    """One digest of every master ``tensor`` does not shard (the norm
+    scales; under stage 3 this rank's fsdp block of them), the same bits
+    on every tensor rank of an fsdp group."""
+    import hashlib
+    h = hashlib.sha256()
+    for m, t in zip(engine._masters, engine._tensor_dim):
+        if t is None:
+            h.update(m.detach().cpu().contiguous().view(torch.uint8)
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tp_run(variant, layers, model, batch, ref, comms, on_card, fault=None):
+    """``tp_zero3`` (or one of TP_TRAIN_FAULTS planted in it) on this rank of the four: ZPP_STEPS steps of the recipe at
+    stage 3 over fsdp 2 x tensor 2; per step the loss, norm, flash
+    launches, the comms logger's bytes and the replicated masters'
+    digest; the state bytes, the peak HBM, and the share of masters apart
+    from the stage-0 reference's after the last step."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    import deepspeed_tpu_torch
+    r = dist.get_rank()
+    gas = TRAIN_GAS
+    cfg, ds = tp_train_config(layers, model)
+    _peak_reset()
+    t = time.monotonic()
+    m = LlamaForCausalLM(cfg, device=_rank_device(), seed=SEED)
+    with tp_fault(fault, m) if fault == "copy_dropped" \
+            else contextlib.nullcontext():
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=m, config=ds, device=_rank_device())
+        seconds = {"build": time.monotonic() - t}
+        rows = batch["input_ids"].shape[1] // engine.dp_world_size
+        run = {**_state_bytes(engine),
+               "held": sum(x.numel() for x in engine._masters),
+               "params": sum(math.prod(s)
+                             for s in engine._full_shapes.values()),
+               "coords": {a: engine.mesh.coords[a]
+                          for a in ("fsdp", "tensor")},
+               "tensor_dims": engine._tensor_dim,
+               "param_dims": engine._param_dim,
+               "expected_comm_per_step": expected_tp_comm(
+                   engine, gas, rows, batch["input_ids"].shape[2],
+                   cfg.remat),
+               "expected_launches_per_step": {
+                   n: (k * layers * gas
+                       if on_card and cfg.attention_backend == "flash"
+                       else 0) for n, k in FLASH_PER_STEP.items()}}
+        comms.reset()
+        t = time.monotonic()
+        steps = []
+        with tp_fault(fault, engine=engine) if fault == "norm_all_tensor" \
+                else contextlib.nullcontext():
+            for _ in range(ZPP_STEPS):
+                steps += _rank_steps(engine, batch, 1, comms)
+                steps[-1]["replicated_digest"] = _replicated_digest(engine)
+        seconds["steps"] = time.monotonic() - t
+    run["steps"] = steps
+    run["peak_hbm"] = _peak()
+    t = time.monotonic()
+    run["masters_share"], run["masters_max_abs"] = _blocks_apart(
+        engine, ZPP_REF_STEM, MASTERS_ATOL_LR * _recipe_lr(model))
+    seconds["masters"] = time.monotonic() - t
+    if r == 0:
+        run["loss_gap"] = max(abs(s["loss"] - a)
+                              for s, a in zip(steps, ref[0]))
+        run["grad_norm_gap"] = max(abs(s["grad_norm"] - a)
+                                   for s, a in zip(steps, ref[1]))
+    run["seconds"] = seconds
+    del engine, m
+    _release()
+    return run
+
+
+def tp_train_gaps(runs) -> dict:
+    """tp_zero3's and each planted training fault's (those in ``runs``)
+    distance from the stage-0 reference: the largest loss and norm gap
+    over the steps, the share of masters apart after the last step."""
+    return {v: {k: runs[v][k] for k in ("loss_gap", "grad_norm_gap",
+                                         "masters_share")}
+            for v in ("tp_zero3", *(f"tp_zero3_{f}" for f in TP_TRAIN_FAULTS))
+            if v in runs}
+
+
+def check_tp_train_faults(rows) -> dict:
+    """Each planted training fault caught by the gate that stands for it:
+    ``norm_all_tensor`` moves a step's norm past TP_TRAIN_LIMITS,
+    ``copy_dropped`` splits the replicated masters of each fsdp group
+    between its tensor ranks. Returns the faults' gaps."""
+    gaps = tp_train_gaps(rows[0]["runs"])
+    lim = TP_TRAIN_LIMITS[rows[0]["model"]]
+    check(gaps["tp_zero3_norm_all_tensor"]["grad_norm_gap"] > lim["grad_norm"],
+          "norm_all_tensor: the norm stayed within its limit "
+          f"({gaps['tp_zero3_norm_all_tensor']}, limits {lim})")
+    digests = {}
+    for row in rows:
+        run = row["runs"]["tp_zero3_copy_dropped"]
+        digests.setdefault(run["coords"]["fsdp"], set()).add(
+            run["steps"][-1]["replicated_digest"])
+    check(all(len(d) == TP for d in digests.values()),
+          "copy_dropped: the replicated masters stayed equal on the tensor "
+          "ranks")
+    return gaps
+
+
+def check_tp_ranks(rows) -> dict:
+    """The gates of ``train_tp_ranks``: each step's loss and norm and the
+    masters' share apart after the last step within TP_TRAIN_LIMITS of
+    the stage-0 reference; every rank's losses and norms equal; the replicated
+    masters the same bits on the two tensor ranks of each fsdp group
+    after every step; flash launches a rank and step exact; every op's
+    bytes a step as ``expected_tp_comm`` reckons them; each rank's
+    masters and moments a quarter of stage 0's (the leaves both axes
+    divide). Returns the launches summed over ranks and steps."""
+    path = {}
+    tol = TP_TRAIN_LIMITS[rows[0]["model"]]
+    for variant in TP_VARIANTS:
+        r0 = rows[0]["runs"][variant]
+        groups = {}
+        for row in rows:
+            run = row["runs"][variant]
+            check([(s["loss"], s["grad_norm"]) for s in run["steps"]] ==
+                  [(s["loss"], s["grad_norm"]) for s in r0["steps"]],
+                  f"{variant}: rank {row['rank']}'s losses or norms differ "
+                  "from rank 0's")
+            groups.setdefault(run["coords"]["fsdp"], []).append(
+                [s["replicated_digest"] for s in run["steps"]])
+            share = (run["masters"] + run["moments"]) / (12 * run["params"])
+            check(share < 0.3, f"{variant} rank {row['rank']}: masters and "
+                  f"moments {share} of stage 0's")
+            for k, s in enumerate(run["steps"]):
+                got = {op: int(t["bytes"]) for op, t in s["comm"].items()
+                       if t["count"]}
+                check(got == run["expected_comm_per_step"],
+                      f"{variant} rank {row['rank']} step {k}: comm bytes "
+                      f"{got}, expected {run['expected_comm_per_step']}")
+                want = run["expected_launches_per_step"]
+                launched = {n: s["launches"].get(n, 0) for n in want}
+                check(launched == want, f"{variant} rank {row['rank']} step "
+                      f"{k}: launches {launched}, expected {want}")
+                for n, c in launched.items():
+                    path[n] = path.get(n, 0) + c
+        for f, digests in groups.items():
+            check(len(digests) == TP and digests[0] == digests[1],
+                  f"{variant}: the replicated masters of fsdp group {f} "
+                  "differ between its tensor ranks")
+        check(r0["masters_share"] <= tol["masters_share"],
+              f"{variant}: a share {r0['masters_share']} of the masters "
+              f"apart from the stage-0 run's, limit "
+              f"{tol['masters_share']}")
+        check(r0["loss_gap"] <= tol["loss"], f"{variant}: losses "
+              f"{r0['loss_gap']} from stage 0, limit {tol['loss']}")
+        check(r0["grad_norm_gap"] <= tol["grad_norm"],
+              f"{variant}: gradient norms {r0['grad_norm_gap']} from stage "
+              f"0, limit {tol['grad_norm']}")
     return path
 
 
@@ -7410,6 +7986,55 @@ def phase_sp_flash_timing(dev, smi_line, seq=SP_SEQ):
     return rows
 
 
+def phase_tp_flash_timing(dev, smi_line):
+    """The flash kernels by the profiler's device time at a tensor rank's
+    shape of the training recipe (B=1, S=TRAIN_SEQ, H=32/TP, Hkv=8/TP,
+    d=128, causal, bf16), beside their bounds and one SDPA call's device
+    time (forward; backward: dq, dk, dv) on the same inputs."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    b, s, h, hkv, d = 1, TRAIN_SEQ, 32 // TP, 8 // TP, 128
+    (q, k, v, do), _ = _flash_inputs(gen, b, s, h, hkv, d, torch.bfloat16)
+    out, lse = flash_fwd(q, k, v, causal=True)
+    ms = _kernel_device_ms(lambda: flash_fwd(q, k, v, causal=True),
+                           ["flash_fwd_kernel"], iters=20)
+    ms.update(_kernel_device_ms(
+        lambda: flash_bwd(q, k, v, out, lse, do, causal=True),
+        ["flash_dq_kernel", "flash_dkv_kernel"], iters=10))
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(      # noqa: E731
+        qs, ks, vs, is_causal=True, enable_gqa=True)
+    sdpa_fwd = _call_device_ms(sdpa, iters=20)
+    o_sdpa = sdpa()
+    g = do.transpose(1, 2)
+    sdpa_bwd = _call_device_ms(lambda: torch.autograd.grad(
+        o_sdpa, (qs, ks, vs), g, retain_graph=True), iters=20)
+    pairs, fwd_b, dq_b, dkv_b = _flash_work(b, s, h, hkv, d, 2)
+    mm = 2 * pairs * d
+    bounds = {"flash_fwd": _bound(2 * mm, fwd_b),
+              "flash_dq": _bound(3 * mm, dq_b),
+              "flash_dkv": _bound(4 * mm, dkv_b)}
+    names = {"flash_fwd": "flash_fwd_kernel", "flash_dq": "flash_dq_kernel",
+             "flash_dkv": "flash_dkv_kernel"}
+    rows = {n: {"ms": ms[e], "bound_ms": bounds[n][0],
+                "bound_by": bounds[n][1],
+                "share_of_bound": bounds[n][0] / ms[e],
+                "library_ms": sdpa_fwd if n == "flash_fwd" else sdpa_bwd}
+            for n, e in names.items()}
+    emit({"phase": "tp_flash_timing",
+          "shape": f"B=1 S={s} H={h} Hkv={hkv} d={d} causal bf16 "
+                   f"(a tensor rank of {TP})", "kernels": rows,
+          "card": dev["kind"], "nvidia_smi": smi_line,
+          "notes": "profiler device time of each kernel's entry; "
+                   "library_ms one SDPA call's kernels (backward: dq, dk, "
+                   "dv together)"})
+    del q, k, v, do, out, lse, qs, ks, vs, o_sdpa
+    return rows
+
+
 def _sp_reference(seq):
     """The one-rank run (the flash backend on this process's card) of the
     train_sp recipe on the same weights and sequence: step 1's loss and
@@ -7582,6 +8207,11 @@ def phase_train_chunked_loss(batch, dev, smi_line):
 
 HOST_SOURCES = ("cpu_adam", "aio")  # g++ builds them beside the CUDA sources
 PARITY_STEPS = 2                   # train_batch steps of each parity engine
+# the parity engines' depth and the parameter tier's group there: cut from
+# TRAIN_LAYERS (4, groups of 2) to 3 layers in groups of 2 for the smoke's
+# time limit beside the tensor-parallel phases (width is never cut; the
+# stream crosses a group boundary and one group holds two layers)
+PARITY_LAYERS, PARITY_GROUP = 3, 2
 OFFLOAD_STEPS = 2                  # timed steps after 1 warm-up, optimizer tier
 PARAM_OFFLOAD_STEPS = 1            # the parameter tier's, cut for time
 HOST_MARGIN = 1.25                 # host RAM a tier may plan on: MemAvailable / this
@@ -7603,8 +8233,8 @@ HOST_BYTES = {"optimizer": 12, "param": 18}
 # the tiers' timed runs go no deeper than this (the host held 25 and 15
 # layers): each layer's host state is allocated and touched at init (~24 s
 # at those depths) and streamed every step; cut for the smoke's time limit
-# (width is never cut)
-TIER_LAYERS = {"optimizer": 12, "param": 8}
+# (width is never cut); 12 / 8 until tensor parallelism joined the smoke
+TIER_LAYERS = {"optimizer": 8, "param": 6}
 ADAM_BYTES = 28                    # the fused host Adam: reads p, g, m, v; writes p, m, v
 # flash launches per layer and micro-batch under the parameter tier: the
 # stream's forward, the group's forward and remat's recompute; one backward
@@ -7759,7 +8389,7 @@ def _close(engine) -> None:
 
 
 def phase_train_offload_parity(batch, dev, smi_line):
-    """The recipe at TRAIN_LAYERS layers, PARITY_STEPS steps each (AdamW's
+    """The recipe at PARITY_LAYERS layers, PARITY_STEPS steps each (AdamW's
     decay stated as none, as in ``tests/test_offload.py::
     test_offload_matches_in_hbm_adamw``: the in-HBM AdamW decays 0.01 by
     default, the host kernels none, as the JAX package's do; ROADMAP
@@ -7776,15 +8406,18 @@ def phase_train_offload_parity(batch, dev, smi_line):
       BF16_SHARE beyond the tolerance);
     - the NVMe tier with swapped masters against the CPU tier: bit for bit,
       the state files present;
-    - the parameter tier (2 layers a group) against the optimizer tier:
+    - the parameter tier (PARITY_GROUP layers a group) against the
+      optimizer tier:
       step 1's loss within PARAM_LOSS_REL (the same bf16 weights through
       the same kernels: a wider gap is a stream-ordering fault); it sums
       the two micro-batches' bf16 gradients in fp32 on the host, the
       optimizer tier in bf16 on the card (the recipe's grad_accum_dtype),
       so its final masters take the same two-pipeline bound."""
+    import dataclasses
     import shutil
     import tempfile
     cfg, ds_config = train_config()
+    cfg = dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
     lr = ds_config["optimizer"]["params"]["lr"]
     _release()
     runs, gaps = {"start": {"host_after": host_memory()}}, {}
@@ -7823,7 +8456,7 @@ def phase_train_offload_parity(batch, dev, smi_line):
     nvme_equal = all(torch.equal(a, b) for a, b in zip(nvme, cpu))
     del nvme
     _, param = run("param", {**cpu_zero, "offload_param": {
-        "device": "cpu", "layers_per_group": 2}})
+        "device": "cpu", "layers_per_group": PARITY_GROUP}})
     gaps["param_vs_cpu"] = _masters_gap(param, cpu)
     n_leaves = len(cpu)
     del param, cpu
@@ -8048,13 +8681,16 @@ ENTRY_NAMES = {n: f"{n}_kernel" for n in BIAS_ACT_KERNELS}
 # Mixtral-8x7B over two expert ranks, dense and int8; moe_int8: that run's
 # int8 combine; train_zeropp_ranks: Llama-3-8B over four ranks, MiCS, hpZ,
 # qwZ and comm_compression; train_sp: Llama-3-8B over two sequence ranks, Ulysses and
-# the ring; train_chunked_loss: the recipe with the chunked loss)
+# the ring; train_chunked_loss: the recipe with the chunked loss;
+# infer_tp_ranks: Llama-3-8B served through init_inference over two tensor
+# ranks (forwards only); train_tp_ranks: Llama-3-8B at fsdp 2 x tensor 2)
 KERNEL_PATHS = {"paged_attention": ("serve", "serve_http", "disagg", "fleet",
                                      "A1", "A2", "serve_moe"),
                 **{n: ("train", "train_offload", "train_param_offload",
                        "train_zero", "train_zero_ranks", "train_qgz_ranks",
                        "train_zeropp_ranks", "train_moe", "train_moe_ranks",
-                       "train_sp", "train_chunked_loss")
+                       "train_sp", "train_chunked_loss", "train_tp_ranks")
+                   + (("infer_tp_ranks",) if n == "flash_fwd" else ())
                    for n in FLASH_PER_STEP},
                 "quantize_fp8": ("A1", "quant_collectives"),
                 "dequantize_fp8": ("A1", "quant_collectives"),
@@ -8085,12 +8721,67 @@ def zeropp_faults_main(dev, smi_line) -> int:
     return 0
 
 
+def tp_faults_main(dev, smi_line) -> int:
+    """``--tp-faults``: the flash library built, the flash kernels at a
+    tensor rank's shape (``tp_flash_timing``), then the pair running
+    ``tp_infer_body`` alone with the planted faults of TP_FAULTS after the
+    sound run, gated by ``check_tp_infer`` (each fault outside the serving
+    limits: the readings the limits stand on), and the four ranks running
+    ``tp_zero3`` alone after the stage-0 reference, gated by
+    ``check_tp_ranks``, then with each of TP_TRAIN_FAULTS planted, each
+    caught (``check_tp_train_faults``). Not the smoke: its last line is
+    the card's."""
+    from deepspeed_tpu_torch.ops import build
+    build.build(["flash_attention"])
+    phase_tp_flash_timing(dev, smi_line)
+    tmp = tempfile.mkdtemp(prefix="dstpu-ranks-")
+    try:
+        _release()
+        seconds = _spawn("ranks_bodies", tmp, timeout=TP_TIMEOUT,
+                         **{BODIES_ENV: "tp_infer_body", TP_FAULTS_ENV: "1"})
+        rows = _read_ranks("tp_infer", tmp)
+        emit({"phase": "infer_tp_ranks_faults", "seconds": seconds,
+              "runs": rows[0]["runs"], "limits": TP_LOGITS_LIMITS["8b"],
+              "reference_seconds": rows[0].get("reference_seconds"),
+              "peak_hbm": [row["runs"]["sound"]["peak_hbm"] for row in rows]})
+        check_tp_infer(rows)
+        seconds = _spawn("zeropp_ranks_body", tmp, timeout=ZPP_TIMEOUT,
+                         world=ZPP_RANKS,
+                         **{"DSTPU_SMOKE_LAYERS": str(ZPP_LAYERS),
+                            ZPP_VARIANTS_ENV: ",".join(TP_VARIANTS),
+                            TP_FAULTS_ENV: "1"})
+        rows = _read_ranks("zeropp_ranks", tmp, world=ZPP_RANKS)
+        tp = rows[0]["runs"]["tp_zero3"]
+        emit({"phase": "train_tp_ranks_faults", "seconds": seconds,
+              "reference_seconds": rows[0]["reference_seconds"],
+              "orders_tolerance": rows[0]["reference"]["tolerance"],
+              "limits": TP_TRAIN_LIMITS["8b"],
+              "gaps": tp_train_gaps(rows[0]["runs"]),
+              "run": {k: v for k, v in tp.items() if k != "steps"},
+              "steps": [{k: v for k, v in st.items() if k != "launches"}
+                        for st in tp["steps"]],
+              "peak_hbm": [row["runs"]["tp_zero3"]["peak_hbm"]
+                           for row in rows]})
+        check_tp_ranks(rows)
+        check_tp_train_faults(rows)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(smi_line, flush=True)
+    return 0
+
+
 def main(argv=()) -> int:
     phase = "device"
     try:
         dev, smi_line = phase_device()
         os.makedirs(os.path.dirname(LINES_PATH), exist_ok=True)
         _LINES.append(open(LINES_PATH, "w"))
+        if "--tp-faults" in argv:
+            phase = "infer_tp_ranks"
+            import deepspeed_tpu_torch  # noqa: F401
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            return tp_faults_main(dev, smi_line)
         if "--zeropp-faults" in argv:
             phase = "train_zeropp_ranks"
             import deepspeed_tpu_torch  # noqa: F401
@@ -8111,6 +8802,8 @@ def main(argv=()) -> int:
         flash_worst, flash_timing = phase_flash_parity()
         phase = "train_sp_flash_timing"
         phase_sp_flash_timing(dev, smi_line)
+        phase = "tp_flash_timing"
+        phase_tp_flash_timing(dev, smi_line)
         phase = "quant_parity"
         quant_worst = phase_quant_parity()
         phase = "quant_timing"
@@ -8185,8 +8878,11 @@ def main(argv=()) -> int:
                 dev, smi_line, tmp, spawn)
             phase = "train_sp"
             sp_launches = phase_train_sp(dev, smi_line, tmp, spawn)
+            phase = "infer_tp_ranks"
+            infer_tp_launches = phase_infer_tp_ranks(dev, smi_line, tmp)
             phase = "train_zeropp_ranks"
-            zeropp_launches = phase_train_zeropp_ranks(dev, smi_line, tmp)
+            zeropp_launches, tp_train_launches = phase_train_zeropp_ranks(
+                dev, smi_line, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         phase = "train_chunked_loss"
@@ -8219,6 +8915,8 @@ def main(argv=()) -> int:
                        "train_moe_ranks": moe_ranks_launches,
                        "moe_int8": moe_int8_launches,
                        "train_sp": sp_launches,
+                       "infer_tp_ranks": infer_tp_launches,
+                       "train_tp_ranks": tp_train_launches,
                        "train_chunked_loss": chunked_launches,
                        "evoformer": evo_launches, **sparse_launches,
                        "R": rms_launches, "F": bias_act_launches}

@@ -55,7 +55,14 @@ Ported so far:
   interop), their serving policies (``inference/v2/modules.py``). On the
   CPU: ``python -m pytest tests/test_torch_moe.py
   tests/test_torch_moe_dist.py``; on the card, ``chip_smoke.py``'s
-  ``serve_moe``, ``train_moe`` and ``train_moe_ranks`` phases.
+  ``serve_moe``, ``train_moe`` and ``train_moe_ranks`` phases;
+- tensor parallelism — ``module_inject/`` (the parallel layers and their
+  collectives, AutoTP's policies, the fused-QKV splitters), the Megatron
+  rules and layout of ``models/llama.py`` (and the MoE models'), the
+  engine's ``tensor`` axis under ZeRO stages 0-3, and ``init_inference``
+  with the v1 ``InferenceEngine`` (``inference/engine.py``). On the CPU:
+  ``python -m pytest tests/test_torch_tp.py``; on the card,
+  ``chip_smoke.py``'s ``infer_tp_ranks`` and ``train_tp_ranks`` phases.
 
 Importing this package starts no work and touches no device: the
 reference's re-exports (``DeepSpeedTPUConfig``, ``DeepSpeedTPUEngine``,
@@ -90,12 +97,28 @@ def get_accelerator():
 
 
 def init_inference(model=None, config=None, params=None, mesh=None,
-                   tensor_rules=None, **kwargs):
-    """reference ``deepspeed.init_inference``."""
-    raise NotImplementedError(
-        "init_inference (inference/engine.py) is not ported yet (ROADMAP "
-        "Queue 1 item 7); serve with inference.v2.engine_v2."
-        "InferenceEngineV2")
+                   tensor_rules=None, device=None, **kwargs):
+    """reference: deepspeed.init_inference (deepspeed/__init__.py:291);
+    JAX ``deepspeed_tpu/__init__.py:160-176``.
+
+    When ``tensor_rules`` is not given and tp_size > 1, AutoTP resolves a
+    policy from the model's architecture (reference: auto-injection via
+    ``replace_transformer_layer``/``AutoTP``, module_inject/replace_module.py:183).
+    ``params``: the full parameters (a flat state dict or the flax tree),
+    cut to this rank's blocks; ``mesh``: by default ``data=-1,
+    tensor=tp_size`` over the started process group; ``device``: the card
+    unless the caller names the CPU.
+    """
+    from deepspeed_tpu_torch.inference.config import InferenceConfig
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    inf_config = config if isinstance(config, InferenceConfig) \
+        else InferenceConfig.from_dict(config, **kwargs)
+    if tensor_rules is None and inf_config.tp_size > 1:
+        from deepspeed_tpu_torch.module_inject.auto_tp import AutoTP
+        tensor_rules = AutoTP.infer_rules(
+            model, params=params if params is not None else model)
+    return InferenceEngine(model, inf_config, params=params, mesh=mesh,
+                           tensor_rules=tensor_rules, device=device)
 
 
 def add_config_arguments(parser):

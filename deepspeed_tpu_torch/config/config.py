@@ -8,12 +8,15 @@ group are ignored, as the reference's models ignore them.
 Options the port does not carry yet raise ``NotImplementedError`` naming
 their ROADMAP Queue 1 item instead of being parsed and ignored: any
 top-level group the training path does not read, and inside the read
-groups a mesh with ``tensor`` or ``pipe`` above 1, or with ``dcn_axes``
-(item 2 "distribution and memory tiers"), qgZ, ``comm_compression`` or
-``sparse_gradients`` over a ``sequence`` axis above 1 (item 3 "sequence
-parallel"), and an ``expert`` axis above 1 at ZeRO stages 2-3 or with a
-memory tier (item 4 "MoE"'s remainder; the expert axis runs at stages
-0-1). A comms-logger op filter (``prof_all`` false, ``prof_ops``) is
+groups a mesh with ``pipe`` above 1 (item 7) or with ``dcn_axes`` (item 2
+"distribution and memory tiers"), a ``tensor`` axis above 1 with MiCS,
+hpZ or qwZ (item 2) or with a ``sequence`` axis above 1 (item 3
+"sequence parallel": JAX's Ulysses divides the heads by the tensor
+axis), qgZ, ``comm_compression`` or ``sparse_gradients`` over a
+``sequence`` axis above 1 (item 3), and an ``expert`` axis above 1 at
+ZeRO stages 2-3 or with a memory tier (item 4 "MoE"'s remainder; the
+expert axis runs at stages 0-1). A ``tensor`` axis runs at stages 0-3
+(``models/llama.py``'s Megatron layout, ``module_inject/``). A comms-logger op filter (``prof_all`` false, ``prof_ops``) is
 refused too: no logger applies it. ZeRO stages 0-3 are read, with the
 hierarchical world (MiCS ``mics_shard_size``, ZeRO++ hpZ
 ``zero_hpz_partition_size`` and qwZ ``zero_quantized_weights``, a mesh
@@ -240,13 +243,26 @@ class DeepSpeedTPUConfig:
 
     def _refuse_unported(self) -> None:
         zc, mesh = self.zero_config, self.mesh
-        for axis, item in (("tensor", ITEM_DIST + " (tensor-parallel rules)"),
-                           ("pipe", "ROADMAP Queue 1 item 7: the pipeline "
-                                    "engine")):
-            if getattr(mesh, axis) != 1:
+        if mesh.pipe != 1:
+            raise NotImplementedError(
+                f"mesh.pipe={mesh.pipe} is not ported yet (ROADMAP Queue 1 "
+                "item 7: the pipeline engine)")
+        if mesh.tensor != 1:
+            if mesh.sequence != 1:
                 raise NotImplementedError(
-                    f"mesh.{axis}={getattr(mesh, axis)} is not ported yet "
-                    f"({item})")
+                    f"mesh.tensor={mesh.tensor} with mesh.sequence="
+                    f"{mesh.sequence} is not ported yet ({ITEM_SEQ}: "
+                    "tensor-parallel heads under Ulysses, which divides the "
+                    "heads by the tensor axis)")
+            for on, what in ((zc.mics_shard_size is not None
+                              and zc.mics_shard_size > 0, "MiCS"),
+                             ((zc.zero_hpz_partition_size or 1) > 1, "hpZ"),
+                             (zc.zero_quantized_weights, "qwZ")):
+                if on:
+                    raise NotImplementedError(
+                        f"mesh.tensor={mesh.tensor} with {what} is not "
+                        f"ported yet ({ITEM_DIST}: the hierarchical ZeRO "
+                        "world on tensor-parallel blocks)")
         if mesh.sequence != 1:
             for on, what in ((zc.zero_quantized_gradients,
                               "zero_quantized_gradients"),

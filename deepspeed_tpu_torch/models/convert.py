@@ -284,3 +284,59 @@ def to_flax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, Any]:
             node = node.setdefault(key, {})
         node[leaf] = t.detach().float().cpu().numpy()
     return out
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel blocks
+# ---------------------------------------------------------------------------
+def tp_shard(params: Mapping, rules, rank: int, tp: int) -> Dict[str, Any]:
+    """One tensor rank's blocks of a full parameter tree: ``params`` is a
+    flat state dict (dotted names) or a nested tree (names joined by
+    ``/`` for the rules), its leaves tensors or arrays; a leaf whose
+    ``rules(name, leaf)`` spec names ``tensor`` on a dimension is cut to
+    block ``rank`` of ``tp`` along it (an owned copy), the rest pass
+    through. The result has the structure of ``params``. A dimension
+    ``tp`` does not divide raises."""
+    from deepspeed_tpu_torch.runtime.zero.partition import sharded_dim
+    if not 0 <= rank < tp:
+        raise ValueError(f"tensor rank {rank} outside {tp} ranks")
+
+    def cut(name, leaf):
+        spec = rules(name, leaf) if rules is not None else None
+        dim = sharded_dim(spec, ("tensor",)) if spec else None
+        if dim is None or tp == 1:
+            return leaf
+        n = leaf.shape[dim]
+        if n % tp:
+            raise ValueError(f"{name}: dim {dim} of shape {tuple(leaf.shape)} "
+                             f"is not divisible by tensor={tp}")
+        b = n // tp
+        if isinstance(leaf, torch.Tensor):
+            return leaf.narrow(dim, rank * b, b).clone()
+        return np.ascontiguousarray(np.take(leaf, range(rank * b,
+                                                        (rank + 1) * b),
+                                            axis=dim))
+
+    def walk(node, prefix):
+        out = {}
+        for k, v in node.items():
+            name = f"{prefix}{k}"
+            out[k] = walk(v, name + "/") if isinstance(v, Mapping) \
+                else cut(name, v)
+        return out
+    return walk(params, "")
+
+
+def flat_params(params: Mapping) -> Dict[str, Any]:
+    """A flat state dict (dotted names) of a flat or nested tree."""
+    out: Dict[str, Any] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            name = f"{prefix}{k}"
+            if isinstance(v, Mapping):
+                walk(v, name + ".")
+            else:
+                out[name] = v
+    walk(params, "")
+    return out

@@ -31,6 +31,26 @@ rank-local backends (``flash``, ``xla``) refuse a sequence axis: they
 would attend within the shard. The chunked loss (``loss_chunk_size``)
 runs ``sequence/cross_entropy.py``'s ``chunked_ce_sum``.
 
+**Tensor parallelism.** On a global mesh with ``tensor`` > 1 the model
+runs on this rank's blocks of the leaves ``llama_tensor_rules`` shards
+(the engine, ``inference/engine.py`` or ``models/convert.py::tp_shard``
+cut them): ``wq``/``wk``/``wv`` hold ``num_heads / tp`` query and
+``num_kv_heads / tp`` kv heads (query head ``j`` of a rank meets its kv
+head ``j // (num_heads / num_kv_heads)``), ``w_gate``/``w_up`` their
+block of the intermediate, ``wo`` and ``w_down`` their block of the
+input (row-parallel: the partial products are summed over ``tensor``),
+the embedding its block of the vocabulary (ids outside it give 0, then a
+sum) and the head (``lm_head`` or the tied table) its block of the
+logits, whose loss is ``vocab_parallel_cross_entropy``. Each column-
+parallel group of products takes its input through
+``module_inject/layers.py::copy_to_tensor``, whose backward sums dX over
+``tensor``, so the replicated leaves (the norm scales) get the same whole
+gradient on every rank. ``logits()`` gathers the vocabulary. At
+``tensor`` = 1 nothing changes and no collective runs. The JAX
+activation constraints (``shard_activation``) have no counterpart: each
+rank holds what it computes, and the collectives above are where XLA
+would reshard.
+
 Not ported yet: the scanned-layer tree (``scan_layers``).
 """
 
@@ -47,6 +67,15 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from deepspeed_tpu_torch.module_inject.layers import (block_of,
+                                                    copy_to_tensor,
+                                                    gather_from_tensor,
+                                                    leaf_shape,
+                                                    reduce_from_tensor,
+                                                    tensor_rank,
+                                                    tensor_world,
+                                                    vocab_parallel_lookup)
+from deepspeed_tpu_torch.module_inject.policies import leaf_ndim, path_name
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 
@@ -143,10 +172,17 @@ class Dense(nn.Module):
             if bias else None
         self.n_in = len(shape) - n_out
 
-    def forward(self, x, dtype, compute_dtype=None):
+    def forward(self, x, dtype, compute_dtype=None, rank_block=False):
+        """``rank_block``: the kernel is this rank's column block over
+        ``tensor`` and the bias (replicated by the rules) is sliced to it,
+        its gradient summed over ``tensor``."""
+        kernel = _cast(self.kernel, compute_dtype)
         bias = _cast(self.bias, compute_dtype) if self.bias is not None else None
-        return _dense(x, _cast(self.kernel, compute_dtype), self.n_in, dtype,
-                      bias)
+        if bias is not None and rank_block:
+            n = kernel.shape[self.n_in]
+            bias = copy_to_tensor(bias)[tensor_rank() * n:
+                                        (tensor_rank() + 1) * n]
+        return _dense(x, kernel, self.n_in, dtype, bias)
 
 
 class RMSNorm(nn.Module):
@@ -255,6 +291,17 @@ def _dispatch_attention(backend: str, q, k, v, causal=True, segment_ids=None,
     raise ValueError(f"unknown attention backend '{backend}'")
 
 
+def tensor_parallel_heads(cfg: "LlamaConfig", tp: int) -> Tuple[int, int]:
+    """(query heads, kv heads) of one of ``tp`` tensor ranks; a ``tp``
+    that does not divide both raises."""
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
+        raise ValueError(
+            f"tensor parallelism over {tp} ranks splits whole heads: "
+            f"num_heads ({cfg.num_heads}) and num_kv_heads "
+            f"({cfg.num_kv_heads}) must both be divisible by {tp}")
+    return cfg.num_heads // tp, cfg.num_kv_heads // tp
+
+
 def _save_ops(*ops):
     def policy(ctx, op, *args, **kwargs):
         return (CheckpointPolicy.MUST_SAVE if op in ops
@@ -284,15 +331,22 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, positions, segment_ids, rope, compute_dtype=None):
         cfg, dt = self.cfg, self.cfg.dtype
-        q = self.wq(x, dt, compute_dtype)
-        k = self.wk(x, dt, compute_dtype)
-        v = self.wv(x, dt, compute_dtype)
+        tp = tensor_world()
+        block = False
+        if tp > 1:
+            tensor_parallel_heads(cfg, tp)
+            block = block_of(cfg.num_heads, leaf_shape(self.wq, "kernel")[1],
+                             "wq")
+            x = copy_to_tensor(x)
+        q = self.wq(x, dt, compute_dtype, block)
+        k = self.wk(x, dt, compute_dtype, block)
+        v = self.wv(x, dt, compute_dtype, block)
         q = apply_rope(q, *rope, positions)
         k = apply_rope(k, *rope, positions)
         out = _dispatch_attention(cfg.attention_backend, q, k, v, causal=True,
                                   segment_ids=segment_ids,
                                   window=cfg.sliding_window)
-        return self.wo(out, dt, compute_dtype)
+        return reduce_from_tensor(self.wo(out, dt, compute_dtype))
 
 
 class LlamaMLP(nn.Module):
@@ -309,11 +363,22 @@ class LlamaMLP(nn.Module):
 
     def forward(self, x, compute_dtype=None):
         dt = self.cfg.dtype
-        gate = self.w_gate(x, dt, compute_dtype)
-        up = self.w_up(x, dt, compute_dtype)
-        act = F.silu(gate) if self.cfg.hidden_act == "silu" else \
-            F.gelu(gate, approximate="tanh")
-        return self.w_down(act * up, dt, compute_dtype)
+        return parallel_mlp(self, x, dt, compute_dtype, self.cfg.hidden_act,
+                            self.cfg.intermediate_size)
+
+
+def parallel_mlp(mlp, x, dt, compute_dtype, act: str, intermediate: int):
+    """``w_down(act(w_gate x) * w_up x)``: on a ``tensor`` axis ``mlp``
+    holds its block of the intermediate, gate and up column-parallel and
+    down row-parallel."""
+    if tensor_world() > 1:
+        block_of(intermediate, leaf_shape(mlp.w_gate, "kernel")[-1],
+                 "w_gate")
+        x = copy_to_tensor(x)
+    gate = mlp.w_gate(x, dt, compute_dtype)
+    up = mlp.w_up(x, dt, compute_dtype)
+    h = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
+    return reduce_from_tensor(mlp.w_down(h * up, dt, compute_dtype))
 
 
 class AttentionBlock(nn.Module):
@@ -415,8 +480,9 @@ class LlamaModel(nn.Module):
         return positions.long()
 
     def embed_tokens(self, input_ids, table) -> torch.Tensor:
-        """token ids [B, S] -> x [B, S, D] (gemma's normalizer applied)."""
-        x = table[input_ids.long()]
+        """token ids [B, S] -> x [B, S, D] (gemma's normalizer applied);
+        vocab-parallel where ``table`` is this rank's block."""
+        x = vocab_parallel_lookup(table, input_ids, self.cfg.vocab_size)
         if self.cfg.scale_embeddings:     # gemma: normalizer on the embed output
             x = x * torch.tensor(math.sqrt(self.cfg.hidden_size)).to(x.dtype)
         return x
@@ -436,11 +502,24 @@ class LlamaModel(nn.Module):
                 x = block(x, positions, segment_ids, rope, compute_dtype)
         return x
 
+    def vocab_sharded(self) -> bool:
+        """Whether the head holds this rank's block of the vocabulary."""
+        if tensor_world() == 1:
+            return False
+        tied = self.cfg.tie_embeddings
+        shape = leaf_shape(self.embed, "embedding") if tied \
+            else leaf_shape(self.lm_head, "kernel")
+        return block_of(self.cfg.vocab_size, shape[0 if tied else -1],
+                        "the head")
+
     def head(self, x, table=None, compute_dtype=None) -> torch.Tensor:
         """final norm -> unembed (the tied ``table`` or ``lm_head``) -> fp32
-        logits, soft-capped."""
+        logits, soft-capped: this rank's block of the vocabulary where the
+        head is vocab-parallel."""
         cfg, dt = self.cfg, self.cfg.dtype
         x = self.final_norm(x, compute_dtype)
+        if self.vocab_sharded():
+            x = copy_to_tensor(x)
         if cfg.tie_embeddings:
             logits = x.to(dt) @ table.T
         else:
@@ -461,8 +540,36 @@ class LlamaModel(nn.Module):
         if return_hidden:
             head = table if self.cfg.tie_embeddings else \
                 _cast(self.lm_head.kernel, compute_dtype)
-            return self.final_norm(x, compute_dtype), head
+            x = self.final_norm(x, compute_dtype)
+            return (copy_to_tensor(x) if self.vocab_sharded() else x), head
         return self.head(x, table, compute_dtype)
+
+
+def llama_tensor_rules(path, leaf) -> Optional[Tuple]:
+    """Megatron-style TP rules keyed on parameter paths (JAX
+    ``llama_tensor_rules``; reference ``module_inject/auto_tp.py:189``):
+    column-shard qkv (their heads) and gate/up, row-shard o (its heads)
+    and down, vocab-shard the embedding and the head. ``path`` is a
+    parameter name or key sequence, ``leaf`` a tensor, an array or a
+    shape. The specs leave dims free for the fsdp axis to occupy (stage
+    3 layers on a different dim via ``build_param_specs``)."""
+    name = path_name(path)
+    ndim = leaf_ndim(leaf)
+    if "wq/kernel" in name or "wk/kernel" in name or "wv/kernel" in name:
+        # [embed, heads, head_dim] -> shard heads
+        return (*([None] * (ndim - 2)), "tensor", None)
+    if "wo/kernel" in name:
+        # [heads, head_dim, embed] -> shard heads (input-parallel => psum output)
+        return ("tensor", *([None] * (ndim - 1)))
+    if "w_gate/kernel" in name or "w_up/kernel" in name:
+        return (*([None] * (ndim - 1)), "tensor")
+    if "w_down/kernel" in name:
+        return (*([None] * (ndim - 2)), "tensor", None)
+    if "embed/embedding" in name:
+        return ("tensor", *([None] * (ndim - 1)))
+    if "lm_head/kernel" in name:
+        return (*([None] * (ndim - 1)), "tensor")
+    return None
 
 
 class LlamaForCausalLM(nn.Module):
@@ -497,19 +604,34 @@ class LlamaForCausalLM(nn.Module):
                     p.shape[0]
                 p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
 
-    def logits(self, batch, compute_dtype=None):
+    #: the Megatron rules of this model (``llama_tensor_rules``)
+    tensor_rules = staticmethod(llama_tensor_rules)
+
+    def check_tensor_parallel(self, tp: int) -> None:
+        """Raises unless every attention splits over ``tp`` tensor ranks
+        (``tensor_parallel_heads``): the engines ask before they cut."""
+        tensor_parallel_heads(self.cfg, tp)
+
+    def _logits(self, batch, compute_dtype=None):
         return self.model(batch["input_ids"], positions=batch.get("positions"),
                           segment_ids=batch.get("segment_ids"),
                           compute_dtype=compute_dtype)
 
+    def logits(self, batch, compute_dtype=None):
+        """fp32 logits [B, S, V]: the whole vocabulary (gathered over
+        ``tensor`` where the head is vocab-parallel)."""
+        return gather_from_tensor(self._logits(batch, compute_dtype), dim=-1)
+
     def forward(self, batch, compute_dtype=None):
         if self.cfg.loss_chunk_size:
             return self._chunked_loss(batch, compute_dtype)
-        return self.loss_of(self.logits(batch, compute_dtype), batch)
+        return self.loss_of(self._logits(batch, compute_dtype), batch,
+                            self.model.vocab_sharded())
 
     @staticmethod
-    def loss_of(logits, batch):
-        """The dense next-token loss of fp32 ``logits`` [B, S, V]."""
+    def loss_of(logits, batch, vocab_parallel: bool = False):
+        """The dense next-token loss of fp32 ``logits`` [B, S, V] (with
+        ``vocab_parallel``: this rank's block of V over ``tensor``)."""
         input_ids = batch["input_ids"]
         labels = batch.get("labels")
         if labels is None:
@@ -520,9 +642,15 @@ class LlamaForCausalLM(nn.Module):
             mask = mask[:, 1:] if mask is not None else torch.ones_like(labels)
         else:
             mask = batch.get("loss_mask", torch.ones_like(labels))
+        mask = mask.float()
+        if vocab_parallel:
+            from deepspeed_tpu_torch.sequence.cross_entropy import (
+                TENSOR_LABEL, vocab_parallel_cross_entropy)
+            nll = vocab_parallel_cross_entropy(logits, labels,
+                                               label=TENSOR_LABEL)
+            return (nll * mask).sum() / token_count(mask.sum())
         logp = torch.log_softmax(logits.float(), dim=-1)
         ll = logp.gather(-1, labels.long()[..., None])[..., 0]
-        mask = mask.float()
         return -(ll * mask).sum() / token_count(mask.sum())
 
     def _chunked_loss(self, batch, compute_dtype=None):
@@ -550,7 +678,8 @@ class LlamaForCausalLM(nn.Module):
         kw = {"embedding": head} if cfg.tie_embeddings else {"kernel": head}
         total, count = chunked_ce_sum(
             hidden, labels, mask, chunk_size=cfg.loss_chunk_size,
-            soft_cap=cfg.logits_soft_cap, compute_dtype=cfg.dtype, **kw)
+            soft_cap=cfg.logits_soft_cap, compute_dtype=cfg.dtype,
+            vocab_parallel=self.model.vocab_sharded(), **kw)
         return total / token_count(count)
 
 

@@ -14,9 +14,12 @@ masters named as the flax tree (``layer_0.moe.experts.w_gate [E, D, F]``,
 as ``LlamaModel`` does (the reference's Mixtral keeps every activation;
 the values are the same).
 
-``mixtral_tensor_rules`` are the expert rules; the attention's
-tensor-parallel rules wait for ROADMAP Queue 1 item 2 and raise on a mesh
-with a ``tensor`` axis. ``mixtral_config_from_hf`` and
+``mixtral_tensor_rules`` compose the expert rules with Llama's
+(``llama_tensor_rules``): on a ``tensor`` axis the attention, the
+embedding and the head run on this rank's blocks as ``models/llama.py``
+says. The MoE layer's tokens are the same on every tensor rank, so every
+tensor rank gates the same tokens and the expert exchange stays on
+``expert`` alone. ``mixtral_config_from_hf`` and
 ``convert_hf_mixtral`` map an HF Mixtral config and state dict (the
 latter to the flax-layout numpy tree).
 """
@@ -33,7 +36,14 @@ from torch.utils.checkpoint import checkpoint
 from deepspeed_tpu_torch.models.llama import (REMAT_POLICIES, AttentionBlock,
                                               Embed, LlamaConfig,
                                               LlamaForCausalLM, LMHead,
-                                              RMSNorm, _cast, rope_freqs)
+                                              RMSNorm, _cast,
+                                              llama_tensor_rules, rope_freqs,
+                                              tensor_parallel_heads)
+from deepspeed_tpu_torch.module_inject.layers import (block_of,
+                                                    copy_to_tensor,
+                                                    gather_from_tensor,
+                                                    leaf_shape, tensor_world,
+                                                    vocab_parallel_lookup)
 from deepspeed_tpu_torch.moe.sharded_moe import (MOELayer, MoEConfig,
                                                  moe_tensor_rules,
                                                  rsample_noise)
@@ -117,6 +127,10 @@ class MoECausalLM(nn.Module):
     def config(self):
         return self.cfg
 
+    def check_tensor_parallel(self, tp: int) -> None:
+        """Raises unless the attention splits over ``tp`` tensor ranks."""
+        tensor_parallel_heads(self.cfg.base, tp)
+
     def layers(self):
         return [getattr(self, f"layer_{i}")
                 for i in range(self.cfg.base.num_layers)]
@@ -157,7 +171,9 @@ class MoECausalLM(nn.Module):
         base = self.cfg.base
         ids = input_ids.long()
         positions = torch.arange(ids.shape[1], device=ids.device).expand_as(ids)
-        x = _cast(self.embed.embedding, compute_dtype).to(base.dtype)[ids]
+        x = vocab_parallel_lookup(
+            _cast(self.embed.embedding, compute_dtype).to(base.dtype), ids,
+            base.vocab_size)
         rope = (self.rope_cos, self.rope_sin)
         noise = self._noise(ids.numel(), train, generator)
         aux_total = torch.zeros((), device=x.device)
@@ -171,43 +187,45 @@ class MoECausalLM(nn.Module):
                 x, aux = block(x, positions, rope, compute_dtype, train, nz)
             aux_total = aux_total + aux
         x = self.final_norm(x, compute_dtype)
+        if self.vocab_sharded():
+            x = copy_to_tensor(x)
         return self.lm_head(x, torch.float32, compute_dtype), aux_total
 
+    def vocab_sharded(self) -> bool:
+        """Whether the head holds this rank's block of the vocabulary."""
+        return tensor_world() > 1 and block_of(
+            self.cfg.base.vocab_size, leaf_shape(self.lm_head, "kernel")[-1],
+            "the head")
+
     def logits(self, batch, compute_dtype=None):
-        return self.backbone(batch["input_ids"], train=False,
-                             compute_dtype=compute_dtype)[0]
+        """fp32 logits [B, S, V], the vocabulary gathered over ``tensor``
+        where the head is vocab-parallel."""
+        return gather_from_tensor(self.backbone(
+            batch["input_ids"], train=False, compute_dtype=compute_dtype)[0],
+            dim=-1)
 
     def forward(self, batch, compute_dtype=None,
                 generator: Optional[torch.Generator] = None):
         logits, aux_total = self.backbone(batch["input_ids"], True,
                                           compute_dtype, generator)
-        return LlamaForCausalLM.loss_of(logits, batch) + aux_total
+        return LlamaForCausalLM.loss_of(logits, batch,
+                                        self.vocab_sharded()) + aux_total
+
+
+def mixtral_tensor_rules(path, leaf):
+    """Compose attention TP rules with expert-parallel rules (JAX
+    ``mixtral_tensor_rules``): the expert rules, then Llama's."""
+    spec = moe_tensor_rules(path, leaf)
+    if spec is not None:
+        return spec
+    return llama_tensor_rules(path, leaf)
 
 
 class MixtralForCausalLM(MoECausalLM):
     """batch {"input_ids": [B,S]} -> LM loss + weighted MoE aux losses."""
     block_cls = MixtralBlock
-
-
-def tensor_parallel_rules(path, leaf):
-    """The attention's tensor-parallel rules: none at a ``tensor`` axis of
-    one; a larger axis waits for ROADMAP Queue 1 item 2."""
-    from deepspeed_tpu_torch.comm.mesh import get_global_mesh
-    mesh = get_global_mesh()
-    if mesh is not None and mesh.shape["tensor"] > 1:
-        raise NotImplementedError(
-            "the attention's tensor-parallel rules are not ported yet "
-            "(ROADMAP Queue 1 item 2: distribution and memory tiers "
-            "(tensor-parallel rules))")
-    return None
-
-
-def mixtral_tensor_rules(path, leaf):
-    """The expert rules, then the attention's tensor-parallel rules."""
-    spec = moe_tensor_rules(path, leaf)
-    if spec is not None:
-        return spec
-    return tensor_parallel_rules(path, leaf)
+    #: the Megatron rules of this model
+    tensor_rules = staticmethod(mixtral_tensor_rules)
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,10 @@ renormalization, a shared expert of 5632), ``TINY_QWEN2_MOE``,
 ``_SharedExpert`` (a dense SwiGLU over every token scaled by a per-token
 sigmoid gate), ``Qwen2MoEBlock`` (qwen2 attention with q/k/v biases, the
 MoE layer at ``moe_intermediate_size`` and the shared expert, both on the
-same normed input) and ``Qwen2MoEForCausalLM``; ``qwen2_moe_tensor_rules``,
-``qwen2_moe_config_from_hf`` and ``convert_hf_qwen2_moe``.
+same normed input) and ``Qwen2MoEForCausalLM``; ``qwen2_moe_tensor_rules``
+(on a ``tensor`` axis the shared expert is column/row-parallel, as
+``models/llama.py``'s MLP), ``qwen2_moe_config_from_hf`` and
+``convert_hf_qwen2_moe``.
 """
 
 import dataclasses
@@ -16,9 +18,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from deepspeed_tpu_torch.models.llama import Dense, LlamaConfig
-from deepspeed_tpu_torch.models.mixtral import (MixtralBlock, MoECausalLM,
-                                                tensor_parallel_rules)
+from deepspeed_tpu_torch.models.llama import (Dense, LlamaConfig,
+                                              llama_tensor_rules, parallel_mlp)
+from deepspeed_tpu_torch.models.mixtral import MixtralBlock, MoECausalLM
 from deepspeed_tpu_torch.moe.sharded_moe import MoEConfig, moe_tensor_rules
 
 
@@ -58,12 +60,12 @@ class _SharedExpert(nn.Module):
         self.w_up = Dense((d, f), 1, False, device)
         self.w_down = Dense((f, d), 1, False, device)
         self.gate = Dense((d, 1), 1, False, device)
+        self.intermediate = f
 
     def forward(self, x, compute_dtype=None):
         dt = self.dtype
-        g = torch.nn.functional.silu(self.w_gate(x, dt, compute_dtype))
-        out = self.w_down(g * self.w_up(x, dt, compute_dtype), dt,
-                          compute_dtype)
+        out = parallel_mlp(self, x, dt, compute_dtype, "silu",
+                           self.intermediate)
         gate = self.gate(x, dt, compute_dtype)
         return out * torch.sigmoid(gate.float()).to(out.dtype)
 
@@ -85,18 +87,22 @@ class Qwen2MoEBlock(MixtralBlock):
         return h + moe_out + self.shared_expert(inp, compute_dtype), aux
 
 
-class Qwen2MoEForCausalLM(MoECausalLM):
-    """batch {"input_ids": [B,S]} -> LM loss + weighted MoE aux losses."""
-    block_cls = Qwen2MoEBlock
-
-
 def qwen2_moe_tensor_rules(path, leaf):
-    """The expert rules, then the tensor-parallel rules (the shared
-    expert's would be llama's MLP rules)."""
+    """Expert rules + qwen2 attention/MLP rules (JAX
+    ``qwen2_moe_tensor_rules``). The shared expert's w_gate/w_up/w_down
+    fall through to llama's MLP substring rules (column/column/row); its
+    scalar sigmoid gate matches nothing and replicates."""
     spec = moe_tensor_rules(path, leaf)
     if spec is not None:
         return spec
-    return tensor_parallel_rules(path, leaf)
+    return llama_tensor_rules(path, leaf)
+
+
+class Qwen2MoEForCausalLM(MoECausalLM):
+    """batch {"input_ids": [B,S]} -> LM loss + weighted MoE aux losses."""
+    block_cls = Qwen2MoEBlock
+    #: the Megatron rules of this model
+    tensor_rules = staticmethod(qwen2_moe_tensor_rules)
 
 
 # ---------------------------------------------------------------------------

@@ -71,6 +71,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepspeed_tpu_torch.models.llama import Dense, _cast
+from deepspeed_tpu_torch.module_inject.policies import leaf_ndim, path_name
 
 
 @dataclasses.dataclass(frozen=True)
@@ -457,19 +458,6 @@ class MOELayer(nn.Module):
         return out.reshape(b, s, d), r.aux_loss + r.z_loss
 
 
-def _path_name(path) -> str:
-    if isinstance(path, str):
-        return path.replace(".", "/")
-    return "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
-                    for k in path)
-
-
-def _ndim(leaf) -> int:
-    if isinstance(leaf, (tuple, list, torch.Size)):
-        return len(leaf)
-    return len(getattr(leaf, "shape", ()))
-
-
 def moe_tensor_rules(path, leaf) -> Optional[Tuple]:
     """Expert-parallel sharding: a stacked expert weight shards its leading
     experts dim over the ``expert`` axis (reference: expert params live in
@@ -477,7 +465,7 @@ def moe_tensor_rules(path, leaf) -> Optional[Tuple]:
     name (dots or slashes) or a sequence of keys; ``leaf`` a tensor, an
     array or a shape. The spec is the port's tuple (``runtime/zero/
     partition.py``)."""
-    if "experts/" in _path_name(path) and _ndim(leaf) == 3:
+    if "experts/" in path_name(path) and leaf_ndim(leaf) == 3:
         return ("expert", None, None)
     return None
 

@@ -82,6 +82,22 @@ on a mesh of the same shape.
   the batch axes outside the replica axes (``sharded_moe.token_axes``).
   A noisy gate raises: the reference's engine hands the model only a
   dropout rng stream.
+- The tensor axis (Megatron tensor parallelism, ZeRO stages 0-3):
+  ``tensor_rules`` (by default the model's own, ``llama_tensor_rules`` and
+  the MoE models' compositions, on a mesh with ``tensor`` > 1) place each
+  tensor-parallel leaf's heads, intermediate or vocabulary over
+  ``tensor``, and the engine keeps this rank's block, on which ZeRO
+  layers ``fsdp`` on another dimension. Every tensor rank takes the same
+  micro-batch (``tensor`` is not a batch axis, so ``dp_world_size`` leaves
+  it out, as the JAX mesh does). No gradient is reduced over ``tensor``:
+  a sharded leaf's is its block's, and a replicated leaf's (the norm
+  scales) is whole and the same on every rank, because the model's
+  ``copy_to_tensor`` sums dX over ``tensor`` before each column-parallel
+  product. The global norm sums a tensor-parallel leaf's squares over
+  ``tensor`` and counts a replicated leaf once; the overflow flag is
+  reduced over ``tensor`` too. qgZ and ``comm_compression`` run over the
+  replica axes (batch axes no parameter uses), of which ``tensor`` is
+  never one.
 - The sequence axis (``mesh.sequence`` > 1, the ``ulysses`` and ``ring``
   backends): before the cut, the global batch gains next-token ``labels``
   and ``loss_mask`` aligned to all S positions (the last one masked, as
@@ -270,12 +286,21 @@ class DeepSpeedTPUEngine:
         self.compute_dtype = config.precision_dtype
         self.zero_stage = config.zero_config.stage
         self.loss_fn = loss_fn
-        # model-parallel placement rules (the expert rules by default on an
-        # expert axis, as moe_tensor_rules shards the expert leaves)
+        # model-parallel placement rules: on a tensor axis the model's own
+        # Megatron rules (``tensor_rules`` of the port's models), else the
+        # expert rules by default on an expert axis, as moe_tensor_rules
+        # shards the expert leaves
+        tp = self.mesh.shape["tensor"]
+        if tensor_rules is None and tp > 1:
+            tensor_rules = getattr(model, "tensor_rules", None)
         if tensor_rules is None and self.mesh.shape["expert"] > 1:
             from deepspeed_tpu_torch.moe.sharded_moe import moe_tensor_rules
             tensor_rules = moe_tensor_rules
         self.tensor_rules = tensor_rules
+        # a port model checks that its heads split (before the cut)
+        check_heads = getattr(model, "check_tensor_parallel", None)
+        if tp > 1 and check_heads is not None:
+            check_heads(tp)
         self._refuse_noisy_gating(model)
         self._seq_axes = self.mesh.live_axes(("sequence",))
         if self._seq_axes:
@@ -451,10 +476,12 @@ class DeepSpeedTPUEngine:
     def _place_zero(self) -> None:
         """Each leaf's param and optimizer-state spec (layered on its
         tensor rule; over ``fsdp`` only under MiCS), the dimension its
-        moments (and under stage 3 its master) are sharded along, the
-        stage-3 parametrizations that gather a block before use (under hpZ
-        from the secondary block, ``_compute_copy``), and each expert leaf
-        cut to this rank's block of the ``expert`` axis."""
+        moments (and under stage 3 its master) are sharded along, each
+        expert leaf cut to this rank's block of the ``expert`` axis and
+        each tensor-parallel leaf to its block of ``tensor``, then the
+        stage-3 parametrizations that gather a block over the ZeRO axes
+        before use (under hpZ from the secondary block,
+        ``_compute_copy``)."""
         mesh, stage = self.mesh, self.zero_stage
         self._zero_axes, self._zero_world = partition.zero_fsdp_axes(
             mesh, mics=self._mics)
@@ -472,12 +499,18 @@ class DeepSpeedTPUEngine:
             partition.sharded_dim(sp, ("expert",))
             if mesh.shape["expert"] > 1 else None
             for sp in self._param_specs]
+        self._tensor_dim: List[Optional[int]] = [
+            partition.sharded_dim(sp, ("tensor",))
+            if mesh.shape["tensor"] > 1 else None
+            for sp in self._param_specs]
         with torch.no_grad():
-            for i, d in enumerate(self._expert_dim):
-                if d is not None:
-                    p = self._masters[i]
-                    p.data = partition.shard_of(p.data, d, mesh,
-                                                ("expert",)).clone()
+            for dims, axis in ((self._expert_dim, "expert"),
+                               (self._tensor_dim, "tensor")):
+                for i, d in enumerate(dims):
+                    if d is not None:
+                        p = self._masters[i]
+                        p.data = partition.shard_of(p.data, d, mesh,
+                                                    (axis,)).clone()
         self._replica_axes = replica_grad_axes(mesh, self._batch_axes,
                                                self._param_specs) \
             if self._param_offload is None else ()
@@ -856,11 +889,13 @@ class DeepSpeedTPUEngine:
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """``precision.global_grad_norm`` over the full leaves: the squared
         sums of blocks held by several ranks are summed over the ZeRO axes,
-        and an expert leaf's over ``expert``, first (one all-reduce each);
-        a replicated leaf counts once."""
+        an expert leaf's over ``expert`` and a tensor-parallel leaf's over
+        ``tensor``, first (one all-reduce each); a replicated leaf counts
+        once."""
         sq = [g.float().square().sum() for g in grads]
         for dims, axes in ((self._grad_dim, self._zero_axes),
-                           (self._expert_dim, ("expert",))):
+                           (self._expert_dim, ("expert",)),
+                           (self._tensor_dim, ("tensor",))):
             idx = [i for i, d in enumerate(dims) if d is not None]
             if not idx:
                 continue
@@ -878,7 +913,8 @@ class DeepSpeedTPUEngine:
         overflow = False
         if fp16.enabled or self._guard_nonfinite:
             flag = precision.has_inf_or_nan(grads)
-            axes = self.mesh.live_axes(self._batch_axes + ("expert",))
+            axes = self.mesh.live_axes(self._batch_axes
+                                       + ("expert", "tensor"))
             if axes:
                 flag = comm.all_reduce(flag.float(), axes,
                                        comm.ReduceOp.MAX) > 0
@@ -1267,12 +1303,15 @@ class DeepSpeedTPUEngine:
         if self._offload is not None:
             return list(zip(self._param_names, self._offload.masters()))
         out = []
-        for name, p, d, e in zip(self._param_names, self._masters,
-                                 self._param_dim, self._expert_dim):
+        for name, p, d, e, t in zip(self._param_names, self._masters,
+                                    self._param_dim, self._expert_dim,
+                                    self._tensor_dim):
             if d is not None:
                 p = partition.gather_full(p.detach(), d, self._block_axes)
             if e is not None:
                 p = partition.gather_full(p.detach(), e, ("expert",))
+            if t is not None:
+                p = partition.gather_full(p.detach(), t, ("tensor",))
             out.append((name, p))
         return out
 

@@ -36,9 +36,16 @@ Hierarchical variants split the ZeRO world into ``fsdp_out`` x ``fsdp``
 the members' blocks back together, ``reduce_scatter_full`` sums a full
 gradient over the members into this rank's block, each along the one
 dimension a spec shards, the block index row-major over the axes in the
-order given. ``build_param_specs`` takes model-parallel ``tensor_rules``,
-of which the expert rules are ported (the expert axis, ROADMAP Queue 1
-item 4); the tensor-parallel rules are not yet (item 2).
+order given. ``build_param_specs`` takes model-parallel ``tensor_rules``:
+the expert rules (``moe_tensor_rules``) and the Megatron rules
+(``models/llama.py::llama_tensor_rules``, ``module_inject/``'s
+policies). A leaf a rule shards over ``tensor`` or ``expert`` takes
+``fsdp`` on another dimension, chosen on the global shape as the JAX
+package's ``build_param_shardings`` does (``partition.py:155-185``). The
+engine first cuts such a leaf to this rank's block over that axis; the
+stage-3 ``ShardedParam`` then holds its block over the ZeRO axes and
+gathers over them only, so a read gives this rank's tensor block and
+never the whole leaf.
 """
 
 import contextlib
@@ -327,6 +334,12 @@ class ShardedParam(torch.nn.Module):
 
     def right_inverse(self, full):
         return shard_of(full, self.dim, self.mesh, self.block_axes).clone()
+
+    def full_shape(self, shape) -> torch.Size:
+        """The shape a read gives, from the block's ``shape`` (no gather)."""
+        shape = list(shape)
+        shape[self.dim] *= self.mesh.axis_world(self.block_axes)
+        return torch.Size(shape)
 
 
 def secondary_partition_spec(spec: Spec) -> Spec:

@@ -282,8 +282,27 @@ def test_offload_trainer_surface_answers_as_jax():
 @pytest.mark.parametrize("name", PACKAGE)
 def test_package_surface_answers_as_jax_or_names_its_item(name):
     ours = getattr(deepspeed_tpu_torch, name)
-    if name in ("init_inference", "get_accelerator"):
+    if name == "get_accelerator":
         assert _waits(ours)
+    elif name == "init_inference":
+        # both packages' v1 engines at tp_size 1 on the same flax params
+        # serve the same logits
+        jcfg = dataclasses.replace(jllama.TINY_LLAMA, dtype=jnp.float32)
+        jmodel = jllama.LlamaForCausalLM(jcfg)
+        batch = jllama.random_tokens(2, 16, vocab_size=512, seed=3)
+        params = jax.tree.map(np.asarray, jmodel.init(
+            jax.random.PRNGKey(0), batch)["params"])
+        config = {"dtype": "fp32", "tensor_parallel": {"tp_size": 1}}
+        want = getattr(deepspeed_tpu, name)(
+            lambda p, b: jmodel.apply({"params": p}, b,
+                                      method=jllama.LlamaForCausalLM.logits),
+            config=config, params=params).forward(batch)
+        tcfg = dataclasses.replace(tllama.TINY_LLAMA, dtype=torch.float32)
+        eng = ours(tllama.LlamaForCausalLM(tcfg, device="cpu"),
+                   config=config, params=params, device="cpu")
+        np.testing.assert_allclose(eng.forward(batch).numpy(),
+                                   np.asarray(want), atol=2e-4, rtol=1e-4)
+        assert eng.config.tp_size == 1 and eng.mesh.size == 1
     elif name == "add_config_arguments":
         argv = ["--deepspeed", "--deepspeed_config", "ds.json"]
         got = vars(ours(argparse.ArgumentParser()).parse_args(argv))

@@ -16,7 +16,8 @@ their serving policies, HF interop) against the JAX package on the CPU.
 - Serving: both policies' greedy tokens equal the JAX ``InferenceEngineV2``'s
   and a full-recompute argmax of the training model's logits.
 - The refusals of the slice's remainder, each naming ROADMAP Queue 1
-  item 4 (or item 2 for the tensor-parallel rules).
+  item 4; the attention's tensor-parallel rules, ported since, answer
+  with Llama's (``tests/test_torch_tp.py`` holds them against JAX).
 """
 
 import dataclasses
@@ -510,8 +511,10 @@ def test_tensor_parallel_rules_wait_for_item_2():
                       tqwen.qwen2_moe_tensor_rules):
             assert rules("layer_0.moe.experts.w_up", (4, 8, 8)) == \
                 ("expert", None, None)
-            with pytest.raises(NotImplementedError, match="item 2"):
-                rules("layer_0.attn.wq.kernel", (8, 2, 4))
+            # ported since (tests/test_torch_tp.py): the attention's
+            # Megatron rules, llama_tensor_rules' heads
+            assert rules("layer_0.attn.wq.kernel", (8, 2, 4)) == \
+                (None, "tensor", None)
     finally:
         set_global_mesh(None)
 

@@ -293,7 +293,9 @@ PORTED = {"MiCS": lambda c: c.zero_config.mics_shard_size == 2,
           "hpZ": lambda c: c.zero_config.zero_hpz_partition_size == 2,
           "qwZ": lambda c: c.zero_config.zero_quantized_weights,
           "comm_compression": lambda c: c.comm_compression.enabled,
-          "fsdp_outer": lambda c: c.mesh.fsdp_outer == 2}
+          "fsdp_outer": lambda c: c.mesh.fsdp_outer == 2,
+          # ported since (tensor parallelism, tests/test_torch_tp.py)
+          "tensor-parallel": lambda c: c.mesh.tensor == 2}
 
 
 @pytest.mark.parametrize("raw,match", REFUSED,
