@@ -7324,7 +7324,7 @@ def phase_train_moe(dev, smi_line):
           f"layer 0's gating on the card differs from the CPU's: {gating}")
     del engine, rec
     _release()
-    return launches
+    return launches, {"losses": losses}
 
 
 def _moe_state(engine) -> dict:
@@ -8208,10 +8208,12 @@ def phase_train_chunked_loss(batch, dev, smi_line):
 HOST_SOURCES = ("cpu_adam", "aio")  # g++ builds them beside the CUDA sources
 PARITY_STEPS = 2                   # train_batch steps of each parity engine
 # the parity engines' depth and the parameter tier's group there: cut from
-# TRAIN_LAYERS (4, groups of 2) to 3 layers in groups of 2 for the smoke's
-# time limit beside the tensor-parallel phases (width is never cut; the
-# stream crosses a group boundary and one group holds two layers)
-PARITY_LAYERS, PARITY_GROUP = 3, 2
+# TRAIN_LAYERS (4, groups of 2) to 3 layers in groups of 2 beside the
+# tensor-parallel phases, to 2 layers in one group of 2 beside the tiers
+# over ranks for the smoke's time limit (width is never cut; one group
+# holds two layers; train_param_offload_ranks and train_param_offload_moe
+# cross group boundaries)
+PARITY_LAYERS, PARITY_GROUP = 2, 2
 OFFLOAD_STEPS = 2                  # timed steps after 1 warm-up, optimizer tier
 PARAM_OFFLOAD_STEPS = 1            # the parameter tier's, cut for time
 HOST_MARGIN = 1.25                 # host RAM a tier may plan on: MemAvailable / this
@@ -8233,8 +8235,9 @@ HOST_BYTES = {"optimizer": 12, "param": 18}
 # the tiers' timed runs go no deeper than this (the host held 25 and 15
 # layers): each layer's host state is allocated and touched at init (~24 s
 # at those depths) and streamed every step; cut for the smoke's time limit
-# (width is never cut); 12 / 8 until tensor parallelism joined the smoke
-TIER_LAYERS = {"optimizer": 8, "param": 6}
+# (width is never cut); 12 / 8 until tensor parallelism joined the smoke,
+# 8 / 6 until the tiers over ranks did
+TIER_LAYERS = {"optimizer": 4, "param": 4}
 ADAM_BYTES = 28                    # the fused host Adam: reads p, g, m, v; writes p, m, v
 # flash launches per layer and micro-batch under the parameter tier: the
 # stream's forward, the group's forward and remat's recompute; one backward
@@ -8632,6 +8635,457 @@ def phase_train_param_offload(batch, opt_peak, dev, smi_line):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the memory tiers over ranks: two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+# Llama-3-8B width cut to 2 of 32 layers (1.49 B parameters): a micro-batch's
+# bf16 gradients (~3 GB) cross gloo's pinned host copies at ~0.5 GB/s
+TIER_RANKS_LAYERS = 2
+TIER_RANKS_STEPS = 2               # train_batch steps of each two-rank run
+# one micro-batch a step (the recipe's 4 sequences over the ranks): each
+# micro-batch's reduction is the pair's cost, cut for the smoke's time
+TIER_RANKS_GAS = 1
+TIER_RANKS_TIMEOUT = 900           # seconds the spawned pair may take
+OFFLOAD_TIER = {"offload_optimizer": {"device": "cpu"}}
+PARAM_TIER = {"offload_optimizer": {"device": "cpu"},
+              "offload_param": {"device": "cpu", "layers_per_group": 1}}
+# run -> (ZeRO stage, mesh, the tier: its one-rank reference's name)
+TIER_RANK_RUNS = {
+    "offload_fsdp2": (2, {"fsdp": RANKS, "data": 1}, "optimizer"),
+    "param_data2": (0, {"data": RANKS}, "param"),
+    "param_tensor2": (0, {"tensor": RANKS, "data": 1}, "param"),
+}
+TIERS = {"optimizer": OFFLOAD_TIER, "param": PARAM_TIER}
+# the gap of a two-rank run from its one-rank tier: largest loss and norm
+# gap over the steps, the share of masters more than MASTERS_ATOL_LR x lr
+# apart; ~4x the sound readings (8b: the card's, tiny: the CPU's), by the
+# mesh's axis. Over data or fsdp ranks each rank's bf16 gradient of two
+# rows is summed with the other's in the reduction (gloo rounds the sum)
+# where one rank takes the four rows' gradient in one product (divergences
+# 25-26), a rounding no summation order of one rank has: the first card
+# run read a loss gap 3x the one-rank orders' distance; at one micro-batch
+# a step 3.08e-4 / 2.90e-4 / 7.5e-4 (PERF.md). Over tensor ranks the
+# forward rounds each row-parallel sum of two bf16 partials: its gap is
+# the in-HBM engine's own (``tests/test_torch_offload_ranks.py::
+# test_tensor_gap_in_bf16_is_the_engines_own``), at two layers beyond the
+# limits for one layer (TP_TRAIN_LIMITS): 1.1e-3 / 2.6e-3 / 0.0059
+TIER_RANKS_LIMITS = {
+    "8b": {"data": {"loss": 1.2e-3, "grad_norm": 1.2e-3,
+                    "masters_share": 0.005},
+           "tensor": {"loss": 4.5e-3, "grad_norm": 1e-2,
+                      "masters_share": 0.024}},
+    "tiny": {"data": {"loss": 4e-5, "grad_norm": 5e-4, "masters_share": 0.005},
+             "tensor": TP_TRAIN_LIMITS["tiny"]}}
+TIER_TRACE = "tier_ranks_trace{}.jsonl"   # a rank's progress, in chiprun_out
+
+
+def expected_tier_comm(engine, gas: int) -> dict:
+    """The facade bytes one step of a memory tier moves on a rank, from the
+    leaves' shapes and dtypes. The optimizer tier over fsdp ranks (stages
+    0-2): each micro-batch's compute-dtype gradients reduce-scattered
+    where ZeRO shards the leaf (all-reduced where it does not), the loss
+    (fp32) and the sharded leaves' squares (fp32) all-reduced once, the
+    new shadow blocks all-gathered (``offload/all_gather``). The parameter
+    tier: each micro-batch's gradients of every leaf averaged over the
+    batch axes and the loss (fp64) once; over ``tensor``, the tensor
+    blocks' squares (fp64). Its ``tensor/*`` ops are the model's and are
+    not reckoned here."""
+    out = {}
+
+    def add(op, n):
+        out[op] = out.get(op, 0) + n
+    po = engine._param_offload
+    if po is not None:
+        elem = torch.empty((), dtype=po.compute_dtype).element_size()
+        if po._batch_axes:
+            add("all_reduce", gas * elem * sum(math.prod(s)
+                                               for s in po._shapes) + 8)
+        if po._tensor_leaves:
+            add("all_reduce", 8 * len(po._tensor_leaves))
+        return out
+    for i, m in enumerate(engine._masters):
+        n, elem = m.numel(), m.element_size()
+        add("reduce_scatter" if engine._grad_dim[i] is not None
+            else "all_reduce", gas * n * elem)
+        if engine._gathers(i):
+            add("offload/all_gather", n // engine._zero_world * elem)
+    add("all_reduce", 4 + 4 * sum(d is not None for d in engine._grad_dim))
+    return out
+
+
+def _streamed_per_step(po, gas: int) -> dict:
+    """The bytes the parameter tier streams a step (a layer group twice a
+    micro-batch, the embedding and the tail once), over all leaves and
+    over the tensor blocks alone."""
+    elem = torch.empty((), dtype=po.compute_dtype).element_size()
+    total = tensor = 0
+    for i, (name, shape) in enumerate(zip(po.names, po._shapes)):
+        k = gas * elem * math.prod(shape) * (2 if ".layer_" in name else 1)
+        total += k
+        tensor += k if i in po._tensor_leaves else 0
+    return {"total": total, "tensor_blocks": tensor}
+
+
+def _tier_trace(r, stage, **kw) -> None:
+    """On the card, a line of process ``r``'s progress with its host
+    memory, flushed to ``chiprun_out`` (it outlives a run the machine
+    ends); a new file at ``start``."""
+    if _rank_device() != "cuda":
+        return
+    os.makedirs(os.path.dirname(LINES_PATH), exist_ok=True)
+    with open(os.path.join(os.path.dirname(LINES_PATH), TIER_TRACE.format(r)),
+              "w" if stage == "start" else "a") as f:
+        f.write(json.dumps({"stage": stage, "t": time.monotonic() - _T0,
+                            **host_memory(), **kw}) + "\n")
+
+
+def _enough_mem(need: int):
+    """(MemAvailable, seconds waited): at once where ``need`` x
+    HOST_MARGIN fits, else once it has settled."""
+    avail = mem_available()
+    if need * HOST_MARGIN <= avail:
+        return avail, 0.0
+    return settled_mem_available()
+
+
+def _tier_host(engine, gas: int) -> dict:
+    """A tier engine's host bytes and the parameters behind them on this
+    rank (the parameter tier: and what it streams a step)."""
+    po = engine._param_offload
+    if po is None:
+        return {"host_bytes": engine._offload.state_bytes(),
+                "host_numel": sum(leaf.size
+                                  for leaf in engine._offload.leaves)}
+    return {"host_bytes": po.host_bytes(),
+            "host_numel": sum(math.prod(s) for s in po._shapes),
+            "streamed_per_step": _streamed_per_step(po, gas)}
+
+
+def tier_ranks_body():
+    """One rank of ``train_offload_ranks`` and ``train_param_offload_ranks``
+    (spawned on the card over gloo). First, at the same time, each rank
+    alone on a one-rank mesh: rank 0 runs the one-rank optimizer tier,
+    rank 1 the one-rank parameter tier, over the same 4 sequences a step
+    in TIER_RANKS_GAS micro-batches (the reference). Then both ranks run TIER_RANK_RUNS,
+    TIER_RANKS_STEPS steps each: the optimizer tier at ZeRO stage 2 over
+    fsdp=2, the parameter tier over data=2 and over tensor=2 with the
+    model's tensor rules; per step the loss, norm, phase seconds and
+    bytes, the comms logger's bytes and the flash launches; each rank's
+    host bytes; the masters gathered whole, held against its reference by
+    the rank that ran it."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm.comms_logging import get_comms_logger
+    from deepspeed_tpu_torch.models.llama import random_tokens
+    r = dist.get_rank()
+    model = os.environ.get(RANK_MODEL_ENV, "8b")
+    layers = int(os.environ.get("DSTPU_SMOKE_LAYERS", TIER_RANKS_LAYERS))
+    gas = TIER_RANKS_GAS
+    cfg0, _ = _zero_recipe(0, layers, model)
+    # [gas, rows, S], or [rows, S] at one micro-batch (train_batch's form)
+    batch = random_tokens(RANKS_BATCH // gas, TRAIN_SEQ if model == "8b"
+                          else 64, vocab_size=cfg0.vocab_size, seed=SEED,
+                          gas=gas if gas > 1 else None)
+    atol = MASTERS_ATOL_LR * _recipe_lr(model)
+    out = {"rank": r, "model": model, "layers": layers, "runs": {},
+           "params": llama_params(cfg0, layers),
+           "flash": _rank_device() == "cuda"
+           and cfg0.attention_backend == "flash"}
+    _tier_trace(r, "start")
+    mine = ("optimizer", "param")[r]
+    t = time.monotonic()
+    cfg, ds = _zero_recipe(0, layers, model, **TIERS[mine])
+    ds.update(train_batch_size=RANKS_BATCH, gradient_accumulation_steps=gas)
+    engine = _engine(cfg, ds, mesh=_world1_mesh())
+    losses, norms = [], []
+    for _ in range(TIER_RANKS_STEPS):
+        losses.append(engine.train_batch(batch=batch).item())
+        norms.append(engine.get_global_grad_norm())
+    # kept on the card: the comparison needs no host round trip
+    ref = (losses, norms, [m.detach().to(_rank_device(), copy=True)
+                           for _, m in engine.named_masters()])
+    _close(engine)
+    del engine
+    _release()
+    out["reference"] = {"tier": mine, "losses": losses, "grad_norms": norms,
+                        "seconds": time.monotonic() - t}
+    _tier_trace(r, f"reference_{mine}")
+    dist.barrier()
+    comms = get_comms_logger()
+    comms.configure(enabled=True)
+    for name, (stage, mesh, tier) in TIER_RANK_RUNS.items():
+        cfg, ds = _zero_recipe(stage, layers, model, **TIERS[tier])
+        ds.update(train_batch_size=RANKS_BATCH,
+                  gradient_accumulation_steps=gas, mesh=mesh)
+        _peak_reset()
+        t = time.monotonic()
+        engine = _engine(cfg, ds)
+        init_s = time.monotonic() - t
+        _tier_trace(r, f"{name}_init", seconds=init_s)
+        comms.reset()
+        steps = []
+        for _ in range(TIER_RANKS_STEPS):
+            steps += _rank_steps(engine, batch, 1, comms)
+            steps[-1].update(phase_s=dict(engine.phase_seconds),
+                             bytes=dict(engine.phase_bytes))
+            _tier_trace(r, f"{name}_step", ms=steps[-1]["step_ms"])
+        run = {"steps": steps, "init_s": init_s, "peak_hbm": _peak(),
+               "expected_comm_per_step": expected_tier_comm(engine, gas),
+               "tensor_dims": engine._tensor_dim, **_tier_host(engine, gas)}
+        masters = [m for _, m in engine.named_masters()]  # every rank
+        if tier == mine:
+            run["masters_share"], run["masters_max_abs"] = _masters_apart(
+                masters, ref[2], atol)
+            run["loss_gap"] = max(abs(s["loss"] - a)
+                                  for s, a in zip(steps, ref[0]))
+            run["grad_norm_gap"] = max(abs(s["grad_norm"] - a)
+                                       for s, a in zip(steps, ref[1]))
+        out["runs"][name] = run
+        _close(engine)
+        del engine, masters
+        _release()
+        _tier_trace(r, f"{name}_done")
+    comms.configure(enabled=False)
+    with open(_rank_out(f"tier_ranks{r}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _tier_run_summary(rows, name) -> dict:
+    """A run's readings on every rank: losses, step ms, the mean phase
+    seconds and bytes a step, the comms logger's bytes a step, host bytes
+    and peak HBM."""
+    r0 = rows[0]["runs"][name]
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    return {
+        "losses": [s["loss"] for s in r0["steps"]],
+        "grad_norms": [s["grad_norm"] for s in r0["steps"]],
+        "step_ms": [[s["step_ms"] for s in row["runs"][name]["steps"]]
+                    for row in rows],
+        "phase_s_mean": [{k: mean([s["phase_s"][k] for s in
+                                   row["runs"][name]["steps"]])
+                          for k in row["runs"][name]["steps"][0]["phase_s"]}
+                         for row in rows],
+        "bytes_per_step": r0["steps"][-1]["bytes"],
+        "comm_per_step": r0["steps"][-1]["comm"],
+        "host_bytes": [row["runs"][name]["host_bytes"] for row in rows],
+        "peak_hbm": [row["runs"][name]["peak_hbm"] for row in rows],
+        "init_s": [row["runs"][name]["init_s"] for row in rows]}
+
+
+def tier_ranks_gaps(rows) -> dict:
+    """Each run's distance from its tier's one-rank reference, read by the
+    rank that ran the reference."""
+    holders = {row["reference"]["tier"]: row["rank"] for row in rows}
+    return {name: {k: rows[holders[tier]]["runs"][name][k]
+                   for k in ("loss_gap", "grad_norm_gap", "masters_share",
+                             "masters_max_abs")}
+            for name, (_, _, tier) in TIER_RANK_RUNS.items()}
+
+
+def check_tier_ranks(rows) -> dict:
+    """The gates of ``train_offload_ranks`` and ``train_param_offload_
+    ranks``: each run's losses, norms and masters share against its
+    one-rank reference within TIER_RANKS_LIMITS, by the mesh's axis;
+    every rank's losses and norms equal; each op's bytes a step as
+    ``expected_tier_comm`` reckons them; the optimizer tier's host state a
+    rank the block its card holds (half the one-rank tier's, the small
+    leaves whole), the parameter tier's the whole store over data ranks
+    and the tensor blocks over tensor ranks, streaming exactly their
+    bytes (the tensor=2 run half the sharded leaves'); flash launches a
+    rank and step exact where the flash backend runs on the card. Returns
+    the gaps and, per run, the launches summed over ranks and steps."""
+    model, layers = rows[0]["model"], rows[0]["layers"]
+    readings = tier_ranks_gaps(rows)
+    per = {"offload_fsdp2": FLASH_PER_STEP, "param_data2": FLASH_PER_STEP_PARAM,
+           "param_tensor2": FLASH_PER_STEP_PARAM}
+    gas = TIER_RANKS_GAS
+    full = 12 * rows[0]["params"]
+    out = {"gaps": {}, "launches": {}}
+    for name, (_, mesh, tier) in TIER_RANK_RUNS.items():
+        tol = TIER_RANKS_LIMITS[model]["tensor" if "tensor" in mesh
+                                       else "data"]
+        gaps = readings[name]
+        out["gaps"][name] = {**gaps, "tolerance": tol}
+        check(gaps["loss_gap"] <= tol["loss"] and
+              gaps["grad_norm_gap"] <= tol["grad_norm"] and
+              gaps["masters_share"] <= tol["masters_share"],
+              f"{name}: {gaps} from its one-rank reference, tolerance {tol}")
+        r0 = rows[0]["runs"][name]
+        want = {n: k * layers * gas if rows[0]["flash"] else 0
+                for n, k in per[name].items()}
+        path = {n: 0 for n in want}
+        for row in rows:
+            run = row["runs"][name]
+            check([(s["loss"], s["grad_norm"]) for s in run["steps"]] ==
+                  [(s["loss"], s["grad_norm"]) for s in r0["steps"]],
+                  f"{name}: rank {row['rank']}'s losses or norms differ from "
+                  "rank 0's")
+            for k, s in enumerate(run["steps"]):
+                got = {op: int(t["bytes"]) for op, t in s["comm"].items()
+                       if t["count"] and not op.startswith("tensor/")}
+                check(got == run["expected_comm_per_step"],
+                      f"{name} rank {row['rank']} step {k}: comm bytes {got}"
+                      f", expected {run['expected_comm_per_step']}")
+                launched = {n: s["launches"].get(n, 0) for n in want}
+                check(launched == want, f"{name} rank {row['rank']} step {k}"
+                      f": flash launches {launched}, expected {want}")
+                for n, c in launched.items():
+                    path[n] += c
+            if tier == "optimizer":
+                check(run["host_bytes"] == 12 * run["host_numel"] and
+                      run["host_bytes"] < 0.55 * full,
+                      f"{name} rank {row['rank']}: host state "
+                      f"{run['host_bytes']} bytes, the one-rank tier's {full}")
+                check({"reduce", "gather"} <= set(run["steps"][-1]["phase_s"]),
+                      f"{name}: phases {sorted(run['steps'][-1]['phase_s'])}")
+            else:
+                whole = run["host_numel"] == rows[0]["params"]
+                check(whole == ("tensor" not in mesh),
+                      f"{name} rank {row['rank']}: holds {run['host_numel']}"
+                      f" of {rows[0]['params']} parameters on the host")
+                streamed = run["streamed_per_step"]
+                check(all(s["bytes"]["h2d"] == streamed["total"]
+                          for s in run["steps"]),
+                      f"{name} rank {row['rank']}: streamed "
+                      f"{[s['bytes']['h2d'] for s in run['steps']]}, the "
+                      f"blocks' {streamed['total']}")
+        out["launches"][name] = path
+    d, t = (rows[0]["runs"][k]["streamed_per_step"]
+            for k in ("param_data2", "param_tensor2"))
+    check(d["tensor_blocks"] == 0 and t["tensor_blocks"] > 0 and
+          t["total"] == d["total"] - t["tensor_blocks"],
+          f"tensor=2 streams {t}, data=2 {d}: not half the sharded leaves")
+    out["streamed"] = {"data2": d, "tensor2": t}
+    return out
+
+
+def phase_train_tier_ranks(dev, smi_line, tmp):
+    """``train_offload_ranks`` and ``train_param_offload_ranks``: the pair
+    of ``tier_ranks_body`` on the one card over gloo, Llama-3-8B width at
+    TIER_RANKS_LAYERS layers, gated by ``check_tier_ranks``. Returns the
+    two phases' flash launches over their two-rank runs."""
+    # the pair's peak: two parameter tiers' host state over data ranks
+    need = 2 * HOST_BYTES["param"] * llama_params(
+        _zero_recipe(0, TIER_RANKS_LAYERS)[0], TIER_RANKS_LAYERS)
+    avail, settle_s = _enough_mem(need)
+    host = {**host_memory(), "settle_s": settle_s, "need": need}
+    _tier_trace("_spawner", "start", settle_s=settle_s)
+    check(need * HOST_MARGIN <= avail, f"the tier pair's host state ({need} "
+          f"bytes, x{HOST_MARGIN}) does not fit MemAvailable {avail}")
+    seconds = _spawn("tier_ranks_body", tmp, timeout=TIER_RANKS_TIMEOUT)
+    rows = _read_ranks("tier_ranks", tmp)
+    # the readings the limits stand on, before the gates
+    emit({"phase": "tier_ranks_readings", "seconds": seconds,
+          "gaps": tier_ranks_gaps(rows),
+          "references": [row["reference"] for row in rows],
+          "limits": TIER_RANKS_LIMITS[rows[0]["model"]],
+          "steps": {name: [(s["loss"], s["grad_norm"]) for s in
+                           rows[0]["runs"][name]["steps"]]
+                    for name in TIER_RANK_RUNS}})
+    res = check_tier_ranks(rows)
+    layers = rows[0]["layers"]
+    model = (f"LLAMA3_8B width, {layers} of 32 layers (cut for gloo's host "
+             f"copies), bf16, flash, remat, {RANKS} gloo ranks on one card")
+    common = {"seconds": seconds, "host_before": host,
+              "card": dev["kind"], "nvidia_smi": smi_line}
+    emit({"phase": "train_offload_ranks", "model": model,
+          "run": "ZeRO stage 2 over fsdp=2, offload_optimizer cpu",
+          "reference": rows[0]["reference"],
+          "one_rank_host_bytes": 12 * rows[0]["params"],
+          **_tier_run_summary(rows, "offload_fsdp2"),
+          "gaps": res["gaps"]["offload_fsdp2"],
+          "launches": res["launches"]["offload_fsdp2"], **common})
+    emit({"phase": "train_param_offload_ranks", "model": model,
+          "runs": {k: {"mesh": TIER_RANK_RUNS[k][1],
+                       **_tier_run_summary(rows, k),
+                       "gaps": res["gaps"][k]}
+                   for k in ("param_data2", "param_tensor2")},
+          "reference": rows[1]["reference"],
+          "streamed": res["streamed"],
+          "launches": {k: res["launches"][k]
+                       for k in ("param_data2", "param_tensor2")},
+          **common})
+    both = {n: res["launches"]["param_data2"][n]
+            + res["launches"]["param_tensor2"][n] for n in FLASH_PER_STEP}
+    return res["launches"]["offload_fsdp2"], both
+
+
+# the MoE stack under offload_param against the in-HBM engine, steps 2-3:
+# the tier sums micro-batches in fp32 on the host (divergence 20) and its
+# host AdamW does not decay (divergence 18), and top-2 routing turns those
+# last-bit differences into flipped expert choices; ~4x the first card
+# reading (2.5e-3 at step 3, 3.8e-4 at step 2; PERF.md). Step 1 is held to
+# PARAM_LOSS_REL: the same bf16 weights through the same kernels.
+MOE_PARAM_LOSS_REL = 1e-2
+
+
+MOE_PARAM_STEPS = 1          # train_param_offload_moe: steps after the first
+
+
+def phase_train_param_offload_moe(moe_ref, dev, smi_line):
+    """Mixtral-8x7B at full width and ``train_moe``'s MOE_TRAIN_LAYERS
+    layers, one rank, ``offload_param`` cpu a layer a group (the MoE block
+    stack: each group's gating aux losses on the forward carry, a unit
+    cotangent seeding its backward, the head in fp32) with
+    ``offload_optimizer`` cpu: 1 + MOE_PARAM_STEPS steps on ``train_moe``'s
+    batch after its in-HBM engine is freed; step 1's loss within
+    PARAM_LOSS_REL of the in-HBM engine's, every step's within
+    MOE_PARAM_LOSS_REL, the loss falls, exact flash launches, the host
+    bytes (18 a parameter planned) beside MemAvailable."""
+    from deepspeed_tpu_torch.ops import build
+    _release()
+    cfg, ds = moe_train_config()
+    n = moe_params(cfg)
+    need = HOST_BYTES["param"] * n
+    avail, settle_s = _enough_mem(need)
+    check(need * HOST_MARGIN <= avail, f"the MoE stack's host state "
+          f"({need} bytes, x{HOST_MARGIN}) does not fit MemAvailable {avail}")
+    ds["zero_optimization"].update(
+        offload_optimizer={"device": "cpu", "ratio": 0.0},
+        offload_param={"device": "cpu", "layers_per_group": 1})
+    t0 = time.monotonic()
+    engine = _moe_engine(cfg, ds)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    batch = _moe_batch(cfg, "8b")
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()        # the main path's run starts here
+    rows = _tier_steps(engine, batch, 1 + MOE_PARAM_STEPS)
+    launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    host_bytes = engine._param_offload.host_bytes()
+    groups = len(engine._param_offload._layer_groups)
+    _close(engine)
+    del engine
+    _release()
+    losses = [r["loss"] for r in rows]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, moe_ref["losses"])]
+    in_hbm = moe_ref["losses"][:len(losses)]
+    want = {k: v * MOE_TRAIN_LAYERS * TRAIN_GAS
+            for k, v in FLASH_PER_STEP_PARAM.items()}
+    emit({"phase": "train_param_offload_moe", "model": f"Mixtral-8x7B width,"
+          f" {MOE_TRAIN_LAYERS} of 32 layers, bf16, remat, flash, "
+          "offload_param cpu x1 layer, offload_optimizer cpu, one rank",
+          "params": n, "groups": groups, "init_s": init_s, "losses": losses,
+          "in_hbm_losses": in_hbm, "loss_rel": rel,
+          "limits": {"step1_loss_rel": PARAM_LOSS_REL,
+                     "loss_rel": MOE_PARAM_LOSS_REL},
+          "steps": rows, **_tier_summary(rows, n, "param"),
+          "host_bytes": host_bytes, "host_bytes_planned": need,
+          "mem_available": avail, "settle_s": settle_s,
+          "max_memory_allocated": peak, "launches": launches,
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(rel[0] <= PARAM_LOSS_REL, f"step-1 loss {losses[0]} vs the in-HBM "
+          f"engine's {in_hbm[0]} ({rel[0]} relative)")
+    check(max(rel) <= MOE_PARAM_LOSS_REL, f"losses {losses} vs the in-HBM "
+          f"engine's {in_hbm}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(all(r["launches"] == want for r in rows),
+          f"flash launches per step {[r['launches'] for r in rows]}, "
+          f"expected {want}")
+    return launches
+
+
 # where each kernel's source lives and which TPU kernel it replaces
 KERNEL_TABLE = {
     "paged_attention": ("paged_attention",
@@ -8683,13 +9137,18 @@ ENTRY_NAMES = {n: f"{n}_kernel" for n in BIAS_ACT_KERNELS}
 # qwZ and comm_compression; train_sp: Llama-3-8B over two sequence ranks, Ulysses and
 # the ring; train_chunked_loss: the recipe with the chunked loss;
 # infer_tp_ranks: Llama-3-8B served through init_inference over two tensor
-# ranks (forwards only); train_tp_ranks: Llama-3-8B at fsdp 2 x tensor 2)
+# ranks (forwards only); train_tp_ranks: Llama-3-8B at fsdp 2 x tensor 2;
+# train_offload_ranks: the optimizer tier at ZeRO 2 over two fsdp ranks;
+# train_param_offload_ranks: the parameter tier over two data ranks and
+# over two tensor ranks; train_param_offload_moe: Mixtral-8x7B streamed)
 KERNEL_PATHS = {"paged_attention": ("serve", "serve_http", "disagg", "fleet",
                                      "A1", "A2", "serve_moe"),
                 **{n: ("train", "train_offload", "train_param_offload",
                        "train_zero", "train_zero_ranks", "train_qgz_ranks",
                        "train_zeropp_ranks", "train_moe", "train_moe_ranks",
-                       "train_sp", "train_chunked_loss", "train_tp_ranks")
+                       "train_sp", "train_chunked_loss", "train_tp_ranks",
+                       "train_offload_ranks", "train_param_offload_ranks",
+                       "train_param_offload_moe")
                    + (("infer_tp_ranks",) if n == "flash_fwd" else ())
                    for n in FLASH_PER_STEP},
                 "quantize_fp8": ("A1", "quant_collectives"),
@@ -8717,6 +9176,28 @@ def zeropp_faults_main(dev, smi_line) -> int:
         phase_train_zeropp_ranks(dev, smi_line, tmp, faults=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    print(smi_line, flush=True)
+    return 0
+
+
+def tier_ranks_main(dev, smi_line) -> int:
+    """``--tier-ranks``: the flash library and the host sources built, then
+    ``train_moe`` (the MoE stack's reference), ``train_offload_ranks``,
+    ``train_param_offload_ranks`` and ``train_param_offload_moe`` with
+    their gates: this slice's phases alone. Not the smoke: its last line
+    is the card's."""
+    from deepspeed_tpu_torch.ops import build
+    build.build(["flash_attention", *HOST_SOURCES])
+    _, moe_ref = phase_train_moe(dev, smi_line)
+    tmp = tempfile.mkdtemp(prefix="dstpu-ranks-")
+    try:
+        phase_train_tier_ranks(dev, smi_line, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_train_param_offload_moe(moe_ref, dev, smi_line)
+    emit({"phase": "phase_seconds",
+          "seconds": {k: round(v, 1) for k, v in _PHASE_SECONDS.items()},
+          "total": round(time.monotonic() - _T0, 1)})
     print(smi_line, flush=True)
     return 0
 
@@ -8782,6 +9263,12 @@ def main(argv=()) -> int:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             return tp_faults_main(dev, smi_line)
+        if "--tier-ranks" in argv:
+            phase = "tier_ranks"
+            import deepspeed_tpu_torch  # noqa: F401
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            return tier_ranks_main(dev, smi_line)
         if "--zeropp-faults" in argv:
             phase = "train_zeropp_ranks"
             import deepspeed_tpu_torch  # noqa: F401
@@ -8862,7 +9349,7 @@ def main(argv=()) -> int:
         phase = "train_zero"
         zero_launches = phase_train_zero(batch, dev, smi_line)
         phase = "train_moe"
-        moe_launches = phase_train_moe(dev, smi_line)
+        moe_launches, moe_ref = phase_train_moe(dev, smi_line)
         tmp = tempfile.mkdtemp(prefix="dstpu-ranks-")
         try:
             phase = "train_ranks"
@@ -8894,6 +9381,16 @@ def main(argv=()) -> int:
         phase = "train_param_offload"
         param_launches = phase_train_param_offload(batch, opt_peak, dev,
                                                    smi_line)
+        tmp = tempfile.mkdtemp(prefix="dstpu-ranks-")
+        try:
+            phase = "train_offload_ranks"
+            offload_ranks_launches, param_ranks_launches = \
+                phase_train_tier_ranks(dev, smi_line, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        phase = "train_param_offload_moe"
+        param_moe_launches = phase_train_param_offload_moe(moe_ref, dev,
+                                                           smi_line)
         phase = "kernels"
         # each kernel's launches on every main path run it lies on, each run
         # with its own reset; the line's count is that of the path its
@@ -8903,6 +9400,9 @@ def main(argv=()) -> int:
                        "train": train_launches,
                        "train_offload": offload_launches,
                        "train_param_offload": param_launches,
+                       "train_offload_ranks": offload_ranks_launches,
+                       "train_param_offload_ranks": param_ranks_launches,
+                       "train_param_offload_moe": param_moe_launches,
                        "A1": zi["A1"]["path_launches"],
                        "A2": zi["A2"]["path_launches"], "B": qgz_launches,
                        "train_zero": zero_launches,

@@ -23,7 +23,9 @@ hierarchical world (MiCS ``mics_shard_size``, ZeRO++ hpZ
 ``fsdp_outer``), ``comm_compression`` (``comm/compress.py``'s
 ``CommCompressionConfig``) and ``sparse_gradients``; the memory tiers,
 ``offload_optimizer`` and ``offload_param`` with ``cpu`` or ``nvme``, run
-at a world of one rank (the engine refuses them at more).
+over the ``data``, ``fsdp`` and ``tensor`` axes. A tier with a
+``sequence`` axis above 1 (item 3) and ``offload_optimizer`` with MiCS,
+hpZ or qwZ (item 2) are refused.
 """
 
 import dataclasses
@@ -102,7 +104,8 @@ class ZeroConfig:
     """reference: runtime/zero/config.py. Stages 0-3 over the mesh's
     ``fsdp`` axis (``runtime/zero/partition.py``, the engine's
     data-parallel step), the memory tiers (``offload_optimizer``,
-    ``offload_param``) at one rank, and ``zero_quantized_gradients`` (qgZ:
+    ``offload_param``) over the data, fsdp and tensor axes, and
+    ``zero_quantized_gradients`` (qgZ:
     int8 on the wire over replica axes, else the int8 round trip of every
     micro-batch gradient), and the hierarchical world the engine builds
     from ``mics_shard_size`` (MiCS), ``zero_hpz_partition_size`` (hpZ)
@@ -243,6 +246,22 @@ class DeepSpeedTPUConfig:
 
     def _refuse_unported(self) -> None:
         zc, mesh = self.zero_config, self.mesh
+        tiers = [t for t in ("offload_optimizer", "offload_param")
+                 if getattr(zc, t).device != "none"]
+        if tiers and mesh.sequence != 1:
+            raise NotImplementedError(
+                f"{tiers[0]} at mesh.sequence={mesh.sequence} is not ported "
+                f"yet ({ITEM_SEQ}: the memory tiers over sequence ranks)")
+        if zc.offload_optimizer.device != "none":
+            for on, what in ((zc.mics_shard_size is not None
+                              and zc.mics_shard_size > 0, "MiCS"),
+                             ((zc.zero_hpz_partition_size or 1) > 1, "hpZ"),
+                             (zc.zero_quantized_weights, "qwZ")):
+                if on:
+                    raise NotImplementedError(
+                        f"offload_optimizer with {what} is not ported yet "
+                        f"({ITEM_DIST}: the memory tiers with the "
+                        "hierarchical ZeRO world)")
         if mesh.pipe != 1:
             raise NotImplementedError(
                 f"mesh.pipe={mesh.pipe} is not ported yet (ROADMAP Queue 1 "

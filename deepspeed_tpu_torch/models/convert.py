@@ -26,6 +26,7 @@ device) from the flax tree as fp32 masters; ``to_flax_tree`` is its
 inverse, for parameters or gradients.
 """
 
+import warnings
 from typing import Any, Dict, Iterable, Mapping, Tuple
 
 import numpy as np
@@ -296,7 +297,9 @@ def tp_shard(params: Mapping, rules, rank: int, tp: int) -> Dict[str, Any]:
     ``rules(name, leaf)`` spec names ``tensor`` on a dimension is cut to
     block ``rank`` of ``tp`` along it (an owned copy), the rest pass
     through. The result has the structure of ``params``. A dimension
-    ``tp`` does not divide raises."""
+    ``tp`` does not divide passes through whole, with one warning, as the
+    JAX package's spec builder replicates it (``runtime/zero/
+    partition.py``); the model runs such a leaf on its plain path."""
     from deepspeed_tpu_torch.runtime.zero.partition import sharded_dim
     if not 0 <= rank < tp:
         raise ValueError(f"tensor rank {rank} outside {tp} ranks")
@@ -308,8 +311,10 @@ def tp_shard(params: Mapping, rules, rank: int, tp: int) -> Dict[str, Any]:
             return leaf
         n = leaf.shape[dim]
         if n % tp:
-            raise ValueError(f"{name}: dim {dim} of shape {tuple(leaf.shape)} "
-                             f"is not divisible by tensor={tp}")
+            warnings.warn(f"{name}: dim {dim} of shape {tuple(leaf.shape)} "
+                          f"not divisible by tensor={tp}; replicating that "
+                          "dim", UserWarning, stacklevel=3)
+            return leaf
         b = n // tp
         if isinstance(leaf, torch.Tensor):
             return leaf.narrow(dim, rank * b, b).clone()

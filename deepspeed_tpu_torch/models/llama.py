@@ -41,7 +41,10 @@ block of the intermediate, ``wo`` and ``w_down`` their block of the
 input (row-parallel: the partial products are summed over ``tensor``),
 the embedding its block of the vocabulary (ids outside it give 0, then a
 sum) and the head (``lm_head`` or the tied table) its block of the
-logits, whose loss is ``vocab_parallel_cross_entropy``. Each column-
+logits, whose loss is ``vocab_parallel_cross_entropy``. A vocabulary or
+an intermediate the axis does not divide stays whole (the rules'
+cut replicates it, as the JAX spec builder does): that lookup, head and
+loss, or that MLP, run as at one rank, with no collective. Each column-
 parallel group of products takes its input through
 ``module_inject/layers.py::copy_to_tensor``, whose backward sums dX over
 ``tensor``, so the replicated leaves (the norm scales) get the same whole
@@ -337,6 +340,7 @@ class LlamaAttention(nn.Module):
             tensor_parallel_heads(cfg, tp)
             block = block_of(cfg.num_heads, leaf_shape(self.wq, "kernel")[1],
                              "wq")
+        if block:
             x = copy_to_tensor(x)
         q = self.wq(x, dt, compute_dtype, block)
         k = self.wk(x, dt, compute_dtype, block)
@@ -346,7 +350,8 @@ class LlamaAttention(nn.Module):
         out = _dispatch_attention(cfg.attention_backend, q, k, v, causal=True,
                                   segment_ids=segment_ids,
                                   window=cfg.sliding_window)
-        return reduce_from_tensor(self.wo(out, dt, compute_dtype))
+        out = self.wo(out, dt, compute_dtype)
+        return reduce_from_tensor(out) if block else out
 
 
 class LlamaMLP(nn.Module):
@@ -370,15 +375,17 @@ class LlamaMLP(nn.Module):
 def parallel_mlp(mlp, x, dt, compute_dtype, act: str, intermediate: int):
     """``w_down(act(w_gate x) * w_up x)``: on a ``tensor`` axis ``mlp``
     holds its block of the intermediate, gate and up column-parallel and
-    down row-parallel."""
-    if tensor_world() > 1:
-        block_of(intermediate, leaf_shape(mlp.w_gate, "kernel")[-1],
-                 "w_gate")
+    down row-parallel; an intermediate the axis does not divide is whole
+    on every rank and takes neither the copy nor the sum."""
+    block = tensor_world() > 1 and block_of(
+        intermediate, leaf_shape(mlp.w_gate, "kernel")[-1], "w_gate")
+    if block:
         x = copy_to_tensor(x)
     gate = mlp.w_gate(x, dt, compute_dtype)
     up = mlp.w_up(x, dt, compute_dtype)
     h = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
-    return reduce_from_tensor(mlp.w_down(h * up, dt, compute_dtype))
+    out = mlp.w_down(h * up, dt, compute_dtype)
+    return reduce_from_tensor(out) if block else out
 
 
 class AttentionBlock(nn.Module):
@@ -503,7 +510,9 @@ class LlamaModel(nn.Module):
         return x
 
     def vocab_sharded(self) -> bool:
-        """Whether the head holds this rank's block of the vocabulary."""
+        """Whether the head holds this rank's block of the vocabulary
+        (False: the whole vocabulary, also where the axis does not divide
+        it)."""
         if tensor_world() == 1:
             return False
         tied = self.cfg.tie_embeddings
@@ -620,7 +629,10 @@ class LlamaForCausalLM(nn.Module):
     def logits(self, batch, compute_dtype=None):
         """fp32 logits [B, S, V]: the whole vocabulary (gathered over
         ``tensor`` where the head is vocab-parallel)."""
-        return gather_from_tensor(self._logits(batch, compute_dtype), dim=-1)
+        logits = self._logits(batch, compute_dtype)
+        if self.model.vocab_sharded():
+            logits = gather_from_tensor(logits, dim=-1)
+        return logits
 
     def forward(self, batch, compute_dtype=None):
         if self.cfg.loss_chunk_size:

@@ -164,20 +164,28 @@ class MoECausalLM(nn.Module):
         return [rsample_noise((tokens, moe.num_experts), generator, dev)
                 for _ in range(self.cfg.base.num_layers)]
 
-    def backbone(self, input_ids, train: bool = True, compute_dtype=None,
-                 generator: Optional[torch.Generator] = None):
-        """(fp32 logits [B, S, V], summed aux losses). RSample's noise is
-        drawn here, before any block, so a remat recompute reuses it."""
+    # -- the entry points of a layer-group stream (``runtime/param_offload.py``
+    # runs them group by group; ``backbone`` runs them over the whole model) --
+    def table(self, compute_dtype=None) -> torch.Tensor:
+        """The embedding as the lookup reads it."""
+        return _cast(self.embed.embedding, compute_dtype).to(
+            self.cfg.base.dtype)
+
+    def embed_tokens(self, input_ids, table) -> torch.Tensor:
+        """token ids [B, S] -> x [B, S, D]; vocab-parallel where ``table``
+        is this rank's block."""
+        return vocab_parallel_lookup(table, input_ids.long(),
+                                     self.cfg.base.vocab_size)
+
+    def run_blocks(self, blocks, x, positions, compute_dtype=None,
+                   train: bool = True, noise=None):
+        """``blocks`` in order, each under the config's remat: (x, the sum
+        of their aux losses), which the stream carries a group at a time
+        (the reference's ``_MoEBlockStack``)."""
         base = self.cfg.base
-        ids = input_ids.long()
-        positions = torch.arange(ids.shape[1], device=ids.device).expand_as(ids)
-        x = vocab_parallel_lookup(
-            _cast(self.embed.embedding, compute_dtype).to(base.dtype), ids,
-            base.vocab_size)
         rope = (self.rope_cos, self.rope_sin)
-        noise = self._noise(ids.numel(), train, generator)
         aux_total = torch.zeros((), device=x.device)
-        for block, nz in zip(self.layers(), noise):
+        for block, nz in zip(blocks, noise or [None] * len(blocks)):
             if base.remat and torch.is_grad_enabled():
                 ctx = REMAT_POLICIES[base.remat_policy]
                 kw = {"context_fn": ctx} if ctx is not None else {}
@@ -186,10 +194,27 @@ class MoECausalLM(nn.Module):
             else:
                 x, aux = block(x, positions, rope, compute_dtype, train, nz)
             aux_total = aux_total + aux
+        return x, aux_total
+
+    def head(self, x, compute_dtype=None) -> torch.Tensor:
+        """final norm -> the fp32 head: this rank's block of the vocabulary
+        where the head is vocab-parallel."""
         x = self.final_norm(x, compute_dtype)
         if self.vocab_sharded():
             x = copy_to_tensor(x)
-        return self.lm_head(x, torch.float32, compute_dtype), aux_total
+        return self.lm_head(x, torch.float32, compute_dtype)
+
+    def backbone(self, input_ids, train: bool = True, compute_dtype=None,
+                 generator: Optional[torch.Generator] = None):
+        """(fp32 logits [B, S, V], summed aux losses). RSample's noise is
+        drawn here, before any block, so a remat recompute reuses it."""
+        ids = input_ids.long()
+        positions = torch.arange(ids.shape[1], device=ids.device).expand_as(ids)
+        x = self.embed_tokens(ids, self.table(compute_dtype))
+        noise = self._noise(ids.numel(), train, generator)
+        x, aux_total = self.run_blocks(self.layers(), x, positions,
+                                       compute_dtype, train, noise)
+        return self.head(x, compute_dtype), aux_total
 
     def vocab_sharded(self) -> bool:
         """Whether the head holds this rank's block of the vocabulary."""
@@ -200,9 +225,10 @@ class MoECausalLM(nn.Module):
     def logits(self, batch, compute_dtype=None):
         """fp32 logits [B, S, V], the vocabulary gathered over ``tensor``
         where the head is vocab-parallel."""
-        return gather_from_tensor(self.backbone(
-            batch["input_ids"], train=False, compute_dtype=compute_dtype)[0],
-            dim=-1)
+        logits = self.backbone(batch["input_ids"], train=False,
+                               compute_dtype=compute_dtype)[0]
+        return gather_from_tensor(logits, dim=-1) if self.vocab_sharded() \
+            else logits
 
     def forward(self, batch, compute_dtype=None,
                 generator: Optional[torch.Generator] = None):

@@ -21,6 +21,11 @@ Each op is recorded by the comms logger under its ``tensor/...`` label.
 At a ``tensor`` axis of one rank every op is the identity and calls no
 collective.
 
+A leaf the rules leave whole (a dimension the axis does not divide: the
+JAX package's spec builder replicates it, ``runtime/zero/partition.py``)
+runs the plain path at any ``tensor`` size: no copy before it, no sum
+after it, what one rank computes (``block_of`` tells the two apart).
+
 ``ColumnParallelLinear``, ``RowParallelLinear`` and
 ``VocabParallelEmbedding`` keep the flax parameter names (``col_kernel``,
 ``row_kernel``, ``embedding``), so the generic AutoTP rule finds them.
@@ -126,10 +131,10 @@ def leaf_shape(module: nn.Module, name: str) -> torch.Size:
 
 def block_of(full: int, held: int, what: str) -> bool:
     """Whether a leaf holding ``held`` of ``full`` along a dimension is
-    this rank's block over ``tensor`` (False: the whole leaf at a
-    ``tensor`` axis of one); anything else raises."""
+    this rank's block over ``tensor`` (False: the whole leaf, at any
+    ``tensor`` size); anything else raises."""
     tp = tensor_world()
-    if tp == 1 and held == full:
+    if held == full:
         return False
     if held * tp != full:
         raise ValueError(f"{what}: this rank holds {held} of {full} over a "
@@ -175,9 +180,10 @@ class ColumnParallelLinear(nn.Module):
 
     def forward(self, x):
         kernel = self.col_kernel
-        block_of(self.features, kernel.shape[-1], "col_kernel")
+        if block_of(self.features, kernel.shape[-1], "col_kernel"):
+            x = copy_to_tensor(x)
         dt = self.dtype or x.dtype
-        y = copy_to_tensor(x).to(dt) @ kernel.to(dt)
+        y = x.to(dt) @ kernel.to(dt)
         if self.col_bias is not None:
             y = y + self.col_bias.to(y.dtype)
         return y
@@ -201,9 +207,10 @@ class RowParallelLinear(nn.Module):
 
     def forward(self, x):
         kernel = self.row_kernel
-        block_of(self.in_features, kernel.shape[0], "row_kernel")
         dt = self.dtype or x.dtype
-        y = reduce_from_tensor(x.to(dt) @ kernel.to(dt))
+        y = x.to(dt) @ kernel.to(dt)
+        if block_of(self.in_features, kernel.shape[0], "row_kernel"):
+            y = reduce_from_tensor(y)
         if self.row_bias is not None:
             y = y + self.row_bias.to(y.dtype)
         return y

@@ -123,24 +123,39 @@ Without them a step never waits for the device. The micro-step protocol
 (``forward``/``backward``/``step``), the async metric ring and the batch
 prefetcher are not ported yet (ROADMAP Queue 1 item 5).
 
-The memory tiers (reference ``engine.py:238-338,1199-1306``), at a world
-of one rank:
+The memory tiers (reference ``engine.py:238-338,1199-1306``), over the
+``data``, ``fsdp`` and ``tensor`` axes:
 
 - ``offload_optimizer`` (ZeRO-Offload, ``cpu`` or ``nvme``): the module
   holds compute-dtype parameters on the card; the fp32 masters and moments
-  live only in the host optimizer (``runtime/offload.py``). A step's
-  gradients are accumulated as above, then cast to fp32 and divided by
-  ``scale * gas`` on the card, where the overflow check and the clipping
-  norm are taken leaf by leaf (no second full copy); each leaf's clipped
-  fp32 gradient goes down through bounded pinned buffers
-  (``runtime/staging.py``) into the fused host step at the schedule's lr,
-  and the new bf16 shadow goes back up. An overflow skips the host step,
+  live only in the host optimizer (``runtime/offload.py``). Under the
+  reference's single controller one host copy of every leaf serves the
+  whole mesh; here each rank's host optimizer holds the block its card
+  would hold (ROADMAP Queue 3, divergence 47): the whole tree at stage 0,
+  the moments' ZeRO block at stages 1-2, the parameter block at stage 3,
+  a tensor block first under ``tensor_rules``. A step's gradients are
+  reduced and accumulated as above (stage 2 reduce-scatters into the
+  block), then cast to fp32 and divided by ``scale * gas`` on the card,
+  where the overflow check and the clipping norm are taken leaf by leaf
+  (no second full copy) and reduced over the ranks, so every rank clips
+  by the global norm and skips an overflowed step with the others; each
+  leaf's clipped fp32 gradient block goes down through bounded pinned
+  buffers (``runtime/staging.py``) into the fused host step at the
+  schedule's lr, and the new compute-dtype shadow block goes back up; at
+  stages 1-2 the shadow blocks are all-gathered over the ZeRO axes
+  (``offload/all_gather`` in the comms logger), at stage 3 the block
+  stays behind the parametrization. An overflow skips the host step,
   shrinks the loss scale and counts in ``skipped_steps``.
 - ``offload_param`` (ZeRO-Infinity): ``runtime/param_offload.py`` streams
-  the weights through the card one layer group at a time.
+  the weights through the card one layer group at a time, each rank its
+  rows of the batch and its tensor blocks.
 
 Both emit the ``engine/train_step`` span (``mode`` ``offload`` or
-``param_offload``) and keep each phase's seconds in ``phase_seconds``.
+``param_offload``) and keep each phase's seconds in ``phase_seconds``
+(over ranks also the reduction's, ``reduce`` / ``grads_reduce``, and the
+shadow gather's). The tiers with the ``expert`` or ``sequence`` axis and
+the optimizer tier with MiCS, hpZ or qwZ are refused
+(``config/config.py``).
 """
 
 import contextlib
@@ -157,13 +172,14 @@ from deepspeed_tpu_torch.comm.comms_logging import get_comms_logger
 from deepspeed_tpu_torch.comm.mesh import (BATCH_AXES, Mesh, create_mesh,
                                            get_data_parallel_world_size,
                                            set_global_mesh)
-from deepspeed_tpu_torch.config.config import ITEM_DIST, DeepSpeedTPUConfig
+from deepspeed_tpu_torch.config.config import ITEM_MOE, DeepSpeedTPUConfig
 from deepspeed_tpu_torch.moe.sharded_moe import token_axes
 from deepspeed_tpu_torch.ops.cpu_adam import to_bf16
 from deepspeed_tpu_torch.ops.optimizers import build_optimizer
 from deepspeed_tpu_torch.ops.quant import dequantize_int8, quantize_int8
 from deepspeed_tpu_torch.runtime import precision
 from deepspeed_tpu_torch.runtime.lr_schedules import build_schedule, constant_lr
+from deepspeed_tpu_torch.runtime.param_offload import is_moe
 from deepspeed_tpu_torch.runtime.staging import STAGING_ELEMS, Staging
 from deepspeed_tpu_torch.runtime.zero import partition
 from deepspeed_tpu_torch.runtime.zero.qgz import (MIN_QUANT_SIZE,
@@ -174,6 +190,10 @@ from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
                                              ThroughputTimer, TRAIN_BATCH_TIMER)
+
+
+#: the comms logger's label of the optimizer tier's shadow all-gather
+OFFLOAD_LABEL = "offload"
 
 
 class StepOutput(NamedTuple):
@@ -329,11 +349,11 @@ class DeepSpeedTPUEngine:
                              f"got {zc.offload_optimizer.device!r}")
         tier = "param" if zc.offload_param.device != "none" else \
             "optimizer" if zc.offload_optimizer.device != "none" else None
-        if tier is not None and self.mesh.size > 1:
+        if tier == "param" and self.mesh.size > 1 and is_moe(model):
             raise NotImplementedError(
-                f"offload_{tier} over {self.mesh.size} ranks is not ported "
-                f"yet ({ITEM_DIST}: the memory tiers at world > 1); the "
-                "tiers run at one rank")
+                f"offload_param over the MoE block stack at {self.mesh.size} "
+                f"ranks is not ported yet ({ITEM_MOE}: the expert axis with "
+                "the memory tiers); the stack streams at one rank")
         if tier is not None and client_optimizer is not None:
             raise ValueError(
                 f"offload_{tier} requires a config-typed optimizer (the "
@@ -359,29 +379,32 @@ class DeepSpeedTPUEngine:
         if params is not None:
             from deepspeed_tpu_torch.models.convert import load_flax_params
             load_flax_params(model, params)
-        if tier == "param":
+        self._param_tier = tier == "param"
+        # under the parameter tier the weights stay where they are until the
+        # trainer takes them to the host (cut to their tensor blocks first)
+        self.model = model if self._param_tier else model.to(self.device)
+        named = [(n, p) for n, p in self.model.named_parameters()
+                 if p.requires_grad]
+        self._param_names: List[str] = [n for n, _ in named]
+        # the tensors gradients are taken against: the fp32 masters (a
+        # stage-3 leaf's block), or under the optimizer tier the
+        # compute-dtype shadows
+        self._masters: List[torch.Tensor] = [p for _, p in named]
+        del named
+        # the parameter tier streams whole leaves or tensor blocks: no ZeRO
+        # placement (the reference's streamed step ignores the stage)
+        self._place_zero(0 if self._param_tier else self.zero_stage)
+        if self._param_tier:
             # --- ZeRO-Infinity: the weights stream through the card ---------
             from deepspeed_tpu_torch.runtime.param_offload import (
                 ParamOffloadTrainer)
             self._param_offload = ParamOffloadTrainer(
                 model, config, self.lr_schedule, self.device,
-                staging_elems=STAGING_ELEMS)
-            self.model = model
+                staging_elems=STAGING_ELEMS, mesh=self.mesh,
+                tensor_dim=self._tensor_dim)
             self._offload = self._param_offload.opt
             self.optimizer = self._offload
-            self._param_names = list(self._param_offload.names)
             self._masters = []
-        else:
-            self.model = model.to(self.device)
-            named = [(n, p) for n, p in self.model.named_parameters()
-                     if p.requires_grad]
-            self._param_names: List[str] = [n for n, _ in named]
-            # the tensors gradients are taken against: the fp32 masters (a
-            # stage-3 leaf's block), or under the optimizer tier the
-            # compute-dtype shadows
-            self._masters: List[torch.Tensor] = [p for _, p in named]
-            del named
-        self._place_zero()
         self._quantized_weights = bool(zc.zero_quantized_weights)
         if self._quantized_weights and not self._hpz_leaves:
             log_dist("zero_quantized_weights (qwZ) takes effect on the hpZ "
@@ -406,15 +429,27 @@ class DeepSpeedTPUEngine:
             self._replica_axes if self._comm_compress is not None
             else self._qgz_axes or self._sparse_grad_axes)
         self._reduce_plan()
+        self._time_reduce = False
+        self._reduce_s = 0.0
         if tier == "optimizer":
             # --- ZeRO-Offload: masters and moments in the host optimizer -----
+            # each rank's host state is the block its card would hold: the
+            # moments' ZeRO block at stages 1-2, the parameter block at
+            # stage 3, the whole leaf at stage 0 (tensor blocks first)
             from deepspeed_tpu_torch.runtime.offload import HostOffloadOptimizer
             ocfg = zc.offload_optimizer
             self._staging = Staging(self.device, ocfg.pin_memory, STAGING_ELEMS)
-            host = [self._staging.to_host(p.data) for p in self._masters]
+            host = []
+            with torch.no_grad():
+                for p, t in zip(self._masters, self._opt_tensors()):
+                    h = self._staging.to_host(t)
+                    if t is not p and h.data_ptr() == t.data_ptr():
+                        h = h.clone()     # a view would keep the whole leaf
+                    host.append(h)
             self._offload = HostOffloadOptimizer(host, opt_type, opt_params,
                                                  ocfg)
             del host
+            self._time_reduce = self.mesh.size > 1
             for p in self._masters:       # the card keeps compute-dtype shadows
                 p.data = p.data.to(self.compute_dtype, copy=True)
             self.optimizer = self._offload
@@ -473,7 +508,7 @@ class DeepSpeedTPUEngine:
                     "model only a dropout rng stream (engine.py:80-92), none "
                     "for the gate; call the model with a generator instead")
 
-    def _place_zero(self) -> None:
+    def _place_zero(self, stage: int) -> None:
         """Each leaf's param and optimizer-state spec (layered on its
         tensor rule; over ``fsdp`` only under MiCS), the dimension its
         moments (and under stage 3 its master) are sharded along, each
@@ -482,7 +517,7 @@ class DeepSpeedTPUEngine:
         stage-3 parametrizations that gather a block over the ZeRO axes
         before use (under hpZ from the secondary block,
         ``_compute_copy``)."""
-        mesh, stage = self.mesh, self.zero_stage
+        mesh = self.mesh
         self._zero_axes, self._zero_world = partition.zero_fsdp_axes(
             mesh, mics=self._mics)
         self._batch_axes = tuple(a for a in BATCH_AXES if a in mesh.shape)
@@ -513,7 +548,7 @@ class DeepSpeedTPUEngine:
                                                     (axis,)).clone()
         self._replica_axes = replica_grad_axes(mesh, self._batch_axes,
                                                self._param_specs) \
-            if self._param_offload is None else ()
+            if not self._param_tier else ()
         n = len(shapes)
         self._opt_dim: List[Optional[int]] = [None] * n
         self._param_dim: List[Optional[int]] = [None] * n
@@ -719,11 +754,22 @@ class DeepSpeedTPUEngine:
         with self._compute_copy():
             loss = self._compute_loss(batch)
             grads = list(torch.autograd.grad(loss * scale, self._masters))
+        t = self._reduce_clock()
         grads = self._reduce_micro(grads)
         if self._quantized_gradients and not self._qgz_axes:
             grads = [self._round_trip(g, d)
                      for g, d in zip(grads, self._grad_dim)]
+        self._reduce_s += self._reduce_clock() - t
         return loss.detach(), grads
+
+    def _reduce_clock(self) -> float:
+        """The host clock, after the card's queued work, when the optimizer
+        tier times its reductions over ranks (``phase_seconds["reduce"]``);
+        0 otherwise."""
+        if not self._time_reduce:
+            return 0.0
+        self._sync()
+        return time.perf_counter()
 
     def _reduce_micro(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """Sum each gradient of the local mean loss over the micro-batch
@@ -783,6 +829,7 @@ class DeepSpeedTPUEngine:
                     a.add_(g.to(acc_dtype))
             del grads
         loss = loss_sum / gas
+        t = self._reduce_clock()
         if self._comm_compress is not None:
             sync = self._comm_compress.make_sync_fn(
                 fallback_leaf_sync=self._make_grad_sync(self._replica_axes))
@@ -795,6 +842,7 @@ class DeepSpeedTPUEngine:
             sync = self._make_grad_sync(self._wire_axes)
             for i in range(len(acc)):
                 acc[i] = sync(self._paths[i], acc[i], stacked)
+        self._reduce_s += self._reduce_clock() - t
         return self._global_loss(loss), acc
 
     def _batch_token_count(self, stacked: Dict[str, torch.Tensor]) -> int:
@@ -892,7 +940,12 @@ class DeepSpeedTPUEngine:
         an expert leaf's over ``expert`` and a tensor-parallel leaf's over
         ``tensor``, first (one all-reduce each); a replicated leaf counts
         once."""
-        sq = [g.float().square().sum() for g in grads]
+        return self._norm_of_squares([g.float().square().sum()
+                                      for g in grads])
+
+    def _norm_of_squares(self, sq: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm from each reduced gradient's sum of squares
+        (``_global_norm``'s reduction over the ranks)."""
         for dims, axes in ((self._grad_dim, self._zero_axes),
                            (self._expert_dim, ("expert",)),
                            (self._tensor_dim, ("tensor",))):
@@ -912,13 +965,7 @@ class DeepSpeedTPUEngine:
         fp16 = self.config.fp16
         overflow = False
         if fp16.enabled or self._guard_nonfinite:
-            flag = precision.has_inf_or_nan(grads)
-            axes = self.mesh.live_axes(self._batch_axes
-                                       + ("expert", "tensor"))
-            if axes:
-                flag = comm.all_reduce(flag.float(), axes,
-                                       comm.ReduceOp.MAX) > 0
-            overflow = bool(flag)
+            overflow = self._agree_overflow(precision.has_inf_or_nan(grads))
             if overflow:                  # the norm of the neutralised grads
                 grads = [torch.where(torch.isfinite(g), g, 0.0) for g in grads]
         clipped, grad_norm = precision.clip_by_global_norm(
@@ -938,6 +985,15 @@ class DeepSpeedTPUEngine:
                                                       overflow, fp16)
         return StepOutput(loss=None, grad_norm=grad_norm, lr=lr,
                           overflow=overflow)
+
+    def _agree_overflow(self, flag: torch.Tensor) -> bool:
+        """This rank's overflow flag, on every rank if it is on any (a max
+        over the batch, expert and tensor axes), so all ranks skip a step
+        together."""
+        axes = self.mesh.live_axes(self._batch_axes + ("expert", "tensor"))
+        if axes:
+            flag = comm.all_reduce(flag.float(), axes, comm.ReduceOp.MAX) > 0
+        return bool(flag)
 
     def _apply(self, grads: List[torch.Tensor]) -> None:
         """The optimizer step on this rank's blocks; then the blocks of
@@ -1053,13 +1109,20 @@ class DeepSpeedTPUEngine:
 
     def _offload_step(self, device_batch) -> StepOutput:
         """The optimizer tier's step (reference ``_train_batch_offloaded``
-        and ``_offload_host_update``, ``engine.py:1231-1306``)."""
+        and ``_offload_host_update``, ``engine.py:1231-1306``), on this
+        rank's blocks: the gradients reduced as the in-HBM stages reduce
+        them (stage 2 reduce-scatters into the block), the norm and the
+        overflow flag over every rank's blocks, the host update of this
+        rank's block a chunk at a time, and at stages 1-2 the new
+        compute-dtype shadow blocks all-gathered over the ZeRO axes (stage
+        3 keeps its block behind the parametrization)."""
         cfg, gas = self.config, self.gradient_accumulation_steps
         scale = self.loss_scale.scale
         denom = scale * gas
         with get_tracer().span("engine/train_step", cat="train",
                                step=self.global_steps, mode="offload"):
             t0 = time.perf_counter()
+            self._reduce_s = 0.0
             loss, acc = self._grads_phase(device_batch, scale)
             # fp32 / (scale * gas), then the overflow check and the clipping
             # norm, on the card one leaf at a time
@@ -1071,21 +1134,45 @@ class DeepSpeedTPUEngine:
                 if check:
                     bad.append(torch.logical_not(torch.isfinite(g).all()))
                 del g
-            grad_norm = torch.stack(sq).sum().sqrt()
+            grad_norm = self._norm_of_squares(sq)
             clip = cfg.gradient_clipping
             factor = (torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
                       if clip > 0 else None)
-            overflow = bool(torch.stack(bad).any()) if check else False
+            overflow = self._agree_overflow(torch.stack(bad).any()) \
+                if check else False
             lr = float(self.lr_schedule(self.step_count))
             self._sync()
             t_dev = time.perf_counter()
             secs = {"d2h": 0.0, "shadow": 0.0, "h2d": 0.0}
             nbytes = {"d2h": 0, "h2d": 0}
+            if any(self._gathers(i) for i in range(len(self._masters))):
+                secs["gather"] = 0.0
             stage = self._staging
+            held = {}                  # the leaf whose block is in flight
+
+            def block_of(i):
+                """Leaf i's gradient block and shadow block (flat device
+                tensors), made once a leaf."""
+                if held.get("i") != i:
+                    held.clear()
+                    g, p = acc[i], self._masters[i]
+                    shadow = p.data
+                    if self._gathers(i):
+                        d = self._opt_dim[i]
+                        if self._grad_dim[i] is None:
+                            g = partition.shard_of(g, d, self.mesh,
+                                                   self._zero_axes)
+                        shadow = torch.empty(
+                            partition.shard_of(p.data, d, self.mesh,
+                                               self._zero_axes).shape,
+                            dtype=p.dtype, device=p.device)
+                    held.update(i=i, g=g.contiguous().view(-1),
+                                shadow=shadow)
+                return held["g"], held["shadow"]
 
             def grads_of(i, a, b):
                 t = time.perf_counter()
-                g = acc[i].view(-1)[a:b].float() / denom
+                g = block_of(i)[0][a:b].float() / denom
                 if factor is not None:
                     g = g * factor
                 host = stage.down(g)
@@ -1095,17 +1182,24 @@ class DeepSpeedTPUEngine:
 
             def shadow_up(i, a, b, master):
                 t = time.perf_counter()
-                p = self._masters[i]
-                up = stage.up_buffer(p.dtype, b - a)
-                if p.dtype == torch.bfloat16:
+                shadow = block_of(i)[1]
+                up = stage.up_buffer(shadow.dtype, b - a)
+                if shadow.dtype == torch.bfloat16:
                     to_bf16(master, out=up)
                 else:
                     up.copy_(master)
                 t_cast = time.perf_counter()
-                stage.up(p.data.view(-1)[a:b], up)
+                stage.up(shadow.view(-1)[a:b], up)
                 nbytes["h2d"] += up.numel() * up.element_size()
                 secs["shadow"] += t_cast - t
-                secs["h2d"] += time.perf_counter() - t_cast
+                t_up = time.perf_counter()
+                secs["h2d"] += t_up - t_cast
+                if self._gathers(i) and b == shadow.numel():
+                    with comm.op_label(OFFLOAD_LABEL), torch.no_grad():
+                        self._masters[i].data.copy_(partition.gather_full(
+                            shadow, self._opt_dim[i], self._zero_axes))
+                    self._sync()
+                    secs["gather"] += time.perf_counter() - t_up
 
             if overflow:
                 self._skipped_steps += 1
@@ -1113,15 +1207,25 @@ class DeepSpeedTPUEngine:
                 self._offload.step(grads_of, lr=lr, after=shadow_up,
                                    chunk=stage.elems)
                 self.step_count += 1
+            held.clear()
             del acc
             self.loss_scale = precision.update_loss_scale(self.loss_scale,
                                                           overflow, cfg.fp16)
             t_end = time.perf_counter()
-        self.phase_seconds = {"device_fwd_bwd": t_dev - t0, **secs,
-                              "host_optimizer": (t_end - t_dev) - sum(secs.values())}
+        reduce = {"reduce": self._reduce_s} if self._time_reduce else {}
+        self.phase_seconds = {"device_fwd_bwd": t_dev - t0 - self._reduce_s,
+                              **reduce, **secs,
+                              "host_optimizer": (t_end - t_dev)
+                              - sum(secs.values())}
         self.phase_bytes = nbytes
         return StepOutput(loss=loss, grad_norm=grad_norm, lr=lr,
                           overflow=overflow)
+
+    def _gathers(self, i: int) -> bool:
+        """Whether leaf i's host block is a block of a leaf the card holds
+        whole (stages 1-2), so its shadow is all-gathered after the
+        update."""
+        return self._opt_dim[i] is not None and self._param_dim[i] is None
 
     def _param_offload_step(self, device_batch) -> StepOutput:
         """The parameter tier's step (reference
@@ -1298,10 +1402,13 @@ class DeepSpeedTPUEngine:
 
     def named_masters(self):
         """(name, full fp32 master) pairs, in the order gradients come;
-        under either memory tier the host optimizer's masters. Under stage
-        3 the blocks are gathered: every rank must call it."""
+        under either memory tier the host optimizer's masters. A block
+        (stage 3, a tier's host block, a tensor block) is gathered: every
+        rank must call it."""
         if self._offload is not None:
-            return list(zip(self._param_names, self._offload.masters()))
+            return [(n, self._whole_host_master(i, m)) for i, (n, m) in
+                    enumerate(zip(self._param_names,
+                                  self._offload.masters()))]
         out = []
         for name, p, d, e, t in zip(self._param_names, self._masters,
                                     self._param_dim, self._expert_dim,
@@ -1315,13 +1422,33 @@ class DeepSpeedTPUEngine:
             out.append((name, p))
         return out
 
+    def _whole_host_master(self, i: int, m: torch.Tensor) -> torch.Tensor:
+        """Leaf i's fp32 master from this rank's host block: gathered over
+        the ZeRO axes (stages 1-2: the moments' block; stage 3: the
+        parameter block) and then over ``tensor``; on the host where the
+        process group is gloo, which takes CPU tensors, else through the
+        card; the host tensor itself where it is whole."""
+        dims = []
+        if self._param_dim[i] is not None:
+            dims.append((self._param_dim[i], self._block_axes))
+        elif self._opt_dim[i] is not None:
+            dims.append((self._opt_dim[i], self._zero_axes))
+        if self._tensor_dim[i] is not None:
+            dims.append((self._tensor_dim[i], ("tensor",)))
+        if not dims:
+            return m
+        import torch.distributed as dist
+        on_host = dist.get_backend() == "gloo"
+        t = m if on_host else m.to(self.device)
+        for d, axes in dims:
+            t = partition.gather_full(t, d, axes)
+        return t if on_host else t.cpu()
+
     def module_state_dict(self) -> Dict[str, torch.Tensor]:
         return {n: p.detach() for n, p in self.named_masters()}
 
     def get_params(self):
         """The fp32 masters as the flax parameter tree (nested dicts of
         tensors), as the reference's ``get_params`` returns its params."""
-        if self._param_offload is not None:
-            return self._param_offload.masters_tree()
         from deepspeed_tpu_torch.models.convert import to_flax_tree
         return to_flax_tree((n, p.detach()) for n, p in self.named_masters())

@@ -6,8 +6,13 @@ swappers ``runtime/swap_tensor/partitioned_optimizer_swapper.py:29`` and
 ``pipelined_optimizer_swapper.py``). The card keeps compute-dtype (bf16)
 parameters; the host keeps the fp32 masters and the optimizer moments as
 CPU tensors, and the fused C++ kernel (Adam/AdamW, Adagrad or Lion, the
-reference's CPU optimizers) updates them. With ``device: nvme`` the moments
-live in per-leaf files (``nvme_path/proc{rank}/state{s}_{i}.bin``), and the
+reference's CPU optimizers) updates them. Over ranks the engine hands each
+rank's optimizer the blocks that rank holds (a leaf's ZeRO or tensor
+block), and the kernel, elementwise, updates them as it would the whole
+leaf. With ``device: nvme`` the moments
+live in per-leaf files (``nvme_path/proc{rank}/state{s}_{i}.bin``, one
+directory a ``torch.distributed`` rank, so ranks on one machine never
+share a file), and the
 masters too under ``swap_masters`` (``master_{i}.bin``); the files of the
 next sub-group are read with the async engine while this one updates
 (Infinity's pipelined swapper). Twin-Flow (``ratio`` < 1, reference
@@ -240,6 +245,12 @@ class HostOffloadOptimizer:
         """All masters materialized (the full fp32 set when they live on
         NVMe)."""
         return [self._load_master(leaf) for leaf in self.leaves]
+
+    def state_bytes(self) -> int:
+        """The bytes of the state this optimizer keeps, in RAM or in files:
+        each leaf's fp32 master and moments (over ranks, this rank's
+        blocks)."""
+        return sum(4 * leaf.size * (1 + self.n_states) for leaf in self.leaves)
 
     def leaf_shapes(self) -> List[tuple]:
         return [leaf.shape for leaf in self.leaves]

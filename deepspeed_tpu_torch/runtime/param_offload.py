@@ -19,8 +19,32 @@ and head). A step is a host-driven stream over them:
 
 Each unit runs through the model's own entry points (``LlamaModel.
 embed_tokens``, ``run_blocks`` with the config's remat, ``head``,
-``LlamaForCausalLM.loss_of``) with the module's parameters bound to the
-streamed weights, so a group computes exactly what the whole model does.
+``LlamaForCausalLM.loss_of``; the MoE models' ``embed_tokens``,
+``run_blocks`` and fp32 ``head``) with the module's parameters bound to
+the streamed weights, so a group computes exactly what the whole model
+does.
+
+**The MoE block stack** (reference ``_MoEBlockStack``, ``:123-146``): a
+Mixtral group returns its blocks' summed gating aux losses beside x; the
+sum rides the forward carry into the reported loss, and each group's
+backward seeds its aux output with a unit cotangent, so the gating
+weights take the aux losses' gradients. The head runs in fp32 (the
+reference's ``head_dtype``); segment ids are refused, as the reference
+refuses them. The stack is ``MixtralBlock``'s: a model of another MoE
+block (Qwen2-MoE's shared expert) raises, as the reference's stack fails
+on it.
+
+**Over ranks** (``mesh``): each rank streams the micro-batch rows the
+engine gave it (its rows over the batch axes), and each group's
+gradients are averaged over the batch axes on the card before they are
+summed into the host accumulators; the loss is averaged over them too.
+Every rank keeps the host store and runs the same host update: the host
+state is replicated per rank, stage 0's meaning in a process per rank
+(ROADMAP Queue 3, divergence 46). With ``tensor_dim`` (the engine's cut
+by the tensor rules) a rank's store holds its tensor blocks, so the card
+receives its blocks' bytes only (the reference's ``_leaf_sharding``),
+the Megatron layers run on them, and the global norm sums a tensor
+leaf's squares over ``tensor`` and counts a replicated leaf once.
 
 ``offload_param.device: cpu`` keeps the compute-dtype store in page-locked
 host memory; ``nvme`` keeps each layer group in a file
@@ -33,9 +57,8 @@ work (its buffer may be a just-freed one), the compute stream waits for
 the copy's event before the group runs, and an NVMe slot is read into
 again only after the copy out of it has finished.
 
-Supported models: ``LlamaForCausalLM`` with ``scan_layers=False``.
-Unsupported configs raise at engine init; the MoE block stack raises "not
-ported" (ROADMAP Queue 1 item 4: MoE, its remainder).
+Supported models: ``LlamaForCausalLM`` and ``MixtralForCausalLM`` with
+``scan_layers=False``. Unsupported configs raise at engine init.
 """
 
 import dataclasses
@@ -47,11 +70,21 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.comm import comm
+from deepspeed_tpu_torch.comm.mesh import BATCH_AXES
 from deepspeed_tpu_torch.ops.async_io import AsyncIOHandle
 from deepspeed_tpu_torch.ops.cpu_adam import to_bf16
 from deepspeed_tpu_torch.runtime.offload import HostOffloadOptimizer
 from deepspeed_tpu_torch.runtime.staging import STAGING_ELEMS, PinnedHost, Staging
 from deepspeed_tpu_torch.utils.logging import _process_index, log_dist
+
+
+def is_moe(model) -> bool:
+    """Whether ``model`` is an MoE causal LM of this package (its config
+    wraps a Llama config and an MoE config, and its blocks return
+    (x, aux))."""
+    cfg = getattr(model, "cfg", None)
+    return hasattr(cfg, "base") and hasattr(cfg, "moe")
 
 
 def validate_param_offload(config, model) -> None:
@@ -64,11 +97,16 @@ def validate_param_offload(config, model) -> None:
         raise ValueError(
             f"offload_param.device must be none|cpu|nvme, got {pcfg.device!r}")
     cfg = getattr(model, "cfg", None)
-    if cfg is not None and hasattr(cfg, "base") and hasattr(cfg, "moe"):
-        raise NotImplementedError(
-            "offload_param over the MoE block stack (MixtralBlock, "
-            "Qwen2MoEBlock) is not ported yet (ROADMAP Queue 1 item 4: MoE "
-            "(the MoE block stack under offload_param))")
+    if is_moe(model):
+        from deepspeed_tpu_torch.models.mixtral import MixtralBlock
+        if getattr(type(model), "block_cls", None) is not MixtralBlock:
+            raise ValueError(
+                f"offload_param streams the MoE block stack of MixtralBlock "
+                f"only; {type(model).__name__}'s blocks are "
+                f"{getattr(getattr(type(model), 'block_cls', None), '__name__', None)} "
+                "(the reference's _MoEBlockStack builds MixtralBlock and "
+                "fails on them)")
+        cfg = cfg.base            # MixtralConfig wraps a LlamaConfig
     if cfg is None or not hasattr(cfg, "num_layers"):
         raise ValueError(
             "offload_param needs a layered model exposing .cfg.num_layers "
@@ -85,6 +123,10 @@ def validate_param_offload(config, model) -> None:
             "offload_param supports bf16/fp32 only (TPU-native precisions); "
             "fp16 dynamic loss scaling is not wired through the streamed "
             "step — use bf16")
+    if config.sparse_gradients_enabled:
+        raise ValueError(
+            "offload_param accumulates grads on host; sparse_gradients' "
+            "wire reduction does not apply — disable it")
     zc = config.zero_config
     raw = dict(config._raw.get("zero_optimization") or {})
     if (raw.get("zero_hpz_partition_size") or 1) > 1 \
@@ -113,10 +155,16 @@ class ParamOffloadTrainer:
     the module with empty parameters, bound to streamed weights in turn."""
 
     def __init__(self, model, config, lr_schedule, device: torch.device,
-                 staging_elems: int = STAGING_ELEMS):
+                 staging_elems: int = STAGING_ELEMS, mesh=None,
+                 tensor_dim: Optional[List[Optional[int]]] = None):
         validate_param_offload(config, model)
         self.model = model
-        self.cfg = model.cfg
+        # Mixtral keeps its tree at the top level (no ``model.``)
+        self._moe = is_moe(model)
+        self.cfg = model.cfg.base if self._moe else model.cfg
+        self._lm = model if self._moe else model.model
+        pre = "" if self._moe else "model."
+        self._batch_axes = mesh.live_axes(BATCH_AXES) if mesh else ()
         self.config = config
         self.lr_schedule = lr_schedule
         self.device = device
@@ -151,12 +199,12 @@ class ParamOffloadTrainer:
         per = max(1, int(pcfg.layers_per_group or 1))
         self._layer_groups: List[List[int]] = [
             list(range(a, min(a + per, L))) for a in range(0, L, per)]
-        self._embed = self._unit(["model.embed."])
-        tail = ["model.final_norm."]
+        self._embed = self._unit([f"{pre}embed."])
+        tail = [f"{pre}final_norm."]
         if not self.cfg.tie_embeddings:
-            tail.append("model.lm_head.")
+            tail.append(f"{pre}lm_head.")
         self._tail = self._unit(tail)
-        self._groups = [self._unit([f"model.layer_{i}." for i in g])
+        self._groups = [self._unit([f"{pre}layer_{i}." for i in g])
                         for g in self._layer_groups]
         covered = sorted(i for u in (self._embed, self._tail, *self._groups)
                          for i in u.idx)
@@ -191,6 +239,9 @@ class ParamOffloadTrainer:
             self._slot_done: List[Optional[torch.cuda.Event]] = [None, None]
         self._copy_stream = (torch.cuda.Stream(device)
                              if device.type == "cuda" else None)
+        # the leaves a rank holds as its block over ``tensor``
+        self._tensor_leaves = [i for i, d in enumerate(tensor_dim or [])
+                               if d is not None]
         self._accum: List[Optional[torch.Tensor]] = [None] * len(self.names)
         self._scratch: Optional[torch.Tensor] = None
         self._copies: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
@@ -304,12 +355,19 @@ class ParamOffloadTrainer:
         """Device gradients -> the fp32 host accumulators, through the
         bounded staging buffers (a copy on the first micro-batch; later
         ones widened into an fp32 scratch first, which torch adds several
-        times faster than a mixed-dtype add, with the same sums)."""
+        times faster than a mixed-dtype add, with the same sums). Over
+        ranks each is first averaged over the batch axes on the card."""
         if self.device.type == "cuda":   # the backward's time is the stream's
             torch.cuda.current_stream(self.device).synchronize()
         t0 = time.perf_counter()
         elems = self.staging.elems
         for i, g in zip(idx, grads):
+            if self._batch_axes:
+                t = time.perf_counter()
+                g = comm.all_reduce(g, self._batch_axes, comm.ReduceOp.AVG)
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+                self._reduce_s += time.perf_counter() - t
             if self._accum[i] is None:
                 self._accum[i] = torch.empty(self._shapes[i], dtype=torch.float32)
             acc, src = self._accum[i].view(-1), g.reshape(-1)
@@ -327,18 +385,46 @@ class ParamOffloadTrainer:
             self._fresh[i] = False
         self._d2h_s += time.perf_counter() - t0
 
+    def _run_group(self, gi: int, x, positions, seg):
+        """Group ``gi``'s blocks on x: (x, the MoE groups' aux sum or
+        None)."""
+        blocks = [getattr(self._lm, f"layer_{i}")
+                  for i in self._layer_groups[gi]]
+        cd = self.compute_dtype
+        if self._moe:
+            return self._lm.run_blocks(blocks, x, positions, cd)
+        return self._lm.run_blocks(blocks, x, positions, seg, cd), None
+
+    def _tail_loss(self, x, micro):
+        """The final norm, the head and the loss of this rank's rows
+        (vocab-parallel where the head is this rank's block)."""
+        lm, cd = self._lm, self.compute_dtype
+        if self._moe:
+            from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+            return LlamaForCausalLM.loss_of(lm.head(x, cd), micro,
+                                            lm.vocab_sharded())
+        return self.model.loss_of(lm.head(x, lm.table(cd), cd), micro,
+                                  lm.vocab_sharded())
+
     # --- the streamed step --------------------------------------------------
     def _micro_grads(self, micro: Dict[str, torch.Tensor]) -> torch.Tensor:
-        lm = self.model.model
+        lm = self._lm
         cd = self.compute_dtype
         ids = micro["input_ids"]
-        positions = lm.positions_of(ids, micro.get("positions"))
         seg = micro.get("segment_ids")
+        if self._moe:
+            if seg is not None:
+                raise NotImplementedError(
+                    "packed-sequence segment_ids with MoE param offload is "
+                    "unsupported (MixtralBlock takes no segment mask)")
+            positions = torch.arange(ids.shape[1],
+                                     device=ids.device).expand_as(ids)
+        else:
+            positions = lm.positions_of(ids, micro.get("positions"))
         G = len(self._groups)
-        blocks = [[getattr(lm, f"layer_{i}") for i in g]
-                  for g in self._layer_groups]
 
         # ---- forward stream (group g+1 copies while g computes) ----
+        aux_total = torch.zeros((), device=self.device)
         with torch.no_grad():
             self._bind(-1, self._fetch(-1))
             x = lm.embed_tokens(ids, lm.table(cd))
@@ -349,7 +435,9 @@ class ParamOffloadTrainer:
                 nxt = self._fetch(gi + 1) if gi + 1 < G else None
                 acts.append(x)
                 self._bind(gi, cur)
-                x = lm.run_blocks(blocks[gi], x, positions, seg, cd)
+                x, aux = self._run_group(gi, x, positions, seg)
+                if aux is not None:
+                    aux_total = aux_total + aux
                 self._unbind(gi)
                 del cur
 
@@ -359,7 +447,7 @@ class ParamOffloadTrainer:
         emb = self._params[self._embed.idx[0]]
         x = x.detach().requires_grad_(True)
         with torch.enable_grad():
-            loss = self.model.loss_of(lm.head(x, lm.table(cd), cd), micro)
+            loss = self._tail_loss(x, micro)
             wrt = [x, *tail] + ([emb] if self.cfg.tie_embeddings else [])
             grads = torch.autograd.grad(loss, wrt)
         gx = grads[0]
@@ -378,9 +466,13 @@ class ParamOffloadTrainer:
             params = [self._params[i] for i in self._groups[gi].idx]
             x_in = acts[gi].requires_grad_(True)
             with torch.enable_grad():
-                out = lm.run_blocks(blocks[gi], x_in, positions, seg, cd)
-                grads = torch.autograd.grad(out, [x_in, *params],
-                                            grad_outputs=gx)
+                out, aux = self._run_group(gi, x_in, positions, seg)
+                outs, seeds = [out], [gx]
+                if aux is not None:   # the gating losses' unit cotangent
+                    outs.append(aux)
+                    seeds.append(torch.ones_like(aux))
+                grads = torch.autograd.grad(outs, [x_in, *params],
+                                            grad_outputs=seeds)
             gx = grads[0]
             self._unbind(gi)
             acts[gi] = None
@@ -392,7 +484,7 @@ class ParamOffloadTrainer:
             (g_emb,) = torch.autograd.grad(x, [emb], grad_outputs=gx)
         self._unbind(-1)
         self._accumulate(self._embed.idx, [g_emb])
-        return loss.detach()
+        return loss.detach() + aux_total
 
     def train_batch(self, batch: Dict[str, torch.Tensor], step: int
                     ) -> Tuple[float, float]:
@@ -405,11 +497,16 @@ class ParamOffloadTrainer:
         self.bytes_streamed = 0
         self.bytes_down = 0
         self._d2h_s = 0.0
+        self._reduce_s = 0.0
         self._copies = []
         t0 = time.perf_counter()
         losses = [self._micro_grads({k: v[g] for k, v in batch.items()})
                   for g in range(gas)]
         loss = float(np.mean([float(x) for x in losses]))
+        if self._batch_axes:           # the mean of the ranks' means
+            loss = float(comm.all_reduce(
+                torch.tensor(loss, dtype=torch.float64, device=self.device),
+                self._batch_axes, comm.ReduceOp.AVG))
         t_stream = time.perf_counter()
         # the side stream's copy time (events; it overlaps the compute)
         h2d_s = sum(a.elapsed_time(b) for a, b in self._copies) / 1e3
@@ -420,8 +517,14 @@ class ParamOffloadTrainer:
             if fresh:                  # a leaf no micro-batch reached
                 self._accum[i] = torch.zeros(self._shapes[i], dtype=torch.float32)
             grads.append(self._accum[i].div_(gas))
-        sq = sum(float(torch.dot(g.view(-1), g.view(-1))) for g in grads)
-        norm = float(np.sqrt(sq))
+        sq = [float(torch.dot(g.view(-1), g.view(-1))) for g in grads]
+        if self._tensor_leaves:        # a tensor block's squares, summed
+            red = comm.all_reduce(torch.tensor(
+                [sq[i] for i in self._tensor_leaves], dtype=torch.float64,
+                device=self.device), "tensor").tolist()
+            for i, v in zip(self._tensor_leaves, red):
+                sq[i] = v
+        norm = float(np.sqrt(sum(sq)))
         clip = self.config.gradient_clipping
         if clip and clip > 0 and norm > clip:
             scale = clip / norm
@@ -432,14 +535,25 @@ class ParamOffloadTrainer:
         t_opt = time.perf_counter()
         self.sync_store()
         t_end = time.perf_counter()
+        reduce = {"grads_reduce": self._reduce_s} if self._batch_axes else {}
         self.phase_seconds = {
             "stream_fwd_bwd": t_stream - t0 - self._d2h_s,
             "h2d_copy_device": h2d_s,
-            "grads_down": self._d2h_s,
+            **reduce,
+            "grads_down": self._d2h_s - self._reduce_s,
             "host_optimizer": t_opt - t_stream,
             "store_refresh": t_end - t_opt,
         }
         return loss, norm
+
+    def host_bytes(self) -> int:
+        """The host bytes of this rank's tier: the compute-dtype store (RAM
+        or files), the fp32 gradient accumulators (after a step) and the
+        host optimizer's state (RAM or files)."""
+        elem = torch.empty((), dtype=self.compute_dtype).element_size()
+        store = elem * sum(u.numel for _, u in self._units())
+        accum = sum(4 * a.numel() for a in self._accum if a is not None)
+        return store + accum + self.opt.state_bytes()
 
     # --- checkpoint interop ----------------------------------------------------
     @property

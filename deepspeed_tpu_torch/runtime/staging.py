@@ -6,7 +6,9 @@ slowly, and pinning tens of GB of optimizer state is not an option, so the
 copies go through a few fixed buffers of ``STAGING_ELEMS`` elements, one a
 dtype and direction, pinned when the device is a card and the tier's
 ``pin_memory`` is set. Each copy waits for itself before the buffer is used
-again: the buffers are never refilled while a copy still reads them.
+again: the buffers are never refilled while a copy still reads them. A
+process pins its own buffers: over ranks each rank has its ring, so two
+ranks on one card hold two (host RAM the smoke's tier phases plan for).
 """
 
 from typing import Dict, Tuple

@@ -486,6 +486,11 @@ def test_expert_axis_runs_at_stages_0_and_1():
 
 
 def test_offload_param_over_the_moe_stack_refused():
+    """The MoE block stack streams where the reference's
+    ``_MoEBlockStack`` does (``MixtralBlock``;
+    ``tests/test_torch_offload_ranks.py`` holds it against JAX); a model of
+    other blocks, Qwen2-MoE's, is refused by name, as the reference's
+    stack fails on its params (ROADMAP Queue 3, divergence 49)."""
     from deepspeed_tpu_torch.config.config import DeepSpeedTPUConfig
     from deepspeed_tpu_torch.runtime.param_offload import \
         validate_param_offload
@@ -493,10 +498,11 @@ def test_offload_param_over_the_moe_stack_refused():
         "offload_param": {"device": "cpu"}}})
     model = tmix.MixtralForCausalLM(_fp32(tmix.TINY_MIXTRAL, torch.float32),
                                     device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 4: MoE .the MoE block "
-                             "stack under offload_param"):
-        validate_param_offload(cfg, model)
+    validate_param_offload(cfg, model)
+    qwen = tqwen.Qwen2MoEForCausalLM(tqwen.TINY_QWEN2_MOE, device="cpu")
+    with pytest.raises(ValueError, match="Qwen2MoEForCausalLM's blocks are "
+                                         "Qwen2MoEBlock"):
+        validate_param_offload(cfg, qwen)
 
 
 def test_tensor_parallel_rules_wait_for_item_2():

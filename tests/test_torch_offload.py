@@ -545,3 +545,27 @@ def test_offload_matches_in_hbm_on_card():
         l2, m2 = run({"offload_optimizer": {"device": "nvme", "nvme_path": d}})
     assert l2 == l1
     assert all(torch.equal(a, b) for a, b in zip(m2, m1))
+
+
+@pytest.mark.gpu
+def test_offload_ranks_match_one_rank_on_card(tmp_path):
+    """The smoke's ``train_offload_ranks`` at TINY width on the card: two
+    gloo ranks, the optimizer tier at ZeRO stage 2 over fsdp=2 against
+    the one-rank tier from the same seeded weights and global batch
+    (``chip_smoke.tier_ranks_body`` in fp32 on the plain attention
+    backend), within the one-rank tier's summation-order tolerance; with
+    the parameter tier over data=2 and tensor=2 beside it, each rank's
+    host bytes its block's and every op's bytes exact
+    (``chip_smoke.check_tier_ranks``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels; no CPU mode)")
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    from torch_offload_ranks import run_smoke_tier_ranks
+    rows, res = run_smoke_tier_ranks(tmp_path, "cuda")
+    gaps = res["gaps"]["offload_fsdp2"]
+    assert gaps["masters_share"] <= gaps["tolerance"]["masters_share"]
+    run = rows[0]["runs"]["offload_fsdp2"]
+    assert 0.45 < run["host_numel"] / rows[0]["params"] < 0.55
+

@@ -10,7 +10,8 @@ a 4-layer ``TINY``-width Llama in float32, ``device="cpu"``:
   and gas 1; NVMe with Twin-Flow (the ratio's groups in files, bit for bit
   the CPU store's result); tied embeddings, a gradient clip and a sliding
   window match dense; the bf16 loss falls; the JAX package's refusals,
-  text included, and the MoE block stack's "not ported"; the micro-step
+  text included, and an MoE model of other blocks than MixtralBlock
+  refused by name (the reference's stack builds MixtralBlock); the micro-step
   calls raise; the reported lr is the applied step's; the optimizer's
   state round trip resumes a run bit for bit;
 - the cross-check: the same flax weights and batches through the JAX
@@ -18,8 +19,9 @@ a 4-layer ``TINY``-width Llama in float32, ``device="cpu"``:
   a 3-layer TINY Llama with ``layers_per_group`` 1 and 2: loss, gradient
   norm and lr within rtol 1e-4, final masters within atol 1e-5.
 
-The mesh, tensor-parallel, Mixtral, Gemma-flavour, HF-checkpoint and ZeRO-3
-interchange cases wait for their ROADMAP Queue 1 items.
+The mesh, tensor-parallel and Mixtral cases are
+``tests/test_torch_offload_ranks.py``'s; the Gemma-flavour, HF-checkpoint
+and ZeRO-3 interchange cases wait for their ROADMAP Queue 1 items.
 ``test_param_offload_matches_optimizer_tier_on_card`` (marked ``gpu``)
 holds the stream against the optimizer tier on the card, where a missing
 wait between the copy and compute streams would show.
@@ -192,7 +194,9 @@ def test_param_offload_unsupported_configs_raise():
 
     class MoE(torch.nn.Module):            # a Mixtral-style config
         cfg = type("MixtralConfig", (), {"base": tiny_cfg(), "moe": object()})()
-    with pytest.raises(NotImplementedError, match="MoE"):
+    # the stack streams MixtralBlock only (the reference's _MoEBlockStack):
+    # an MoE model of other blocks raises, naming the model
+    with pytest.raises(ValueError, match="MixtralBlock only; MoE's blocks"):
         validate_param_offload(config, MoE())
 
 

@@ -674,8 +674,9 @@ def test_indivisible_kv_heads_raise_where_jax_replicates():
 
 def test_tp_shard_and_parallel_layers_at_one_rank():
     """``tp_shard`` cuts by the rules (a flat dict, a nested tree, numpy
-    leaves), refuses an indivisible dim; at ``tensor`` = 1 the layers and
-    the model call no collective."""
+    leaves), passes a dim the axis does not divide through whole with a
+    warning, as the JAX spec builder replicates it (ROADMAP Queue 3, fault
+    B); at ``tensor`` = 1 the layers and the model call no collective."""
     from deepspeed_tpu_torch.models.convert import tp_shard
     full = {"a/wq/kernel": torch.arange(24.).reshape(2, 4, 3),
             "b": {"embed": {"embedding": np.arange(8.).reshape(4, 2)}}}
@@ -684,8 +685,12 @@ def test_tp_shard_and_parallel_layers_at_one_rank():
                                   full["a/wq/kernel"][:, 2:])
     np.testing.assert_array_equal(out["b"]["embed"]["embedding"],
                                   full["b"]["embed"]["embedding"][2:])
-    with pytest.raises(ValueError, match="not divisible by tensor=3"):
-        tp_shard(full, tllama.llama_tensor_rules, 0, 3)
+    with pytest.warns(UserWarning, match="not divisible by tensor=3; "
+                                         "replicating that dim"):
+        whole = tp_shard(full, tllama.llama_tensor_rules, 0, 3)
+    assert whole["a/wq/kernel"] is full["a/wq/kernel"]
+    assert whole["b"]["embed"]["embedding"] is \
+        full["b"]["embed"]["embedding"]
     up = tmi.ColumnParallelLinear(4, 8, device="cpu")
     x = torch.ones(2, 4)
     torch.testing.assert_close(up(x), x @ up.col_kernel + up.col_bias)

@@ -20,8 +20,8 @@
 - What each rank holds: under stage 3 half of every sharded leaf and of
   its moments, under stages 1-2 the full masters and half the moments.
 - The refusals: every option the slice leaves out raises
-  ``NotImplementedError`` naming its ROADMAP item, the memory tiers over
-  two ranks included.
+  ``NotImplementedError`` naming its ROADMAP item, the memory tiers with
+  the ``expert`` axis, a ``sequence`` axis or MiCS included.
 """
 
 import json
@@ -266,9 +266,14 @@ def test_what_each_rank_holds(spawned, flax_params):
 
 
 def test_memory_tiers_refused_over_ranks(spawned):
+    """The tiers run over data, fsdp and tensor ranks
+    (``tests/test_torch_offload_ranks.py``); with the ``expert`` axis, a
+    ``sequence`` axis or MiCS they still refuse, naming their item."""
     refusals = spawned[2][0][0]["refusals"]
-    for tier in ("offload_optimizer", "offload_param"):
-        assert "Queue 1 item 2" in refusals[tier], refusals
+    for name, item in (("expert", "Queue 1 item 4"),
+                       ("sequence", "Queue 1 item 3"),
+                       ("mics", "Queue 1 item 2")):
+        assert item in refusals[name], refusals
 
 
 REFUSED = [

@@ -197,21 +197,34 @@ def zero_body():
         json.dump({"cases": summary, "refusals": _tier_refusals()}, f)
 
 
+# the memory tiers over ranks' combinations left out: (mesh, zero group)
+TIER_REFUSALS = {
+    "expert": ({"expert": 2, "data": -1},
+               {"offload_optimizer": {"device": "cpu"}}),
+    "sequence": ({"sequence": 2, "data": -1},
+                 {"offload_param": {"device": "cpu"}}),
+    "mics": ({"fsdp": 2, "data": -1},
+             {"stage": 3, "mics_shard_size": 2,
+              "offload_optimizer": {"device": "cpu"}}),
+}
+
+
 def _tier_refusals() -> dict:
-    """What the memory tiers answer over more than one rank."""
+    """What the memory tiers answer over more than one rank where they are
+    not ported: with the ``expert`` axis, a ``sequence`` axis, MiCS."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import llama as tllama
     out = {}
-    for tier in ("offload_optimizer", "offload_param"):
-        cfg = zero_config(0, {}, rows=4)
-        cfg["zero_optimization"][tier] = {"device": "cpu"}
+    for name, (mesh, zero) in TIER_REFUSALS.items():
+        cfg = zero_config(0, mesh, rows=4)
+        cfg["zero_optimization"].update(zero)
         try:
             deepspeed_tpu_torch.initialize(
                 model=tllama.LlamaForCausalLM(tiny_fp32(), device="cpu"),
                 config=cfg, device="cpu")
-            out[tier] = "accepted"
+            out[name] = "accepted"
         except NotImplementedError as e:
-            out[tier] = str(e)
+            out[name] = str(e)
     return out
 
 

@@ -245,3 +245,73 @@ def tp_body():
     np.savez(_out(f"tp{r}.npz"), **arrays)
     with open(_out(f"tp{r}.json"), "w") as f:
         json.dump(meta, f)
+
+
+# ---------------------------------------------------------------------------
+# dimensions the tensor axis does not divide (ROADMAP Queue 3, fault B)
+# ---------------------------------------------------------------------------
+# tag -> the TINY_LLAMA fields changed: an odd vocabulary (the embedding
+# and the head whole on each rank), an odd intermediate (the MLP whole)
+INDIVISIBLE = {"vocab513": {"vocab_size": 513},
+               "inter255": {"intermediate_size": 255}}
+
+
+def indivisible_cfg(tag):
+    return dataclasses.replace(tiny_llama(), **INDIVISIBLE[tag])
+
+
+def indivisible_batch(vocab):
+    """Seeded ids whose first row holds the vocabulary's edges and its
+    last id (the one a block of 256 would leave out)."""
+    from deepspeed_tpu_torch.models.llama import random_tokens
+    batch = random_tokens(2, SEQ, vocab_size=vocab, seed=11)
+    batch["input_ids"][0, :4] = [0, 255, 256, vocab - 1]
+    return batch
+
+
+def indivisible_body():
+    """At ``tensor=2`` over two ranks, each INDIVISIBLE config on the flax
+    tree ``params_{tag}.npz``: ``init_inference``'s whole logits (and the
+    warnings of the cut), then STEPS ``train_batch`` steps at stage 0
+    (losses, norms, rank 0's masters); ``indiv{r}.json`` / ``.npz``."""
+    import warnings
+    import torch.distributed as dist
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    r = dist.get_rank()
+    mesh = base._mesh(tensor=2, data=1)
+    arrays, meta = {}, {"rank": r}
+    for tag in INDIVISIBLE:
+        cfg = indivisible_cfg(tag)
+        params = base._unflatten(dict(np.load(_out(f"params_{tag}.npz"))))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng = deepspeed_tpu_torch.init_inference(
+                LlamaForCausalLM(cfg, device="cpu"),
+                config={"dtype": "fp32", "tensor_parallel": {"tp_size": 2}},
+                params=params, mesh=mesh, device="cpu")
+        arrays[f"{tag}/logits"] = eng.forward(
+            indivisible_batch(cfg.vocab_size)).numpy()
+        shapes = {n: list(p.shape) for n, p in eng.module.named_parameters()}
+        del eng
+        m = LlamaForCausalLM(cfg, device="cpu")
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=m, config=base.zero_config(0, {"tensor": 2, "data": 1},
+                                             False, ROWS),
+            model_parameters=params, device="cpu")
+        losses, norms = [], []
+        for batch in base.zero_batches(ROWS, STEPS):
+            losses.append(float(eng.train_batch(batch=batch, stacked=True)))
+            norms.append(eng.get_global_grad_norm())
+        meta[tag] = {"warnings": sorted({str(w.message) for w in caught
+                                         if "not divisible" in
+                                         str(w.message)}),
+                     "shapes": shapes, "losses": losses, "norms": norms,
+                     "tensor_dims": eng._tensor_dim}
+        masters = eng.named_masters()      # every rank: it gathers
+        if r == 0:
+            arrays.update({f"{tag}/masters/{n}": p.detach().numpy().copy()
+                           for n, p in masters})
+    np.savez(_out(f"indiv{r}.npz"), **arrays)
+    with open(_out(f"indiv{r}.json"), "w") as f:
+        json.dump(meta, f)
