@@ -56,6 +56,19 @@ call, bit for bit) and times both, then drives the port's paths:
   and with the plain attention backend, and the same lr with qgZ
   (``zero_quantized_gradients``): exact int8 launches per step, a loss that
   falls every step, the step-1 gradient norm beside the probe's;
+- the training carry-overs: the recipe through DeepSpeed's loop
+  (``engine(micro)`` / ``backward`` / ``step``, ``train_micro_steps``) and
+  with the async pipeline (``sync_every`` 4, the staged prefetch, batches
+  from ``initialize(training_data=)``'s loader through ``RepeatingLoader``,
+  ``train_async``), each on ``train``'s batch from the same seeded weights:
+  losses and masters ``train``'s bit for bit, exact flash launches, the
+  boundaries, the ring's transfers and drained steps, the staged batches
+  waited on, dispatch against reconciled step time and the idle share of a
+  profiled step; then LAMB, Lion, Adagrad, SGD (Nesterov) and RMSprop at
+  Llama-3-8B width x 1 layer (``train_optimizers``): two steps each, the
+  card's step-2 update of the embedding, an MLP kernel and the final norm
+  against the same optimizer on the CPU from the same state and gradients,
+  state bytes and step ms;
 - distribution: the recipe at ZeRO stages 1, 2 and 3 on one rank over NCCL
   (``init_distributed``), bit for bit with stage 0; then two processes on
   the card over gloo (spawned by ``testing.run_distributed``): stage 3 and
@@ -4985,7 +4998,7 @@ def phase_train(dev, smi_line):
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(all(s == want for s in per_step),
           f"flash launches per step {per_step}, expected {want}")
-    return engine, batch, launches, losses
+    return engine, batch, launches, losses, mean_ms
 
 
 def _profiled_step(engine, batch):
@@ -5021,6 +5034,7 @@ def phase_train_profile(engine, batch, dev, smi_line):
           "top_device": _top(events, cuda, "self_device_time_total"),
           "top_host": _top(events, cpu, "self_cpu_time_total")})
     check(kernels, "the profiler saw no kernel on the card")
+    return 1.0 - busy_ms / window_ms
 
 
 def phase_train_probe(batch, recipe_losses, dev, smi_line):
@@ -5054,6 +5068,348 @@ def phase_train_probe(batch, recipe_losses, dev, smi_line):
     check(all(b < a for a, b in zip(low, low[1:])),
           f"loss at lr {LOW_LR} did not fall at every step: {low}")
     return norms["flash_lr_3e-5"][0]
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the training carry-overs (the micro-step protocol, the async
+# step pipeline with the loader, the optimizers other than Adam)
+# ---------------------------------------------------------------------------
+ASYNC_SYNC_EVERY = 4               # train_async's drain cadence
+OPT_LAYERS = 1                     # train_optimizers' depth, Llama-3-8B width
+OPT_STEPS = 2                      # train_batch steps of each optimizer
+# each optimizer at an lr of its own kind; the three leaves whose step-2
+# update the CPU repeats: the embedding, an MLP kernel, a norm scale
+OPTIMIZERS = {
+    "lamb": {"type": "lamb", "params": {"lr": 3e-4, "weight_decay": 0.1}},
+    "lion": {"type": "lion", "params": {"lr": 3e-5, "weight_decay": 0.1}},
+    "adagrad": {"type": "adagrad", "params": {"lr": 3e-3}},
+    "sgd": {"type": "sgd", "params": {"lr": 3e-3, "momentum": 0.9,
+                                      "nesterov": True}},
+    "rmsprop": {"type": "rmsprop", "params": {"lr": 3e-5, "momentum": 0.9}},
+}
+OPT_LEAVES = ("model.embed.embedding", "model.layer_0.mlp.w_down.kernel",
+              "model.final_norm.scale")
+# card vs CPU, the same fp32 step: each element within OPT_ULPS ulps of its
+# value (the card's elementwise kernels fuse a multiply-add the CPU rounds
+# twice, and its rsqrt is within 2 ulps) plus OPT_UPDATE_REL of the leaf's
+# largest update (LAMB's norms are sums in another order)
+OPT_ULPS, OPT_UPDATE_REL = 2, 1e-5
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def host_masters(engine) -> dict:
+    """Every fp32 master of a one-rank engine copied to the host, by name:
+    the reference the micro-step and async runs are held against."""
+    return {n: _host_copy(p) for n, p in engine.named_masters()}
+
+
+def masters_vs(engine, ref) -> dict:
+    """``engine``'s masters against ``ref`` (host copies), leaf by leaf on
+    the card: bit for bit, and the largest distance and the share of
+    elements apart where they are not."""
+    apart = total = 0
+    worst = 0.0
+    for n, p in engine.named_masters():
+        want = ref[n].to(p.device)
+        d = (p.detach() - want).abs()
+        apart += int((d > 0).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+        del want, d
+    return {"bitwise": apart == 0, "max_abs": worst,
+            "share_apart": apart / max(total, 1)}
+
+
+def phase_train_micro_steps(batch, ref, dev, smi_line):
+    """The recipe through DeepSpeed's loop, ``engine(micro)`` /
+    ``engine.backward(loss)`` / ``engine.step()`` a micro-batch at a time,
+    1 + TRAIN_STEPS steps on ``train``'s batch from the same seeded
+    weights: each step's mean micro-batch loss and the final masters
+    ``train``'s bit for bit (one rank: the same kernels, the same bf16
+    fold and the same division), the boundary after each second
+    ``backward``, and ``train``'s flash launches a step."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import build
+    cfg, ds_config = train_config()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=LlamaForCausalLM(cfg, device="cuda", seed=SEED),
+        config=ds_config)
+    micros = [{"input_ids": batch["input_ids"][i]} for i in range(TRAIN_GAS)]
+    torch.cuda.synchronize()
+    build.reset_launch_counts()        # the main path's run starts here
+    losses, step_ms, per_step, boundaries = [], [], [], []
+    for _ in range(1 + TRAIN_STEPS):
+        before = build.launch_counts()
+        t0 = time.monotonic()
+        loss_sum = torch.zeros((), device=engine.device)
+        for m in micros:
+            loss = engine(m)
+            engine.backward(loss)
+            boundaries.append(engine.is_gradient_accumulation_boundary())
+            engine.step()
+            loss_sum += loss
+        losses.append((loss_sum / TRAIN_GAS).item())   # ends the step
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        after = build.launch_counts()
+        per_step.append({n: after.get(n, 0) - before.get(n, 0)
+                         for n in FLASH_PER_STEP})
+    launches = build.launch_counts()
+    cmp = masters_vs(engine, ref["masters"])
+    want = {n: k * TRAIN_LAYERS * TRAIN_GAS for n, k in FLASH_PER_STEP.items()}
+    timed = step_ms[1:]
+    emit({"phase": "train_micro_steps", "model": f"LLAMA3_8B width, "
+          f"{TRAIN_LAYERS} layers, bf16, remat, flash, seq {TRAIN_SEQ}, gas "
+          f"{TRAIN_GAS}: engine(micro) / backward / step",
+          "losses": losses, "train_losses": ref["losses"],
+          "masters_vs_train": cmp, "boundaries": boundaries,
+          "global_steps": engine.global_steps, "step_ms": step_ms,
+          "step_ms_mean": sum(timed) / len(timed),
+          "train_step_ms_mean": ref["step_ms_mean"],
+          "launches_per_step": per_step, "launches": launches,
+          "tolerance": "bit for bit", "card": dev["kind"],
+          "nvidia_smi": smi_line})
+    check(losses == ref["losses"],
+          f"micro-step losses {losses} != train_batch's {ref['losses']}")
+    check(cmp["bitwise"], f"micro-step masters apart from train_batch's: "
+          f"{cmp}")
+    check(boundaries == [False, True] * (1 + TRAIN_STEPS),
+          f"accumulation boundaries {boundaries}")
+    check(engine.global_steps == 1 + TRAIN_STEPS,
+          f"global_steps {engine.global_steps}")
+    check(all(s == want for s in per_step),
+          f"flash launches per step {per_step}, expected {want}")
+    del engine
+    _release()
+    return launches
+
+
+def _profile_window(fn):
+    """``fn`` once under torch.profiler, ending in a synchronize: the host
+    ms of the window, the CUDA events, their busy ms."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.monotonic() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return window_ms, kernels, busy_ms
+
+
+def phase_train_async(batch, ref, dev, smi_line):
+    """The recipe with ``async_pipeline`` {sync_every ASYNC_SYNC_EVERY,
+    prefetch}: ``train``'s micro-batches as a dataset through
+    ``initialize(training_data=)``'s loader and ``RepeatingLoader``, 1 +
+    TRAIN_STEPS ``train_batch(data_iter=)`` calls and ``flush_metrics()``:
+    the losses and masters ``train``'s bit for bit, exactly
+    ceil(steps / sync_every) transfers, the drained entries steps 1..N in
+    order, every staged batch waited on by the compute stream; the
+    dispatch and reconciled ms a step, and one step + drain under the
+    profiler for the card's idle share."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+    from deepspeed_tpu_torch.utils.timer import (TRAIN_BATCH_DISPATCH_TIMER,
+                                                 TRAIN_BATCH_TIMER)
+    cfg, ds_config = train_config()
+    ds_config["async_pipeline"] = {"enabled": True,
+                                   "sync_every": ASYNC_SYNC_EVERY,
+                                   "prefetch": True}
+    dataset = [{"input_ids": batch["input_ids"][i][0]}
+               for i in range(TRAIN_GAS)]
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+        model=LlamaForCausalLM(cfg, device="cuda", seed=SEED),
+        config=ds_config, training_data=dataset)
+    it = RepeatingLoader(loader)
+    steps = 1 + TRAIN_STEPS
+    torch.cuda.synchronize()
+    build.reset_launch_counts()        # the main path's run starts here
+    t0 = time.monotonic()
+    out = [engine.train_batch(data_iter=it) for _ in range(steps)]
+    t_dispatched = time.monotonic()
+    engine.flush_metrics()
+    t_end = time.monotonic()
+    launches = build.launch_counts()
+    transfers = engine._sched.transfers
+    waits = engine.staged_waits
+    drained = engine.take_drained_metrics()
+    losses = [x.item() for x in out]
+    cmp = masters_vs(engine, ref["masters"])
+    dispatch = list(engine.timers(TRAIN_BATCH_DISPATCH_TIMER)._records)
+    reconciled = list(engine.timers(TRAIN_BATCH_TIMER)._records)
+    window_ms, kernels, busy_ms = _profile_window(
+        lambda: (engine.train_batch(data_iter=it), engine.flush_metrics()))
+    engine._staged.close()
+    want = {n: k * TRAIN_LAYERS * TRAIN_GAS * steps
+            for n, k in FLASH_PER_STEP.items()}
+    emit({"phase": "train_async", "model": f"LLAMA3_8B width, "
+          f"{TRAIN_LAYERS} layers, bf16, remat, flash, seq {TRAIN_SEQ}, gas "
+          f"{TRAIN_GAS}: async_pipeline sync_every {ASYNC_SYNC_EVERY}, "
+          "prefetch, initialize(training_data=) + RepeatingLoader",
+          "losses": losses, "train_losses": ref["losses"],
+          "masters_vs_train": cmp, "transfers": transfers,
+          "drained_steps": [e["step"] for e in drained],
+          "staged_waits": waits,
+          "dispatch_ms": [x * 1e3 for x in dispatch],
+          "reconciled_step_ms": [x * 1e3 for x in reconciled],
+          "run_ms": (t_end - t0) * 1e3,
+          "dispatch_window_ms": (t_dispatched - t0) * 1e3,
+          "train_step_ms_mean": ref["step_ms_mean"],
+          "profiled_window_ms": window_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": 1.0 - busy_ms / window_ms,
+          "train_profile_idle_share": ref.get("idle_share"),
+          "launches": launches, "tolerance": "bit for bit",
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    check(losses == ref["losses"],
+          f"async losses {losses} != train_batch's {ref['losses']}")
+    check(cmp["bitwise"], f"async masters apart from train_batch's: {cmp}")
+    check(transfers == -(-steps // ASYNC_SYNC_EVERY),
+          f"{transfers} transfers for {steps} steps at sync_every "
+          f"{ASYNC_SYNC_EVERY}")
+    check([e["step"] for e in drained] == list(range(1, steps + 1)),
+          f"drained steps {[e['step'] for e in drained]}")
+    check(waits == steps, f"{waits} staged batches waited on, {steps} steps")
+    check({n: launches.get(n, 0) for n in FLASH_PER_STEP} == want,
+          f"flash launches {launches}, expected {want}")
+    check(kernels, "the profiler saw no kernel on the card")
+    del engine, out
+    _release()
+    return launches
+
+
+def _pinned_copy(t: torch.Tensor, pool: dict, key) -> torch.Tensor:
+    """``t`` copied into the pinned host buffer ``pool[key]`` (made, or
+    made again, for its shape), without waiting: the caller synchronizes.
+    The pool is reused from one optimizer to the next."""
+    buf = pool.get(key)
+    if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+        buf = pool[key] = torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True)
+    buf.copy_(t.detach(), non_blocking=True)
+    return buf
+
+
+class _StepCapture:
+    """Wraps an engine optimizer's ``step``: at the update whose count is
+    ``at``, copies each named leaf's parameter, gradient and state to the
+    host (``pool``'s pinned buffers) before the step and keeps the
+    parameter after it (``after``); ``seconds`` is the time the copies
+    took, out of that step's time."""
+
+    def __init__(self, engine, names, at, pool):
+        opt = engine.optimizer
+        idx = [engine._param_names.index(n) for n in names]
+        real = opt.step
+        self.after, self.seconds = [], 0.0
+
+        def step(params, grads):
+            if opt.count != at:
+                return real(params, grads)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            self.count = opt.count
+            self.params = [_pinned_copy(params[i], pool, ("p", k))
+                           for k, i in enumerate(idx)]
+            self.grads = [_pinned_copy(grads[i], pool, ("g", k))
+                          for k, i in enumerate(idx)]
+            self.state = {name: [_pinned_copy(getattr(opt, name)[i], pool,
+                                              ("s", j, k))
+                                 for k, i in enumerate(idx)]
+                          for j, name in enumerate(opt.STATE)}
+            torch.cuda.synchronize()
+            self.seconds = time.monotonic() - t0
+            real(params, grads)
+            self.after = [params[i].detach() for i in idx]
+
+        opt.step = step
+
+
+def _cpu_step_apart(cap, opt_cfg, lr_schedule, pool) -> dict:
+    """The captured step repeated by the port's optimizer on the CPU: per
+    leaf, the card's new values against the CPU's, in ulps of the value
+    plus OPT_UPDATE_REL of the leaf's largest update (<= 1 passes)."""
+    from deepspeed_tpu_torch.ops.optimizers import build_optimizer
+    opt = build_optimizer(opt_cfg["type"], dict(opt_cfg["params"]),
+                          lr_schedule=lr_schedule)
+    params = [p.clone() for p in cap.params]
+    opt.init(params)
+    opt.load_state_dict({"count": cap.count, **cap.state})
+    opt.step(params, [g.clone() for g in cap.grads])
+    rows = []
+    for k, (before, cpu, card) in enumerate(zip(cap.params, params,
+                                                cap.after)):
+        cpu_d = _pinned_copy(cpu, pool, ("r", k)).to(card.device,
+                                                      non_blocking=True)
+        before_d = before.to(card.device, non_blocking=True)
+        upd = float((cpu_d - before_d).abs().max())
+        mag = cpu_d.abs()
+        ulp = torch.nextafter(mag, torch.full_like(mag, math.inf)) - mag
+        apart = (card - cpu_d).abs()
+        ratio = apart / (OPT_ULPS * ulp + OPT_UPDATE_REL * upd)
+        rows.append({"numel": card.numel(), "max_abs": float(apart.max()),
+                     "max_update": upd, "worst": float(ratio.max()),
+                     "share_apart": float((apart > 0).float().mean())})
+        del cpu_d, before_d, mag, ulp, apart, ratio
+    return dict(zip(OPT_LEAVES, rows))
+
+
+def phase_train_optimizers(batch, dev, smi_line):
+    """Each optimizer of OPTIMIZERS through ``initialize()`` at
+    Llama-3-8B's width cut to OPT_LAYERS layer, OPT_STEPS ``train_batch``
+    steps of the recipe: the card's step-2 update of OPT_LEAVES against
+    the port's same optimizer on the CPU from the same masters, state and
+    step gradients (copied to the host), each optimizer's state bytes and
+    step ms (step 2's without the capture's copies)."""
+    import dataclasses
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    rows, pool = {}, {}
+    for name, opt_cfg in OPTIMIZERS.items():
+        cfg, ds_config = train_config()
+        cfg = dataclasses.replace(cfg, num_layers=OPT_LAYERS)
+        ds_config = dict(ds_config, optimizer=opt_cfg)
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=LlamaForCausalLM(cfg, device="cuda", seed=SEED),
+            config=ds_config)
+        cap = _StepCapture(engine, OPT_LEAVES, OPT_STEPS - 1, pool)
+        step_ms, losses = [], []
+        for _ in range(OPT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            losses.append(engine.train_batch(batch=batch).item())
+            step_ms.append((time.monotonic() - t0) * 1e3)
+        step_ms[-1] -= cap.seconds * 1e3          # the capture's copies
+        apart = _cpu_step_apart(cap, opt_cfg, engine.lr_schedule, pool)
+        rows[name] = {"class": type(engine.optimizer).__name__,
+                      "state_bytes": engine.optimizer.state_bytes(),
+                      "params": sum(p.numel() for p in engine._masters),
+                      "step_ms": step_ms, "capture_s": cap.seconds,
+                      "losses": losses, "card_vs_cpu": apart}
+        del engine, cap
+        _release()
+    del pool
+    _release()
+    emit({"phase": "train_optimizers", "model": f"LLAMA3_8B width, "
+          f"{OPT_LAYERS} layer, bf16, remat, flash, seq {TRAIN_SEQ}, gas "
+          f"{TRAIN_GAS}", "optimizers": rows,
+          "tolerance": f"fp32: per element {OPT_ULPS} ulps of the value + "
+          f"{OPT_UPDATE_REL} of the leaf's largest update",
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    for name, row in rows.items():
+        check(all(math.isfinite(x) for x in row["losses"]),
+              f"{name}: non-finite loss {row['losses']}")
+        for leaf, r in row["card_vs_cpu"].items():
+            check(r["worst"] <= 1.0 and r["max_update"] > 0,
+                  f"{name}: {leaf}'s step-2 update on the card vs the "
+                  f"CPU: {r}")
 
 
 # ---------------------------------------------------------------------------
@@ -8209,11 +8565,11 @@ HOST_SOURCES = ("cpu_adam", "aio")  # g++ builds them beside the CUDA sources
 PARITY_STEPS = 2                   # train_batch steps of each parity engine
 # the parity engines' depth and the parameter tier's group there: cut from
 # TRAIN_LAYERS (4, groups of 2) to 3 layers in groups of 2 beside the
-# tensor-parallel phases, to 2 layers in one group of 2 beside the tiers
-# over ranks for the smoke's time limit (width is never cut; one group
-# holds two layers; train_param_offload_ranks and train_param_offload_moe
-# cross group boundaries)
-PARITY_LAYERS, PARITY_GROUP = 2, 2
+# tensor-parallel phases, to 2 layers beside the tiers over ranks for the
+# smoke's time limit (width is never cut); a layer a group, so the
+# parity holds the stream across a group boundary (the next group's
+# prefetch, each group's seeded backward)
+PARITY_LAYERS, PARITY_GROUP = 2, 1
 OFFLOAD_STEPS = 2                  # timed steps after 1 warm-up, optimizer tier
 PARAM_OFFLOAD_STEPS = 1            # the parameter tier's, cut for time
 HOST_MARGIN = 1.25                 # host RAM a tier may plan on: MemAvailable / this
@@ -8433,6 +8789,8 @@ def phase_train_offload_parity(batch, dev, smi_line):
         rows += _tier_steps(engine, batch, PARITY_STEPS - 1)
         runs[label] = {"losses": [r["loss"] for r in rows],
                        "step_ms": [r["step_ms"] for r in rows]}
+        if getattr(engine, "_param_offload", None) is not None:
+            runs[label]["groups"] = len(engine._param_offload._layer_groups)
         final = _host_masters(engine)
         _close(engine)
         del engine
@@ -8497,6 +8855,9 @@ def phase_train_offload_parity(batch, dev, smi_line):
           f"NVMe state files {files}, expected {n_leaves} of each")
     check(param_rel <= PARAM_LOSS_REL, f"parameter tier step-1 loss "
           f"{l_param[0]} vs {l_cpu[0]} ({param_rel} relative)")
+    check(runs["param"]["groups"] == PARITY_LAYERS // PARITY_GROUP,
+          f"parameter tier groups {runs['param']['groups']}, expected "
+          f"{PARITY_LAYERS // PARITY_GROUP}")
 
 
 def _tier_summary(rows, n_params, tier):
@@ -8639,7 +9000,8 @@ def phase_train_param_offload(batch, opt_peak, dev, smi_line):
 # the memory tiers over ranks: two gloo ranks on the one card
 # ---------------------------------------------------------------------------
 # Llama-3-8B width cut to 2 of 32 layers (1.49 B parameters): a micro-batch's
-# bf16 gradients (~3 GB) cross gloo's pinned host copies at ~0.5 GB/s
+# bf16 gradients (~3 GB) cross gloo's pinned host copies; a layer a group,
+# so the stream crosses a group boundary
 TIER_RANKS_LAYERS = 2
 TIER_RANKS_STEPS = 2               # train_batch steps of each two-rank run
 # one micro-batch a step (the recipe's 4 sequences over the ranks): each
@@ -9140,10 +9502,13 @@ ENTRY_NAMES = {n: f"{n}_kernel" for n in BIAS_ACT_KERNELS}
 # ranks (forwards only); train_tp_ranks: Llama-3-8B at fsdp 2 x tensor 2;
 # train_offload_ranks: the optimizer tier at ZeRO 2 over two fsdp ranks;
 # train_param_offload_ranks: the parameter tier over two data ranks and
-# over two tensor ranks; train_param_offload_moe: Mixtral-8x7B streamed)
+# over two tensor ranks; train_param_offload_moe: Mixtral-8x7B streamed;
+# train_micro_steps: the recipe through engine(micro) / backward / step;
+# train_async: the recipe with the async pipeline and the staged prefetch)
 KERNEL_PATHS = {"paged_attention": ("serve", "serve_http", "disagg", "fleet",
                                      "A1", "A2", "serve_moe"),
-                **{n: ("train", "train_offload", "train_param_offload",
+                **{n: ("train", "train_micro_steps", "train_async",
+                       "train_offload", "train_param_offload",
                        "train_zero", "train_zero_ranks", "train_qgz_ranks",
                        "train_zeropp_ranks", "train_moe", "train_moe_ranks",
                        "train_sp", "train_chunked_loss", "train_tp_ranks",
@@ -9176,6 +9541,31 @@ def zeropp_faults_main(dev, smi_line) -> int:
         phase_train_zeropp_ranks(dev, smi_line, tmp, faults=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    print(smi_line, flush=True)
+    return 0
+
+
+def carry_overs_main(dev, smi_line) -> int:
+    """``--carry-overs``: the flash library built, then ``train`` (the
+    reference), ``train_micro_steps``, ``train_async`` and
+    ``train_optimizers`` with their gates: this slice's phases alone. Not
+    the smoke: its last line is the card's."""
+    from deepspeed_tpu_torch.ops import build
+    build.build(["flash_attention"])
+    engine, batch, _, losses, train_ms = phase_train(dev, smi_line)
+    train_ref = {"losses": losses, "step_ms_mean": train_ms,
+                 "masters": host_masters(engine)}
+    train_ref["idle_share"] = phase_train_profile(engine, batch, dev,
+                                                  smi_line)
+    del engine
+    _release()
+    phase_train_micro_steps(batch, train_ref, dev, smi_line)
+    phase_train_async(batch, train_ref, dev, smi_line)
+    del train_ref
+    phase_train_optimizers(batch, dev, smi_line)
+    emit({"phase": "phase_seconds",
+          "seconds": {k: round(v, 1) for k, v in _PHASE_SECONDS.items()},
+          "total": round(time.monotonic() - _T0, 1)})
     print(smi_line, flush=True)
     return 0
 
@@ -9263,6 +9653,12 @@ def main(argv=()) -> int:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             return tp_faults_main(dev, smi_line)
+        if "--carry-overs" in argv:
+            phase = "train"
+            import deepspeed_tpu_torch  # noqa: F401
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            return carry_overs_main(dev, smi_line)
         if "--tier-ranks" in argv:
             phase = "tier_ranks"
             import deepspeed_tpu_torch  # noqa: F401
@@ -9335,12 +9731,25 @@ def main(argv=()) -> int:
         zi = phase_zero_inference(dev, smi_line)
         torch.cuda.reset_peak_memory_stats()
         phase = "train"
-        engine, batch, train_launches, losses = phase_train(dev, smi_line)
+        engine, batch, train_launches, losses, train_ms = phase_train(
+            dev, smi_line)
+        # what the micro-step and async runs must land on, before the
+        # profiled steps move the engine on
+        train_ref = {"losses": losses, "step_ms_mean": train_ms,
+                     "masters": host_masters(engine)}
         phase = "train_profile"
-        phase_train_profile(engine, batch, dev, smi_line)
+        train_ref["idle_share"] = phase_train_profile(engine, batch, dev,
+                                                      smi_line)
         del engine                       # free the recipe's 40 GB
-        gc.collect()
-        torch.cuda.empty_cache()
+        _release()
+        phase = "train_micro_steps"
+        micro_launches = phase_train_micro_steps(batch, train_ref, dev,
+                                                 smi_line)
+        phase = "train_async"
+        async_launches = phase_train_async(batch, train_ref, dev, smi_line)
+        del train_ref
+        phase = "train_optimizers"
+        phase_train_optimizers(batch, dev, smi_line)
         phase = "train_probe"
         plain_norm1 = phase_train_probe(batch, losses, dev, smi_line)
         phase = "train_qgz"
@@ -9398,6 +9807,8 @@ def main(argv=()) -> int:
         path_counts = {"serve": st["launches"], "serve_http": serve_launches,
                        "disagg": disagg_launches, "fleet": fleet_launches,
                        "train": train_launches,
+                       "train_micro_steps": micro_launches,
+                       "train_async": async_launches,
                        "train_offload": offload_launches,
                        "train_param_offload": param_launches,
                        "train_offload_ranks": offload_ranks_launches,

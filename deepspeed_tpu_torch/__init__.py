@@ -56,6 +56,16 @@ Ported so far:
   CPU: ``python -m pytest tests/test_torch_moe.py
   tests/test_torch_moe_dist.py``; on the card, ``chip_smoke.py``'s
   ``serve_moe``, ``train_moe`` and ``train_moe_ranks`` phases;
+- the training carry-overs — ``forward`` / ``backward`` / ``step`` on
+  the engine (DeepSpeed's ``loss = engine(batch); engine.backward(loss);
+  engine.step()``), the optimizers other than Adam (``ops/optimizers.py``:
+  LAMB, Lion, Adagrad, SGD, RMSprop), ``initialize(training_data=)``'s
+  loader (``runtime/dataloader.py``) and the ``async_pipeline`` group
+  (``runtime/sched.py``'s ring, the staged prefetch, ``flush_metrics``).
+  On the CPU: ``python -m pytest tests/test_torch_micro_steps.py
+  tests/test_torch_optimizers.py tests/test_torch_async_pipeline.py``; on
+  the card, ``chip_smoke.py``'s ``train_micro_steps``, ``train_async`` and
+  ``train_optimizers`` phases;
 - tensor parallelism — ``module_inject/`` (the parallel layers and their
   collectives, AutoTP's policies, the fused-QKV splitters), the Megatron
   rules and layout of ``models/llama.py`` (and the MoE models'), the
@@ -134,10 +144,15 @@ def add_config_arguments(parser):
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, config: Any = None,
                config_params: Any = None, loss_fn: Optional[Callable] = None,
-               device=None, mesh=None, tensor_rules: Optional[Callable] = None):
+               device=None, mesh=None, tensor_rules: Optional[Callable] = None,
+               collate_fn: Optional[Callable] = None):
     """Build the training engine (reference ``deepspeed.initialize``;
-    ``deepspeed_tpu/__init__.py:28``). Returns ``(engine, optimizer, None,
-    lr_schedule)`` for a non-pipeline model.
+    ``deepspeed_tpu/__init__.py:28``). Returns ``(engine, optimizer,
+    dataloader, lr_schedule)`` for a non-pipeline model; ``dataloader`` is
+    None unless ``training_data`` (an indexable dataset of samples) is
+    given, then a ``runtime.dataloader.DeepSpeedTPUDataLoader`` of global
+    micro-batches (``micro_batch_size * dp_world_size`` samples, stacked by
+    ``collate_fn`` or numpy), the same on every rank.
 
     ``model`` is an ``nn.Module`` whose ``forward(batch, compute_dtype=)``
     returns the loss (``models.llama.LlamaForCausalLM``);
@@ -161,10 +176,6 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         config = config_params
     if config is None and args is not None:
         config = getattr(args, "deepspeed_config", None)
-    if training_data is not None:
-        raise NotImplementedError(
-            "training_data (the data loader) is not ported yet (ROADMAP "
-            "Queue 1 item 5); pass batches to train_batch()")
     if model is None:
         raise ValueError("initialize needs a model (an nn.Module)")
     ds_config = config if isinstance(config, DeepSpeedTPUConfig) \
@@ -174,4 +185,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         lr_scheduler=lr_scheduler if callable(lr_scheduler) else None,
         client_optimizer=optimizer, device=device, mesh=mesh,
         tensor_rules=tensor_rules)
-    return engine, engine.optimizer, None, engine.lr_schedule
+    dataloader = None
+    if training_data is not None:
+        from deepspeed_tpu_torch.runtime.dataloader import (
+            DeepSpeedTPUDataLoader)
+        # every rank loads the global batch; the engine keeps its rows
+        dataloader = DeepSpeedTPUDataLoader(
+            training_data,
+            batch_size=engine.micro_batch_size * engine.dp_world_size,
+            collate_fn=collate_fn)
+    return engine, engine.optimizer, dataloader, engine.lr_schedule

@@ -23,7 +23,11 @@ with only the tracer on, a ``comm/<op>`` instant of its analytic bytes.
 them only for ``all_reduce`` and ``broadcast``. For gloo's other ops a
 CUDA tensor goes through a pinned host copy and back. This is the caller's
 choice of backend (two ranks on one card, where NCCL refuses a second
-rank), never a fallback from a failed NCCL start.
+rank), never a fallback from a failed NCCL start. A gloo group whose ranks
+share a host moves the payloads of ``all_gather``, ``all_to_all``,
+``reduce_scatter``, ``all_reduce`` and ``ppermute`` through shared memory
+(``comm/shm.py``), gloo keeping the barriers; a group over hosts keeps
+gloo's own collectives.
 
 ``quantized_all_reduce`` and ``quantized_reduce_scatter`` run
 ``comm/compress.py``'s codec and are recorded once each, with the logical
@@ -123,8 +127,15 @@ def _record(op_name: str, x: torch.Tensor, world: int, fn,
 
 
 # ---------------------------------------------------------------------------
-# transport: gloo on CUDA tensors goes through pinned host copies
+# transport: gloo on one host through shared memory; over hosts gloo on
+# CUDA tensors goes through pinned host copies
 # ---------------------------------------------------------------------------
+def _channel(group):
+    """The group's shared-memory channel (``comm/shm.py``) or None."""
+    from deepspeed_tpu_torch.comm import shm
+    return shm.channel(group)
+
+
 def _staged(group, x: torch.Tensor) -> bool:
     import torch.distributed as dist
     return x.is_cuda and dist.get_backend(group) == "gloo"
@@ -156,6 +167,9 @@ def raw_all_gather(x: torch.Tensor, group, world: int) -> torch.Tensor:
         return x[None]
     if x.dtype in _BYTE_DTYPES:
         return raw_all_gather(_as_bytes(x), group, world).view(x.dtype)
+    ch = _channel(group)
+    if ch is not None:
+        return ch.all_gather(x)
     flat = x.reshape(-1)
     if _staged(group, x):
         out = _host_empty((world * flat.numel(),), x.dtype)
@@ -178,6 +192,9 @@ def raw_all_to_all(x: torch.Tensor, group, world: int) -> torch.Tensor:
         raise ValueError(f"all_to_all rows {x.shape[0]} != world {world}")
     if x.dtype in _BYTE_DTYPES:
         return raw_all_to_all(_as_bytes(x), group, world).view(x.dtype)
+    ch = _channel(group)
+    if ch is not None:
+        return ch.all_to_all(x)
     flat = x.reshape(-1)
     if _staged(group, x):
         out = _host_empty(flat.shape, x.dtype)
@@ -194,6 +211,9 @@ def raw_reduce_scatter(x: torch.Tensor, group, world: int) -> torch.Tensor:
     import torch.distributed as dist
     if group is None:
         return x[0].clone()
+    ch = _channel(group)
+    if ch is not None:
+        return ch.reduce_scatter(x, _COMBINE[ReduceOp.SUM])
     flat = x.reshape(-1)
     m = flat.numel() // world
     if _staged(group, x):
@@ -209,6 +229,10 @@ def raw_reduce_scatter(x: torch.Tensor, group, world: int) -> torch.Tensor:
 # the reduce ops the reference's facade takes (psum, pmax, pmin)
 _TORCH_OPS = {ReduceOp.SUM: "SUM", ReduceOp.AVG: "SUM",
               ReduceOp.MAX: "MAX", ReduceOp.MIN: "MIN"}
+# the shared-memory channel's combine of two partials (the first is new)
+_COMBINE = {ReduceOp.SUM: lambda a, b: a.add_(b),
+            ReduceOp.AVG: lambda a, b: a.add_(b),
+            ReduceOp.MAX: torch.maximum, ReduceOp.MIN: torch.minimum}
 
 
 def raw_all_reduce(x: torch.Tensor, group, world: int,
@@ -218,8 +242,13 @@ def raw_all_reduce(x: torch.Tensor, group, world: int,
     import torch.distributed as dist
     if group is None:
         return x
-    y = x.contiguous().clone()
-    dist.all_reduce(y, op=getattr(dist.ReduceOp, _TORCH_OPS[op]), group=group)
+    ch = _channel(group)
+    if ch is not None:
+        y = ch.all_reduce(x, _COMBINE[op])
+    else:
+        y = x.contiguous().clone()
+        dist.all_reduce(y, op=getattr(dist.ReduceOp, _TORCH_OPS[op]),
+                        group=group)
     return y / world if op == ReduceOp.AVG else y
 
 
@@ -314,6 +343,9 @@ def ppermute(x: torch.Tensor, axis_name, perm: Sequence[Tuple[int, int]]):
         out = torch.zeros_like(x)
         if group is None:
             return x.clone() if any(s == d == 0 for s, d in perm) else out
+        ch = _channel(group)
+        if ch is not None:
+            return ch.permute(x, next((s for s, d in perm if d == me), None))
         staged = _staged(group, x)
         src_t = _host(x) if staged else x.contiguous()
         dst_t = _host_empty(x.shape, x.dtype) if staged else out

@@ -25,7 +25,11 @@ hierarchical world (MiCS ``mics_shard_size``, ZeRO++ hpZ
 ``offload_optimizer`` and ``offload_param`` with ``cpu`` or ``nvme``, run
 over the ``data``, ``fsdp`` and ``tensor`` axes. A tier with a
 ``sequence`` axis above 1 (item 3) and ``offload_optimizer`` with MiCS,
-hpZ or qwZ (item 2) are refused.
+hpZ or qwZ (item 2) are refused. ``async_pipeline`` (``runtime/sched.py``,
+the engine's deferred readback and staged prefetch) and ``csv_monitor``
+(the engine's training events, ``monitor/monitor.py``) are read; the other
+monitor backends' groups (``tensorboard``, ``wandb``, ``comet``) stay
+refused (item 7).
 """
 
 import dataclasses
@@ -43,7 +47,7 @@ _READ_KEYS = frozenset({
     C.GRADIENT_ACCUMULATION_STEPS, C.OPTIMIZER, C.SCHEDULER, C.FP16, C.BF16,
     C.BF16_LEGACY, C.ZERO_OPTIMIZATION, C.GRADIENT_CLIPPING, C.STEPS_PER_PRINT,
     C.WALL_CLOCK_BREAKDOWN, C.DATA_TYPES, C.MESH, C.COMMS_LOGGER,
-    C.COMM_COMPRESSION, C.SPARSE_GRADIENTS,
+    C.COMM_COMPRESSION, C.SPARSE_GRADIENTS, C.ASYNC_PIPELINE, C.MONITOR_CSV,
 })
 
 # the Queue 1 items refusals name (ROADMAP.md)
@@ -184,6 +188,30 @@ class SchedulerConfig:
 
 
 @dataclasses.dataclass
+class AsyncPipelineConfig:
+    """The ``async_pipeline`` group (reference ``config.py:289-320``).
+
+    With ``enabled``, ``train_batch`` returns without reading its outputs
+    back: they wait on the engine's ring and are drained in one transfer
+    every ``sync_every`` steps (and at ``engine.flush_metrics()``). Host
+    consumers (monitor events, ``take_drained_metrics``) see steps up to
+    ``sync_every`` steps late; the numbers are the synchronous run's.
+    ``prefetch`` stages batches one step ahead on a background thread,
+    ``prefetch_depth`` of them. Off by default."""
+    enabled: bool = False
+    sync_every: int = 8
+    prefetch: bool = False
+    prefetch_depth: int = 2
+
+    def __post_init__(self):
+        if self.sync_every < 1:
+            raise ValueError(f"sync_every must be >= 1, got {self.sync_every}")
+        if self.prefetch_depth < 1:
+            raise ValueError(
+                f"prefetch_depth must be >= 1, got {self.prefetch_depth}")
+
+
+@dataclasses.dataclass
 class CSVConfig:
     """The ``csv_monitor`` group that ``monitor.CSVMonitor`` takes."""
     enabled: bool = False
@@ -228,6 +256,9 @@ class DeepSpeedTPUConfig:
         from deepspeed_tpu_torch.comm.compress import CommCompressionConfig
         self.comm_compression = CommCompressionConfig.from_dict(
             self._raw.get(C.COMM_COMPRESSION))
+        self.async_pipeline = _from_dict(AsyncPipelineConfig,
+                                         self._raw.get(C.ASYNC_PIPELINE))
+        self.csv_monitor = _from_dict(CSVConfig, self._raw.get(C.MONITOR_CSV))
         self.gradient_clipping: float = float(
             self._raw.get(C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT))
         self.steps_per_print: int = int(

@@ -27,6 +27,9 @@ COMMS_LOGGER = "comms_logger"             # comm volume/bandwidth logging
 COMM_COMPRESSION = "comm_compression"     # quantized error-feedback
 #                                           gradient buckets (comm/compress.py)
 SPARSE_GRADIENTS = "sparse_gradients"     # sparse embedding gradients
+ASYNC_PIPELINE = "async_pipeline"         # deferred metric readback +
+#                                           staged prefetch (runtime/sched.py)
+MONITOR_CSV = "csv_monitor"               # the training events' CSV backend
 SERVING = "serving"                       # serving group (admission,
 #                                           degradation ladder, host KV
 #                                           offload tier, fault isolation;

@@ -23,7 +23,8 @@ Training: ``load_flax_params`` fills the training ``LlamaForCausalLM``,
 ``MixtralForCausalLM`` or ``Qwen2MoEForCausalLM`` (whose parameter names
 are the flax paths joined by dots; each draws its own seeded weights on its
 device) from the flax tree as fp32 masters; ``to_flax_tree`` is its
-inverse, for parameters or gradients.
+inverse, for parameters or gradients. ``simple_params_from_jax`` gives
+the state dict of the engine tests' ``models.simple.SimpleModel``.
 """
 
 import warnings
@@ -272,6 +273,24 @@ def load_flax_params(module: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
                              f"{np.shape(arr)}")
         p.copy_(_to_tensor(arr, torch.float32, p.device))
     return module
+
+
+def simple_params_from_jax(tree: Mapping, device=None
+                           ) -> Dict[str, torch.Tensor]:
+    """``models.simple.SimpleModel``'s state dict from the JAX
+    ``SimpleModel``'s parameter tree (``{"Dense_{i}": {"kernel": [in,
+    out], "bias": [out]}}``, numpy or array leaves) as fp32 tensors on
+    ``device`` (the CPU by default): the flax layout is the port's, so each
+    leaf keeps its shape."""
+    dev = torch.device(device or "cpu")
+    out = {}
+    for layer in sorted(tree, key=lambda k: int(k.split("_")[-1])):
+        if not layer.startswith("Dense_"):
+            raise KeyError(f"not a SimpleModel tree: {layer!r}")
+        for leaf in ("kernel", "bias"):
+            out[f"{layer}.{leaf}"] = _to_tensor(tree[layer][leaf],
+                                                torch.float32, dev)
+    return out
 
 
 def to_flax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, Any]:

@@ -16,7 +16,8 @@ fault the engine step so the poison-quarantine path fires
 
 The training, checkpoint and comm knobs of the reference come with the
 resilience runner (ROADMAP Queue 1, "checkpoint and resilience"); the
-NaN-batch injection raises until the micro-step protocol is ported.
+NaN-batch injection raises until then, since its cadence (``nan_due``)
+is one of those knobs.
 """
 
 import hashlib
@@ -163,7 +164,7 @@ class ChaosMonkey:
     def corrupt_batch(self, batch, step: int):
         raise NotImplementedError(
             "chaos NaN-batch injection is not ported yet: it comes with the "
-            "micro-step protocol (ROADMAP Queue 1)")
+            "step guard (ROADMAP Queue 1 item 6: checkpoint and resilience)")
 
     # ------------------------------------------------------------------
     # serving-tick faults (serving/server.py asks per serve tick)

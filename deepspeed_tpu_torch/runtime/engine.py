@@ -1,4 +1,5 @@
-"""The training engine, cut to the fused ``train_batch`` path.
+"""The training engine: ``train_batch``, DeepSpeed's micro-step loop and
+the async step pipeline.
 
 Port of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedTPUEngine``,
 reference ``deepspeed/runtime/engine.py``). The JAX engine is one SPMD
@@ -118,10 +119,44 @@ on a mesh of the same shape.
 
 JAX keeps the skip decision on the device with ``jnp.where``; eager
 PyTorch reads the overflow flag once per step, and only under fp16 or the
-guard, and then skips the update instead of computing and discarding it.
-Without them a step never waits for the device. The micro-step protocol
-(``forward``/``backward``/``step``), the async metric ring and the batch
-prefetcher are not ported yet (ROADMAP Queue 1 item 5).
+guard, and then skips the update instead of computing and discarding it
+(ROADMAP Queue 3, divergence 52). Without them a step never waits for the
+device.
+
+The micro-step protocol (reference ``engine.py:1814-1959``), DeepSpeed's
+``loss = engine(batch); engine.backward(loss); engine.step()``:
+
+- ``forward(batch)`` (and ``engine(batch)``) takes this rank's rows of the
+  global micro-batch, computes its loss and gradients (the activations
+  are freed before it returns), reduces them over the micro-batch axes,
+  casts them to ``grad_accum_dtype`` and, unlike ``train_batch``, reduces
+  them over the wire axes too, per micro-batch: qgZ's int8 wire, sparse
+  gradients, or ``comm_compression`` without error feedback (the
+  residuals stay untouched: the reference defines them at the
+  accumulation boundary only). It returns the loss, the gradients wait.
+- ``backward(loss=None)`` folds the waiting gradients into the
+  accumulation buffer (the first fold is the cast itself) and counts a
+  micro step; its ``loss`` is ignored, as in the reference (divergence 50:
+  DeepSpeed's own ``backward`` runs autograd on it).
+- ``step()`` does nothing before the boundary; at it, the buffer divided
+  by ``scale * gas`` in fp32 goes through ``_update`` (or, under the
+  optimizer tier, the tier's host update, ``_host_update``), as in
+  ``train_batch``. Under ``offload_param`` ``forward`` and ``step`` raise
+  the reference's message.
+
+The async step pipeline (``async_pipeline``, reference ``engine.py:575-612,
+1553-1812``): ``train_batch`` pushes each step's loss and gradient norm
+(device tensors) with its host lr and overflow flag on a ``DispatchRing``
+and reads nothing back; the ring drains in one transfer every
+``sync_every`` steps, at ``flush_metrics()`` and at
+``configure_async_pipeline``, books the window into ``TRAIN_BATCH_TIMER``
+and the throughput timer, writes the monitor's events and queues the host
+entries for ``take_drained_metrics``. With ``prefetch`` a worker thread
+stacks the next batch, takes this rank's rows and copies them to the card
+from pinned memory on a side stream; the compute stream waits on the
+copy's event. The tiers switch the pipeline off, as in the reference.
+``csv_monitor`` receives the ``Train/Samples/*`` events at the
+``steps_per_print`` boundaries.
 
 The memory tiers (reference ``engine.py:238-338,1199-1306``), over the
 ``data``, ``fsdp`` and ``tensor`` axes:
@@ -178,8 +213,10 @@ from deepspeed_tpu_torch.ops.cpu_adam import to_bf16
 from deepspeed_tpu_torch.ops.optimizers import build_optimizer
 from deepspeed_tpu_torch.ops.quant import dequantize_int8, quantize_int8
 from deepspeed_tpu_torch.runtime import precision
+from deepspeed_tpu_torch.runtime.dataloader import PrefetchLoader, StagedBatch
 from deepspeed_tpu_torch.runtime.lr_schedules import build_schedule, constant_lr
 from deepspeed_tpu_torch.runtime.param_offload import is_moe
+from deepspeed_tpu_torch.runtime.sched import DispatchRing, StagedPrefetcher
 from deepspeed_tpu_torch.runtime.staging import STAGING_ELEMS, Staging
 from deepspeed_tpu_torch.runtime.zero import partition
 from deepspeed_tpu_torch.runtime.zero.qgz import (MIN_QUANT_SIZE,
@@ -188,8 +225,13 @@ from deepspeed_tpu_torch.runtime.zero.qgz import (MIN_QUANT_SIZE,
 from deepspeed_tpu_torch.telemetry.tracer import COMM_OVERLAP_TID, get_tracer
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
-from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
-                                             ThroughputTimer, TRAIN_BATCH_TIMER)
+from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER,
+                                             FORWARD_GLOBAL_TIMER,
+                                             STEP_GLOBAL_TIMER,
+                                             SynchronizedWallClockTimer,
+                                             ThroughputTimer,
+                                             TRAIN_BATCH_DISPATCH_TIMER,
+                                             TRAIN_BATCH_TIMER)
 
 
 #: the comms logger's label of the optimizer tier's shadow all-gather
@@ -211,10 +253,19 @@ def _int8_round_trip(g: torch.Tensor) -> torch.Tensor:
     return dequantize_int8(*quantize_int8(g), dtype=g.dtype)
 
 
-def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: (v if isinstance(v, torch.Tensor)
-                else torch.from_numpy(np.ascontiguousarray(v))).to(device)
-            for k, v in batch.items()}
+def _to_device(batch: Dict[str, Any], device: torch.device,
+               non_blocking: bool = False) -> Dict[str, torch.Tensor]:
+    """The batch's leaves as tensors on ``device``. ``non_blocking``: a
+    host leaf goes to the card from pinned memory without waiting for the
+    card's queue (a pageable copy waits for the stream to drain)."""
+    out = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(v))
+        if non_blocking and device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t.to(device)
+    return out
 
 
 def sequence_batch(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -466,6 +517,9 @@ class DeepSpeedTPUEngine:
             else:
                 self.optimizer = build_optimizer(opt_type, opt_params,
                                                  lr_schedule=self.lr_schedule)
+                if hasattr(self.optimizer, "reduce_leaf_sums"):
+                    # LAMB's trust ratio takes the norms of whole leaves
+                    self.optimizer.reduce_leaf_sums = self._whole_leaf_sums
             if self._comm_compress is not None:
                 # the residuals ride the optimizer's state, beside the moments
                 from deepspeed_tpu_torch.comm.compress import (
@@ -484,12 +538,48 @@ class DeepSpeedTPUEngine:
         self.global_samples = 0
         self._guard_nonfinite = False
         self._last_metrics: Dict[str, Any] = {}
+        # the micro-step protocol: the forward's gradients, the buffer
+        self._pending: Optional[Tuple[torch.Tensor, List[torch.Tensor]]] = None
+        self._grad_buffer: Optional[List[torch.Tensor]] = None
+        self._accum_count = 0
+        self._setup_async_pipeline(tier)
         self.timers = SynchronizedWallClockTimer(
             synchronize=config.wall_clock_breakdown)
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_batch_size,
             steps_per_output=config.steps_per_print,
-            synchronize=config.wall_clock_breakdown)
+            synchronize=config.wall_clock_breakdown
+            and not self._async_enabled)
+        self.monitor = None
+        if config.csv_monitor.enabled:
+            from deepspeed_tpu_torch.monitor.monitor import CSVMonitor
+            self.monitor = CSVMonitor(config.csv_monitor)
+
+    def _setup_async_pipeline(self, tier) -> None:
+        """``async_pipeline`` (reference ``engine.py:575-612``): the ring,
+        the prefetcher's lifecycle, the cadence (1 while off); off under
+        either memory tier, whose host step is synchronous."""
+        acfg = self.config.async_pipeline
+        self._async_enabled = bool(acfg.enabled)
+        if self._async_enabled and tier is not None:
+            log_dist("async_pipeline: disabled — offload tiers run a "
+                     "host-synchronous optimizer step (nothing to defer)",
+                     ranks=[0])
+            self._async_enabled = False
+        # the configured cadence survives enable/disable toggles
+        self._sync_every_cfg = int(acfg.sync_every)
+        self._sched = DispatchRing()
+        self._staged = StagedPrefetcher()
+        self._sched.sync_every = self._sync_every_cfg \
+            if self._async_enabled else 1
+        self._prefetch_enabled = self._async_enabled and bool(acfg.prefetch)
+        self._staged.depth = int(acfg.prefetch_depth)
+        self._copy_stream = None        # the prefetch's side stream
+        self.staged_waits = 0           # staged batches whose copy was waited on
+        if self._async_enabled and self.config.wall_clock_breakdown:
+            log_dist("async_pipeline: wall_clock_breakdown forces a device "
+                     "sync per timer start/stop — the breakdown timers will "
+                     "serialize the pipeline they are measuring", ranks=[0])
 
     # ------------------------------------------------------------------
     # ZeRO placement over the mesh
@@ -946,18 +1036,25 @@ class DeepSpeedTPUEngine:
     def _norm_of_squares(self, sq: List[torch.Tensor]) -> torch.Tensor:
         """The global norm from each reduced gradient's sum of squares
         (``_global_norm``'s reduction over the ranks)."""
-        for dims, axes in ((self._grad_dim, self._zero_axes),
-                           (self._expert_dim, ("expert",)),
-                           (self._tensor_dim, ("tensor",))):
-            idx = [i for i, d in enumerate(dims) if d is not None]
-            if not idx:
-                continue
-            red = comm.all_reduce(torch.stack([sq[i] for i in idx]), axes)
-            for k, i in enumerate(idx):
-                sq[i] = red[k]
+        sq = partition.sum_over_blocks(sq, (
+            (self._grad_dim, self._zero_axes),
+            (self._expert_dim, ("expert",)),
+            (self._tensor_dim, ("tensor",))))
         if not sq:
             return torch.zeros(())
         return torch.stack(sq).sum().sqrt()
+
+    def _whole_leaf_sums(self, sums: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Per-leaf sums over the optimizer's tensors (``_opt_tensors``: a
+        ZeRO block where the moments are sharded, an expert or tensor
+        block) summed over the ranks that cut each leaf: LAMB's whole-leaf
+        norms."""
+        zero = [d if d is not None else p
+                for d, p in zip(self._opt_dim, self._param_dim)]
+        return partition.sum_over_blocks(sums, (
+            (zero, self._zero_axes),
+            (self._expert_dim, ("expert",)),
+            (self._tensor_dim, ("tensor",))))
 
     def _update(self, grads: List[torch.Tensor]) -> StepOutput:
         """Overflow skip + dynamic loss scale + clipping + optimizer update
@@ -1032,26 +1129,43 @@ class DeepSpeedTPUEngine:
         update. Pass an iterator of micro-batches, or ``batch`` whose leaves
         are stacked [gas, micro, ...]; when gas == 1 an unstacked batch is
         accepted (``stacked=True`` overrides). Returns the mean loss as a
-        device scalar (no host sync)."""
+        device scalar (no host sync). With the async pipeline's prefetch,
+        ``data_iter``'s batches are staged a step ahead (keep passing the
+        same iterator)."""
         gas = self.gradient_accumulation_steps
+        fused = self._param_offload is None and self._offload is None
         if batch is None:
             if data_iter is None:
                 raise ValueError("train_batch needs data_iter or batch")
-            batch = self.stack_microbatches(data_iter, gas)
-        elif gas == 1 and not stacked:
+            if self._prefetch_enabled and fused:
+                batch = next(self._ensure_prefetcher(data_iter))
+            else:
+                batch = self.stack_microbatches(data_iter, gas)
+        elif gas == 1 and not stacked and not isinstance(batch, StagedBatch):
             batch = {k: v[None] for k, v in batch.items()}
-        for k, v in batch.items():
-            if v.shape[0] != gas:
-                raise ValueError(f"batch['{k}'] has {v.shape[0]} micro-batches, "
-                                 f"gas is {gas}")
-        device_batch = _to_device(self._local_rows(batch, 1), self.device)
-        step_timer = self.timers(TRAIN_BATCH_TIMER)
+        if isinstance(batch, StagedBatch):
+            device_batch = self._use_staged(batch)
+        else:
+            for k, v in batch.items():
+                if v.shape[0] != gas:
+                    raise ValueError(f"batch['{k}'] has {v.shape[0]} "
+                                     f"micro-batches, gas is {gas}")
+            device_batch = _to_device(self._local_rows(batch, 1), self.device,
+                                      non_blocking=self._async_enabled)
+        # async: the timer sees the dispatch; the drain books the window
+        step_timer = self.timers(TRAIN_BATCH_DISPATCH_TIMER
+                                 if self._async_enabled else TRAIN_BATCH_TIMER)
+        if self._async_enabled:
+            self._sched.rearm_if_idle()
         self.tput_timer.start()
         step_timer.start()
         if self._param_offload is not None:
             out = self._param_offload_step(device_batch)
         elif self._offload is not None:
             out = self._offload_step(device_batch)
+            # the reference records inside its host update, before the
+            # step counts
+            self._record_metrics(out, sync=True)
         else:
             overlap = self._comm_compress is not None and get_tracer().enabled
             t0 = time.monotonic()
@@ -1063,15 +1177,14 @@ class DeepSpeedTPUEngine:
             out = self._update(grads)._replace(loss=loss)
             if overlap:
                 self._emit_overlap_spans(t0, time.monotonic())
-        loss = out.loss
         step_timer.stop()
         self.tput_timer.stop(global_step=True)
         self.global_steps += 1
         self.micro_steps += gas
         self.global_samples += self.train_batch_size
-        self._last_metrics = {"lr": out.lr, "grad_norm": out.grad_norm,
-                              "loss": out.loss, "overflow": out.overflow}
-        return loss
+        if fused or self._param_offload is not None:
+            self._record_metrics(out, sync=not fused)
+        return out.loss
 
     def _local_rows(self, batch: Dict[str, Any], dim: int) -> Dict[str, Any]:
         """This rank's rows of a global batch along ``dim``: block c of
@@ -1101,6 +1214,196 @@ class DeepSpeedTPUEngine:
         return out
 
     # ------------------------------------------------------------------
+    # the async step pipeline (reference engine.py:1553-1812)
+    # ------------------------------------------------------------------
+    @property
+    def _metric_ring(self) -> List[Dict[str, Any]]:
+        return self._sched.pending
+
+    def _record_metrics(self, out: StepOutput, sync: bool = False) -> None:
+        """Step-output fan-out. Pipeline off, or ``sync`` (the tiers, the
+        micro-step protocol): ``_last_metrics`` and the monitor's events at
+        ``steps_per_print`` boundaries now. Pipeline on: the outputs wait
+        on the ring (nothing is read back), drained every ``sync_every``
+        steps."""
+        if self._async_enabled and not sync:
+            due = self._sched.push({
+                "step": self.global_steps, "samples": self.global_samples,
+                "loss": out.loss, "grad_norm": out.grad_norm, "lr": out.lr,
+                "overflow": out.overflow})
+            if due:
+                self._drain_metric_ring()
+            return
+        self._last_metrics = {"lr": out.lr, "grad_norm": out.grad_norm,
+                              "loss": out.loss, "overflow": out.overflow}
+        if self.monitor is not None and self.monitor.enabled:
+            events = self._monitor_step_events(
+                self.global_steps, self.global_samples, out.loss, out.lr,
+                self.loss_scale.scale)
+            if events:
+                self.monitor.write_events(events)
+
+    def _monitor_step_events(self, step, samples, loss, lr, loss_scale):
+        """``Train/Samples`` events of one step at the ``steps_per_print``
+        boundary: the one source of the synchronous record and the drain."""
+        if step % self.config.steps_per_print != 0:
+            return []
+        events = [("Train/Samples/train_loss", float(loss), samples),
+                  ("Train/Samples/lr", float(lr), samples)]
+        if self.config.fp16.enabled:
+            events.append(("Train/Samples/loss_scale", float(loss_scale),
+                           samples))
+        return events
+
+    def _drain_metric_ring(self) -> List[Dict[str, Any]]:
+        """The designated readback of the async pipeline: one transfer
+        (``DispatchRing.drain``) moves every pending step's outputs to the
+        host, which also proves their device work done. Then the host
+        fan-out: ``_last_metrics``, the window booked into
+        ``TRAIN_BATCH_TIMER`` and the throughput timer, the monitor's
+        events (+ ``steps_per_sec``), and the ordered entry queue of
+        ``take_drained_metrics``. The loss scale is a host value here; it
+        is the drain-time scale of every entry, as in the reference."""
+        res = self._sched.drain(extra=self.loss_scale.scale)
+        if res is None:
+            return []
+        scale = float(res.extra)
+        entries = [{"step": int(e["step"]), "samples": int(e["samples"]),
+                    "loss": float(e["loss"]),
+                    "grad_norm": float(e["grad_norm"]),
+                    "lr": float(e["lr"]), "overflow": bool(e["overflow"]),
+                    "loss_scale": scale} for e in res.payloads]
+        last = entries[-1]
+        self._last_metrics = {"lr": last["lr"], "grad_norm": last["grad_norm"],
+                              "loss": last["loss"],
+                              "overflow": last["overflow"]}
+        window = 0.0
+        tracer = get_tracer()
+        if res.anchored:
+            window = res.window_s
+            self.timers(TRAIN_BATCH_TIMER).record_external(
+                window, count=len(entries))
+            tracer.complete("engine/steps_reconciled", window, cat="train",
+                            steps=len(entries), last_step=last["step"])
+        for e in entries:
+            if e["overflow"]:
+                tracer.instant("engine/overflow_step", cat="train",
+                               step=e["step"])
+        self.tput_timer.mark_edge()
+        if self.monitor is not None and self.monitor.enabled:
+            events = []
+            for e in entries:
+                events.extend(self._monitor_step_events(
+                    e["step"], e["samples"], e["loss"], e["lr"],
+                    e["loss_scale"]))
+            if window > 0:
+                events.append(("Train/Samples/steps_per_sec",
+                               len(entries) / window, last["samples"]))
+            if events:
+                self.monitor.write_events(events)
+        self._sched.store(entries)
+        return entries
+
+    def flush_metrics(self) -> List[Dict[str, Any]]:
+        """Drain the ring now (one transfer); returns the newly drained
+        host entries, [] when nothing is pending."""
+        return self._drain_metric_ring()
+
+    def take_drained_metrics(self) -> List[Dict[str, Any]]:
+        """Pop the drained host entries not consumed yet, in order, one a
+        step: step, samples, loss, grad_norm, lr, overflow, loss_scale."""
+        return self._sched.take()
+
+    def requeue_drained_metrics(self, entries: List[Dict[str, Any]]) -> None:
+        """Put taken entries back at the front of the queue, in order."""
+        self._sched.requeue(entries)
+
+    def configure_async_pipeline(self, enabled: Optional[bool] = None,
+                                 sync_every: Optional[int] = None,
+                                 prefetch: Optional[bool] = None,
+                                 prefetch_depth: Optional[int] = None):
+        """Reconfigure the pipeline at run time. The ring is drained first,
+        so no step crosses a change un-drained; an active prefetcher is
+        closed, dropping its staged batches (the source iterator is already
+        past them)."""
+        self.flush_metrics()
+        self._staged.close()
+        if enabled is not None:
+            if enabled and self._offload is not None:
+                raise ValueError(
+                    "async_pipeline cannot be enabled on a host-offload "
+                    "engine: the fused host optimizer step is synchronous "
+                    "by construction")
+            self._async_enabled = bool(enabled)
+        if sync_every is not None:
+            if int(sync_every) < 1:
+                raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+            self._sync_every_cfg = int(sync_every)
+        self._sched.sync_every = self._sync_every_cfg \
+            if self._async_enabled else 1
+        if prefetch is not None:
+            self._prefetch_enabled = bool(prefetch)
+        self._prefetch_enabled = self._prefetch_enabled and self._async_enabled
+        if prefetch_depth is not None:
+            self._staged.depth = max(1, int(prefetch_depth))
+        self.tput_timer.synchronize = (self.config.wall_clock_breakdown
+                                       and not self._async_enabled)
+        self._sched.reset_anchor()
+        return self
+
+    def _ensure_prefetcher(self, data_iter) -> PrefetchLoader:
+        """One staged-batch prefetcher per source iterator (a new source
+        closes the old one): a worker thread stacks ``gas`` micro-batches
+        and stages them (``_stage_batch``)."""
+        gas = self.gradient_accumulation_steps
+
+        def stacked_batches():
+            while True:
+                try:
+                    yield self.stack_microbatches(data_iter, gas)
+                except StopIteration:
+                    return
+
+        def build():
+            return PrefetchLoader(stacked_batches(),
+                                  stage_fn=self._stage_batch,
+                                  depth=self._staged.depth)
+
+        return self._staged.ensure(data_iter, build)
+
+    def _stage_batch(self, stacked: Dict[str, Any]) -> StagedBatch:
+        """The prefetch worker's staging: this rank's rows of a stacked
+        global batch, on the card from pinned memory on a side stream, with
+        the copy's event; on the CPU a plain copy."""
+        for k, v in stacked.items():
+            if v.shape[0] != self.gradient_accumulation_steps:
+                raise ValueError(f"batch['{k}'] has {v.shape[0]} micro-"
+                                 f"batches, gas is "
+                                 f"{self.gradient_accumulation_steps}")
+        local = self._local_rows(stacked, 1)
+        if self.device.type != "cuda":
+            return StagedBatch(_to_device(local, self.device))
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            arrays = _to_device(local, self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        return StagedBatch(arrays, event)
+
+    def _use_staged(self, batch: StagedBatch) -> Dict[str, torch.Tensor]:
+        """A staged batch on the compute stream: the stream waits for the
+        side stream's copy, and the allocator learns the tensors are used
+        here."""
+        if batch.event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(batch.event)
+            for t in batch.arrays.values():
+                t.record_stream(stream)
+            self.staged_waits += 1
+        return batch.arrays
+
+    # ------------------------------------------------------------------
     # the memory tiers
     # ------------------------------------------------------------------
     def _sync(self) -> None:
@@ -1116,109 +1419,119 @@ class DeepSpeedTPUEngine:
         rank's block a chunk at a time, and at stages 1-2 the new
         compute-dtype shadow blocks all-gathered over the ZeRO axes (stage
         3 keeps its block behind the parametrization)."""
-        cfg, gas = self.config, self.gradient_accumulation_steps
-        scale = self.loss_scale.scale
-        denom = scale * gas
         with get_tracer().span("engine/train_step", cat="train",
                                step=self.global_steps, mode="offload"):
             t0 = time.perf_counter()
             self._reduce_s = 0.0
-            loss, acc = self._grads_phase(device_batch, scale)
-            # fp32 / (scale * gas), then the overflow check and the clipping
-            # norm, on the card one leaf at a time
-            check = cfg.fp16.enabled or self._guard_nonfinite
-            sq, bad = [], []
-            for a in acc:
-                g = a.float() / denom
-                sq.append(g.square().sum())
-                if check:
-                    bad.append(torch.logical_not(torch.isfinite(g).all()))
-                del g
-            grad_norm = self._norm_of_squares(sq)
-            clip = cfg.gradient_clipping
-            factor = (torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
-                      if clip > 0 else None)
-            overflow = self._agree_overflow(torch.stack(bad).any()) \
-                if check else False
-            lr = float(self.lr_schedule(self.step_count))
-            self._sync()
-            t_dev = time.perf_counter()
-            secs = {"d2h": 0.0, "shadow": 0.0, "h2d": 0.0}
-            nbytes = {"d2h": 0, "h2d": 0}
-            if any(self._gathers(i) for i in range(len(self._masters))):
-                secs["gather"] = 0.0
-            stage = self._staging
-            held = {}                  # the leaf whose block is in flight
+            loss, acc = self._grads_phase(device_batch, self.loss_scale.scale)
+            out = self._host_update(acc, t0)
+        return out._replace(loss=loss)
 
-            def block_of(i):
-                """Leaf i's gradient block and shadow block (flat device
-                tensors), made once a leaf."""
-                if held.get("i") != i:
-                    held.clear()
-                    g, p = acc[i], self._masters[i]
-                    shadow = p.data
-                    if self._gathers(i):
-                        d = self._opt_dim[i]
-                        if self._grad_dim[i] is None:
-                            g = partition.shard_of(g, d, self.mesh,
-                                                   self._zero_axes)
-                        shadow = torch.empty(
-                            partition.shard_of(p.data, d, self.mesh,
-                                               self._zero_axes).shape,
-                            dtype=p.dtype, device=p.device)
-                    held.update(i=i, g=g.contiguous().view(-1),
-                                shadow=shadow)
-                return held["g"], held["shadow"]
+    def _host_update(self, acc: List[torch.Tensor], t0: float) -> StepOutput:
+        """The optimizer tier's host half on a finished gradient list (the
+        summed micro-batch gradients in ``grad_accum_dtype``, reduced;
+        emptied here): divided by ``scale * gas`` in fp32, the norm and the
+        overflow flag agreed over the ranks, then per leaf block down to
+        the host, the host update, the compute-dtype shadow up and at
+        stages 1-2 its all-gather; ``phase_seconds`` from ``t0``. Shared by
+        ``train_batch`` and the micro-step protocol's ``step``."""
+        cfg, gas = self.config, self.gradient_accumulation_steps
+        denom = self.loss_scale.scale * gas
+        # fp32 / (scale * gas), then the overflow check and the clipping
+        # norm, on the card one leaf at a time
+        check = cfg.fp16.enabled or self._guard_nonfinite
+        sq, bad = [], []
+        for a in acc:
+            g = a.float() / denom
+            sq.append(g.square().sum())
+            if check:
+                bad.append(torch.logical_not(torch.isfinite(g).all()))
+            del g
+        grad_norm = self._norm_of_squares(sq)
+        clip = cfg.gradient_clipping
+        factor = (torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
+                  if clip > 0 else None)
+        overflow = self._agree_overflow(torch.stack(bad).any()) \
+            if check else False
+        lr = float(self.lr_schedule(self.step_count))
+        self._sync()
+        t_dev = time.perf_counter()
+        secs = {"d2h": 0.0, "shadow": 0.0, "h2d": 0.0}
+        nbytes = {"d2h": 0, "h2d": 0}
+        if any(self._gathers(i) for i in range(len(self._masters))):
+            secs["gather"] = 0.0
+        stage = self._staging
+        held = {}                  # the leaf whose block is in flight
 
-            def grads_of(i, a, b):
-                t = time.perf_counter()
-                g = block_of(i)[0][a:b].float() / denom
-                if factor is not None:
-                    g = g * factor
-                host = stage.down(g)
-                nbytes["d2h"] += host.numel() * host.element_size()
-                secs["d2h"] += time.perf_counter() - t
-                return host
+        def block_of(i):
+            """Leaf i's gradient block and shadow block (flat device
+            tensors), made once a leaf."""
+            if held.get("i") != i:
+                held.clear()
+                g, p = acc[i], self._masters[i]
+                shadow = p.data
+                if self._gathers(i):
+                    d = self._opt_dim[i]
+                    if self._grad_dim[i] is None:
+                        g = partition.shard_of(g, d, self.mesh,
+                                               self._zero_axes)
+                    shadow = torch.empty(
+                        partition.shard_of(p.data, d, self.mesh,
+                                           self._zero_axes).shape,
+                        dtype=p.dtype, device=p.device)
+                held.update(i=i, g=g.contiguous().view(-1),
+                            shadow=shadow)
+            return held["g"], held["shadow"]
 
-            def shadow_up(i, a, b, master):
-                t = time.perf_counter()
-                shadow = block_of(i)[1]
-                up = stage.up_buffer(shadow.dtype, b - a)
-                if shadow.dtype == torch.bfloat16:
-                    to_bf16(master, out=up)
-                else:
-                    up.copy_(master)
-                t_cast = time.perf_counter()
-                stage.up(shadow.view(-1)[a:b], up)
-                nbytes["h2d"] += up.numel() * up.element_size()
-                secs["shadow"] += t_cast - t
-                t_up = time.perf_counter()
-                secs["h2d"] += t_up - t_cast
-                if self._gathers(i) and b == shadow.numel():
-                    with comm.op_label(OFFLOAD_LABEL), torch.no_grad():
-                        self._masters[i].data.copy_(partition.gather_full(
-                            shadow, self._opt_dim[i], self._zero_axes))
-                    self._sync()
-                    secs["gather"] += time.perf_counter() - t_up
+        def grads_of(i, a, b):
+            t = time.perf_counter()
+            g = block_of(i)[0][a:b].float() / denom
+            if factor is not None:
+                g = g * factor
+            host = stage.down(g)
+            nbytes["d2h"] += host.numel() * host.element_size()
+            secs["d2h"] += time.perf_counter() - t
+            return host
 
-            if overflow:
-                self._skipped_steps += 1
+        def shadow_up(i, a, b, master):
+            t = time.perf_counter()
+            shadow = block_of(i)[1]
+            up = stage.up_buffer(shadow.dtype, b - a)
+            if shadow.dtype == torch.bfloat16:
+                to_bf16(master, out=up)
             else:
-                self._offload.step(grads_of, lr=lr, after=shadow_up,
-                                   chunk=stage.elems)
-                self.step_count += 1
-            held.clear()
-            del acc
-            self.loss_scale = precision.update_loss_scale(self.loss_scale,
-                                                          overflow, cfg.fp16)
-            t_end = time.perf_counter()
+                up.copy_(master)
+            t_cast = time.perf_counter()
+            stage.up(shadow.view(-1)[a:b], up)
+            nbytes["h2d"] += up.numel() * up.element_size()
+            secs["shadow"] += t_cast - t
+            t_up = time.perf_counter()
+            secs["h2d"] += t_up - t_cast
+            if self._gathers(i) and b == shadow.numel():
+                with comm.op_label(OFFLOAD_LABEL), torch.no_grad():
+                    self._masters[i].data.copy_(partition.gather_full(
+                        shadow, self._opt_dim[i], self._zero_axes))
+                self._sync()
+                secs["gather"] += time.perf_counter() - t_up
+
+        if overflow:
+            self._skipped_steps += 1
+        else:
+            self._offload.step(grads_of, lr=lr, after=shadow_up,
+                               chunk=stage.elems)
+            self.step_count += 1
+        held.clear()
+        acc.clear()
+        self.loss_scale = precision.update_loss_scale(self.loss_scale,
+                                                      overflow, cfg.fp16)
+        t_end = time.perf_counter()
         reduce = {"reduce": self._reduce_s} if self._time_reduce else {}
         self.phase_seconds = {"device_fwd_bwd": t_dev - t0 - self._reduce_s,
                               **reduce, **secs,
                               "host_optimizer": (t_end - t_dev)
                               - sum(secs.values())}
         self.phase_bytes = nbytes
-        return StepOutput(loss=loss, grad_norm=grad_norm, lr=lr,
+        return StepOutput(loss=None, grad_norm=grad_norm, lr=lr,
                           overflow=overflow)
 
     def _gathers(self, i: int) -> bool:
@@ -1252,18 +1565,112 @@ class DeepSpeedTPUEngine:
         self._guard_nonfinite = bool(enabled)
 
     # ------------------------------------------------------------------
-    # not ported yet
+    # the micro-step protocol (reference engine.py:1814-1959)
     # ------------------------------------------------------------------
-    def _unported(self, api: str):
+    def _reject_param_offload(self, api: str) -> None:
         if self._param_offload is not None:     # the reference's refusal
             raise NotImplementedError(
                 f"{api} is not supported with offload_param: the streamed "
                 "step cannot keep per-microbatch grads device-resident "
                 "between calls — use train_batch()")
-        raise NotImplementedError(
-            f"{api} (the micro-step protocol) is not ported yet (ROADMAP "
-            "Queue 1 item 5: training carry-overs); use train_batch()")
 
+    def _micro_grads(self, batch: Dict[str, torch.Tensor], scale: float):
+        """One micro-batch's (global loss, gradients) for ``forward``:
+        ``_grads_one_micro``'s gradients (reduced over the micro-batch
+        axes) cast to ``grad_accum_dtype``, then reduced over the wire
+        axes too, as the reference's compat path does a micro-batch at a
+        time (``engine.py:1831-1846``): ``comm_compression``'s buckets with
+        no error feedback, or per leaf sparse, int8 (qgZ) or a
+        full-precision mean."""
+        acc_dtype = self.config.grad_accum_dtype
+        with (token_axes(self._micro_axes) if self._wire_axes
+              else contextlib.nullcontext()):
+            loss, grads = self._grads_one_micro(batch, scale)
+        grads = [g.to(acc_dtype) for g in grads]
+        t = self._reduce_clock()
+        if self._comm_compress is not None:
+            sync = self._comm_compress.make_sync_fn(
+                fallback_leaf_sync=self._make_grad_sync(self._replica_axes))
+            reduced, _ = sync(dict(zip(self._paths, grads)), batch, ())
+            grads = [reduced.pop(p) for p in self._paths]
+        elif self._wire_axes:
+            sync = self._make_grad_sync(self._wire_axes)
+            for i in range(len(grads)):
+                grads[i] = sync(self._paths[i], grads[i], batch)
+        self._reduce_s += self._reduce_clock() - t
+        return self._global_loss(loss), grads
+
+    def forward(self, batch) -> torch.Tensor:
+        """This rank's rows of the global micro-batch ``batch`` [B, ...]:
+        the loss (a device scalar, the mean over the global micro-batch)
+        and its gradients, reduced and kept for ``backward`` (the
+        reference's compat shim, ``engine.py:1882``)."""
+        self._reject_param_offload("forward()")
+        timer = self.timers(FORWARD_GLOBAL_TIMER)
+        timer.start()
+        device_batch = _to_device(self._local_rows(batch, 0), self.device)
+        loss, grads = self._micro_grads(device_batch, self.loss_scale.scale)
+        self._pending = (loss, grads)
+        timer.stop()
+        return loss
+
+    def backward(self, loss=None) -> None:
+        """Fold the last ``forward``'s gradients into the accumulation
+        buffer (in ``grad_accum_dtype``) and count a micro step. ``loss``
+        is ignored, as in the reference (``engine.py:1897``)."""
+        if self._pending is None:
+            raise RuntimeError("backward() called without a preceding "
+                               "forward()")
+        timer = self.timers(BACKWARD_GLOBAL_TIMER)
+        timer.start()
+        _, grads = self._pending
+        self._pending = None
+        if self._grad_buffer is None:    # the first fold is the cast itself
+            self._grad_buffer = grads
+        else:
+            for a, g in zip(self._grad_buffer, grads):
+                a.add_(g)
+        del grads
+        self._accum_count += 1
+        self.micro_steps += 1
+        timer.stop()
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return self._accum_count >= self.gradient_accumulation_steps
+
+    def step(self) -> None:
+        """At the accumulation boundary, the update from the buffer divided
+        by ``scale * gas`` in fp32 (``_update``, or under the optimizer
+        tier its host update); before it, nothing (``engine.py:1916``)."""
+        self._reject_param_offload("step()")
+        if not self.is_gradient_accumulation_boundary():
+            return
+        timer = self.timers(STEP_GLOBAL_TIMER)
+        timer.start()
+        acc, self._grad_buffer = self._grad_buffer, None
+        if self._offload is not None:
+            self._reduce_s = 0.0
+            out = self._host_update(acc, time.perf_counter())
+        else:
+            denom = self.loss_scale.scale * self.gradient_accumulation_steps
+            grads = [a.float().div_(denom) for a in acc]
+            del acc
+            out = self._update(grads)
+        # the reference's step records a loss of 0 (the forward returned it)
+        self._record_metrics(out._replace(loss=torch.zeros(
+            (), device=self.device)), sync=True)
+        self._accum_count = 0
+        self.global_steps += 1
+        self.global_samples += self.train_batch_size
+        timer.stop()
+
+    def __call__(self, batch):
+        """The module call-through (``engine(batch)`` -> ``forward``)."""
+        return self.forward(batch)
+
+    # ------------------------------------------------------------------
+    # not ported yet
+    # ------------------------------------------------------------------
     @staticmethod
     def _waits(api: str, item: str):
         raise NotImplementedError(f"{api} is not ported yet (ROADMAP Queue 1 "
@@ -1281,27 +1688,8 @@ class DeepSpeedTPUEngine:
             "(ROADMAP Queue 1 item 6); the memory tiers' state round-trips "
             "through engine.optimizer.state_dict() / load_state_dict()")
 
-    def forward(self, batch):
-        self._unported("forward()")
-
-    def backward(self, loss=None):
-        self._unported("backward()")
-
-    def step(self):
-        self._unported("step()")
-
-    def __call__(self, batch):
-        """The module call-through (``engine(batch)`` -> ``forward``)."""
-        return self.forward(batch)
-
-    def is_gradient_accumulation_boundary(self) -> bool:
-        # the micro-step protocol's count; train_batch leaves it at 0
-        return self._accum_count >= self.gradient_accumulation_steps
-
-    _accum_count = 0
-
-    # the reference's telemetry, data-efficiency and async-pipeline calls
-    # (engine.py:1341-1750)
+    # the reference's telemetry and data-efficiency calls
+    # (engine.py:1341-1550)
     def dump_trace(self, path=None, tail_s=None):
         self._waits("dump_trace (the tracer's sinks)", "7: telemetry")
 
@@ -1334,22 +1722,6 @@ class DeepSpeedTPUEngine:
         self._waits("random_ltd_reserved_length (data_pipeline)",
                     "7: data efficiency")
 
-    def flush_metrics(self):
-        self._waits("flush_metrics (the async step pipeline)",
-                    "5: training carry-overs")
-
-    def take_drained_metrics(self):
-        self._waits("take_drained_metrics (the async step pipeline)",
-                    "5: training carry-overs")
-
-    def requeue_drained_metrics(self, entries):
-        self._waits("requeue_drained_metrics (the async step pipeline)",
-                    "5: training carry-overs")
-
-    def configure_async_pipeline(self, enabled=None, **kwargs):
-        self._waits("configure_async_pipeline (the async step pipeline)",
-                    "5: training carry-overs")
-
     # ------------------------------------------------------------------
     # eval and introspection
     # ------------------------------------------------------------------
@@ -1373,8 +1745,7 @@ class DeepSpeedTPUEngine:
     def eval_batch(self, batch) -> torch.Tensor:
         """The loss of a global batch [B, ...]: each rank's rows, the mean
         over the ranks."""
-        if self._param_offload is not None:
-            self._unported("eval_batch()")
+        self._reject_param_offload("eval_batch()")
         with torch.no_grad(), self._compute_copy():
             loss = self._compute_loss(_to_device(self._local_rows(batch, 0),
                                                  self.device))

@@ -1,14 +1,188 @@
-"""Serve-scheduler counters: ``TickLedger``, copied from
-``deepspeed_tpu/runtime/sched.py``.
+"""The host-orchestration core of the training and serving loops.
 
-Only ``TickLedger`` is ported here. The rest of that module (the dispatch
-ring and the staged prefetcher) belongs to the training loop and comes with
-the training slice.
+Port of ``deepspeed_tpu/runtime/sched.py``:
 
-Host int arithmetic only: no clocks, no device work.
+* ``DispatchRing`` — the async step pipeline's ring: each step's outputs
+  (device tensors) wait in ``pending``; ``drain()`` is the one designated
+  readback, every pending tensor stacked and copied to the host in one
+  transfer (``transfers`` counts them). Drained host entries wait in a
+  bounded queue that consumers ``take()`` and ``requeue()``.
+* ``StagedPrefetcher`` — one background loader per source iterator; a new
+  source closes the old loader.
+* ``TickLedger`` — the serve tick's deterministic scheduler counters.
+
+Where the reference's payload values are all device arrays fetched by one
+``jax.device_get``, a port payload mixes device tensors (the loss, the
+gradient norm) with host scalars the engine already holds (the step, the
+lr, the overflow flag): only the tensors cross, stacked into one
+float32 tensor.
 """
 
-from typing import Any, Dict, Optional
+import collections
+import time
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
+
+import torch
+
+from deepspeed_tpu_torch.telemetry.tracer import get_tracer
+from deepspeed_tpu_torch.utils.logging import logger
+
+
+class DrainResult(NamedTuple):
+    """One ``DispatchRing.drain()``: host payloads + the extra operand that
+    rode the same transfer, and the window the drained steps span."""
+    payloads: List[Dict[str, Any]]
+    extra: Any
+    window_s: float        # seconds since the window anchor (0.0 unanchored)
+    anchored: bool
+
+
+def _host_payloads(ring: List[Dict[str, Any]], extra: Any):
+    """Every tensor of ``ring`` (and ``extra``) to the host in one copy:
+    the scalars stacked as float32 on their device, moved once, put back
+    in their places as Python floats. Other values pass through."""
+    slots = [(i, k) for i, p in enumerate(ring) for k, v in p.items()
+             if isinstance(v, torch.Tensor)]
+    tensors = [ring[i][k] for i, k in slots]
+    extra_is_tensor = isinstance(extra, torch.Tensor)
+    if extra_is_tensor:
+        tensors.append(extra)
+    if not tensors:
+        return [dict(p) for p in ring], extra, False
+    flat = torch.stack([t.detach().reshape(()).float() for t in tensors])
+    host = flat.cpu().tolist()            # the one transfer
+    out = [dict(p) for p in ring]
+    for (i, k), v in zip(slots, host):
+        out[i][k] = v
+    return out, (host[-1] if extra_is_tensor else extra), True
+
+
+class DispatchRing:
+    """Pending step payloads + bounded host-entry queue + THE designated
+    drain transfer.
+
+    The producer pushes payload dicts whose values may be device tensors.
+    ``drain`` moves everything across in one transfer, computes the
+    reconciliation window from the anchor the producer set at the
+    window's first dispatch, and leaves host fan-out to the caller.
+    Drained entries the caller stores land in a bounded deque consumers
+    ``take()``/``requeue()`` from — overflow is never silent.
+    """
+
+    #: drained host entries kept for ``take()`` before the oldest go
+    CAPACITY = 4096
+
+    def __init__(self, sync_every: int = 1):
+        self.pending: List[Dict[str, Any]] = []    # device-side payloads
+        self.drained: collections.deque = collections.deque(
+            maxlen=self.CAPACITY)
+        self.sync_every = int(sync_every)
+        self.anchor: Optional[float] = None        # window start (time.time)
+        self.transfers = 0                         # device-to-host copies
+
+    def __len__(self) -> int:
+        return len(self.pending)
+
+    def push(self, payload: Dict[str, Any]) -> bool:
+        """Queue one step's payload; returns True when the ring reached
+        the drain cadence (the caller runs its drain)."""
+        self.pending.append(payload)
+        return len(self.pending) >= self.sync_every
+
+    def rearm_if_idle(self) -> None:
+        """Anchor a fresh window at this dispatch iff the ring is empty —
+        host pauses between windows (checkpoint I/O, idle gaps after a
+        flush) must never be booked as step time at the next drain."""
+        if not self.pending:
+            self.anchor = time.time()
+
+    def reset_anchor(self) -> None:
+        self.anchor = None
+
+    def drain(self, extra: Any = None) -> Optional[DrainResult]:
+        """THE designated readback point: one transfer of every pending
+        payload's tensors (+ ``extra``, which rides the same transfer).
+        Returns None when nothing is pending."""
+        if not self.pending:
+            return None
+        ring, self.pending = self.pending, []
+        with get_tracer().span("engine/drain", cat="train", steps=len(ring)):
+            host, extra_host, moved = _host_payloads(ring, extra)
+        self.transfers += int(moved)
+        window, anchored = 0.0, self.anchor is not None
+        if anchored:
+            window = max(time.time() - self.anchor, 0.0)
+        return DrainResult(payloads=host, extra=extra_host,
+                           window_s=window, anchored=anchored)
+
+    def store(self, entries: List[Dict[str, Any]]) -> int:
+        """Append drained host entries to the consumer queue; returns the
+        number of oldest un-consumed entries the bounded deque evicted
+        (warned)."""
+        dropped = len(self.drained) + len(entries) - self.drained.maxlen
+        if dropped > 0:
+            logger.warning(
+                "async_pipeline: drained-metrics queue overflow — %d "
+                "oldest un-consumed entries dropped (no "
+                "take_drained_metrics consumer attached?)", dropped)
+        self.drained.extend(entries)
+        return max(dropped, 0)
+
+    def take(self) -> List[Dict[str, Any]]:
+        """Pop every drained-but-unconsumed host entry, in order."""
+        out = list(self.drained)
+        self.drained.clear()
+        return out
+
+    def requeue(self, entries: List[Dict[str, Any]]) -> None:
+        """Put taken-but-unprocessed entries back at the FRONT (original
+        order preserved); refuses to evict newer entries silently."""
+        free = self.drained.maxlen - len(self.drained)
+        if len(entries) > free:
+            logger.warning(
+                "async_pipeline: requeue overflow — %d newest entries "
+                "dropped from the drained-metrics queue", len(entries) - free)
+            entries = entries[:free]
+        for e in reversed(entries):
+            self.drained.appendleft(e)
+
+
+class StagedPrefetcher:
+    """Identity-keyed staged-prefetch lifecycle: one loader per source
+    iterator. A new source closes the old loader (dropping its staged
+    batches — the source iterator has already advanced past them), loud
+    the first few switches and throttled after."""
+
+    def __init__(self, depth: int = 2):
+        self.depth = int(depth)
+        self.loader = None
+        self.source = None
+        self.switches = 0
+
+    def ensure(self, source, factory: Callable[[], Any]):
+        """Return the live loader for ``source``, building one via
+        ``factory`` when the source identity changed (or none exists)."""
+        if self.loader is not None and self.source is source:
+            return self.loader
+        if self.loader is not None:
+            self.switches += 1
+            if self.switches <= 3 or self.switches % 100 == 0:
+                logger.warning(
+                    "async_pipeline: data_iter identity changed (switch "
+                    "#%d) — discarding the previous prefetcher and up to %d "
+                    "staged batches; pass a STABLE iterator across "
+                    "train_batch calls", self.switches,
+                    self.depth)
+            self.loader.close()
+        self.loader = factory()
+        self.source = source
+        return self.loader
+
+    def close(self) -> None:
+        if self.loader is not None:
+            self.loader.close()
+            self.loader = None
+            self.source = None
 
 
 class TickLedger:

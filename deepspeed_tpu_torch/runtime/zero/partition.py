@@ -36,7 +36,9 @@ Hierarchical variants split the ZeRO world into ``fsdp_out`` x ``fsdp``
 the members' blocks back together, ``reduce_scatter_full`` sums a full
 gradient over the members into this rank's block, each along the one
 dimension a spec shards, the block index row-major over the axes in the
-order given. ``build_param_specs`` takes model-parallel ``tensor_rules``:
+order given; ``sum_over_blocks`` sums per-leaf block sums over the ranks
+that cut each leaf (the global norm's squares, LAMB's whole-leaf
+norms). ``build_param_specs`` takes model-parallel ``tensor_rules``:
 the expert rules (``moe_tensor_rules``) and the Megatron rules
 (``models/llama.py::llama_tensor_rules``, ``module_inject/``'s
 policies). A leaf a rule shards over ``tensor`` or ``expert`` takes
@@ -230,6 +232,28 @@ def reduce_scatter_full(full: torch.Tensor, dim: int, axes: Sequence[str]
     for hop in reversed(_hops(comm._mesh(), axes)):
         full = comm.reduce_scatter(full, hop, scatter_dimension=dim)
     return full
+
+
+def sum_over_blocks(sums: Sequence[torch.Tensor],
+                    cuts: Sequence[Tuple[Sequence[Optional[int]],
+                                         Sequence[str]]]) -> list:
+    """Per-leaf sums (one tensor a leaf, e.g. a block's sum of squares)
+    made whole-leaf: for each ``(dims, axes)`` of ``cuts``, the sums of the
+    leaves whose ``dims`` entry is not None (a block over ``axes``) are
+    summed over ``axes`` in one all-reduce of their stack, one cut after
+    another. A leaf no cut names counts once. Every rank must call it with
+    the same leaves and cuts. Used by the engine's global gradient norm and
+    by LAMB's trust ratio (``ops/optimizers.py``)."""
+    from deepspeed_tpu_torch.comm import comm
+    out = list(sums)
+    for dims, axes in cuts:
+        idx = [i for i, d in enumerate(dims) if d is not None]
+        if not idx:
+            continue
+        red = comm.all_reduce(torch.stack([out[i] for i in idx]), axes)
+        for k, i in enumerate(idx):
+            out[i] = red[k]
+    return out
 
 
 class GatherParam(torch.autograd.Function):

@@ -3,7 +3,9 @@
 Port of ``deepspeed_tpu/utils/timer.py`` (reference
 ``deepspeed/utils/timer.py``: ``SynchronizedWallClockTimer`` :44,
 ``ThroughputTimer`` :199), cut to what the training path uses, plus the
-serving layer's ``RateTracker``. A timer that synchronises waits for the
+serving layer's ``RateTracker``. ``Timer.record_external`` and
+``ThroughputTimer.mark_edge`` are the async step pipeline's hooks: its
+drain books the reconciled window of the drained steps. A timer that synchronises waits for the
 card with ``torch.cuda.synchronize`` when one is in use; on the CPU there
 is nothing to wait for.
 """
@@ -17,9 +19,11 @@ import torch
 
 from deepspeed_tpu_torch.utils.logging import logger
 
+FORWARD_GLOBAL_TIMER = "fwd"
+BACKWARD_GLOBAL_TIMER = "bwd"
+STEP_GLOBAL_TIMER = "step"
 TRAIN_BATCH_TIMER = "train_batch"
-# host time spent dispatching a step (the async pipeline's timer; that
-# pipeline is not ported yet)
+# host time spent dispatching a step (the async pipeline's timer)
 TRAIN_BATCH_DISPATCH_TIMER = "train_batch_dispatch"
 
 
@@ -64,6 +68,17 @@ class Timer:
         self._started = False
         self._elapsed = 0.0
         self._records = []
+
+    def record_external(self, seconds: float, count: int = 1):
+        """Fold externally measured wall time into this timer as ``count``
+        equal records: the async pipeline's drain books the window its
+        drained steps took (per-step start/stop without a sync sees only
+        the dispatch)."""
+        self._ever_started = True
+        seconds = max(float(seconds), 0.0)
+        count = max(int(count), 1)
+        self._elapsed += seconds
+        self._records.extend([seconds / count] * count)
 
     def elapsed(self, reset: bool = True) -> float:
         """Elapsed seconds since last reset (stops/restarts a running timer)."""
@@ -139,6 +154,7 @@ class ThroughputTimer:
         self.total_elapsed_time = 0.0
         self._steps_in_total = 0
         self._edge_time: Optional[float] = None
+        self._last_report_step = 0
 
     def start(self):
         self.started = True
@@ -160,6 +176,19 @@ class ThroughputTimer:
             _device_sync()
             self._close_window(report_speed)
 
+    def mark_edge(self, report_speed: bool = True):
+        """Close the current window at a point the caller knows the device
+        work is done (the async engine's drain, just after its transfer),
+        with no sync here; reports at the ``steps_per_output`` cadence."""
+        if self.steps_since_edge == 0:
+            if self._edge_time is None:
+                self._edge_time = time.time()
+            return
+        report = (report_speed and bool(self.steps_per_output)
+                  and self.global_step_count - self._last_report_step
+                  >= self.steps_per_output)
+        self._close_window(report)
+
     def _close_window(self, report_speed: bool):
         now = time.time()
         window = max(now - self._edge_time, 1e-9)
@@ -170,6 +199,7 @@ class ThroughputTimer:
             self.logging(f"epoch step {self.global_step_count}: "
                          f"{sps:.1f} samples/s, batch time "
                          f"{window / self.steps_since_edge * 1000:.1f} ms")
+            self._last_report_step = self.global_step_count
         self._edge_time = now
         self.steps_since_edge = 0
 

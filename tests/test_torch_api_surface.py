@@ -7,7 +7,9 @@ must exist in the port. Each is then used on the same tiny fp32 Llama
 config on both sides (one JAX device; the port on the CPU): it answers as
 the JAX package does (accessors, ``train``/``eval``, ``compile``,
 ``get_params`` against the JAX engine's params, the config accessors, the
-offload trainer's master tree and ``load_masters``), or it raises
+offload trainer's master tree and ``load_masters``, the micro-step
+protocol step for step, the async pipeline's calls with the pipeline off,
+``initialize``'s loader of ``training_data``), or it raises
 ``NotImplementedError`` naming its ROADMAP Queue 1 item.
 """
 
@@ -136,6 +138,10 @@ def _flat(tree, prefix=""):
 
 @pytest.fixture(scope="module")
 def engines():
+    return _engine_pair()
+
+
+def _engine_pair():
     jcfg, tcfg, params = _configs()
     # the fp32 trajectory recipe of tests/test_torch_train.py, whose
     # masters agree within 1e-5 after a step
@@ -177,6 +183,16 @@ ENGINE_CALLS = {
     "compile": ((), "self"),
     "get_params": ((), "tree"),
     "module_state_dict": ((), "tree"),
+    # the micro-step protocol: a whole step of the DeepSpeed loop
+    "forward": ((), "micro"),
+    "__call__": ((), "micro"),
+    "backward": ((), "micro"),
+    "step": ((), "micro"),
+    # the async pipeline, off: nothing pending, nothing drained
+    "flush_metrics": ((), "equal"),
+    "take_drained_metrics": ((), "equal"),
+    "requeue_drained_metrics": (([],), "equal"),
+    "configure_async_pipeline": ((), "self"),
 }
 
 
@@ -185,18 +201,15 @@ def test_engine_surface_answers_as_jax_or_names_its_item(engines, name):
     jeng, teng = engines
     if name not in ENGINE_CALLS:
         fn = getattr(teng, name)
-        args = {"forward": (BATCH,), "__call__": (BATCH,), "step": (),
-                "backward": (), "save_checkpoint": ("/nonexistent",),
+        args = {"save_checkpoint": ("/nonexistent",),
                 "load_checkpoint": ("/nonexistent",),
                 "dump_trace": (), "trace_summary": (), "memory_ledger": (),
                 "memory_forensics": (), "dump_memory_report": (),
                 "start_profile_trace": ("/nonexistent",),
                 "stop_profile_trace": (),
                 "set_custom_curriculum_learning_schedule": (lambda s: s,),
-                "curriculum_seqlen": (), "random_ltd_reserved_length": (),
-                "flush_metrics": (), "take_drained_metrics": (),
-                "requeue_drained_metrics": ([],),
-                "configure_async_pipeline": ()}[name]
+                "curriculum_seqlen": (), "random_ltd_reserved_length": ()
+                }[name]
         assert _waits(fn, *args)
         return
     args, how = ENGINE_CALLS[name]
@@ -204,6 +217,31 @@ def test_engine_surface_answers_as_jax_or_names_its_item(engines, name):
         got = float(teng.train_batch(batch=STACKED, stacked=True))
         want = float(jeng.train_batch(batch=STACKED, stacked=True))
         np.testing.assert_allclose(got, want, rtol=1e-5)
+        return
+    if how == "micro":
+        # each micro-batch of STACKED through forward (or engine(batch)),
+        # backward and step on a fresh pair of engines (the shared pair
+        # keeps its step count): the same losses, one step, the same
+        # masters
+        jeng, teng = _engine_pair()
+        for k in range(2):
+            micro = {key: v[k] for key, v in STACKED.items()}
+            losses = []
+            for eng in (teng, jeng):
+                loss = eng(micro) if name == "__call__" else eng.forward(micro)
+                eng.backward(loss)
+                assert eng.is_gradient_accumulation_boundary() == (k == 1)
+                eng.step()
+                losses.append(float(loss))
+            np.testing.assert_allclose(*losses, rtol=1e-5)
+        assert teng.global_steps == jeng.global_steps
+        np.testing.assert_allclose(teng.get_global_grad_norm(),
+                                   jeng.get_global_grad_norm(), rtol=1e-4)
+        want = _flat(jax.tree.map(np.asarray, jeng.get_params()))
+        got = _flat(teng.get_params())
+        for k, w in want.items():
+            np.testing.assert_allclose(got[k], w, atol=1e-5, rtol=1e-5,
+                                       err_msg=k)
         return
     if args is None:                                # a property
         assert getattr(teng, name) == getattr(jeng, name)
@@ -312,6 +350,23 @@ def test_package_surface_answers_as_jax_or_names_its_item(name):
     elif name == "initialize":
         import inspect
         assert "mesh" in inspect.signature(ours).parameters
+        # training_data: both return the loader of global micro-batches
+        from deepspeed_tpu.models import simple as jsimple
+        from deepspeed_tpu_torch.models import simple as tsimple
+        # (8 rows a global micro-batch: JAX's over its 8 CPU devices)
+        config = {"train_batch_size": 8, "gradient_accumulation_steps": 1}
+        _, _, want, _ = getattr(deepspeed_tpu, name)(
+            model=jsimple.SimpleModel(hidden_dim=16), config=dict(config),
+            training_data=jsimple.random_dataset(20),
+            example_batch=jsimple.random_batch(8))
+        _, _, got, _ = ours(model=tsimple.SimpleModel(16, device="cpu"),
+                            config=dict(config), device="cpu",
+                            training_data=tsimple.random_dataset(20))
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k])
     elif name == "logger":
         assert ours.name == "deepspeed_tpu_torch"
     elif name == "log_dist":

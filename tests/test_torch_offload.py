@@ -15,7 +15,8 @@ Mirrors ``tests/test_offload.py`` on ``TINY_LLAMA`` (the JAX file's
   parameters and no optimizer state, fp16 overflow skips the host step,
   ``swap_masters`` true and false, the optimizer's ``state_dict`` round
   trip (``save_checkpoint`` raises: checkpoint and resilience is not
-  ported), the micro-step calls raise, the tier against the in-HBM engine
+  ported), the micro-step calls run the tier's host update (``train_batch``'s
+  masters bit for bit), the tier against the in-HBM engine
   (atol 2e-5, rtol 2e-4, the JAX file's tolerance), gradients brought down
   in small chunks equal to whole leaves, bit for bit;
 - the cross-check: the same flax weights and batches through
@@ -331,11 +332,23 @@ def test_offload_fp16_overflow_skips_step():
 
 
 def test_offload_micro_step_protocol_raises():
-    engine = _engine(CPU)
-    batch = random_tokens(2, 16, 512)
-    for call in (lambda: engine.forward(batch), engine.backward, engine.step):
-        with pytest.raises(NotImplementedError, match="the micro-step protocol"):
-            call()
+    """The micro-step protocol under the optimizer tier: ``backward``
+    without a ``forward`` raises as the reference's does; gas forward /
+    backward pairs and ``step`` run the tier's host update and land on
+    ``train_batch``'s masters bit for bit."""
+    loop, fused = _engine(CPU), _engine(CPU)
+    with pytest.raises(RuntimeError, match="without a preceding forward"):
+        loop.backward()
+    batch = random_tokens(2, 16, 512, gas=2)
+    for i in range(2):
+        loss = loop.forward({k: v[i] for k, v in batch.items()})
+        loop.backward(loss)
+        loop.step()
+    fused.train_batch(batch=batch, stacked=True)
+    assert loop.global_steps == fused.global_steps == 1
+    assert loop._offload.kernel.step_count == 1
+    for a, b in zip(loop._offload.masters(), fused._offload.masters()):
+        assert torch.equal(a, b)
 
 
 def test_offload_state_dict_round_trip():
