@@ -4871,15 +4871,16 @@ def phase_zero_inference(dev, smi_line):
 # ---------------------------------------------------------------------------
 # phase 7: the training path
 # ---------------------------------------------------------------------------
-def train_config(lr=3e-4, backend="flash"):
+def train_config(lr=3e-4, backend="flash", layers=TRAIN_LAYERS):
     """Llama-3-8B at its published width, cut to TRAIN_LAYERS layers, with
     bench.py's 8b recipe (seq 2048, micro-batch 1, gas 2, AdamW 3e-4, bf16
     with bf16 gradient accumulation, ZeRO 0, flash, remat); the probe
-    changes ``lr`` or ``backend``."""
+    changes ``lr`` or ``backend``, the card test of ``train_resume`` the
+    depth."""
     import dataclasses
     from deepspeed_tpu_torch.models.llama import LLAMA3_8B
     cfg = dataclasses.replace(
-        LLAMA3_8B, num_layers=TRAIN_LAYERS, max_seq_len=TRAIN_SEQ,
+        LLAMA3_8B, num_layers=layers, max_seq_len=TRAIN_SEQ,
         dtype=torch.bfloat16, attention_backend=backend, remat=True,
         remat_policy="dots_with_no_batch_dims_saveable")
     ds_config = {
@@ -5283,6 +5284,334 @@ def phase_train_async(batch, ref, dev, smi_line):
     del engine, out
     _release()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: checkpoint and resume (train_resume, serve_from_checkpoint)
+# ---------------------------------------------------------------------------
+RESUME_SAVE_STEP = 2               # the sync save's step; the async one's is 3
+RESUME_CHILD_TIMEOUT = 600         # seconds the fresh process may take
+RESUME_GO_FILE = "resume.go"       # the parent's word that the tag is torn
+CKPT_STATE_BYTES = 12              # a tag's bytes a parameter: fp32 master + Adam
+CKPT_HOST_MARGIN = 8 << 30         # MemAvailable kept beside the two tags
+TORN_LEAF = "params/model/layer_0/mlp/w_up/kernel.npy"   # truncated after commit
+TORN_BYTES = 4096
+SERVE_CKPT_PROMPTS, SERVE_CKPT_NEW = 4, 16
+SERVE_CKPT_BLOCKS = 64             # each serving engine's KV pool, 64-token blocks
+SERVE_CKPT_PRESET = "LLAMA3_8B"    # serving/cli.py's preset of the recipe's width
+
+
+def _tag_array_bytes(cfg, layers) -> int:
+    """The array bytes of one tag of the recipe: every parameter's fp32
+    master and its two Adam moments (the npy headers and JSON aside)."""
+    return CKPT_STATE_BYTES * llama_params(cfg, layers)
+
+
+def _ckpt_rates(stats) -> dict:
+    out = {k: stats[k] for k in ("bytes", "seconds", "write_s", "manifest_s",
+                                 "snapshot_s", "verify_s", "read_s",
+                                 "snapshot") if k in stats}
+    if stats.get("bytes") and stats.get("seconds"):
+        out["gb_per_s"] = stats["bytes"] / stats["seconds"] / 1e9
+    return out
+
+
+def _filesystem_of(path: str) -> str:
+    """The type of the filesystem that holds ``path`` (/proc/mounts)."""
+    path, best = os.path.realpath(path), ("", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, point, kind = line.split()[:3]
+            if (path == point or path.startswith(point.rstrip("/") + "/")) \
+                    and len(point) > len(best[0]):
+                best = (point, kind)
+    return f"{best[1]} at {best[0]}"
+
+
+def _serve_ckpt_prompts(vocab):
+    rng = np.random.default_rng(SEED + 7)
+    return [list(map(int, rng.integers(0, vocab, int(n))))
+            for n in rng.integers(48, 97, SERVE_CKPT_PROMPTS)]
+
+
+def _warm_remat(cfg, device) -> None:
+    """One small product under ``cfg``'s remat policy: selective
+    checkpointing imports ``torch._dynamo`` and its kin at its first use
+    (most of a fresh process's first step on the card's machine, PERF.md
+    §6 PR 24), so a process that waits anyway takes that cost first."""
+    from torch.utils.checkpoint import checkpoint
+    from deepspeed_tpu_torch.models.llama import REMAT_POLICIES
+    ctx = REMAT_POLICIES[cfg.remat_policy] if cfg.remat else None
+    x = torch.ones(8, 8, device=device, requires_grad=True)
+    checkpoint(lambda t: (t @ t).sum(), x, use_reentrant=False,
+               **({"context_fn": ctx} if ctx is not None else {})).backward()
+
+
+def resume_child_main(save_dir: str, layers, device: str = "cuda") -> int:
+    """``--resume-child DIR LAYERS [DEVICE]``: the fresh process of
+    ``train_resume`` and ``serve_from_checkpoint``. Makes the card's
+    context, waits for ``DIR/RESUME_GO_FILE``, builds the recipe's engine
+    from another seed, names the torn ``global_step3`` (must raise
+    ``CheckpointCorruptionError``), resumes from the newest committed tag
+    (must be ``global_step2``), deletes both tags and trains to the
+    ``train`` phase's last step with flash launches counted. Then it saves
+    the final tag with ``async_save`` while an engine on its in-memory
+    masters answers greedy requests, consolidates the committed tag to the
+    fp32 npz and answers them again from an engine built through
+    ``serving/cli.py --checkpoint`` on that npz. Writes
+    ``DIR/child.json``."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint.engine import (
+        CheckpointCorruptionError, wait_pending_checkpoint)
+    from deepspeed_tpu_torch.checkpoint.universal import consolidate_to_fp32
+    from deepspeed_tpu_torch.models.convert import (llama_params_from_jax,
+                                                    to_flax_tree)
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, random_tokens
+    from deepspeed_tpu_torch.ops import build
+    from deepspeed_tpu_torch.resilience import resume_from_latest
+    from deepspeed_tpu_torch.serving import cli
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    entry_wall = time.time()
+    torch.zeros(1, device=device)            # the card's context, made early
+    _warm_remat(train_config(layers=int(layers))[0], device)
+    t_wait = time.monotonic()
+    go = os.path.join(save_dir, RESUME_GO_FILE)
+    while not os.path.exists(go):            # the parent tears the tag first
+        check(time.monotonic() - t_wait < RESUME_CHILD_TIMEOUT,
+              f"no {go} after {RESUME_CHILD_TIMEOUT} s")
+        time.sleep(0.05)
+    t_start = time.monotonic()
+    layers = int(layers)
+    cfg, ds_config = train_config(layers=layers)
+    batch = random_tokens(1, TRAIN_SEQ, vocab_size=cfg.vocab_size, seed=SEED,
+                          gas=TRAIN_GAS)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=LlamaForCausalLM(cfg, device=device, seed=SEED + 1),
+        config=ds_config, device=device)
+    out = {"init_s": time.monotonic() - t_start, "entry_wall": entry_wall,
+           "go_wait_s": t_start - t_wait}
+    t0 = time.monotonic()
+    try:
+        engine.load_checkpoint(save_dir, tag=f"global_step{RESUME_SAVE_STEP + 1}")
+        out["torn_raised"] = False
+    except CheckpointCorruptionError as e:
+        out["torn_raised"], out["torn_error"] = True, str(e)[:300]
+    out["torn_s"] = time.monotonic() - t0
+    out["untouched_after_torn"] = engine.global_steps == 0
+    t0 = time.monotonic()
+    tag, _ = resume_from_latest(engine, save_dir)
+    out.update(resumed_tag=tag, resume_s=time.monotonic() - t0,
+               load=_ckpt_rates(engine.ckpt_stats),
+               resumed_step=engine.global_steps)
+    check(tag == f"global_step{RESUME_SAVE_STEP}",
+          f"resume_from_latest picked {tag}")
+    t0 = time.monotonic()
+    for name in os.listdir(save_dir):        # each tag once it is checked
+        if name.startswith("global_step") or name == "latest":
+            path = os.path.join(save_dir, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+    out["remove_s"] = time.monotonic() - t0
+    build.reset_launch_counts()              # the resumed run's path
+    losses, step_ms, per_step, _ = _train_steps(
+        engine, batch, 1 + TRAIN_STEPS - RESUME_SAVE_STEP)
+    out.update(losses=losses, step_ms=step_ms, per_step=per_step,
+               launches=build.launch_counts(),
+               train_s=time.monotonic() - t_start)
+    # serve_from_checkpoint: the final tag is written while an engine on
+    # the in-memory masters answers the requests
+    t_serve = time.monotonic()
+    final = engine.save_checkpoint(save_dir, async_save=True)
+    out["final_tag"] = os.path.basename(final)
+    args = cli.build_parser().parse_args(
+        ["--preset", SERVE_CKPT_PRESET, "--num-layers", str(layers),
+         "--checkpoint", os.path.join(save_dir, "model.npz"),
+         "--kv-block-size", "64", "--kv-num-blocks", str(SERVE_CKPT_BLOCKS),
+         "--device", device])
+    scfg = cli.model_config(args)
+    prompts = _serve_ckpt_prompts(scfg.vocab_size)
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import (InferenceEngineV2,
+                                                            V2EngineConfig)
+    mem = InferenceEngineV2(
+        llama_params_from_jax(to_flax_tree(engine.named_masters()), scfg,
+                              device=device),
+        scfg, V2EngineConfig(kv_block_size=64,
+                             kv_num_blocks=SERVE_CKPT_BLOCKS), device=device)
+    want = [mem.generate(p, SERVE_CKPT_NEW, uid=i)
+            for i, p in enumerate(prompts)]
+    out["in_memory_s"] = time.monotonic() - t_serve
+    del mem
+    wait_pending_checkpoint(engine)
+    out["final_save"] = {"committed_s": time.monotonic() - t_serve,
+                         **_ckpt_rates(engine.ckpt_stats)}
+    del engine
+    _release()
+    t0 = time.monotonic()
+    npz = consolidate_to_fp32(final, args.checkpoint)
+    out["consolidate_s"] = time.monotonic() - t0
+    shutil.rmtree(final)
+    t0 = time.monotonic()
+    served = cli.build_engine(args)
+    out["serve_build_s"] = time.monotonic() - t0
+    build.reset_launch_counts()              # the served path
+    got = [served.generate(p, SERVE_CKPT_NEW, uid=i)
+           for i, p in enumerate(prompts)]
+    out.update(serve_launches=build.launch_counts(), tokens=got,
+               tokens_in_memory=want, serve_s=time.monotonic() - t_serve,
+               npz=npz, exit_wall=time.time())
+    with open(os.path.join(save_dir, "child.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_train_resume(save_dir: str, ref=None, layers: int = TRAIN_LAYERS,
+                     device: str = "cuda") -> dict:
+    """The recipe from the ``train`` phase's seeded weights: two steps, a
+    sync save, the third step, an async save; ``resume_child_main`` starts
+    in a fresh process while that tag is written, and goes on once it is
+    committed and one of its leaves truncated. Its losses must be the
+    uninterrupted run's (``ref``: the ``train`` phase's losses and host
+    masters; made here when None) bit for bit, and so must the final
+    masters (read back from the consolidated npz), with exact flash
+    launches a step. MemAvailable must hold the two tags first."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint.engine import wait_pending_checkpoint
+    from deepspeed_tpu_torch.checkpoint.universal import load_fp32_state
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, random_tokens
+    cfg, ds_config = train_config(layers=layers)
+    batch = random_tokens(1, TRAIN_SEQ, vocab_size=cfg.vocab_size, seed=SEED,
+                          gas=TRAIN_GAS)
+
+    def build_engine():
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=LlamaForCausalLM(cfg, device=device, seed=SEED),
+            config=ds_config, device=device)
+        return engine
+
+    if ref is None:
+        engine = build_engine()
+        losses, _, _, _ = _train_steps(engine, batch, 1 + TRAIN_STEPS)
+        ref = {"losses": losses, "masters": host_masters(engine)}
+        del engine
+        _release()
+    tag_bytes = _tag_array_bytes(cfg, layers)
+    avail = mem_available()
+    if avail < 2 * tag_bytes + CKPT_HOST_MARGIN:
+        avail, _ = settled_mem_available()
+    row = {"model": f"LLAMA3_8B width, {layers} layers, bf16, flash",
+           "save_fs": _filesystem_of(save_dir),
+           "tag_array_bytes": tag_bytes, "mem_available": avail,
+           "needs": 2 * tag_bytes + CKPT_HOST_MARGIN}
+    check(avail >= row["needs"], f"MemAvailable {avail} cannot hold two "
+          f"tags of {tag_bytes} bytes and {CKPT_HOST_MARGIN} more")
+    engine = build_engine()
+    losses, _, _, _ = _train_steps(engine, batch, RESUME_SAVE_STEP)
+    engine.save_checkpoint(save_dir)
+    row["save"] = _ckpt_rates(engine.ckpt_stats)
+    losses += _train_steps(engine, batch, 1)[0]
+    t0 = time.monotonic()
+    engine.save_checkpoint(save_dir, async_save=True)
+    returned = time.monotonic() - t0
+    # the fresh process starts while the step-3 tag is written, and resumes
+    # once that tag is committed and torn (it waits for RESUME_GO_FILE)
+    t_child, spawn_wall = time.monotonic(), time.time()
+    err_path = os.path.join(save_dir, "child.err")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--resume-child",
+             save_dir, str(layers), device], stdout=subprocess.DEVNULL,
+            stderr=err, cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        wait_pending_checkpoint(engine)
+        row["async_save"] = {"returned_s": returned,
+                             "committed_s": time.monotonic() - t0,
+                             **_ckpt_rates(engine.ckpt_stats)}
+        row["parent_losses"] = losses
+        check(losses == ref["losses"][:RESUME_SAVE_STEP + 1],
+              f"the saving run's losses {losses} are not the train phase's "
+              f"{ref['losses'][:RESUME_SAVE_STEP + 1]}")
+        check(row["save"]["bytes"] == tag_bytes,
+              f"a tag holds {row['save']['bytes']} array bytes, not "
+              f"{tag_bytes}")
+        del engine
+        _release()
+        torn = os.path.join(save_dir, f"global_step{RESUME_SAVE_STEP + 1}",
+                            TORN_LEAF)
+        os.truncate(torn, os.path.getsize(torn) - TORN_BYTES)
+        open(os.path.join(save_dir, RESUME_GO_FILE), "w").close()
+        rc = proc.wait(timeout=RESUME_CHILD_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    row["child_s"] = time.monotonic() - t_child
+    end_wall = time.time()
+    with open(err_path) as f:
+        check(rc == 0, f"the resumed process failed ({rc}): "
+              f"{f.read()[-3000:]}")
+    with open(os.path.join(save_dir, "child.json")) as f:
+        child = json.load(f)
+    row["child_start_s"] = child["entry_wall"] - spawn_wall
+    row["child_exit_s"] = end_wall - child["exit_wall"]
+    want_losses = ref["losses"][RESUME_SAVE_STEP:]
+    want_launch = {n: k * layers * TRAIN_GAS
+                   for n, k in FLASH_PER_STEP.items()}
+    final = load_fp32_state(child["npz"])
+    apart = [n for n, m in ref["masters"].items()
+             if not np.array_equal(final[n.replace(".", "/")],
+                                   m.float().numpy())]
+    del final
+    row.update(child=child, bitwise_losses=child["losses"] == want_losses,
+               bitwise_masters=not apart, masters_apart=apart[:5],
+               resumed_tag=child["resumed_tag"],
+               flash_per_step_want=want_launch)
+    os.remove(child["npz"])
+    check(child["torn_raised"] and child["untouched_after_torn"],
+          "the torn tag named explicitly did not raise "
+          "CheckpointCorruptionError before touching the engine")
+    check(row["bitwise_losses"], f"resumed losses {child['losses']} are not "
+          f"the uninterrupted {want_losses}")
+    check(row["bitwise_masters"], f"resumed masters apart: {apart[:5]}")
+    check(all(s == want_launch for s in child["per_step"]),
+          f"flash launches per step {child['per_step']}, expected "
+          f"{want_launch}")
+    check(child["tokens"] == child["tokens_in_memory"],
+          "the --checkpoint server's tokens are not the in-memory engine's")
+    check(all(len(t) == SERVE_CKPT_NEW and all(0 <= x < cfg.vocab_size
+                                               for x in t)
+              for t in child["tokens"]), f"tokens {child['tokens']}")
+    check(child["serve_launches"].get("paged_attention", 0) > 0,
+          "the --checkpoint server launched no paged kernel")
+    return row
+
+
+def phase_train_resume(ref, dev, smi_line):
+    """``train_resume`` then ``serve_from_checkpoint``, one line each; the
+    checkpoints in a temporary directory, removed whatever happens."""
+    save_dir = tempfile.mkdtemp(prefix="dstpu-ckpt-")
+    try:
+        row = run_train_resume(save_dir, ref)
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    child = row.pop("child")
+    emit({"phase": "train_resume", **row,
+          **{k: child[k] for k in ("resumed_tag", "torn_raised", "torn_s",
+                                   "go_wait_s", "remove_s",
+                                   "resume_s", "load", "losses", "step_ms",
+                                   "per_step", "init_s")},
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    emit({"phase": "serve_from_checkpoint", "tokens": child["tokens"],
+          "bitwise_tokens": child["tokens"] == child["tokens_in_memory"],
+          "launches": child["serve_launches"],
+          **{k: child[k] for k in ("final_save", "in_memory_s",
+                                   "consolidate_s", "serve_build_s",
+                                   "serve_s")},
+          "card": dev["kind"], "nvidia_smi": smi_line})
+    # the fresh process served after it trained: its serving seconds are
+    # the second phase's
+    _PHASE_SECONDS["train_resume"] -= child["serve_s"]
+    _PHASE_SECONDS["serve_from_checkpoint"] += child["serve_s"]
+    return child["launches"], child["serve_launches"]
 
 
 def _pinned_copy(t: torch.Tensor, pool: dict, key) -> torch.Tensor:
@@ -9504,10 +9833,15 @@ ENTRY_NAMES = {n: f"{n}_kernel" for n in BIAS_ACT_KERNELS}
 # train_param_offload_ranks: the parameter tier over two data ranks and
 # over two tensor ranks; train_param_offload_moe: Mixtral-8x7B streamed;
 # train_micro_steps: the recipe through engine(micro) / backward / step;
-# train_async: the recipe with the async pipeline and the staged prefetch)
+# train_async: the recipe with the async pipeline and the staged prefetch;
+# train_resume: the recipe resumed from a checkpoint in a fresh process;
+# serve_from_checkpoint: that run's consolidated npz served through
+# serving/cli.py --checkpoint)
 KERNEL_PATHS = {"paged_attention": ("serve", "serve_http", "disagg", "fleet",
-                                     "A1", "A2", "serve_moe"),
+                                     "A1", "A2", "serve_moe",
+                                     "serve_from_checkpoint"),
                 **{n: ("train", "train_micro_steps", "train_async",
+                       "train_resume",
                        "train_offload", "train_param_offload",
                        "train_zero", "train_zero_ranks", "train_qgz_ranks",
                        "train_zeropp_ranks", "train_moe", "train_moe_ranks",
@@ -9563,6 +9897,25 @@ def carry_overs_main(dev, smi_line) -> int:
     phase_train_async(batch, train_ref, dev, smi_line)
     del train_ref
     phase_train_optimizers(batch, dev, smi_line)
+    emit({"phase": "phase_seconds",
+          "seconds": {k: round(v, 1) for k, v in _PHASE_SECONDS.items()},
+          "total": round(time.monotonic() - _T0, 1)})
+    print(smi_line, flush=True)
+    return 0
+
+
+def checkpoint_main(dev, smi_line) -> int:
+    """``--checkpoint``: the flash and paged libraries built, then ``train``
+    (the reference) and ``train_resume`` / ``serve_from_checkpoint`` with
+    their gates: this slice's phases alone. Not the smoke: its last line
+    is the card's."""
+    from deepspeed_tpu_torch.ops import build
+    build.build(["flash_attention", "paged_attention"])
+    engine, _, _, losses, _ = phase_train(dev, smi_line)
+    train_ref = {"losses": losses, "masters": host_masters(engine)}
+    del engine
+    _release()
+    phase_train_resume(train_ref, dev, smi_line)
     emit({"phase": "phase_seconds",
           "seconds": {k: round(v, 1) for k, v in _PHASE_SECONDS.items()},
           "total": round(time.monotonic() - _T0, 1)})
@@ -9642,6 +9995,8 @@ def tp_faults_main(dev, smi_line) -> int:
 
 
 def main(argv=()) -> int:
+    if argv and argv[0] == "--resume-child":       # train_resume's process
+        return resume_child_main(*argv[1:3], *argv[3:4])
     phase = "device"
     try:
         dev, smi_line = phase_device()
@@ -9659,6 +10014,12 @@ def main(argv=()) -> int:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             return carry_overs_main(dev, smi_line)
+        if "--checkpoint" in argv:
+            phase = "train"
+            import deepspeed_tpu_torch  # noqa: F401
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            return checkpoint_main(dev, smi_line)
         if "--tier-ranks" in argv:
             phase = "tier_ranks"
             import deepspeed_tpu_torch  # noqa: F401
@@ -9747,6 +10108,9 @@ def main(argv=()) -> int:
                                                  smi_line)
         phase = "train_async"
         async_launches = phase_train_async(batch, train_ref, dev, smi_line)
+        phase = "train_resume"
+        resume_launches, serve_ckpt_launches = phase_train_resume(
+            train_ref, dev, smi_line)
         del train_ref
         phase = "train_optimizers"
         phase_train_optimizers(batch, dev, smi_line)
@@ -9809,6 +10173,8 @@ def main(argv=()) -> int:
                        "train": train_launches,
                        "train_micro_steps": micro_launches,
                        "train_async": async_launches,
+                       "train_resume": resume_launches,
+                       "serve_from_checkpoint": serve_ckpt_launches,
                        "train_offload": offload_launches,
                        "train_param_offload": param_launches,
                        "train_offload_ranks": offload_ranks_launches,

@@ -386,6 +386,44 @@ def reshard_error_feedback(ef: TensorEF, new_world: int,
                                        device=worker.device))
 
 
+def adopt_error_feedback(saved, current: Sequence[TensorEF], world: int,
+                         index: int) -> Optional[Tuple[TensorEF, ...]]:
+    """This rank's residuals from a checkpoint's (JAX ``checkpoint/
+    engine.py:569-675``): ``saved`` holds per bucket the rows of this
+    rank's replica group at save time (numpy ``worker`` [W_old, n_old],
+    ``server`` [W_old, m_old]), ``current`` this rank's live residuals,
+    ``world`` the replica world now and ``index`` this rank's place in it.
+    A worker row is fitted to the current ``n_pad`` by zero pad or
+    truncation (the pad tail carries exactly zero residual, so this is
+    lossless). The same replica world restores both rows bit for bit; a
+    changed one takes the mean-preserving reshard
+    (``reshard_error_feedback``: every new member gets the mean of the old
+    rows, the server residuals restart at zero). None when the bucket
+    count differs (another model or plan): the caller keeps the fresh
+    zeros."""
+    if len(saved) != len(current):
+        return None
+    out = []
+    for (worker, server), cur in zip(saved, current):
+        n_pad = int(cur.worker.shape[0])
+        fit = np.zeros((worker.shape[0], n_pad), np.float32)
+        m = min(int(worker.shape[1]), n_pad)
+        fit[:, :m] = worker[:, :m]
+        if fit.shape[0] == world and server is not None \
+                and server.shape[1] == cur.server.shape[0]:
+            w_row, s_row = fit[index], server[index]
+        else:
+            ef = reshard_error_feedback(TensorEF(worker=fit, server=None),
+                                        world, xp=np)
+            w_row, s_row = ef.worker[index], ef.server[index]
+        out.append(TensorEF(
+            worker=torch.from_numpy(np.array(w_row, np.float32)).to(
+                cur.worker.device),
+            server=torch.from_numpy(np.array(s_row, np.float32)).to(
+                cur.server.device)))
+    return tuple(out)
+
+
 # ---------------------------------------------------------------------------
 # gradient-bucket scheduler
 # ---------------------------------------------------------------------------

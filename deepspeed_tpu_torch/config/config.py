@@ -48,6 +48,7 @@ _READ_KEYS = frozenset({
     C.BF16_LEGACY, C.ZERO_OPTIMIZATION, C.GRADIENT_CLIPPING, C.STEPS_PER_PRINT,
     C.WALL_CLOCK_BREAKDOWN, C.DATA_TYPES, C.MESH, C.COMMS_LOGGER,
     C.COMM_COMPRESSION, C.SPARSE_GRADIENTS, C.ASYNC_PIPELINE, C.MONITOR_CSV,
+    C.CHECKPOINT,
 })
 
 # the Queue 1 items refusals name (ROADMAP.md)
@@ -212,6 +213,17 @@ class AsyncPipelineConfig:
 
 
 @dataclasses.dataclass
+class CheckpointConfig:
+    """The ``checkpoint`` group's key that ``checkpoint/engine.py`` reads
+    (JAX ``config.py`` ``CheckpointConfig``). The reference's multi-node
+    storage keys (``tag_validation``, ``load_universal``,
+    ``use_node_local_storage``, ``parallel_write_pipeline``) are accepted
+    and ignored: the port writes one logical checkpoint whatever they
+    say."""
+    async_save: bool = False
+
+
+@dataclasses.dataclass
 class CSVConfig:
     """The ``csv_monitor`` group that ``monitor.CSVMonitor`` takes."""
     enabled: bool = False
@@ -259,6 +271,8 @@ class DeepSpeedTPUConfig:
         self.async_pipeline = _from_dict(AsyncPipelineConfig,
                                          self._raw.get(C.ASYNC_PIPELINE))
         self.csv_monitor = _from_dict(CSVConfig, self._raw.get(C.MONITOR_CSV))
+        self.checkpoint_config = _from_dict(CheckpointConfig,
+                                            self._raw.get(C.CHECKPOINT))
         self.gradient_clipping: float = float(
             self._raw.get(C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT))
         self.steps_per_print: int = int(

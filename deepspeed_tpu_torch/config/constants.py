@@ -23,6 +23,7 @@ GRAD_ACCUM_DTYPE = "grad_accum_dtype"     # reference: constants.py:427
 BF16_LEGACY = "bfloat16"
 RESILIENCE = "resilience"                 # only its step guard is read
 MESH = "mesh"                             # named-axis process mesh
+CHECKPOINT = "checkpoint"                 # checkpoint/engine.py (async_save)
 COMMS_LOGGER = "comms_logger"             # comm volume/bandwidth logging
 COMM_COMPRESSION = "comm_compression"     # quantized error-feedback
 #                                           gradient buckets (comm/compress.py)

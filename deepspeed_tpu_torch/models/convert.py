@@ -38,12 +38,15 @@ from deepspeed_tpu_torch.utils.device import resolve_device
 
 
 def _to_tensor(arr, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    a = np.array(arr)                         # own, writable, contiguous copy
+    a = np.asarray(arr)
+    if device.type == "cpu" or not (a.flags.writeable
+                                    and a.flags.c_contiguous):
+        a = np.array(a)                       # own, writable, contiguous copy
     if a.dtype.name == "bfloat16":            # ml_dtypes bf16 leaves
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device=device, dtype=dtype)
+    return t.to(device=device).to(dtype=dtype)    # cast on the device
 
 
 def _layer_shapes(cfg: LlamaConfig) -> Dict[str, Dict[str, Any]]:

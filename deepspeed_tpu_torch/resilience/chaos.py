@@ -1,5 +1,6 @@
 """Deterministic fault injection (copy of
-``deepspeed_tpu/resilience/chaos.py``), the serving knobs.
+``deepspeed_tpu/resilience/chaos.py``), the serving knobs and the
+checkpoint-I/O knob.
 
 Every injection decision is a pure function of ``(seed, kind, tick)`` — a
 sha256-derived roll — so a chaos run replays bit-identically regardless of
@@ -14,10 +15,12 @@ fault the engine step so the poison-quarantine path fires
 (``DSTPU_CHAOS_SERVE_POISON_UID``), or SIGKILL one fleet replica mid-decode
 (``DSTPU_CHAOS_REPLICA_KILL="RID[:TICK]"``).
 
-The training, checkpoint and comm knobs of the reference come with the
-resilience runner (ROADMAP Queue 1, "checkpoint and resilience"); the
-NaN-batch injection raises until then, since its cadence (``nan_due``)
-is one of those knobs.
+The checkpoint-I/O knob (``DSTPU_CHAOS_CKPT_FAIL_FIRST`` /
+``DSTPU_CHAOS_CKPT_FAIL_PROB``) fails a save attempt inside
+``resilience/checkpointing.py::save_with_retry``, which retries it. The
+other training and comm knobs of the reference (NaN batches, stalls,
+comm faults, dead peers, OOM, death) come with the resilience runner and
+its step guard (ROADMAP Queue 1 item 6b) and raise until then.
 """
 
 import hashlib
@@ -35,6 +38,10 @@ from deepspeed_tpu_torch.utils.logging import logger
 #: replica-kill knob selects its victim by this id (and the fleet router
 #: reports it back through /healthz for affinity + retirement decisions)
 REPLICA_ID_ENV = "DSTPU_REPLICA_ID"
+
+#: what the training knobs still wait for
+ITEM_6B = ("ROADMAP Queue 1 item 6b: the resilience runner, its step guard "
+           "and watchdog")
 
 
 def _parse_replica_kill(raw: str):
@@ -71,9 +78,13 @@ def _parse_kv_pressure(raw: str):
 
 @dataclass(frozen=True)
 class ChaosConfig:
-    """The serving knobs of the reference's ``ChaosConfig`` (same fields,
-    same ``DSTPU_CHAOS_*`` spellings)."""
+    """The serving and checkpoint-I/O knobs of the reference's
+    ``ChaosConfig`` (same fields, same ``DSTPU_CHAOS_*`` spellings)."""
     seed: int = 0
+    # checkpoint I/O: fail the first N save attempts, or each attempt with
+    # a probability (consumed by resilience/checkpointing.save_with_retry)
+    ckpt_fail_first: int = 0
+    ckpt_fail_prob: float = 0.0
     # serving-tick faults (consumed by serving/server.py). slow_tick
     # stalls the serve tick (every Nth tick, or per-tick probability via
     # the sha roll); kv_pressure steals a fraction of usable KV blocks
@@ -98,9 +109,10 @@ class ChaosConfig:
 
     @property
     def active(self) -> bool:
-        return bool((self.serve_slow_tick_s > 0
-                     and (self.serve_slow_tick_every
-                          or self.serve_slow_tick_prob))
+        return bool(self.ckpt_fail_first or self.ckpt_fail_prob
+                    or (self.serve_slow_tick_s > 0
+                        and (self.serve_slow_tick_every
+                             or self.serve_slow_tick_prob))
                     or self.serve_kv_pressure_frac > 0
                     or self.serve_poison_uid >= 0
                     or self.replica_kill_id >= 0)
@@ -110,6 +122,8 @@ class ChaosConfig:
         g = env.get
         return cls(
             seed=int(g("DSTPU_CHAOS_SEED", "0")),
+            ckpt_fail_first=int(g("DSTPU_CHAOS_CKPT_FAIL_FIRST", "0")),
+            ckpt_fail_prob=float(g("DSTPU_CHAOS_CKPT_FAIL_PROB", "0")),
             **dict(zip(("serve_slow_tick_every", "serve_slow_tick_prob",
                         "serve_slow_tick_s"),
                        _parse_slow_tick(g("DSTPU_CHAOS_SERVE_SLOW_TICK",
@@ -127,6 +141,11 @@ class ChaosConfig:
         )
 
 
+class ChaosInjectedIOError(OSError):
+    """A checkpoint write failed by injection (distinguishable from a real
+    I/O error in logs, indistinguishable to the retry machinery)."""
+
+
 class ChaosInjectedPoisonError(RuntimeError):
     """An injected per-request engine-step fault. The message says
     "aborted" so ``comm.guard.classify_exception`` calls it TRANSIENT —
@@ -141,7 +160,8 @@ class ChaosMonkey:
 
     def __init__(self, config: Optional[ChaosConfig] = None):
         self.config = config if config is not None else ChaosConfig.from_env()
-        self.injected = {"serve_slow_tick": 0, "serve_kv_pressure": 0,
+        self.injected = {"ckpt": 0, "serve_slow_tick": 0,
+                         "serve_kv_pressure": 0,
                          "serve_poison": 0, "replica_kill": 0}
         self._serve_kv_pressure_on = False   # edge detector for the instant
         # pre-SIGKILL hook (serving flight recorder): SIGKILL is
@@ -159,12 +179,50 @@ class ChaosMonkey:
         return int.from_bytes(h[:8], "big") / 2 ** 64
 
     # ------------------------------------------------------------------
-    # nan grads (training)
+    # the training and comm knobs (ROADMAP Queue 1 item 6b)
     # ------------------------------------------------------------------
+    @staticmethod
+    def _waits(knob: str):
+        raise NotImplementedError(f"chaos {knob} is not ported yet ({ITEM_6B})")
+
+    def nan_due(self, step: int) -> bool:
+        self._waits("NaN-batch cadence")
+
     def corrupt_batch(self, batch, step: int):
-        raise NotImplementedError(
-            "chaos NaN-batch injection is not ported yet: it comes with the "
-            "step guard (ROADMAP Queue 1 item 6: checkpoint and resilience)")
+        self._waits("NaN-batch injection")
+
+    def maybe_stall(self, step: int) -> float:
+        self._waits("step stall")
+
+    def comm_fault(self, op: str, call_index: int):
+        self._waits("comm delay/wedge")
+
+    def peer_dead(self, rank: int) -> bool:
+        self._waits("dead-peer injection")
+
+    def maybe_oom(self, step: int) -> None:
+        self._waits("OOM injection")
+
+    def maybe_die(self, step: int) -> None:
+        self._waits("worker death")
+
+    # ------------------------------------------------------------------
+    # checkpoint I/O
+    # ------------------------------------------------------------------
+    def ckpt_io_check(self, step: int, attempt: int) -> None:
+        """Raise ``ChaosInjectedIOError`` when this save attempt is chosen
+        to fail. ``attempt`` is 0-based within one logical save."""
+        c = self.config
+        fail = attempt < c.ckpt_fail_first or (
+            c.ckpt_fail_prob > 0
+            and self._roll("ckpt", step, salt=attempt) < c.ckpt_fail_prob)
+        if fail:
+            self.injected["ckpt"] += 1
+            get_tracer().instant("chaos/ckpt_io_fail", cat="resilience",
+                                 step=step, attempt=attempt)
+            raise ChaosInjectedIOError(
+                f"chaos: injected checkpoint I/O failure "
+                f"(step {step}, attempt {attempt})")
 
     # ------------------------------------------------------------------
     # serving-tick faults (serving/server.py asks per serve tick)

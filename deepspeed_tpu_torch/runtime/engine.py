@@ -1676,17 +1676,80 @@ class DeepSpeedTPUEngine:
         raise NotImplementedError(f"{api} is not ported yet (ROADMAP Queue 1 "
                                   f"item {item})")
 
-    def save_checkpoint(self, save_dir, tag=None, **kwargs):
-        raise NotImplementedError(
-            "save_checkpoint (checkpoint and resilience) is not ported yet "
-            "(ROADMAP Queue 1 item 6); the memory tiers' state round-trips "
-            "through engine.optimizer.state_dict() / load_state_dict()")
+    # ------------------------------------------------------------------
+    # checkpointing (checkpoint/engine.py)
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None,
+                        async_save: Optional[bool] = None) -> str:
+        """Write one logical checkpoint of whole leaves (reference
+        ``engine.save_checkpoint``; JAX ``engine.py:2031-2056``). Every rank
+        calls it; the ring of the async pipeline is drained first, so no
+        step's metrics are pending in the snapshot. ``async_save`` (default
+        the ``checkpoint.async_save`` config) returns once the state is
+        snapshotted; ``checkpoint.engine.wait_pending_checkpoint`` waits for
+        the commit."""
+        with get_tracer().span("ckpt/save", cat="ckpt",
+                               step=self.global_steps, tag=tag or "auto"):
+            self.flush_metrics()
+            from deepspeed_tpu_torch.checkpoint.engine import (
+                save_engine_checkpoint)
+            return save_engine_checkpoint(self, save_dir, tag=tag,
+                                          client_state=client_state or {},
+                                          async_save=async_save)
 
-    def load_checkpoint(self, load_dir, tag=None, **kwargs):
-        raise NotImplementedError(
-            "load_checkpoint (checkpoint and resilience) is not ported yet "
-            "(ROADMAP Queue 1 item 6); the memory tiers' state round-trips "
-            "through engine.optimizer.state_dict() / load_state_dict()")
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        strict_provenance: bool = True):
+        """Restore a checkpoint saved at any world, mesh, ZeRO stage or
+        memory tier (JAX ``engine.py:2058-2088``): each rank reads its block
+        of every whole leaf. A different model, or a changed
+        ``train_batch_size`` unless ``strict_provenance=False``, raises
+        ``CheckpointProvenanceError``; a torn tag raises
+        ``CheckpointCorruptionError``. Returns ``(path, client_state)``,
+        ``(None, {})`` when ``load_dir`` has no ``latest``."""
+        from deepspeed_tpu_torch.checkpoint.engine import load_engine_checkpoint
+        with get_tracer().span("ckpt/load", cat="ckpt", tag=tag or "latest"):
+            return load_engine_checkpoint(
+                self, load_dir, tag=tag,
+                load_optimizer_states=load_optimizer_states,
+                strict_provenance=strict_provenance)
+
+    def _master_cuts(self, i: int) -> List[Tuple[Optional[int], Tuple[str, ...]]]:
+        """How this rank's master of leaf i is cut from the whole leaf, in
+        the order ``_place_zero`` cuts: its expert block, its tensor block,
+        then at stage 3 its ZeRO block (the device shadow under the
+        optimizer tier)."""
+        return [(self._expert_dim[i], ("expert",)),
+                (self._tensor_dim[i], ("tensor",)),
+                (self._param_dim[i], tuple(self._block_axes))]
+
+    def _opt_cuts(self, i: int) -> List[Tuple[Optional[int], Tuple[str, ...]]]:
+        """How this rank's optimizer tensors of leaf i (``_opt_tensors``;
+        under either tier also the host master) are cut from the whole
+        leaf: the master's cuts, the ZeRO block of the moments below stage
+        3."""
+        if self._param_dim[i] is not None:
+            return self._master_cuts(i)
+        return self._master_cuts(i)[:2] + [(self._opt_dim[i],
+                                            tuple(self._zero_axes))]
+
+    def _whole_leaf(self, t: torch.Tensor, cuts) -> torch.Tensor:
+        """The whole leaf from this rank's block ``t`` cut by ``cuts``,
+        gathered over each cut's axes (every rank must call it); ``t``
+        itself where nothing cuts it. A host block is gathered on the host
+        where the process group is gloo, which takes CPU tensors, else
+        through the card, and comes back to the host."""
+        cuts = [(d, axes) for d, axes in cuts if d is not None]
+        if not cuts:
+            return t
+        import torch.distributed as dist
+        host = t.device.type == "cpu"
+        x = t.detach() if not host or dist.get_backend() == "gloo" \
+            else t.detach().to(self.device)
+        for d, axes in reversed(cuts):
+            x = partition.gather_full(x.contiguous(), d, axes)
+        return x.cpu() if host else x
 
     # the reference's telemetry and data-efficiency calls
     # (engine.py:1341-1550)
@@ -1774,46 +1837,14 @@ class DeepSpeedTPUEngine:
     def named_masters(self):
         """(name, full fp32 master) pairs, in the order gradients come;
         under either memory tier the host optimizer's masters. A block
-        (stage 3, a tier's host block, a tensor block) is gathered: every
-        rank must call it."""
+        (stage 3, a tier's host block, an expert or tensor block) is
+        gathered: every rank must call it."""
         if self._offload is not None:
-            return [(n, self._whole_host_master(i, m)) for i, (n, m) in
-                    enumerate(zip(self._param_names,
-                                  self._offload.masters()))]
-        out = []
-        for name, p, d, e, t in zip(self._param_names, self._masters,
-                                    self._param_dim, self._expert_dim,
-                                    self._tensor_dim):
-            if d is not None:
-                p = partition.gather_full(p.detach(), d, self._block_axes)
-            if e is not None:
-                p = partition.gather_full(p.detach(), e, ("expert",))
-            if t is not None:
-                p = partition.gather_full(p.detach(), t, ("tensor",))
-            out.append((name, p))
-        return out
-
-    def _whole_host_master(self, i: int, m: torch.Tensor) -> torch.Tensor:
-        """Leaf i's fp32 master from this rank's host block: gathered over
-        the ZeRO axes (stages 1-2: the moments' block; stage 3: the
-        parameter block) and then over ``tensor``; on the host where the
-        process group is gloo, which takes CPU tensors, else through the
-        card; the host tensor itself where it is whole."""
-        dims = []
-        if self._param_dim[i] is not None:
-            dims.append((self._param_dim[i], self._block_axes))
-        elif self._opt_dim[i] is not None:
-            dims.append((self._opt_dim[i], self._zero_axes))
-        if self._tensor_dim[i] is not None:
-            dims.append((self._tensor_dim[i], ("tensor",)))
-        if not dims:
-            return m
-        import torch.distributed as dist
-        on_host = dist.get_backend() == "gloo"
-        t = m if on_host else m.to(self.device)
-        for d, axes in dims:
-            t = partition.gather_full(t, d, axes)
-        return t if on_host else t.cpu()
+            return [(n, self._whole_leaf(m, self._opt_cuts(i))) for i, (n, m)
+                    in enumerate(zip(self._param_names,
+                                     self._offload.masters()))]
+        return [(n, self._whole_leaf(p, self._master_cuts(i))) for i, (n, p)
+                in enumerate(zip(self._param_names, self._masters))]
 
     def module_state_dict(self) -> Dict[str, torch.Tensor]:
         return {n: p.detach() for n, p in self.named_masters()}

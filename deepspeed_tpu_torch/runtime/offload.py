@@ -44,6 +44,12 @@ _HOST_OPTIMIZERS = {
     "lion": CPULion, "cpu_lion": CPULion,
 }
 
+# each host kernel's moment buffers under the optax names of the in-HBM
+# optimizers' state (``ops/optimizers.py``), which a checkpoint files them by,
+# so moments move between the tiers (JAX ``checkpoint/engine.py:485-566``)
+STATE_NAMES = {CPUAdam: ("mu", "nu"), CPUAdagrad: ("sum_of_squares",),
+               CPULion: ("mu",)}
+
 # grads(i, start, stop) -> leaf i's flat fp32 gradient elements [start, stop)
 GradFetch = Callable[[int, int, int], torch.Tensor]
 # after(i, start, stop, master elements [start, stop)) once they are updated
@@ -300,6 +306,42 @@ class HostOffloadOptimizer:
                 leaf.states = [None] * self.n_states
             else:
                 leaf.states = buffers
+
+    # --- one leaf at a time, for a checkpoint ---------------------------------
+    @property
+    def state_names(self):
+        """The moment buffers' names (``STATE_NAMES``), in kernel order."""
+        return STATE_NAMES[type(self.kernel)]
+
+    def leaf_states(self, i: int) -> List[torch.Tensor]:
+        """Leaf ``i``'s moment buffers; on NVMe read from their files into
+        transient buffers (the leaf stays swapped out)."""
+        leaf = self.leaves[i]
+        if leaf.nvme and leaf.states[0] is None:
+            bufs = [torch.empty(leaf.shape, dtype=torch.float32)
+                    for _ in leaf.paths]
+            reqs = [self.aio.async_pread(b, p) for b, p in zip(bufs, leaf.paths)]
+            if any([self.aio.wait(r) for r in reqs]):
+                raise RuntimeError("nvme swap-in failed during state export")
+            return bufs
+        return list(leaf.states)
+
+    def load_leaf(self, i: int, master: torch.Tensor,
+                  states: Sequence[torch.Tensor]) -> None:
+        """Overwrite leaf ``i``'s master and moment buffers (into their
+        files on NVMe)."""
+        leaf = self.leaves[i]
+        self._store_master(leaf, master)
+        buffers = [_host_fp32(s).reshape(leaf.shape) for s in states]
+        if leaf.nvme:
+            for s, buf in enumerate(buffers):
+                self.aio.async_pwrite(buf, leaf.paths[s])
+            if self.aio.drain():
+                raise RuntimeError("nvme state restore failed")
+            leaf.states = [None] * self.n_states
+        else:
+            for dst, src in zip(leaf.states, buffers):
+                dst.copy_(src)
 
     def set_masters(self, new_masters: Sequence[torch.Tensor],
                     reset_moments: bool = False):

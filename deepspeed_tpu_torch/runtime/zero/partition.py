@@ -32,7 +32,9 @@ Hierarchical variants split the ZeRO world into ``fsdp_out`` x ``fsdp``
   members that share ``f``. The reference's primary layout is o-major;
   the full leaf, its moments and every result are the same.
 
-``shard_of`` takes this rank's block of a full leaf, ``gather_full`` puts
+``shard_of`` takes this rank's block of a full leaf (``block_slices`` the
+index of the block after several cuts, for a checkpoint's slice read),
+``gather_full`` puts
 the members' blocks back together, ``reduce_scatter_full`` sums a full
 gradient over the members into this rank's block, each along the one
 dimension a spec shards, the block index row-major over the axes in the
@@ -201,6 +203,23 @@ def shard_of(full: torch.Tensor, dim: int, mesh: Mesh,
     w = mesh.axis_world(axes)
     n = full.shape[dim] // w
     return full.narrow(dim, mesh.axis_index(axes) * n, n)
+
+
+def block_slices(shape, cuts, mesh: Mesh) -> Tuple[slice, ...]:
+    """The index of this rank's block of a whole leaf of ``shape``, cut by
+    ``cuts`` (``(dim, axes)`` pairs in the order the engine cuts: expert,
+    tensor, then the ZeRO block; a ``dim`` of None is skipped), as
+    ``shard_of`` applied cut after cut takes it. A checkpoint's whole-leaf
+    file read at this index gives the rank's block at any world, stage or
+    tier (``checkpoint/engine.py``)."""
+    starts, sizes = [0] * len(shape), list(shape)
+    for d, axes in cuts:
+        if d is None:
+            continue
+        n = sizes[d] // mesh.axis_world(axes)
+        starts[d] += mesh.axis_index(axes) * n
+        sizes[d] = n
+    return tuple(slice(s, s + n) for s, n in zip(starts, sizes))
 
 
 def _hops(mesh: Mesh, axes: Sequence[str]) -> Tuple[Tuple[str, ...], ...]:

@@ -239,8 +239,8 @@ class InferenceServer:
         if membership is not None:
             raise NotImplementedError(
                 "membership= (resilience/membership.py, the lost-peer 503 "
-                "latch) is not ported yet (ROADMAP Queue 1 item 6: "
-                "checkpoint and resilience)")
+                "latch) is not ported yet (ROADMAP Queue 1 item 6b: "
+                "resilience)")
         self.engine = engine
         self.config = config or ServingConfig()
         # deterministic fault injection for the serve tick (chaos drills);

@@ -9,8 +9,10 @@ the JAX package does (accessors, ``train``/``eval``, ``compile``,
 ``get_params`` against the JAX engine's params, the config accessors, the
 offload trainer's master tree and ``load_masters``, the micro-step
 protocol step for step, the async pipeline's calls with the pipeline off,
-``initialize``'s loader of ``training_data``), or it raises
-``NotImplementedError`` naming its ROADMAP Queue 1 item.
+``initialize``'s loader of ``training_data``, ``save_checkpoint`` and
+``load_checkpoint`` each on its own package's checkpoint), or it raises
+``NotImplementedError`` naming its ROADMAP Queue 1 item (the resilience
+runner's names and chaos's training knobs: item 6b).
 """
 
 import argparse
@@ -188,6 +190,9 @@ ENGINE_CALLS = {
     "__call__": ((), "micro"),
     "backward": ((), "micro"),
     "step": ((), "micro"),
+    # checkpoints: each package saves and restores its own
+    "save_checkpoint": ((), "ckpt"),
+    "load_checkpoint": ((), "ckpt"),
     # the async pipeline, off: nothing pending, nothing drained
     "flush_metrics": ((), "equal"),
     "take_drained_metrics": ((), "equal"),
@@ -197,13 +202,12 @@ ENGINE_CALLS = {
 
 
 @pytest.mark.parametrize("name", ENGINE)
-def test_engine_surface_answers_as_jax_or_names_its_item(engines, name):
+def test_engine_surface_answers_as_jax_or_names_its_item(engines, name,
+                                                        tmp_path):
     jeng, teng = engines
     if name not in ENGINE_CALLS:
         fn = getattr(teng, name)
-        args = {"save_checkpoint": ("/nonexistent",),
-                "load_checkpoint": ("/nonexistent",),
-                "dump_trace": (), "trace_summary": (), "memory_ledger": (),
+        args = {"dump_trace": (), "trace_summary": (), "memory_ledger": (),
                 "memory_forensics": (), "dump_memory_report": (),
                 "start_profile_trace": ("/nonexistent",),
                 "stop_profile_trace": (),
@@ -217,6 +221,30 @@ def test_engine_surface_answers_as_jax_or_names_its_item(engines, name):
         got = float(teng.train_batch(batch=STACKED, stacked=True))
         want = float(jeng.train_batch(batch=STACKED, stacked=True))
         np.testing.assert_allclose(got, want, rtol=1e-5)
+        return
+    if how == "ckpt":
+        # a step on a fresh pair, a save with client state on each side
+        # (the same tag), then each loaded into a fresh engine: the same
+        # path tail, client state and step, the trained masters
+        jeng, teng = _engine_pair()
+        for eng in (teng, jeng):
+            eng.train_batch(batch=STACKED, stacked=True)
+        got = teng.save_checkpoint(str(tmp_path / "port"),
+                                   client_state={"epoch": 3})
+        want = jeng.save_checkpoint(str(tmp_path / "jax"),
+                                    client_state={"epoch": 3})
+        assert Path(got).name == Path(want).name == "global_step1"
+        if name == "load_checkpoint":
+            j2, t2 = _engine_pair()
+            (gp, gc) = t2.load_checkpoint(str(tmp_path / "port"))
+            (wp, wc) = j2.load_checkpoint(str(tmp_path / "jax"))
+            assert Path(gp).name == Path(wp).name and gc == wc == {"epoch": 3}
+            assert t2.global_steps == j2.global_steps == 1
+            want = _flat(jax.tree.map(np.asarray, jeng.get_params()))
+            got = _flat(t2.get_params())
+            for k, w in want.items():
+                np.testing.assert_allclose(got[k], w, atol=1e-5, rtol=1e-5,
+                                           err_msg=k)
         return
     if how == "micro":
         # each micro-batch of STACKED through forward (or engine(batch)),
@@ -378,5 +406,30 @@ def test_package_surface_answers_as_jax_or_names_its_item(name):
 
 def test_server_membership_names_its_item():
     from deepspeed_tpu_torch.serving.server import InferenceServer
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
         InferenceServer(engine=None, membership=object())
+
+
+ITEM_6B_CALLS = ["FaultTolerantRunner", "StepGuard", "StepWatchdog",
+                 "MembershipView", "ResilienceConfig", "nan_due",
+                 "corrupt_batch", "maybe_stall", "comm_fault", "peer_dead",
+                 "maybe_oom", "maybe_die"]
+
+
+@pytest.mark.parametrize("name", ITEM_6B_CALLS)
+def test_item_6b_calls_name_their_item(name):
+    """The resilience runner's classes (its SIGTERM autosave with it) and
+    chaos's training knobs wait for item 6b; the JAX package has each."""
+    import deepspeed_tpu.resilience as jres
+    from deepspeed_tpu.resilience.chaos import ChaosMonkey as JMonkey
+    from deepspeed_tpu_torch import resilience
+    if hasattr(JMonkey, name):
+        fn = getattr(resilience.ChaosMonkey(resilience.ChaosConfig()), name)
+        args = {"nan_due": (0,), "corrupt_batch": ({}, 0),
+                "maybe_stall": (0,), "comm_fault": ("all_reduce", 0),
+                "peer_dead": (0,), "maybe_oom": (0,), "maybe_die": (0,)}[name]
+    else:
+        assert hasattr(jres, name)
+        fn, args = getattr(resilience, name), ()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
+        fn(*args)

@@ -20,7 +20,8 @@ engine's initial weights carried over), all on the CPU:
   ``RepeatingLoader`` with prefetch as the stacked batches do.
 
 The cases there that need checkpoints, the step guard or the runner
-(``tests/test_async_pipeline.py:225-370``) wait for ROADMAP Queue 1 item 6.
+(``tests/test_async_pipeline.py:246-405``) wait for ROADMAP Queue 1 item 6b;
+``flush_metrics`` at a save is held in ``tests/test_torch_checkpoint.py``.
 ``test_prefetch_matches_sync_on_card`` (marked ``gpu``) runs TINY_LLAMA
 widths on the card, where the staged copies ride a side stream.
 """

@@ -334,6 +334,11 @@ def test_port_never_imports_jax_or_the_jax_package():
             "deepspeed_tpu_torch.sequence.ulysses",
             "deepspeed_tpu_torch.sequence.layer",
             "deepspeed_tpu_torch.sequence.cross_entropy"} <= scanned
+    # and the checkpoint package and the checkpoint policy
+    assert {"deepspeed_tpu_torch.checkpoint",
+            "deepspeed_tpu_torch.checkpoint.engine",
+            "deepspeed_tpu_torch.checkpoint.universal",
+            "deepspeed_tpu_torch.resilience.checkpointing"} <= scanned
     # and the hierarchical ZeRO world's and the replica wire's modules
     assert {"deepspeed_tpu_torch.runtime.sparse_tensor",
             "deepspeed_tpu_torch.runtime.zero.tiling",
@@ -344,7 +349,8 @@ def test_port_never_imports_jax_or_the_jax_package():
     files = list((REPO / "deepspeed_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_ranks.py",
               REPO / "tests" / "torch_sp_ranks.py",
-              REPO / "tests" / "torch_zeropp_ranks.py"]
+              REPO / "tests" / "torch_zeropp_ranks.py",
+              REPO / "tests" / "torch_ckpt_ranks.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []

@@ -14,8 +14,8 @@ Mirrors ``tests/test_offload.py`` on ``TINY_LLAMA`` (the JAX file's
   kernel raises, Lion and Adagrad train, the module holds compute-dtype
   parameters and no optimizer state, fp16 overflow skips the host step,
   ``swap_masters`` true and false, the optimizer's ``state_dict`` round
-  trip (``save_checkpoint`` raises: checkpoint and resilience is not
-  ported), the micro-step calls run the tier's host update (``train_batch``'s
+  trip and the same state through ``save_checkpoint`` /
+  ``load_checkpoint``, the micro-step calls run the tier's host update (``train_batch``'s
   masters bit for bit), the tier against the in-HBM engine
   (atol 2e-5, rtol 2e-4, the JAX file's tolerance), gradients brought down
   in small chunks equal to whole leaves, bit for bit;
@@ -351,16 +351,15 @@ def test_offload_micro_step_protocol_raises():
         assert torch.equal(a, b)
 
 
-def test_offload_state_dict_round_trip():
+def test_offload_state_dict_round_trip(tmp_path):
     """The checkpoint round trip by the host optimizer's state: restoring
     masters, moments and the step count into an engine of other weights
-    makes its next step equal the original's next step bit for bit.
-    save_checkpoint itself is not ported."""
+    makes its next step equal the original's next step bit for bit; so
+    does the same state through save_checkpoint / load_checkpoint."""
     e1 = _engine(CPU, seed=11)
     _train(e1, steps=3)
     sd = e1.optimizer.state_dict()
-    with pytest.raises(NotImplementedError, match="checkpoint and resilience"):
-        e1.save_checkpoint("unused")
+    e1.save_checkpoint(str(tmp_path))
     e2 = _engine(CPU, seed=99)
     assert _max_diff(e1, e2) > 0
     e2.optimizer.load_state_dict(sd)
@@ -369,9 +368,15 @@ def test_offload_state_dict_round_trip():
     e2.step_count = e1.step_count
     assert e2._offload.kernel.step_count == e1._offload.kernel.step_count == 3
     assert _max_diff(e1, e2) == 0
+    e3 = _engine(CPU, seed=7)
+    e3.load_checkpoint(str(tmp_path))
+    assert e3._offload.kernel.step_count == 3
+    assert _max_diff(e1, e3) == 0
     _train(e1, steps=1)
     _train(e2, steps=1)
+    _train(e3, steps=1)
     assert _max_diff(e1, e2) == 0
+    assert _max_diff(e1, e3) == 0
 
 
 def test_offload_matches_in_hbm_adamw():

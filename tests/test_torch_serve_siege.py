@@ -242,8 +242,8 @@ def test_chaos_serve_knobs():
     rolls1 = [m1._roll("serve_slow", t) for t in range(20)]
     rolls2 = [m2._roll("serve_slow", t) for t in range(20)]
     assert rolls1 == rolls2
-    # the NaN-batch injection waits for the step guard (item 6)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # the NaN-batch injection waits for the step guard (item 6b)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
         monkey.corrupt_batch({"input_ids": np.zeros((1, 4))}, step=0)
 
 

@@ -690,9 +690,11 @@ def test_port_scan_covers_the_serving_package():
 
 
 def test_cli_refuses_checkpoint_and_an_unasked_cpu():
+    """--checkpoint reads a universal npz (tests/test_torch_universal.py
+    serves one through it); a missing one fails before any server starts."""
     from deepspeed_tpu_torch.serving import cli
-    with pytest.raises(NotImplementedError, match="checkpoint and resilience"):
-        cli.main(["--checkpoint", "params.npz", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        cli.main(["--checkpoint", "no_such_params.npz", "--device", "cpu"])
     with pytest.raises(SystemExit):
         cli.main(["--preset", "NO_SUCH_MODEL", "--device", "cpu"])
     if not torch.cuda.is_available():
